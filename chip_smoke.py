@@ -11,20 +11,31 @@ result line:
 1. device: a CUDA card must be present; prints nvidia-smi's name and power
    limit.
 2. build: the native host library (``native/``, through ``mia_tpu.io.native``)
-   and the CUDA kernel library (``mia_tpu_torch/csrc``, with nvcc).
+   and the CUDA kernel library (``mia_tpu_torch/csrc``, one nvcc per source,
+   all at once); prints ptxas's registers, spills and shared memory.
 3. kernel: the fused entry scorer against its plain PyTorch version at the
    production shape (E=16384 entries, 384 columns, 256 rows), exact int32
    equality, and 32 entries against the exact host DP (dp_numpy.solve_sg);
    prints both versions' time per batch.
-4. golden: the ``kmer`` golden config under ``--engine torch`` must match
-   ``tests/golden/kmer`` byte for byte (header line excluded).
-5. end to end: 20,000 simulated reads on a 16,569-column circular reference
+4. -h kernel: the same for the homopolymer (``-h``) scorer on
+   homopolymer-rich reads and reference, runs of 32+ bases included.
+5. consensus kernel: the column counts of >= 1M observations over 16,569
+   columns (gaps, N, out-of-range columns, both strands) against the plain
+   version and the host accumulator, exact; prints the three times.
+6. golden: the ``kmer``, ``hp`` and ``hp_k`` golden configs under
+   ``--engine torch`` must match ``tests/golden/`` byte for byte (header line
+   excluded).
+7. end to end: 20,000 simulated reads on a 16,569-column circular reference
    with ``-c -u -k 12 -s ancient.submat.solexa.pe.txt``: the port under
    ``--engine torch`` (in this process, launch counts reset just before)
    must write the same maln bytes as ``mia_tpu --engine native``, with
-   kernel launches, pass-1 device reads and realign device entries > 0 and
-   no call of the plain version.  Both engines are timed in this process
-   (warm) and as a new process.
+   scorer and consensus kernel launches, pass-1 device reads and realign
+   device entries > 0, no call of a plain version and no host fallback of
+   the consensus.  Both engines are timed in this process (warm) and as a
+   new process.
+8. -h end to end: the same workload with ``-h``, in this process only,
+   against ``mia_tpu --engine native -h``, the ``-h`` scorer's launches in
+   place of the scorer's.
 
 The last lines are a JSON line of per-kernel numbers, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -43,6 +54,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, ".smoke")
 SUBMAT = os.path.join("mia_tpu", "data", "matrices", "ancient.submat.solexa.pe.txt")
 E_BATCH, L_ROWS = 16384, 256
+N_COLS, N_RECORDS = 16569, 20000
 
 
 def say(msg: str) -> None:
@@ -81,9 +93,16 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def reset_counts() -> None:
+    from mia_tpu_torch.ops import consensus_torch, dp_cuda
+
+    dp_cuda.reset_counts()
+    consensus_torch.reset_counts()
+
+
 def phase_build() -> None:
     from mia_tpu.io.native import native_available
-    from mia_tpu_torch.utils.torchcfg import build_kernels, kernel_library
+    from mia_tpu_torch.utils.torchcfg import build_kernels, kernel_library, ptxas_report
 
     t0 = time.time()
     if not native_available():
@@ -96,6 +115,31 @@ def phase_build() -> None:
     t2 = time.time()
     say(f"build: native library {t1 - t0:.3f} s, CUDA kernels {t2 - t1:.3f} s -> "
         f"{os.path.relpath(path, REPO)}")
+    for line in ptxas_report(path):
+        say(f"build: {line}")
+
+
+def check_equal(what: str, got, want) -> int:
+    """Raise unless the int tensors are equal; returns max |got - want|."""
+    import torch
+
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
+    if not torch.equal(got, want):
+        bad = torch.nonzero((got != want).flatten()).flatten()[:5]
+        raise AssertionError(f"{what}: max |diff| {err} at flat indices {bad.tolist()}")
+    return err
+
+
+def time_pair(kernel, plain, cells: int, what: str) -> dict:
+    """Kernel and plain times per batch (CUDA events, warmed up)."""
+    cuda_ms(kernel, 3)
+    ms = cuda_ms(kernel, 20)
+    plain()
+    plain_ms = cuda_ms(plain, 3)
+    say(f"{what}: {ms:.4f} ms per batch ({cells / ms / 1e6:.3f} Gcells/s), plain "
+        f"version {plain_ms:.4f} ms per batch ({cells / plain_ms / 1e6:.3f} Gcells/s); "
+        f"{cells} cells")
+    return {"ms": ms, "plain_ms": plain_ms}
 
 
 def phase_kernel(dev) -> dict:
@@ -109,16 +153,9 @@ def phase_kernel(dev) -> dict:
     d = T.random_entries(E_BATCH, L_ROWS, seed=11)
     args = [torch.from_numpy(d[k]).to(dev) for k in T.ENTRY_KEYS]
     got = dp_cuda.dp_entries(*args)
-    torch.cuda.synchronize()
     want = entries_core_plain(*args)
     torch.cuda.synchronize()
-    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-    if not torch.equal(got, want):
-        bad = torch.nonzero((got != want).any(0)).flatten()[:5].tolist()
-        raise AssertionError(
-            f"kernel != plain at E={E_BATCH}: max |diff| {err}, entries {bad}: "
-            f"{got[:, bad].tolist()} vs {want[:, bad].tolist()}"
-        )
+    err = check_equal(f"dp_entries != plain at E={E_BATCH}", got, want)
     say(f"kernel: dp_entries == entries_core_plain on E={E_BATCH} L={L_ROWS} "
         f"(exact int32 equality; max |diff| {err})")
 
@@ -131,51 +168,137 @@ def phase_kernel(dev) -> dict:
             raise AssertionError(f"kernel != solve_sg on oracle entry {e}: "
                                  f"{(int(out[0, e]), int(out[1, e]))} vs {ref}")
     say("kernel: dp_entries == dp_numpy.solve_sg on 32 oracle entries")
+    t = time_pair(lambda: dp_cuda.dp_entries(*args), lambda: entries_core_plain(*args),
+                  T.dp_cells(d["lengths"]), "kernel")
+    say(f"kernel: mean read length {float(np.mean(d['lengths'])):.1f}")
+    return {"max_abs_err": err, **t}
 
-    cuda_ms(lambda: dp_cuda.dp_entries(*args), 3)
-    ms = cuda_ms(lambda: dp_cuda.dp_entries(*args), 20)
-    entries_core_plain(*args)
-    plain_ms = cuda_ms(lambda: entries_core_plain(*args), 3)
-    cells = T.dp_cells(d["lengths"])
-    say(f"kernel: {ms:.4f} ms per batch ({cells / ms / 1e6:.3f} Gcells/s), "
-        f"plain version {plain_ms:.4f} ms per batch ({cells / plain_ms / 1e6:.3f} "
-        f"Gcells/s); {cells} cells, mean read length "
-        f"{float(np.mean(d['lengths'])):.1f}")
+
+def phase_hp_kernel(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from mia_tpu.core.jax_engine import hp_routes_to_host
+    from mia_tpu_torch import testing as T
+    from mia_tpu_torch.ops import dp_cuda
+    from mia_tpu_torch.ops.dp_torch import entries_core_hp_plain
+
+    d = T.random_hp_entries(E_BATCH, L_ROWS, seed=13)
+    long_runs = sum(hp_routes_to_host(bytes(d["s2chr"][e, : d["lengths"][e]]).decode())
+                    for e in range(E_BATCH))
+    args = [torch.from_numpy(d[k]).to(dev) for k in T.HP_ENTRY_KEYS]
+    got = dp_cuda.dp_entries_hp(*args)
+    want = entries_core_hp_plain(*args)
+    torch.cuda.synchronize()
+    err = check_equal(f"dp_entries_hp != plain at E={E_BATCH}", got, want)
+    say(f"hp kernel: dp_entries_hp == entries_core_hp_plain on E={E_BATCH} L={L_ROWS} "
+        f"(exact int32 equality; max |diff| {err}; {long_runs} reads with a run of 32+)")
+
+    o = T.oracle_hp_entries(32, L_ROWS, seed=14)
+    out = dp_cuda.dp_entries_hp(*[torch.from_numpy(o[k]).to(dev) for k in T.HP_ENTRY_KEYS])
+    out = out.cpu().numpy()
+    for e in range(32):
+        ref = T.solve_sg_entry(o, e)
+        if ref != (out[0, e], out[1, e]):
+            raise AssertionError(f"hp kernel != solve_sg on oracle entry {e}: "
+                                 f"{(int(out[0, e]), int(out[1, e]))} vs {ref}")
+    say("hp kernel: dp_entries_hp == dp_numpy.solve_sg (-h) on 32 oracle entries")
+    t = time_pair(lambda: dp_cuda.dp_entries_hp(*args), lambda: entries_core_hp_plain(*args),
+                  T.dp_cells(d["lengths"]), "hp kernel")
+    say(f"hp kernel: mean read length {float(np.mean(d['lengths'])):.1f}")
+    return {"max_abs_err": err, **t}
+
+
+def phase_consensus_kernel(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from mia_tpu.core.columns import _record_arrays, main_column_counts
+    from mia_tpu_torch import testing as T
+    from mia_tpu_torch.ops import consensus_torch
+
+    maln = T.random_records(N_COLS, N_RECORDS, seed=15)
+    _, spans, starts, revs, seq, smp, seq_off, smp_off = _record_arrays(maln, True)
+    n_obs = int(spans.sum())
+    if n_obs < 1_000_000:
+        raise AssertionError(f"consensus phase: only {n_obs} observations")
+    args = [torch.from_numpy(np.require(a, t, ["C", "W"])).to(dev) for a, t in (
+        (seq, np.uint8), (smp, np.uint8), (starts, np.int32), (spans, np.int32),
+        (seq_off, np.int32), (smp_off, np.int32), (revs, np.bool_),
+        (maln.fpsm, np.int32), (maln.rpsm, np.int32))]
+    got = consensus_torch.column_counts(*args, N_COLS)
+    want = consensus_torch.column_counts_plain(*args, N_COLS)
+    torch.cuda.synchronize()
+    err = max(check_equal(f"column_counts != plain ({name})", g, w)
+              for name, g, w in zip(("counts", "cov", "scores"), got, want))
+    t0 = time.time()
+    host = main_column_counts(maln, exclude_dropped=True)
+    host_ms = (time.time() - t0) * 1e3
+    for name, g, h in zip(("counts", "cov", "scores"), got,
+                          (host.counts, host.cov, host.scores)):
+        if not np.array_equal(g.cpu().numpy(), h):
+            raise AssertionError(f"column_counts != host main_column_counts ({name})")
+    out_of_range = int(((starts < 0) | (starts + spans > N_COLS)).sum())
+    say(f"consensus kernel: column_counts == column_counts_plain == host "
+        f"main_column_counts on {n_obs} observations, {len(spans)} records "
+        f"({out_of_range} running off the reference), {N_COLS} columns (exact)")
+    cuda_ms(lambda: consensus_torch.column_counts(*args, N_COLS), 3)
+    ms = cuda_ms(lambda: consensus_torch.column_counts(*args, N_COLS), 20)
+    plain_ms = cuda_ms(lambda: consensus_torch.column_counts_plain(*args, N_COLS), 3)
+    hook_args = (seq, smp, starts, spans, seq_off, smp_off, revs, maln.fpsm, maln.rpsm,
+                 N_COLS)
+    consensus_torch.device_column_counts(*hook_args, device=dev)
+    t0 = time.time()
+    for _ in range(5):
+        consensus_torch.device_column_counts(*hook_args, device=dev)
+    hook_ms = (time.time() - t0) * 1e3 / 5
+    say(f"consensus kernel: {ms:.4f} ms ({n_obs / ms / 1e6:.3f} G observations/s), "
+        f"plain version {plain_ms:.4f} ms, host main_column_counts {host_ms:.3f} ms "
+        f"(host clock, records to counts); the hook with its copies "
+        f"{hook_ms:.3f} ms (host clock)")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def run_port(args: list[str], maln_root: str, profile: bool = False) -> dict:
-    """The port's CLI in this process; returns its profile counters."""
+def run_mia(main, args: list[str], maln_root: str, engine: str,
+            profile: bool = False) -> dict:
+    """One mia CLI (the port's or mia_tpu's ``main``) in this process;
+    returns its profile (phases and counters) under ``profile``."""
     from mia_tpu.utils import profiling
-    from mia_tpu_torch.cli.mia import main
 
     extra = ["--profile"] if profile else []
-    rc = main([*args, "-m", maln_root, "--engine", "torch", *extra])
-    if rc != 0:
-        raise RuntimeError(f"mia_tpu_torch mia exited {rc}")
-    return profiling.report(out=io.StringIO())["counters"] if profile else {}
+    if main([*args, "-m", maln_root, "--engine", engine, *extra]) != 0:
+        raise RuntimeError(f"mia --engine {engine} failed")
+    return profiling.report(out=io.StringIO()) if profile else {}
+
+
+def run_port(args: list[str], maln_root: str, profile: bool = False) -> dict:
+    """The port's CLI in this process under ``--engine torch``."""
+    from mia_tpu_torch.cli.mia import main
+
+    return run_mia(main, args, maln_root, "torch", profile)
 
 
 def phase_golden() -> None:
     fx = os.path.join(REPO, "tests", "fixtures")
-    root = os.path.join(WORK, "kmer", "out.maln")
-    os.makedirs(os.path.dirname(root))
-    run_port(["-r", os.path.join(fx, "tr1.fna"), "-f", os.path.join(fx, "tf.fna"),
-              "-k", "12"], root)
-    got = maln_bytes(root)
-    want = maln_bytes(os.path.join(REPO, "tests", "golden", "kmer", "out.maln"))
-    if got != want:
-        raise AssertionError(f"kmer golden differs: {sorted(got)} vs {sorted(want)}")
-    say(f"golden: kmer config byte-identical to tests/golden/kmer ({len(got)} files)")
+    for name, flags in (("kmer", ["-k", "12"]), ("hp", ["-h"]), ("hp_k", ["-h", "-k", "12"])):
+        root = os.path.join(WORK, name, "out.maln")
+        os.makedirs(os.path.dirname(root))
+        run_port(["-r", os.path.join(fx, "tr1.fna"), "-f", os.path.join(fx, "tf.fna"),
+                  *flags], root)
+        got = maln_bytes(root)
+        want = maln_bytes(os.path.join(REPO, "tests", "golden", name, "out.maln"))
+        if got != want:
+            raise AssertionError(f"{name} golden differs: {sorted(got)} vs {sorted(want)}")
+        say(f"golden: {name} config byte-identical to tests/golden/{name} "
+            f"({len(got)} files)")
 
 
-def phase_e2e() -> int:
+def e2e_workload() -> list[str]:
+    """Writes the 20k-read workload; returns the mia arguments for it."""
     from mia_tpu.models.simulate import SimConfig, random_reference, simulate_reads
-    from mia_tpu_torch.ops import dp_cuda
 
     d = os.path.join(WORK, "e2e")
-    for tag in ("torch_inproc", "native_inproc", "native", "torch"):
-        os.makedirs(os.path.join(d, tag))
+    os.makedirs(d)
     ref = random_reference(16569, seed=7)
     ref_fn, frag_fn = os.path.join(d, "mt.fna"), os.path.join(d, "r20k.fastq")
     with open(ref_fn, "w") as f:
@@ -187,59 +310,85 @@ def phase_e2e() -> int:
             ref, SimConfig(num_reads=20000, mean_len=60, seed=3)
         ):
             f.write(f"@{name}\n{seq}\n+\n{qual}\n")
-    args = ["-r", ref_fn, "-f", frag_fn, "-c", "-u", "-k", "12",
+    return ["-r", ref_fn, "-f", frag_fn, "-c", "-u", "-k", "12",
             "-s", os.path.join(REPO, SUBMAT)]
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
 
-    def cli(module: str, engine: str, root: str) -> float:
-        t0 = time.time()
-        subprocess.run([sys.executable, "-m", module, *args, "-m", root,
-                        "--engine", engine], env=env, check=True,
-                       capture_output=True, timeout=900)
-        return time.time() - t0
 
-    # the main path, counted: launch counts set to 0 just before it
-    dp_cuda.reset_counts()
-    t0 = time.time()
-    counters = run_port(args, os.path.join(d, "torch_inproc", "out.maln"), profile=True)
-    t_torch_warm = time.time() - t0
-    launches, plain = dp_cuda.kernel_launches, dp_cuda.plain_calls
+def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool) -> dict:
+    """One e2e path: the port in this process with every count set to 0 just
+    before it and read just after, checked byte for byte against mia_tpu
+    --engine native.  Returns the launch counts of the run."""
     from mia_tpu.cli.mia import main as tpu_main
+    from mia_tpu_torch.ops import consensus_torch, dp_cuda
 
+    d = os.path.join(WORK, tag)
+    engines = ["torch_inproc", "native_inproc"] + (["native", "torch"] if new_process else [])
+    for e in engines:
+        os.makedirs(os.path.join(d, e))
+
+    reset_counts()
     t0 = time.time()
-    if tpu_main([*args, "-m", os.path.join(d, "native_inproc", "out.maln"),
-                 "--engine", "native"]) != 0:
-        raise RuntimeError("mia_tpu mia --engine native failed")
+    prof = run_port(args, os.path.join(d, "torch_inproc", "out.maln"), profile=True)
+    t_torch_warm = time.time() - t0
+    counters = prof["counters"]
+    counts = {
+        "dp.kernel_launches": dp_cuda.kernel_launches,
+        "dp.plain_calls": dp_cuda.plain_calls,
+        "dp.hp_kernel_launches": dp_cuda.hp_kernel_launches,
+        "dp.hp_plain_calls": dp_cuda.hp_plain_calls,
+        "cons.kernel_launches": consensus_torch.kernel_launches,
+        "cons.plain_calls": consensus_torch.plain_calls,
+    }
+    t0 = time.time()
+    native_prof = run_mia(tpu_main, args, os.path.join(d, "native_inproc", "out.maln"),
+                          "native", profile=True)
     t_native_warm = time.time() - t0
-    t_native = cli("mia_tpu.cli.mia", "native", os.path.join(d, "native", "out.maln"))
-    t_torch = cli("mia_tpu_torch.cli.mia", "torch", os.path.join(d, "torch", "out.maln"))
+    times = f"wall s in this process (warm): torch {t_torch_warm:.3f}, native {t_native_warm:.3f}"
+    if new_process:
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
 
-    want = maln_bytes(os.path.join(d, "native", "out.maln"))
-    for tag in ("torch_inproc", "native_inproc", "torch"):
-        got = maln_bytes(os.path.join(d, tag, "out.maln"))
+        def cli(module: str, engine: str) -> float:
+            t0 = time.time()
+            subprocess.run([sys.executable, "-m", module, *args, "-m",
+                            os.path.join(d, engine, "out.maln"), "--engine", engine],
+                           env=env, check=True, capture_output=True, timeout=900)
+            return time.time() - t0
+
+        times += (f"; as a new process: torch {cli('mia_tpu_torch.cli.mia', 'torch'):.3f}, "
+                  f"native {cli('mia_tpu.cli.mia', 'native'):.3f}")
+
+    want = maln_bytes(os.path.join(d, "native_inproc", "out.maln"))
+    for e in engines:
+        got = maln_bytes(os.path.join(d, e, "out.maln"))
         if not want or got != want:
             diff = [k for k in sorted(set(got) | set(want)) if got.get(k) != want.get(k)]
-            raise AssertionError(f"20k assembly ({tag}) differs from native: {diff}")
+            raise AssertionError(f"20k assembly {tag} ({e}) differs from native: {diff}")
+    scorer = "dp.hp_kernel_launches" if hp else "dp.kernel_launches"
     checks = {
-        "dp.kernel_launches": launches,
-        "dp.plain_calls": plain,
+        **counts,
         "pass1.device_scored_reads": counters.get("pass1.device_scored_reads", 0),
         "reiterate.device_entries": counters.get("reiterate.device_entries", 0),
+        "consensus.device_calls": counters.get("consensus.device_calls", 0),
+        "consensus.device_fallbacks": counters.get("consensus.device_fallbacks", 0),
     }
-    if not (launches > 0 and plain == 0 and checks["pass1.device_scored_reads"] > 0
-            and checks["reiterate.device_entries"] > 0):
-        raise AssertionError(f"device path not taken: {checks}")
-    say(f"e2e: 20k reads, {len(want)} maln files byte-identical to mia_tpu "
+    if not (counts[scorer] > 0 and counts["cons.kernel_launches"] > 0
+            and counts["dp.plain_calls"] == counts["dp.hp_plain_calls"] == 0
+            and counts["cons.plain_calls"] == 0
+            and checks["pass1.device_scored_reads"] > 0
+            and checks["reiterate.device_entries"] > 0
+            and checks["consensus.device_fallbacks"] == 0):
+        raise AssertionError(f"device path not taken ({tag}): {checks}")
+    say(f"{tag}: 20k reads, {len(want)} maln files byte-identical to mia_tpu "
         f"--engine native; {json.dumps(checks)}")
-    say(f"e2e: wall s in this process (warm): torch {t_torch_warm:.3f}, native "
-        f"{t_native_warm:.3f}; as a new process: torch {t_torch:.3f}, native "
-        f"{t_native:.3f}")
-    say("e2e: profile " + json.dumps(counters, sort_keys=True))
-    return launches
+    say(f"{tag}: {times}")
+    say(f"{tag}: profile " + json.dumps(counters, sort_keys=True))
+    say(f"{tag}: phases s, torch " + json.dumps(prof["phases_s"], sort_keys=True))
+    say(f"{tag}: phases s, native " + json.dumps(native_prof["phases_s"], sort_keys=True))
+    return counts
 
 
 def main() -> int:
-    t0 = time.time()
+    t_start = t0 = time.time()
     import torch
 
     t_import = time.time() - t0
@@ -262,8 +411,12 @@ def main() -> int:
     say(f"set-up: import torch {t_import:.3f} s, CUDA context {time.time() - t0:.3f} s")
     phase_build()
     kern = phase_kernel(dev)
+    hp_kern = phase_hp_kernel(dev)
+    cons_kern = phase_consensus_kernel(dev)
     phase_golden()
-    launches = phase_e2e()
+    args = e2e_workload()
+    main_counts = run_e2e("e2e", args, hp=False, new_process=True)
+    hp_counts = run_e2e("e2e_hp", [*args, "-h"], hp=True, new_process=False)
     if any("jax" in m.split(".")[0] for m in sys.modules):
         raise AssertionError("jax was imported")
     say(json.dumps({"kernels": [{
@@ -271,9 +424,25 @@ def main() -> int:
         "route": "cuda",
         "source": "mia_tpu_torch/csrc/dp_entries.cu",
         "replaces": "mia_tpu/ops/dp_pallas.py:46",
-        "launches": launches,
+        "launches": main_counts["dp.kernel_launches"],
         **kern,
+    }, {
+        "name": "dp_entries_hp",
+        "route": "cuda",
+        "source": "mia_tpu_torch/csrc/dp_entries.cu",
+        "replaces": "mia_tpu/ops/dp_jax.py:219",
+        "launches": hp_counts["dp.hp_kernel_launches"],
+        **hp_kern,
+    }, {
+        "name": "column_counts",
+        "route": "cuda",
+        "source": "mia_tpu_torch/csrc/column_counts.cu",
+        "replaces": "mia_tpu/ops/consensus_device.py:65",
+        # both e2e paths run it: their launches together
+        "launches": main_counts["cons.kernel_launches"] + hp_counts["cons.kernel_launches"],
+        **cons_kern,
     }]}))
+    say(f"total: {time.time() - t_start:.1f} s")
     say(nvidia_smi())
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -10,8 +10,11 @@ kernel.  ``--engine native`` and ``--engine numpy`` hand the run to
 
     python -m mia_tpu_torch.cli.mia -r ref.fna -f reads.fastq [flags] [--profile]
 
-Under ``--profile`` the JSON profile on stderr carries the scorer's counters
-``dp.kernel_launches`` and ``dp.plain_calls`` beside the pipeline's own.
+Under ``--profile`` the JSON profile on stderr carries the kernels' counters
+beside the pipeline's own: ``dp.kernel_launches`` / ``dp.plain_calls`` (the
+scorer), ``dp.hp_kernel_launches`` / ``dp.hp_plain_calls`` (the ``-h``
+scorer) and ``cons.kernel_launches`` / ``cons.plain_calls`` (consensus
+column counts).
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from mia_tpu.core.assembler import run_assembly as run_host_assembly
 from mia_tpu.utils import profiling
 
 from ..core.assembler import NotPortedError, check_ported, run_assembly
-from ..ops import dp_cuda
+from ..ops import consensus_torch, dp_cuda
 
 ENGINES = ("torch", "native", "numpy")
 
@@ -43,6 +46,7 @@ def main(argv: list[str] | None = None) -> int:
     if cfg.profile:
         profiling.enable()
     dp_cuda.reset_counts()
+    consensus_torch.reset_counts()
     print(
         f"Starting assembly of {cfg.frag_fn}\nusing {cfg.ref_fn}\n"
         f"as reference at {time.asctime()}\n",
@@ -55,8 +59,15 @@ def main(argv: list[str] | None = None) -> int:
         print(f"mia: {e}", file=sys.stderr)
         return 2
     if cfg.profile:
-        profiling.count("dp.kernel_launches", dp_cuda.kernel_launches)
-        profiling.count("dp.plain_calls", dp_cuda.plain_calls)
+        for name, value in (
+            ("dp.kernel_launches", dp_cuda.kernel_launches),
+            ("dp.plain_calls", dp_cuda.plain_calls),
+            ("dp.hp_kernel_launches", dp_cuda.hp_kernel_launches),
+            ("dp.hp_plain_calls", dp_cuda.hp_plain_calls),
+            ("cons.kernel_launches", consensus_torch.kernel_launches),
+            ("cons.plain_calls", consensus_torch.plain_calls),
+        ):
+            profiling.count(name, value)
         profiling.report()
     print(f"Assembly finished at {time.asctime()}\n", file=sys.stderr)
     return 0

@@ -10,13 +10,17 @@ and every realignment score their entries with the port's scorer
 ``numpy``) are not copied here: the port's CLI runs ``mia_tpu``'s own
 ``run_assembly`` for them.
 
+Every consensus counts its main columns on the device
+(:mod:`mia_tpu_torch.ops.consensus_torch`, through the ``device_hook`` of
+``mia_tpu.core.columns.consensus_assembly_string``), with no size threshold;
+insertion columns stay on the host, as in ``mia_tpu``.
+
 Left out of this port, with the reason each existed: multi-host sharding
-and the dp mesh (not ported yet), the resident scoring server and
+and the dp mesh (not ported yet), and the resident scoring server and
 work-stealing (they hid the TPU's backend start and compiles; here the
-kernel library builds once when the scorer is made), and the device
-consensus hooks (consensus runs on the host, as under ``mia_tpu``'s default
-policy).  ``-h``, ``--dp`` and multi-host runs raise :class:`NotPortedError`
-instead of running on a host engine unasked.
+kernel library builds once when the scorer is made).  ``--dp`` and
+multi-host runs raise :class:`NotPortedError` instead of running on a host
+engine unasked.
 """
 from __future__ import annotations
 
@@ -60,7 +64,14 @@ from mia_tpu.core.hostbatch import (
     STATUS_NO_KMER,
     BatchHost,
 )
-from mia_tpu.core.jax_engine import L_MAX, MAX_INTERVALS, WIN_W, diag_gapfree
+from mia_tpu.core.jax_engine import (
+    L_MAX,
+    MAX_INTERVALS,
+    WIN_W,
+    diag_gapfree,
+    hp_routes_to_host,
+    pack_chars,
+)
 from mia_tpu.core.merge import add_ref_wrap
 from mia_tpu.core.types import MapAlignment
 from mia_tpu.io.fasta import read_fasta_ref
@@ -72,6 +83,7 @@ from mia_tpu.ops.kmer import KmerPosArray, new_kmer_filter
 from mia_tpu.ops.pssm import init_flatsubmat, revcom_submat
 from mia_tpu.utils import profiling
 
+from ..ops import consensus_torch
 from .driver import reiterate_assembly
 from .torch_engine import Pass1Scorer
 
@@ -82,20 +94,45 @@ class NotPortedError(NotImplementedError):
 
 def check_ported(cfg: MiaConfig) -> None:
     """Refuse what this slice of the port does not run: multi-host runs
-    under any engine (``mia_tpu``'s would start jax.distributed), and ``-h``
-    and ``--dp`` under ``--engine torch``."""
+    under any engine (``mia_tpu``'s would start jax.distributed), and
+    ``--dp`` under ``--engine torch``."""
     if os.environ.get("JAX_COORDINATOR_ADDRESS") is not None:
         raise NotPortedError("multi-host runs are not ported yet")
     if cfg.engine != "torch":
         return
-    if cfg.hp_special:
-        raise NotPortedError("-h (homopolymer scoring) is not ported yet under --engine torch")
     if cfg.dp_devices != 0:
         raise NotPortedError("--dp (multi-device scoring) is not ported yet under --engine torch")
 
 
 def _log(msg: str) -> None:
     print(msg, file=sys.stderr)
+
+
+class ConsensusHook:
+    """``device_hook`` for ``consensus_assembly_string`` on ``device``.
+
+    ``main_column_counts`` catches any exception of its hook and counts the
+    columns on the host instead; this hook keeps the first failure, and
+    :meth:`consensus` raises it once the consensus returns, so a failing
+    device is never hidden behind the host's equal answer."""
+
+    def __init__(self, device):
+        self.device = device
+        self.error: BaseException | None = None
+
+    def __call__(self, *args):
+        try:
+            return consensus_torch.device_column_counts(*args, device=self.device)
+        except Exception as e:
+            self.error = self.error or e
+            raise
+
+    def consensus(self, maln: MapAlignment) -> str:
+        """The next iteration's reference, main columns counted here."""
+        cons = consensus_assembly_string(maln, device_hook=self)
+        if self.error is not None:
+            raise RuntimeError("device consensus failed") from self.error
+        return cons
 
 
 def run_assembly(cfg: MiaConfig) -> MapAlignment:
@@ -196,7 +233,13 @@ def run_assembly(cfg: MiaConfig) -> MapAlignment:
     )
     if bhost is None:
         raise RuntimeError("--engine torch needs the native host library (make -C native)")
-    scorer = Pass1Scorer(fw_align.s1c, rc_align.s1c, fw_align.len1, ancsubmat)
+    # -h: the scorer needs the strands' chars for the homopolymer runs
+    # (src/mia.c:883-905)
+    hp_seqs = None
+    if cfg.hp_special:
+        hp_seqs = (fw_align.seq1[: fw_align.len1], rc_align.seq1[: rc_align.len1])
+    scorer = Pass1Scorer(fw_align.s1c, rc_align.s1c, fw_align.len1, ancsubmat,
+                         hp_seqs=hp_seqs)
 
     # asynchronous device pipeline: batches dispatch without blocking and
     # drain in read order as their results land (or when the inflight cap is
@@ -438,6 +481,13 @@ def run_assembly(cfg: MiaConfig) -> MapAlignment:
             s2c, fw_ws, rc_ws, fw_ivg, rc_ivg, flags = bhost.prepare(
                 arena, off, lens, L_MAX, MAX_INTERVALS
             )
+        if scorer.hp:
+            # reads with a homopolymer run of HPW or more stay on the exact
+            # host path, as in mia_tpu; the kernel scores raw chars
+            for i, r in enumerate(reads):
+                if hp_routes_to_host(r):
+                    flags[i] |= FLAG_HOST_ONLY
+            s2c = pack_chars(arena, off[:-1], lens)
         with profiling.phase("pass1.dispatch"):
             handle = scorer.dispatch_packed(
                 s2c, lens, fw_ws, rc_ws, fw_ivg, rc_ivg, flags
@@ -552,10 +602,11 @@ def run_assembly(cfg: MiaConfig) -> MapAlignment:
         if cfg.make_fastq:
             write_fastq(cfg.fastq_out_fn, fsdb)
 
+    cons_hook = ConsensusHook(rei_device)
     if cfg.iterate:
         _log("Generating new assembly consensus")
         with profiling.phase("consensus"):
-            assembly_cons = consensus_assembly_string(culled)
+            assembly_cons = cons_hook.consensus(culled)
 
         while assembly_cons != last_assembly_cons and iter_num < MAX_ITER:
             iter_num += 1
@@ -580,7 +631,7 @@ def run_assembly(cfg: MiaConfig) -> MapAlignment:
                 _log(f"Writing maln file for iteration {iter_num}")
                 _write_maln(maln_fn)
             with profiling.phase("consensus"):
-                assembly_cons = consensus_assembly_string(culled)
+                assembly_cons = cons_hook.consensus(culled)
 
         if assembly_cons == last_assembly_cons:
             _log("Assembly convergence - writing final maln")

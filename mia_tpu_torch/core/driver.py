@@ -12,7 +12,14 @@ from __future__ import annotations
 import numpy as np
 
 from mia_tpu.constants import FIRST_ROUND_SCORE_CUTOFF, REALIGN_BUFFER
-from mia_tpu.core.jax_engine import L_MAX, WIN_W
+from mia_tpu.core.jax_engine import (
+    L_MAX,
+    MAX_INTERVALS,
+    WIN_W,
+    hp_routes_to_host,
+    pack_chars,
+    pack_s2c,
+)
 from mia_tpu.core.driver import set_hp_cols, set_hp_rows, set_seq1, set_seq2
 from mia_tpu.core.merge import add_ref_wrap, merge_pwaln_into_maln, split_pwaln
 from mia_tpu.core.types import FSDB, FragSeq, MapAlignment, PWAlnFrag
@@ -44,7 +51,8 @@ def reiterate_assembly(
     ``torch_device`` (one entry per read against the new consensus, the read's
     strand picking the fw/rc PSSM) and only the score-verified margin-window
     traceback stays on the native threads; windows wider than the device
-    window go to the native solver (a work partition, counted as
+    window, and under ``-h`` reads with a homopolymer run of HPW or more, go
+    to the native solver (a work partition, counted as
     ``reiterate.native_entries``)."""
     import time as _time0
 
@@ -198,8 +206,6 @@ def reiterate_assembly(
         raise RuntimeError(
             "--engine torch needs the native host library (make -C native)"
         )
-    if a.hp:
-        raise NotImplementedError("-h is not ported yet under --engine torch")
     # re-probes first: they can set strand_known (and flip fs.seq).
     # Both strands of every unknown read go through the threaded native
     # full-width window solver in chunks (the per-read python probe is
@@ -257,8 +263,15 @@ def reiterate_assembly(
     wide: list = []
     device: list = []
     enc = encode_seq(ref.seq[: ref.wrap_seq_len])
+    # -h: reads realign on the fw strand (smidx picks the PSSM), so both
+    # strand slots carry the consensus's chars and runs
+    hp_seqs = None
+    if a.hp:
+        s_fw = ref.seq[: ref.wrap_seq_len]
+        hp_seqs = (s_fw, s_fw)
     scorer = Pass1Scorer(
-        enc, enc, ref.wrap_seq_len, ancsubmat, rcancsubmat, device=torch_device
+        enc, enc, ref.wrap_seq_len, ancsubmat, rcancsubmat, device=torch_device,
+        hp_seqs=hp_seqs,
     )
     profiling.add_time(
         "reiterate.setup", __import__("time").time() - _t_setup
@@ -272,7 +285,8 @@ def reiterate_assembly(
         job = (fs, lo, hi)
         if (hi - lo) + len2 + 2 > bh.TRACE_CAP:
             wide.append(job)
-        elif hi - max(lo - 2, 0) <= WIN_W and len2 <= L_MAX:
+        elif (hi - max(lo - 2, 0) <= WIN_W and len2 <= L_MAX
+              and not (a.hp and hp_routes_to_host(fs.seq))):
             device.append(job)
         else:
             narrow.append(job)
@@ -286,7 +300,6 @@ def reiterate_assembly(
     _t_disp = __import__("time").time()
     dev_handles: list = []
     if device:
-        from mia_tpu.core.jax_engine import MAX_INTERVALS, pack_s2c
 
         E = scorer.E
         for c0 in range(0, len(device), E):
@@ -302,7 +315,7 @@ def reiterate_assembly(
             smidx = np.fromiter(
                 (1 if fs.rc else 0 for fs, _, _ in chunk), np.int8, m
             )
-            s2c = pack_s2c(arena, off[:-1], lens)
+            s2c = (pack_chars if a.hp else pack_s2c)(arena, off[:-1], lens)
             handle = scorer.dispatch_entries(
                 np.zeros(m, np.int8), ws, ivl, s2c, lens, smidx
             )

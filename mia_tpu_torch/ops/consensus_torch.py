@@ -1,0 +1,163 @@
+"""Consensus column counts on the device (the main columns of every
+iteration's consensus).
+
+Port of :mod:`mia_tpu.ops.consensus_device` (``_accum_fn``'s ``core``): one
+scatter-add of the flattened observation stream into per-column one-hot
+counts [n, 5], coverage [n] and PSSM-weighted candidate scores [n, 4]
+(add_base, src/map_align.c:229-263), fed from the per-record arena layout of
+``mia_tpu.core.columns._record_arrays``:
+
+    record r, offset k  ->  column starts[r] + k, char seq[seq_off[r] + k],
+                            depth smp[smp_off[r] + k] - 'A', strand revs[r]
+
+:func:`column_counts_plain` is the plain PyTorch version; the CUDA kernel
+(``csrc/column_counts.cu``) accumulates with 64-bit integer atomics.  Both
+are integer-exact and order-independent, so they equal the host
+accumulator (``ColumnCounts.add_bases``) bit for bit.  Unlike the TPU path
+there are no static shapes, observation buckets or int32 bound: sums are
+int64 from the start.
+
+:func:`column_counts` sends CPU tensors to the plain version and CUDA
+tensors to the kernel, or raises: there is no fallback.
+:func:`device_column_counts` is the ``device_hook`` of
+``mia_tpu.core.columns.consensus_assembly_string``.  ``kernel_launches`` and
+``plain_calls`` count the two routes.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mia_tpu.ops.consensus import _BASE_IDX, _SUB_IDX
+
+from .dp_cuda import check_tensor
+
+kernel_launches = 0
+plain_calls = 0
+
+
+def reset_counts() -> None:
+    global kernel_launches, plain_calls
+    kernel_launches = 0
+    plain_calls = 0
+
+
+def column_counts_plain(seq, smp, starts, spans, seq_off, smp_off, revs, fpsm, rpsm,
+                        n: int):
+    """(counts [n, 5], cov [n], scores [n, 4]) int64: the observations go to
+    their columns with ``index_add_``; out-of-range columns land in a trash
+    column ``n`` that is dropped, as on the TPU."""
+    dev = seq.device
+    i64 = torch.int64
+    spans = spans.to(i64)
+    total = int(spans.sum())
+    ridx = torch.repeat_interleave(torch.arange(len(spans), device=dev), spans)
+    run0 = torch.cumsum(spans, 0) - spans
+    within = torch.arange(total, device=dev) - run0[ridx]
+    cols = starts.to(i64)[ridx] + within
+    colc = torch.where((cols >= 0) & (cols < n), cols, torch.full_like(cols, n))
+    si = (seq_off.to(i64)[ridx] + within).clamp(max=seq.numel() - 1)
+    mi = (smp_off.to(i64)[ridx] + within).clamp(max=smp.numel() - 1)
+    ch = seq[si].to(i64)
+    d = (smp[mi].to(i64) - ord("A")).clamp(0, 30)
+    s = revs[ridx].to(i64)
+
+    cls = torch.from_numpy(_BASE_IDX.astype(np.int64)).to(dev)[ch]
+    counted = cls >= 0
+    counts = torch.zeros((n + 1) * 5, dtype=i64, device=dev)
+    counts.index_add_(0, colc[counted] * 5 + cls[counted],
+                      torch.ones(int(counted.sum()), dtype=i64, device=dev))
+    cov = torch.zeros(n + 1, dtype=i64, device=dev)
+    cov.index_add_(0, colc, torch.ones_like(colc))
+
+    # lut[strand, depth, read base, candidate] per add_base's strand-specific
+    # matrix choice (src/map_align.c:240-254)
+    lut = torch.stack([fpsm[:, :4, :].transpose(1, 2),
+                       rpsm[:, :4, :].transpose(1, 2)]).to(i64)
+    sub = torch.from_numpy(_SUB_IDX.astype(np.int64)).to(dev)[ch]
+    nongap = ch != ord("-")
+    scores = torch.zeros((n + 1, 4), dtype=i64, device=dev)
+    scores.index_add_(0, colc[nongap], lut[s[nongap], d[nongap], sub[nongap]])
+    return counts.reshape(n + 1, 5)[:n], cov[:n], scores[:n]
+
+
+_TABLES: dict = {}
+
+
+def _char_tables(dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """_BASE_IDX and _SUB_IDX as int8 tensors on ``dev`` (made once)."""
+    if dev not in _TABLES:
+        _TABLES[dev] = tuple(torch.from_numpy(t.astype(np.int8)).to(dev)
+                             for t in (_BASE_IDX, _SUB_IDX))
+    return _TABLES[dev]
+
+
+def column_counts(seq, smp, starts, spans, seq_off, smp_off, revs, fpsm, rpsm, n: int):
+    """(counts [n, 5], cov [n], scores [n, 4]) int64 tensors on the inputs'
+    device.
+
+    seq [S] and smp [M] uint8 arenas (non-empty), starts, spans, seq_off,
+    smp_off [R] int32, revs [R] bool, fpsm and rpsm [31, 5, 5] int32; all
+    on one device, contiguous."""
+    global kernel_launches, plain_calls
+    dev = seq.device
+    R = spans.shape[0]
+    check_tensor("seq", seq, torch.uint8, (seq.shape[0],), dev)
+    check_tensor("smp", smp, torch.uint8, (smp.shape[0],), dev)
+    for name, t in (("starts", starts), ("spans", spans), ("seq_off", seq_off),
+                    ("smp_off", smp_off)):
+        check_tensor(name, t, torch.int32, (R,), dev)
+    check_tensor("revs", revs, torch.bool, (R,), dev)
+    check_tensor("fpsm", fpsm, torch.int32, (31, 5, 5), dev)
+    check_tensor("rpsm", rpsm, torch.int32, (31, 5, 5), dev)
+    if seq.numel() == 0 or smp.numel() == 0:
+        raise ValueError("column_counts: empty arena")
+    if dev.type == "cpu":
+        plain_calls += 1
+        return column_counts_plain(seq, smp, starts, spans, seq_off, smp_off, revs,
+                                   fpsm, rpsm, n)
+    if dev.type != "cuda":
+        raise ValueError(f"column_counts: no kernel for device {dev}")
+    from ..utils.torchcfg import kernel_library
+
+    lib = kernel_library()
+    counts = torch.zeros((n, 5), dtype=torch.int64, device=dev)
+    cov = torch.zeros(n, dtype=torch.int64, device=dev)
+    scores = torch.zeros((n, 4), dtype=torch.int64, device=dev)
+    base_idx, sub_idx = _char_tables(dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.mia_column_counts(
+            seq.data_ptr(), seq.numel(), smp.data_ptr(), smp.numel(),
+            starts.data_ptr(), spans.data_ptr(), seq_off.data_ptr(),
+            smp_off.data_ptr(), revs.data_ptr(), R, fpsm.data_ptr(),
+            rpsm.data_ptr(), base_idx.data_ptr(), sub_idx.data_ptr(), n,
+            counts.data_ptr(), cov.data_ptr(), scores.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"column_counts kernel launch failed: CUDA error {rc}")
+    kernel_launches += 1
+    return counts, cov, scores
+
+
+def device_column_counts(seq_arena, smp_arena, starts, spans, seq_off, smp_off, revs,
+                         fpsm, rpsm, n, device=None):
+    """``device_hook`` for ``consensus_assembly_string``: the record arrays
+    of ``columns._record_arrays`` go to ``device`` (default:
+    torchcfg.select_device()), are counted there, and come back as
+    (counts, cov, scores) int64 ndarrays, bit-equal to
+    ``ColumnCounts.add_bases`` over the same observations."""
+    from ..utils.torchcfg import select_device
+
+    dev = select_device() if device is None else torch.device(device)
+
+    def on(a, dtype):
+        t = torch.from_numpy(np.require(a, dtype, ["C", "W"]))
+        return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+
+    out = column_counts(
+        on(seq_arena, np.uint8), on(smp_arena, np.uint8), on(starts, np.int32),
+        on(spans, np.int32), on(seq_off, np.int32), on(smp_off, np.int32),
+        on(revs, np.bool_), on(fpsm, np.int32), on(rpsm, np.int32), int(n),
+    )
+    return tuple(t.cpu().numpy() for t in out)

@@ -1,19 +1,26 @@
-"""Wrapper of the fused entry scorer kernel (``csrc/dp_entries.cu``).
+"""Wrappers of the fused entry scorer kernels (``csrc/dp_entries.cu``).
 
-The kernel replaces ``mia_tpu/ops/dp_pallas.py::_dp_kernel`` (launched by
+``dp_entries`` replaces ``mia_tpu/ops/dp_pallas.py::_dp_kernel`` (launched by
 ``pallas_last_row``) together with the XLA set-up and argmax around it in
 ``mia_tpu/core/jax_engine.py::_entries_core``: packed entries go in, one
-(best, aec) pair per entry comes out.  On an H100 it is bound by integer
-ALU work, not bytes: ~20 int32 operations per DP cell against a few hundred
-bytes read per entry.  So the kernel keeps each entry's rows in the
-registers of one warp (12 columns per lane), does the column-gap prefix max
-and the one- and two-column shifts with warp shuffles, and touches memory
-only in its prologue and epilogue; see the source for the layout.
+(best, aec) pair per entry comes out.  ``dp_entries_hp`` is the same
+kernel's ``-h`` instantiation, replacing ``dp_jax.batch_last_row_hp`` with
+its set-up ``jax_engine._entries_core_hp``: reads come as raw chars, and the
+homopolymer-discounted gap candidates join each row's max.  On an H100 the
+kernel is bound by integer ALU work, not bytes: ~20 int32 operations per DP
+cell against a few hundred bytes read per entry.  So it keeps each entry's
+rows in the registers of one warp (12 columns per lane), does the
+column-gap prefix max and the one- and two-column shifts with warp
+shuffles, and touches memory only in its prologue and epilogue (under
+``-h`` also one staged row per warp in shared memory); see the source for
+the layout.
 
-Tensors on the CPU go to the plain version,
-:func:`mia_tpu_torch.ops.dp_torch.entries_core_plain`.  CUDA tensors go to
-the kernel, or the call raises: there is no fallback.  ``kernel_launches``
-and ``plain_calls`` count the two routes.
+Tensors on the CPU go to the plain versions,
+:func:`mia_tpu_torch.ops.dp_torch.entries_core_plain` and
+:func:`~mia_tpu_torch.ops.dp_torch.entries_core_hp_plain`.  CUDA tensors go
+to the kernel, or the call raises: there is no fallback.
+``kernel_launches`` / ``plain_calls`` and ``hp_kernel_launches`` /
+``hp_plain_calls`` count the two routes of each.
 """
 from __future__ import annotations
 
@@ -21,20 +28,26 @@ import torch
 
 from mia_tpu.core.jax_engine import L_MAX, MAX_INTERVALS
 
-from .dp_torch import entries_core_plain
+from .dp_torch import entries_core_hp_plain, entries_core_plain
 
 kernel_launches = 0
 plain_calls = 0
+hp_kernel_launches = 0
+hp_plain_calls = 0
 
 
 def reset_counts() -> None:
-    global kernel_launches, plain_calls
+    global kernel_launches, plain_calls, hp_kernel_launches, hp_plain_calls
     kernel_launches = 0
     plain_calls = 0
+    hp_kernel_launches = 0
+    hp_plain_calls = 0
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+                 device: torch.device) -> None:
+    """Raise unless ``t`` has the dtype, shape and device a kernel takes and
+    is contiguous."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, want {dtype}")
     if tuple(t.shape) != shape:
@@ -45,31 +58,29 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name}: not contiguous")
 
 
-def dp_entries(refs, sms, ref_sel, starts, ivl, s2c, lengths, smidx) -> torch.Tensor:
-    """(best, aec) per entry as [2, E] int32, aec window-local.
-
-    refs [2, WTOT] int8, sms [2, 31, 5, 5] int32, ref_sel [E] int8,
-    starts [E] int32, ivl [E, 16, 2] int32, s2c [E, L] int8 (L <= 256),
-    lengths [E] int32, smidx [E] int8; all on one device, contiguous."""
-    global kernel_launches, plain_calls
+def _check_entries(refs, sms, ref_sel, starts, ivl, s2x, s2x_dtype, lengths, smidx):
+    """Check one batch's state and per-entry tensors; returns (device, E, L)."""
     dev = refs.device
-    E, L = s2c.shape
-    _check("refs", refs, torch.int8, (2, refs.shape[1]), dev)
-    _check("sms", sms, torch.int32, (2, 31, 5, 5), dev)
-    _check("ref_sel", ref_sel, torch.int8, (E,), dev)
-    _check("starts", starts, torch.int32, (E,), dev)
-    _check("ivl", ivl, torch.int32, (E, MAX_INTERVALS, 2), dev)
-    _check("s2c", s2c, torch.int8, (E, L), dev)
-    _check("lengths", lengths, torch.int32, (E,), dev)
-    _check("smidx", smidx, torch.int8, (E,), dev)
+    E, L = s2x.shape
+    check_tensor("refs", refs, torch.int8, (2, refs.shape[1]), dev)
+    check_tensor("sms", sms, torch.int32, (2, 31, 5, 5), dev)
+    check_tensor("ref_sel", ref_sel, torch.int8, (E,), dev)
+    check_tensor("starts", starts, torch.int32, (E,), dev)
+    check_tensor("ivl", ivl, torch.int32, (E, MAX_INTERVALS, 2), dev)
+    check_tensor("reads", s2x, s2x_dtype, (E, L), dev)
+    check_tensor("lengths", lengths, torch.int32, (E,), dev)
+    check_tensor("smidx", smidx, torch.int8, (E,), dev)
     if not 1 <= L <= L_MAX:
-        raise ValueError(f"s2c: {L} rows, want 1..{L_MAX}")
-    if dev.type == "cpu":
-        plain_calls += 1
-        return entries_core_plain(refs, sms, ref_sel, starts, ivl, s2c, lengths,
-                                  smidx)
-    if dev.type != "cuda":
+        raise ValueError(f"reads: {L} rows, want 1..{L_MAX}")
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"dp_entries: no kernel for device {dev}")
+    return dev, E, L
+
+
+def _launch(name: str, dev: torch.device, E: int, call) -> torch.Tensor:
+    """Allocate the [2, E] result on ``dev`` and launch the kernel by
+    ``call(library, result pointer, stream)`` on the current stream; raise
+    on a refused launch."""
     from ..utils.torchcfg import kernel_library
 
     lib = kernel_library()
@@ -77,13 +88,59 @@ def dp_entries(refs, sms, ref_sel, starts, ivl, s2c, lengths, smidx) -> torch.Te
     if E == 0:
         return out
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.mia_dp_entries(
-            refs.data_ptr(), refs.shape[1], sms.data_ptr(), ref_sel.data_ptr(),
-            starts.data_ptr(), ivl.data_ptr(), s2c.data_ptr(), L,
-            lengths.data_ptr(), smidx.data_ptr(), out.data_ptr(), E, stream,
-        )
+        rc = call(lib, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"dp_entries kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def dp_entries(refs, sms, ref_sel, starts, ivl, s2c, lengths, smidx) -> torch.Tensor:
+    """(best, aec) per entry as [2, E] int32, aec window-local.
+
+    refs [2, WTOT] int8, sms [2, 31, 5, 5] int32, ref_sel [E] int8,
+    starts [E] int32, ivl [E, 16, 2] int32, s2c [E, L] int8 (L <= 256),
+    lengths [E] int32, smidx [E] int8; all on one device, contiguous."""
+    global kernel_launches, plain_calls
+    dev, E, L = _check_entries(refs, sms, ref_sel, starts, ivl, s2c, torch.int8,
+                               lengths, smidx)
+    if dev.type == "cpu":
+        plain_calls += 1
+        return entries_core_plain(refs, sms, ref_sel, starts, ivl, s2c, lengths,
+                                  smidx)
+    out = _launch("dp_entries", dev, E, lambda lib, o, stream: lib.mia_dp_entries(
+        refs.data_ptr(), refs.shape[1], sms.data_ptr(), ref_sel.data_ptr(),
+        starts.data_ptr(), ivl.data_ptr(), s2c.data_ptr(), L,
+        lengths.data_ptr(), smidx.data_ptr(), o, E, stream,
+    ))
     kernel_launches += 1
+    return out
+
+
+def dp_entries_hp(refs, refchr, hpcs, sms, pengop, b2i, ref_sel, starts, ivl, s2chr,
+                  lengths, smidx) -> torch.Tensor:
+    """``-h`` scoring: (best, aec) per entry as [2, E] int32, aec
+    window-local.
+
+    As :func:`dp_entries`, plus refchr [2, WTOT] uint8 reference chars,
+    hpcs [2, WTOT] int32 reference run starts, pengop [11] int32 discounts,
+    b2i [256] int8 char codes; the reads come as s2chr [E, L] uint8 raw
+    chars (pad 0)."""
+    global hp_kernel_launches, hp_plain_calls
+    dev, E, L = _check_entries(refs, sms, ref_sel, starts, ivl, s2chr, torch.uint8,
+                               lengths, smidx)
+    check_tensor("refchr", refchr, torch.uint8, tuple(refs.shape), dev)
+    check_tensor("hpcs", hpcs, torch.int32, tuple(refs.shape), dev)
+    check_tensor("pengop", pengop, torch.int32, (11,), dev)
+    check_tensor("b2i", b2i, torch.int8, (256,), dev)
+    if dev.type == "cpu":
+        hp_plain_calls += 1
+        return entries_core_hp_plain(refs, refchr, hpcs, sms, pengop, b2i, ref_sel,
+                                     starts, ivl, s2chr, lengths, smidx)
+    out = _launch("dp_entries_hp", dev, E, lambda lib, o, stream: lib.mia_dp_entries_hp(
+        refs.data_ptr(), refchr.data_ptr(), hpcs.data_ptr(), refs.shape[1],
+        sms.data_ptr(), pengop.data_ptr(), b2i.data_ptr(), ref_sel.data_ptr(),
+        starts.data_ptr(), ivl.data_ptr(), s2chr.data_ptr(), L, lengths.data_ptr(),
+        smidx.data_ptr(), o, E, stream,
+    ))
+    hp_kernel_launches += 1
     return out

@@ -1,12 +1,13 @@
 """Plain PyTorch version of the batched banded DP scorer.
 
-Port of :mod:`mia_tpu.ops.dp_jax` (``batch_last_row_rowsm``, ``depths_for``,
-``batch_best_and_aec``) and of the XLA set-up around it in
-``mia_tpu.core.jax_engine._entries_core`` / ``device_depths``.  The row loop
-is a Python loop over [B, W] int32 tensors; every value, sentinel and
-tie-break is the JAX version's, so the last rows and (best, aec) agree bit
-for bit.  This is the reference the CUDA kernel (:mod:`.dp_cuda`) is held
-against, and the scorer's path for tensors on the CPU.
+Port of :mod:`mia_tpu.ops.dp_jax` (``batch_last_row_rowsm``,
+``batch_last_row_hp``, ``depths_for``, ``batch_best_and_aec``) and of the XLA
+set-up around it in ``mia_tpu.core.jax_engine._entries_core`` /
+``_entries_core_hp`` / ``device_depths``.  The row loop is a Python loop over
+[B, W] int32 tensors; every value, sentinel and tie-break is the JAX
+version's, so the last rows and (best, aec) agree bit for bit.  This is the
+reference the CUDA kernels (:mod:`.dp_cuda`) are held against, and the
+scorer's path for tensors on the CPU.
 
 Semi-global scoring (dyn_prog, src/mia.c:740-981): row 0 free; column 0
 carries the sg5 penalty; gaps are running maxes with GOP+GEP*len cost; a
@@ -18,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from mia_tpu.constants import GEP, GOP, HIM, PSSM_DEPTH
+from mia_tpu.core.jax_engine import HPW_ROUTE as HPW
 from mia_tpu.core.jax_engine import WIN_W
 
 # below any reachable value, no int32 overflow (same constant as dp_jax)
@@ -102,6 +104,123 @@ def batch_last_row_rowsm(
     return snap
 
 
+def read_runs(s2chr: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per (read, row) start row and length of the read's homopolymer run
+    (pop_hpl_and_hps over raw chars; the 0 pad byte differs from every base,
+    so no run crosses the read's end): ([B, L], [B, L]) int32."""
+    B, L = s2chr.shape
+    rows = torch.arange(L, device=s2chr.device, dtype=torch.int32)[None, :].expand(B, L)
+    edge = torch.ones((B, 1), dtype=torch.bool, device=s2chr.device)
+    diff = s2chr[:, 1:] != s2chr[:, :-1]
+    changed = torch.cat([edge, diff], dim=1)
+    hprs = torch.cummax(torch.where(changed, rows, torch.zeros_like(rows)), 1).values
+    ends = torch.cat([diff, edge], dim=1)
+    hpre = torch.cummin(torch.where(ends, rows, torch.full_like(rows, L)).flip(1), 1)
+    hpre = hpre.values.flip(1)
+    return hprs, hpre - hprs + 1
+
+
+def batch_last_row_hp(
+    s1c: torch.Tensor,      # [B, W] window reference codes 0..4
+    s1chr: torch.Tensor,    # [B, W] window reference chars
+    mask: torch.Tensor,     # [B, W] bool open columns per read
+    row_sm: torch.Tensor,   # [B, L, 5] int32 per-row substitution scores
+    lengths: torch.Tensor,  # [B] int32 read lengths
+    s2chr: torch.Tensor,    # [B, L] read chars (pad 0)
+    hpcs_w: torch.Tensor,   # [B, W] int32 global homopolymer start per column
+    ws: torch.Tensor,       # [B] int32 window start (global column of column 0)
+    pengop: torch.Tensor,   # [11] int32 truncated GOP * fraction table
+) -> torch.Tensor:
+    """:func:`batch_last_row_rowsm` plus the ``-h`` homopolymer-discounted
+    gap candidates (src/mia.c:883-905): line by line
+    ``dp_jax.batch_last_row_hp``, with its ring of the last HPW rows, from
+    which ``hp_row`` reads the row before the read's current run started.
+    The scan's value semantics collapse the priority chain into one max."""
+    B, W = mask.shape
+    L = row_sm.shape[1]
+    dev = mask.device
+    i32 = torch.int32
+    s1c = s1c.to(torch.int64)
+    s1chr = s1chr.to(i32)
+    s2chr = s2chr.to(i32)
+    mask = mask.to(torch.bool)
+    lengths = lengths.to(i32)
+    hpcs_w = hpcs_w.to(i32)
+    ws = ws.to(i32)[:, None]
+    pengop = pengop.to(i32)
+    cols = torch.arange(W, device=dev, dtype=i32)[None, :]
+    gcols = ws + cols
+    him = torch.tensor(HIM, dtype=i32, device=dev)
+    low = torch.tensor(_LOW, dtype=i32, device=dev)
+
+    hprs, hprl = read_runs(s2chr)
+
+    row0 = torch.where(mask, torch.gather(row_sm[:, 0, :].to(i32), 1, s1c), him)
+    prev, prev2, rbest, snap = row0, torch.full_like(row0, _LOW), row0, row0
+    hist = torch.zeros((HPW, B, W), dtype=i32, device=dev)
+    hist[0] = row0
+    upd_mask = torch.zeros_like(mask)
+    upd_mask[:, :-1] = mask[:, 1:]
+    cand_ok = torch.zeros_like(mask)
+    cand_ok[:, : W - 2] = mask[:, 2:]
+    cand_ok[:, 0] = True
+    gep_cols = GEP * cols
+    gap_col_cost = GOP + GEP * (cols[:, 2:] - 1)
+    last = lengths - 1
+
+    # loop-invariant hp_col gather index: prev[hpcs - 1 - window start]
+    hc_idx = (hpcs_w - 1 - ws).clamp(0, W - 1).to(torch.int64)
+    hc_ok_static = (hpcs_w != gcols) & (hpcs_w > 0) & (hpcs_w - 1 >= ws)
+    hr_ok_static = (hpcs_w == gcols) & (cols >= 1)
+    gap_len = gcols - hpcs_w
+
+    n_rows = min(int(lengths.max()) if B else 0, L)
+    for row in range(1, n_rows):
+        cell_sub = torch.gather(row_sm[:, row, :].to(i32), 1, s1c)
+        sg5_pen = GOP + GEP * (row + 1)
+
+        run_max = torch.cummax(torch.where(cand_ok, prev + gep_cols, low), 1).values
+        gap_col = torch.full_like(prev, HIM)
+        gap_col[:, 2:] = run_max[:, : W - 2] - gap_col_cost
+
+        gap_row = torch.full_like(prev, HIM)
+        if row >= 2:
+            cand_r = prev2 + GEP * (row - 2)
+            rbest = torch.where(upd_mask & (cand_r > rbest), cand_r, rbest)
+            gap_row[:, 1:] = rbest[:, :-1] - (GOP + GEP * (row - 1))
+
+        diag = torch.full_like(prev, _LOW)
+        diag[:, 1:] = prev[:, :-1]
+
+        # homopolymer-discounted gaps
+        same = s1chr == s2chr[:, row : row + 1]
+        hprs_r = hprs[:, row : row + 1]
+        pen = GEP * gap_len + pengop[(hprl[:, row] - 1).clamp(0, 10).to(torch.int64)][:, None]
+        hp_col = torch.where(same & (hprs_r == row) & hc_ok_static,
+                             torch.gather(prev, 1, hc_idx) - pen, him)
+        slot = ((hprs_r[:, 0] - 1).clamp(0, L) % HPW).to(torch.int64)
+        src = hist[slot, torch.arange(B, device=dev)]
+        src1 = torch.full_like(src, HIM)
+        src1[:, 1:] = src[:, :-1]
+        hr_ok = (same & hr_ok_static & (hprs_r != row) & (hprs_r > 0)
+                 & (row - hprs_r < HPW))
+        hp_row = torch.where(hr_ok, src1 - pen, him)
+
+        base = torch.maximum(
+            torch.maximum(torch.maximum(gap_col, gap_row), torch.maximum(hp_col, hp_row)),
+            diag,
+        )
+        new_row = torch.where(base < -sg5_pen, torch.full_like(base, -sg5_pen),
+                              cell_sub + base)
+        new_row[:, 0] = cell_sub[:, 0] - sg5_pen
+        new_row = torch.where(mask, new_row, him)
+
+        snap = torch.where((last == row)[:, None], new_row, snap)
+        hist[row % HPW] = new_row
+        prev2, prev = prev, new_row
+    return snap
+
+
 def batch_best_and_aec(last_rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-read (best score, earliest argmax column) of the last DP row."""
     aec = torch.argmax(last_rows, dim=1).to(torch.int32)
@@ -122,22 +241,64 @@ def entries_core_plain(
     """(best, aec) per entry as [2, E] int32: the plain version of the
     fused scorer (jax_engine._entries_core with the scan scorer).  aec is
     window-local; windows are WIN_W columns wide."""
-    dev = refs.device
+    idx, maskw = _windows(refs, ref_sel, starts, ivl)
+    wins = refs.reshape(-1)[idx]
+    row_sm = _row_scores(sms, smidx, lengths, s2c)
+    last = batch_last_row_rowsm(wins, maskw, row_sm, lengths)
+    best, aec = batch_best_and_aec(last)
+    return torch.stack([best, aec])
+
+
+def entries_core_hp_plain(
+    refs: torch.Tensor,     # [2, WTOT] int8 padded reference strand codes
+    refchr: torch.Tensor,   # [2, WTOT] uint8 reference strand chars (pad 0)
+    hpcs: torch.Tensor,     # [2, WTOT] int32 homopolymer run start per column
+    sms: torch.Tensor,      # [2, 31, 5, 5] int32 PSSMs (fw, rc)
+    pengop: torch.Tensor,   # [11] int32 homopolymer gap-open discounts
+    b2i: torch.Tensor,      # [256] int8 char -> code 0..4
+    ref_sel: torch.Tensor,  # [E] int8 strand select
+    starts: torch.Tensor,   # [E] int32 window start
+    ivl: torch.Tensor,      # [E, K, 2] int32 window-local [lo, hi) intervals
+    s2chr: torch.Tensor,    # [E, L] uint8 read chars (pad 0)
+    lengths: torch.Tensor,  # [E] int32 read lengths
+    smidx: torch.Tensor,    # [E] int8 PSSM select
+) -> torch.Tensor:
+    """(best, aec) per entry as [2, E] int32 under ``-h``: the plain version
+    of ``jax_engine._entries_core_hp``.  Reads come as raw chars; their codes,
+    depths and run arrays derive here, as on the TPU."""
+    idx, maskw = _windows(refs, ref_sel, starts, ivl)
+    flat = idx.reshape(-1)
+    wins = refs.reshape(-1)[flat].reshape(idx.shape)
+    winchr = refchr.reshape(-1)[flat].reshape(idx.shape)
+    winhpcs = hpcs.reshape(-1)[flat].reshape(idx.shape)
+    s2c = b2i[s2chr.to(torch.int64)]
+    row_sm = _row_scores(sms, smidx, lengths, s2c)
+    last = batch_last_row_hp(wins, winchr, maskw, row_sm, lengths, s2chr, winhpcs,
+                             starts, pengop)
+    best, aec = batch_best_and_aec(last)
+    return torch.stack([best, aec])
+
+
+def _windows(refs: torch.Tensor, ref_sel: torch.Tensor, starts: torch.Tensor,
+             ivl: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each entry's flat [E, WIN_W] gather index into a [2, WTOT] strand
+    array (clamped, as JAX clamps an out-of-range gather) and its band
+    mask [E, WIN_W] from the window-local [lo, hi) intervals."""
     WTOT = refs.shape[1]
-    cols = torch.arange(WIN_W, device=dev, dtype=torch.int64)[None, :]
+    cols = torch.arange(WIN_W, device=refs.device, dtype=torch.int64)[None, :]
     idx = (
         ref_sel.to(torch.int64)[:, None] * WTOT + starts.to(torch.int64)[:, None] + cols
     ).clamp(0, refs.numel() - 1)
-    wins = refs.reshape(-1)[idx].to(torch.int64)
     iv = ivl.to(torch.int64)
     maskw = (
         (cols[:, None, :] >= iv[:, :, 0:1]) & (cols[:, None, :] < iv[:, :, 1:2])
     ).any(dim=1)
-    s2c64 = s2c.to(torch.int64)
+    return idx, maskw
+
+
+def _row_scores(sms: torch.Tensor, smidx: torch.Tensor, lengths: torch.Tensor,
+                s2c: torch.Tensor) -> torch.Tensor:
+    """row_sm[e, r, i] = sms[smidx[e], depth(e, r), i, s2c[e, r]]: [E, L, 5]."""
     depths = depths_for(lengths, s2c.shape[1])
-    # row_sm[e, r, i] = sms[smidx[e], depth(e, r), i, s2c[e, r]]
     sm_t = sms.to(torch.int32).permute(0, 1, 3, 2)  # [2, 31, read base, ref base]
-    row_sm = sm_t[smidx.to(torch.int64)[:, None], depths, s2c64]  # [E, L, 5]
-    last = batch_last_row_rowsm(wins, maskw, row_sm, lengths)
-    best, aec = batch_best_and_aec(last)
-    return torch.stack([best, aec])
+    return sm_t[smidx.to(torch.int64)[:, None], depths, s2c.to(torch.int64)]

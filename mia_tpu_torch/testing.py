@@ -6,6 +6,9 @@ same inputs.  The batches cover the edge cases of the DP: reads of length 1
 and of the full row count, entries whose band is empty (all columns masked),
 argmax ties (a homopolymer stretch of the reference against homopolymer
 reads), masks of all 16 intervals, read code 4 (N), and both PSSM slots.
+The ``-h`` batches add homopolymer-rich references and reads: reads cut
+from the reference with runs grown and shrunk, and runs of 32 bases or more
+(past the TPU ring's reach) in both.
 """
 from __future__ import annotations
 
@@ -13,8 +16,9 @@ import numpy as np
 
 from mia_tpu.core.jax_engine import MAX_INTERVALS, WIN_W
 from mia_tpu.ops.pssm import init_flatsubmat
+from mia_tpu.utils.encoding import BASE2INX, encode_seq, revcom
 
-from .core.torch_engine import padded_state_numpy
+from .core.torch_engine import hp_state_numpy, padded_state_numpy
 
 _TIE_LO, _TIE_HI = 600, 1400   # homopolymer stretch (code 0) of the reference
 
@@ -93,19 +97,138 @@ def oracle_entries(n: int, L: int, seed: int = 0, len1: int = 2400) -> dict:
     return d
 
 
+HP_ENTRY_KEYS = ("refs", "refchr", "hpcs", "sms", "pengop", "b2i", "ref_sel", "starts",
+                 "ivl", "s2chr", "lengths", "smidx")
+
+
+def _runs_string(rng, n: int, long_every: int = 0) -> str:
+    """A homopolymer-rich string of n bases: run lengths 1..8, and with
+    ``long_every`` a run of 32-48 bases about every that many runs."""
+    out: list[str] = []
+    size, prev = 0, ""
+    while size < n:
+        b = "ACGT"[int(rng.integers(0, 4))]
+        if b == prev:
+            continue
+        k = int(rng.integers(1, 9))
+        if long_every and rng.integers(0, long_every) == 0:
+            k = int(rng.integers(32, 49))
+        out.append(b * k)
+        size += k
+        prev = b
+    return "".join(out)[:n]
+
+
+def _mutate_runs(rng, s: str) -> str:
+    """Grow or shrink some homopolymer runs by 1-3 bases and substitute a
+    few bases: the indels that -h scores at a discount."""
+    out: list[str] = []
+    i = 0
+    while i < len(s):
+        j = i
+        while j < len(s) and s[j] == s[i]:
+            j += 1
+        k = j - i
+        if rng.random() < 0.25:
+            k = max(1, k + int(rng.choice([-3, -2, -1, 1, 2, 3])))
+        run = [s[i]] * k
+        for t in range(k):
+            if rng.random() < 0.02:
+                run[t] = "ACGTN"[int(rng.integers(0, 5))]
+        out.extend(run)
+        i = j
+    return "".join(out)
+
+
+def random_hp_entries(E: int, L: int, seed: int = 0, len1: int = 2400) -> dict:
+    """``-h`` entries: :func:`random_entries`' strands, bands, lengths and
+    PSSM selects, over a homopolymer-rich reference (an all-A stretch at
+    the tie columns) and reads given as raw chars (pad 0).  The keys are
+    ``entries_core_hp_plain``'s arguments (:data:`HP_ENTRY_KEYS`) plus
+    ``len1``.  Kinds of read by entry: cut from the window's strand with
+    runs grown and shrunk, a run of 32+ bases inside, all A (the ties
+    entries), or homopolymer-rich noise."""
+    d = random_entries(E, L, seed, len1)
+    rng = np.random.default_rng(seed + 1000)
+    fw = _runs_string(rng, len1, long_every=60)
+    fw = fw[:_TIE_LO] + "A" * (_TIE_HI - _TIE_LO) + fw[_TIE_HI:]
+    fw = fw[:40] + "N" + fw[41:]
+    rc = revcom(fw)
+    refs, sms = padded_state_numpy(encode_seq(fw), encode_seq(rc), len1, d["sms"][0],
+                                   d["sms"][1])
+    refchr, hpcs, pengop = hp_state_numpy((fw, rc), len1, refs.shape[1])
+    strands = (fw, rc)
+    s2chr = np.zeros((E, L), np.uint8)
+    kind = np.arange(E) % 6
+    for e in range(E):
+        n = int(d["lengths"][e])
+        r = rng.random()
+        if kind[e] == 4:
+            read = "A" * n
+        elif r < 0.6:
+            ws = int(d["starts"][e]) + int(rng.integers(0, 40))
+            read = _mutate_runs(rng, strands[int(d["ref_sel"][e])][ws : ws + 2 * n + 8])
+        elif r < 0.8:
+            k = int(rng.integers(32, 60))
+            read = _runs_string(rng, n // 2) + "ACGT"[int(rng.integers(0, 4))] * k
+            read += _runs_string(rng, n)
+        else:
+            read = _runs_string(rng, n)
+        read = (read + _runs_string(rng, n))[:n]
+        s2chr[e, :n] = np.frombuffer(read.encode("latin-1"), np.uint8)
+    d.update(refs=refs, refchr=refchr, hpcs=hpcs, pengop=pengop, b2i=BASE2INX.copy(),
+             s2chr=s2chr, sms=sms)
+    del d["s2c"]
+    return d
+
+
+def oracle_hp_entries(n: int, L: int, seed: int = 0, len1: int = 2400) -> dict:
+    """``-h`` entries the exact host DP can score (bands and windows as in
+    :func:`oracle_entries`): reads cut from the reference with runs grown and
+    shrunk, every run shorter than 32 (the TPU ring's reach)."""
+    from mia_tpu.core.jax_engine import hp_routes_to_host
+
+    d = random_hp_entries(n, L, seed, len1)
+    o = oracle_entries(n, L, seed, len1)
+    d.update(starts=o["starts"], ivl=o["ivl"], lengths=o["lengths"])
+    rng = np.random.default_rng(seed + 2000)
+    strands = [bytes(d["refchr"][s, :len1]).decode("latin-1") for s in (0, 1)]
+    d["s2chr"][:] = 0
+    for e in range(n):
+        m = int(d["lengths"][e])
+        read = ""
+        while len(read) < m or hp_routes_to_host(read[:m]):
+            ws = int(d["starts"][e]) + int(rng.integers(0, WIN_W - m // 2))
+            read = _mutate_runs(rng, strands[int(d["ref_sel"][e])][ws : ws + 2 * m])
+            read += _runs_string(rng, m)
+        d["s2chr"][e, :m] = np.frombuffer(read[:m].encode("latin-1"), np.uint8)
+    return d
+
+
 def solve_sg_entry(d: dict, e: int) -> tuple[int, int]:
-    """(best, aec) of entry ``e`` by the exact host DP, aec window-local."""
-    from mia_tpu.core.driver import init_alignment, set_seq1, set_seq2
+    """(best, aec) of entry ``e`` by the exact host DP, aec window-local;
+    with ``-h`` (a dict of :func:`random_hp_entries`) the homopolymer
+    candidates included."""
+    from mia_tpu.core.driver import (init_alignment, set_hp_cols, set_hp_rows, set_seq1,
+                                     set_seq2)
     from mia_tpu.ops import dp_numpy
 
     chars = np.array(list("ACGTN"))
     len1 = d["len1"]
     strand = int(d["ref_sel"][e])
     ws = int(d["starts"][e])
-    a = init_alignment(d["s2c"].shape[1], len1 + 16, False, False)
+    hp = "s2chr" in d
+    L = d["s2chr" if hp else "s2c"].shape[1]
+    a = init_alignment(L, len1 + 16, False, hp)
     a.submat = d["sms"][int(d["smidx"][e])]
-    set_seq1(a, "".join(chars[d["refs"][strand, :len1]]))
-    set_seq2(a, "".join(chars[d["s2c"][e, : d["lengths"][e]]]))
+    if hp:
+        set_seq1(a, bytes(d["refchr"][strand, :len1]).decode("latin-1"))
+        set_seq2(a, bytes(d["s2chr"][e, : d["lengths"][e]]).decode("latin-1"))
+        set_hp_rows(a)
+        set_hp_cols(a)
+    else:
+        set_seq1(a, "".join(chars[d["refs"][strand, :len1]]))
+        set_seq2(a, "".join(chars[d["s2c"][e, : d["lengths"][e]]]))
     a.sg5 = a.sg3 = True
     a.align_mask[: a.len1] = 0
     for lo, hi in d["ivl"][e]:
@@ -119,3 +242,35 @@ def dp_cells(lengths: np.ndarray) -> int:
     """DP cells a batch computes: rows 1..len-1 of the 384-column window."""
     return int(np.maximum(np.asarray(lengths, np.int64) - 1, 0).sum()) * WIN_W
 
+
+
+def random_records(n: int, R: int, seed: int = 0, mean_len: int = 60):
+    """A MapAlignment of R aligned records over an n-column reference, for
+    the consensus column counts: chars A, C, G, T, '-' and N, depths 0..30,
+    both strands, some records running off either end of the reference and
+    some dropped.  Built like the JAX package's device-consensus test."""
+    from mia_tpu.core.types import AlnSeq, MapAlignment
+    from mia_tpu.ops.pssm import init_flatsubmat, revcom_submat
+
+    rng = np.random.default_rng(seed)
+    maln = MapAlignment()
+    maln.ref.seq_len = n
+    maln.fpsm = (init_flatsubmat() + rng.integers(-40, 40, (31, 5, 5))).astype(np.int64)
+    maln.rpsm = revcom_submat(maln.fpsm)
+    lens = rng.integers(max(1, mean_len // 4), 2 * mean_len - mean_len // 4, R)
+    total = int(lens.sum())
+    chars = np.frombuffer(b"ACGT-N", np.uint8)[
+        rng.choice(6, total, p=[0.23, 0.23, 0.23, 0.23, 0.05, 0.03])].tobytes().decode()
+    depths = (ord("A") + rng.integers(0, 31, total)).astype(np.uint8).tobytes().decode()
+    starts = rng.integers(-mean_len, n, R)
+    revs = rng.integers(0, 2, R).astype(bool)
+    dropped = rng.random(R) < 0.1
+    recs, o = [], 0
+    for i in range(R):
+        ln = int(lens[i])
+        recs.append(AlnSeq(id=f"r{i}", seq=chars[o : o + ln], smp=depths[o : o + ln],
+                           start=int(starts[i]), end=int(starts[i]) + ln - 1,
+                           revcom=bool(revs[i]), dropped=bool(dropped[i])))
+        o += ln
+    maln.set_aln_seqs(recs)
+    return maln

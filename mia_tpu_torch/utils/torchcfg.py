@@ -5,8 +5,11 @@ Port of :mod:`mia_tpu.utils.jaxcfg`.  JAX's "compile once" was its
 persistent compilation cache; here it is one shared library built by
 ``nvcc`` from ``mia_tpu_torch/csrc/*.cu`` at first use, keyed by a hash of
 the sources (an edited ``.cu`` rebuilds) and kept in ``mia_tpu_torch/_build/``
-inside the checkout.  The library has a plain C interface and is loaded with
-``ctypes``; nothing here includes PyTorch's headers, so a build takes seconds.
+inside the checkout.  Each source compiles in its own ``nvcc`` process, all
+started together, and the objects link into one library; ``ptxas``'s
+register and spill report lands in ``build.log`` beside it.  The library has
+a plain C interface and is loaded with ``ctypes``; nothing here includes
+PyTorch's headers, so a build takes seconds.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 
@@ -74,14 +77,15 @@ _LIB: ctypes.CDLL | None = None
 def expected_constants() -> list[int]:
     """The values ``mia_dp_entries_constants`` must report, in its order:
     window width, intervals per entry, read rows, PSSM depth slots, PSSM
-    depth, GOP, GEP, HIM, LOW."""
+    depth, GOP, GEP, HIM, LOW, the ``-h`` row reach (HPW) and the length of
+    the ``-h`` discount table."""
     from mia_tpu.constants import GEP, GOP, HIM, PSSM_DEPTH
-    from mia_tpu.core.jax_engine import L_MAX, MAX_INTERVALS, WIN_W
+    from mia_tpu.core.jax_engine import HPW_ROUTE, L_MAX, MAX_INTERVALS, WIN_W, hp_pengop_table
 
     from ..ops.dp_torch import _LOW
 
     return [WIN_W, MAX_INTERVALS, L_MAX, 2 * PSSM_DEPTH + 1, PSSM_DEPTH, GOP,
-            GEP, HIM, _LOW]
+            GEP, HIM, _LOW, HPW_ROUTE, len(hp_pengop_table())]
 
 
 def check_constants(lib) -> None:
@@ -99,6 +103,18 @@ def check_constants(lib) -> None:
         )
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands at once; their stderr, in order.  Raises on the
+    first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    errs = [p.communicate(timeout=600)[1] for p in procs]
+    for cmd, p, err in zip(cmds, procs, errs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{err}")
+    return errs
+
+
 def build_kernels() -> str:
     """Build the kernel library for the current sources unless it exists;
     returns its path.  A file lock serialises concurrent builds; the
@@ -108,21 +124,31 @@ def build_kernels() -> str:
         return path
     import fcntl
 
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(os.path.join(os.path.dirname(path), ".lock"), "w") as lf:
+    out_dir = os.path.dirname(path)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, ".lock"), "w") as lf:
         fcntl.flock(lf, fcntl.LOCK_EX)
         if os.path.exists(path):
             return path
+        nvcc = _nvcc()
+        srcs = [s for s in _sources() if s.endswith(".cu")]
+        objs = [os.path.join(out_dir, os.path.basename(s) + ".o") for s in srcs]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                        for s, o in zip(srcs, objs)])
+        with open(os.path.join(out_dir, "build.log"), "w") as f:
+            f.write("".join(log))
         tmp = path + ".tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[s for s in _sources() if s.endswith(".cu")]]
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if r.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n{r.stderr}"
-            )
+        _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, path)
     return path
+
+
+def ptxas_report(path: str) -> list[str]:
+    """ptxas's per-kernel lines (registers, spills, shared memory) from the
+    build of the library at ``path``."""
+    keys = ("Compiling entry function", "registers", "spill")
+    with open(os.path.join(os.path.dirname(path), "build.log")) as f:
+        return [ln.strip() for ln in f if any(k in ln for k in keys)]
 
 
 def kernel_library() -> ctypes.CDLL:
@@ -136,6 +162,15 @@ def kernel_library() -> ctypes.CDLL:
         lib.mia_dp_entries.restype = ci
         lib.mia_dp_entries.argtypes = [
             vp, ci, vp, vp, vp, vp, vp, ci, vp, vp, vp, ci, vp,
+        ]
+        lib.mia_dp_entries_hp.restype = ci
+        lib.mia_dp_entries_hp.argtypes = [
+            vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, ci, vp, vp, vp, ci, vp,
+        ]
+        lib.mia_column_counts.restype = ci
+        lib.mia_column_counts.argtypes = [
+            vp, ctypes.c_int64, vp, ctypes.c_int64, vp, vp, vp, vp, vp, ci, vp, vp,
+            vp, vp, ci, vp, vp, vp, vp,
         ]
         lib.mia_dp_entries_constants.restype = ci
         lib.mia_dp_entries_constants.argtypes = [vp, ci]

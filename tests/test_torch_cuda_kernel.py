@@ -1,5 +1,7 @@
-"""The CUDA entry-scoring kernel (mia_tpu_torch/csrc/dp_entries.cu) against
-its plain PyTorch version and the exact host DP, on the card.
+"""The CUDA kernels against their plain PyTorch versions on the card: the
+entry scorer and its -h instantiation (mia_tpu_torch/csrc/dp_entries.cu,
+also against the exact host DP) and the consensus column counts
+(mia_tpu_torch/csrc/column_counts.cu, also against the host accumulator).
 
 Needs an NVIDIA card: without one every test skips (a CUDA kernel has no
 CPU mode).  The repository's conftest imports jax, which the machine with
@@ -15,7 +17,7 @@ import torch
 
 from mia_tpu_torch import testing as T
 from mia_tpu_torch.core.torch_engine import Pass1Scorer, state_from_numpy
-from mia_tpu_torch.ops import dp_cuda, dp_torch
+from mia_tpu_torch.ops import consensus_torch, dp_cuda, dp_torch
 
 pytestmark = pytest.mark.cuda
 
@@ -68,3 +70,66 @@ def test_scorer_on_card_matches_cpu_scorer(cuda):
         assert sc.ready(h)
     np.testing.assert_array_equal(res[0][0], res[1][0])
     np.testing.assert_array_equal(res[0][1], res[1][1])
+
+
+def _on_hp(d, dev):
+    return [torch.from_numpy(np.ascontiguousarray(d[k])).to(dev) for k in T.HP_ENTRY_KEYS]
+
+
+@pytest.mark.parametrize("E,L,seed", [(1, 32, 0), (9, 32, 1), (600, 64, 2),
+                                      (2048, 256, 3), (333, 256, 4)])
+def test_hp_kernel_matches_plain(cuda, E, L, seed):
+    args = _on_hp(T.random_hp_entries(E, L, seed=seed), cuda)
+    dp_cuda.reset_counts()
+    got = dp_cuda.dp_entries_hp(*args)
+    torch.cuda.synchronize()
+    assert (dp_cuda.hp_kernel_launches, dp_cuda.hp_plain_calls) == (1, 0)
+    assert torch.equal(got, dp_torch.entries_core_hp_plain(*args))
+
+
+def test_hp_kernel_matches_solve_sg(cuda):
+    d = T.oracle_hp_entries(32, 96, seed=5)
+    out = dp_cuda.dp_entries_hp(*_on_hp(d, cuda)).cpu().numpy()
+    for e in range(32):
+        assert T.solve_sg_entry(d, e) == (out[0, e], out[1, e]), e
+
+
+def test_hp_kernel_rejects_mixed_devices(cuda):
+    args = _on_hp(T.random_hp_entries(8, 32, seed=6), cuda)
+    args[2] = args[2].cpu()
+    with pytest.raises(ValueError):
+        dp_cuda.dp_entries_hp(*args)
+
+
+def _records_on(maln, dev):
+    from mia_tpu.core.columns import _record_arrays
+
+    _, spans, starts, revs, seq, smp, seq_off, smp_off = _record_arrays(maln, True)
+    arrs = [(seq, np.uint8), (smp, np.uint8), (starts, np.int32), (spans, np.int32),
+            (seq_off, np.int32), (smp_off, np.int32), (revs, np.bool_),
+            (maln.fpsm, np.int32), (maln.rpsm, np.int32)]
+    return [torch.from_numpy(np.require(a, t, ["C", "W"])).to(dev) for a, t in arrs]
+
+
+@pytest.mark.parametrize("n,R,seed", [(300, 400, 0), (16569, 20000, 1)])
+def test_column_counts_kernel_matches_plain_and_host(cuda, n, R, seed):
+    from mia_tpu.core.columns import main_column_counts
+
+    maln = T.random_records(n, R, seed=seed)
+    args = _records_on(maln, cuda)
+    consensus_torch.reset_counts()
+    got = consensus_torch.column_counts(*args, n)
+    torch.cuda.synchronize()
+    assert (consensus_torch.kernel_launches, consensus_torch.plain_calls) == (1, 0)
+    for g, p in zip(got, consensus_torch.column_counts_plain(*args, n)):
+        assert torch.equal(g, p)
+    host = main_column_counts(maln, exclude_dropped=True)
+    for g, h in zip(got, (host.counts, host.cov, host.scores)):
+        np.testing.assert_array_equal(g.cpu().numpy(), h)
+
+
+def test_column_counts_kernel_rejects_mixed_devices(cuda):
+    args = _records_on(T.random_records(100, 50, seed=2), cuda)
+    args[5] = args[5].cpu()
+    with pytest.raises(ValueError):
+        consensus_torch.column_counts(*args, 100)

@@ -152,6 +152,8 @@ def _constants_with(index, delta):
     (_constants_with(2, -1), False),   # read rows
     (_constants_with(5, 1), False),    # GOP
     (_constants_with(6, -1), False),   # GEP
+    (_constants_with(9, 1), False),    # -h row reach
+    (_constants_with(10, -1), False),  # -h discount slots
     (list(torchcfg.expected_constants())[:-1], False),  # count
 ])
 def test_kernel_library_constants_checked(values, ok):
@@ -169,14 +171,15 @@ def test_kernel_constants_match_python_side():
     from mia_tpu_torch.ops.dp_torch import _LOW
 
     assert torchcfg.expected_constants() == [
-        je.WIN_W, je.MAX_INTERVALS, je.L_MAX, 31, PSSM_DEPTH, GOP, GEP, HIM, _LOW]
+        je.WIN_W, je.MAX_INTERVALS, je.L_MAX, 31, PSSM_DEPTH, GOP, GEP, HIM, _LOW,
+        je.HPW_ROUTE, len(je.hp_pengop_table())]
     # the kernel's own values, read from its source
     src = open(os.path.join(torchcfg.CSRC_DIR, "dp_entries.cu")).read()
     for decl in ("kW = 384;", "kK = 16;", "kLMax = 256;", "kPssmDepth = 15;",
-                 "GOP = 1000;", "GEP = 200;"):
+                 "GOP = 1000;", "GEP = 200;", "kHpw = 32;", "kPengop = 11;"):
         assert f"constexpr int {decl}" in src, decl
-    assert (je.WIN_W, je.MAX_INTERVALS, je.L_MAX, PSSM_DEPTH, GOP, GEP) == (
-        384, 16, 256, 15, 1000, 200)
+    assert (je.WIN_W, je.MAX_INTERVALS, je.L_MAX, PSSM_DEPTH, GOP, GEP, je.HPW_ROUTE,
+            len(je.hp_pengop_table())) == (384, 16, 256, 15, 1000, 200, 32, 11)
 
 
 NO_JAX_RUN = r"""

@@ -2,9 +2,10 @@
 ``--engine torch`` must write the committed golden maln files byte for byte
 (modulo the timestamp header line), with jax unimportable in the process.
 
-On the CPU the scorer runs its plain PyTorch version (MIA_TORCH_DEVICE=cpu);
-the profile counters prove the device scorer, not a host engine, scored the
-entries.
+On the CPU the scorer and the consensus counts run their plain PyTorch
+versions (MIA_TORCH_DEVICE=cpu); the profile counters prove the device
+scorer (the ``-h`` one under ``-h``) and the device consensus, not a host
+engine, did the work.
 """
 import json
 import os
@@ -17,7 +18,7 @@ from .conftest import FIXTURES, GOLDEN
 from .test_golden_mia import CONFIGS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TORCH_CONFIGS = sorted(n for n, a in CONFIGS.items() if "-h" not in a)
+TORCH_CONFIGS = sorted(CONFIGS)
 
 # run the port's CLI with jax blocked: the port must not need it
 NO_JAX_MAIN = (
@@ -61,9 +62,9 @@ def _norm(path):
         return b"\n".join(fh.read().split(b"\n")[1:])
 
 
-def test_torch_configs_cover_all_but_hp():
-    assert len(TORCH_CONFIGS) == 13
-    assert "hp" not in TORCH_CONFIGS and "hp_k" not in TORCH_CONFIGS
+def test_torch_configs_cover_all():
+    assert len(TORCH_CONFIGS) == 15
+    assert sorted(os.listdir(GOLDEN)) == sorted(TORCH_CONFIGS + ["ccheck"])
 
 
 @pytest.mark.parametrize("name", TORCH_CONFIGS)
@@ -78,19 +79,25 @@ def test_torch_maln_byte_identical(name, tmp_path):
             f"{name}/{fn} differs from reference output"
         )
     c = profile_counters(r.stderr)
-    # the device scorer scored realignment entries on every config, and it
-    # ran as its plain version (CPU tensors), never as a kernel here
+    # the device scorer scored realignment entries on every config, the -h
+    # scorer under -h and the plain one otherwise, and each ran as its plain
+    # version (CPU tensors), never as a kernel here; so did every consensus
+    hp = "-h" in CONFIGS[name]
     assert c["reiterate.device_entries"] > 0, c
-    assert c["dp.plain_calls"] > 0, c
-    assert c["dp.kernel_launches"] == 0, c
+    assert c["dp.hp_plain_calls" if hp else "dp.plain_calls"] > 0, c
+    assert c["dp.plain_calls" if hp else "dp.hp_plain_calls"] == 0, c
+    assert c["dp.kernel_launches"] == c["dp.hp_kernel_launches"] == 0, c
     if "-k" in CONFIGS[name]:
         assert c["pass1.device_scored_reads"] > 0, c
+    assert c["cons.plain_calls"] > 0 and c["cons.kernel_launches"] == 0, c
+    assert c["consensus.device_calls"] == c["cons.plain_calls"], c
+    assert "consensus.device_fallbacks" not in c, c
 
 
-def test_torch_engine_refuses_hp(tmp_path):
-    r = run_torch_mia(fixture_args("hp"), tmp_path, check=False)
+def test_torch_engine_refuses_dp(tmp_path):
+    r = run_torch_mia([*fixture_args("kmer"), "--dp", "2"], tmp_path, check=False)
     assert r.returncode != 0
-    assert b"not ported yet" in r.stderr
+    assert b"--dp (multi-device scoring) is not ported yet" in r.stderr
     assert not any(p.startswith("out.maln.") for p in os.listdir(tmp_path))
 
 
@@ -104,6 +111,7 @@ def test_port_cli_hands_host_engines_to_mia_tpu(engine, tmp_path):
         assert _norm(tmp_path / fn) == _norm(os.path.join(golden, fn)), fn
     c = profile_counters(r.stderr)
     assert c["dp.kernel_launches"] == 0 and c["dp.plain_calls"] == 0, c
+    assert c["cons.kernel_launches"] == 0 and c["cons.plain_calls"] == 0, c
     assert "reiterate.device_entries" not in c, c
 
 
