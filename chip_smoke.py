@@ -36,6 +36,28 @@ result line:
 8. -h end to end: the same workload with ``-h``, in this process only,
    against ``mia_tpu --engine native -h``, the ``-h`` scorer's launches in
    place of the scorer's.
+9. Myers kernel: ccheck's wavefront at full size, mt311 (16,619 columns)
+   against three ~16.6 kb sequences (an mt311-derived sample with ~1%
+   divergence, one with ~5%, an unrelated random one that runs every wave
+   and finds no alignment), maxd = max(len) / 10: the kernel's
+   (found_d, found_k, history) against the plain version's, exact, and
+   ``myers_diff_torch`` on the card against the host ``myers_diff``
+   (distance and both backtrace strings); prints the kernel's and the plain
+   version's ms and the host aligner's s.
+10. ccheck golden: the port's ccheck (``--engine torch``, in this process)
+    on ``tests/golden/ccheck`` must print ``prose.txt`` and, under
+    ``-T -a``, ``table_a.txt`` byte for byte, each run with one Myers
+    kernel launch, scorer launches, device-realigned reads and no call of a
+    plain version.
+11. ccheck end to end: 9,000 reads of an mt311-derived sample and 1,000 of
+    a contaminant (another resolution of mt311), assembled by the port's mia
+    (``-c -u -k 12 -s ancient.submat.solexa.pe.txt``, the resolved mt311 as
+    reference); ccheck on the final maln with the builtin mt311, ``-a`` and
+    ``-T -a``: the port under ``--engine torch`` must print what
+    ``mia_tpu``'s ccheck prints under ``--engine native``, byte for byte,
+    with the launch conditions of phase 10 (counts set to 0 just before
+    each run and read just after); prints the distance, both engines' wall
+    times and the port's Myers and realignment times.
 
 The last lines are a JSON line of per-kernel numbers, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -94,9 +116,10 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def reset_counts() -> None:
-    from mia_tpu_torch.ops import consensus_torch, dp_cuda
+    from mia_tpu_torch.cli import ccheck
+    from mia_tpu_torch.ops import consensus_torch
 
-    dp_cuda.reset_counts()
+    ccheck.reset_counts()  # Myers, scorer, ccheck's realignment
     consensus_torch.reset_counts()
 
 
@@ -386,6 +409,199 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool) -> dict:
     say(f"{tag}: phases s, native " + json.dumps(native_prof["phases_s"], sort_keys=True))
     return counts
 
+def myers_phase_pairs() -> list[tuple[str, str, str, int]]:
+    """Phase 9's pairs: (name, mt311, other sequence, ccheck's maxd)."""
+    import numpy as np
+
+    from mia_tpu.cli.ccheck import load_mt311
+    from mia_tpu.models.simulate import random_reference
+    from mia_tpu_torch import testing as T
+
+    panel = load_mt311()
+    reference, sample, _ = T.ccheck_sample(seed=31)
+    pairs = [("1%", sample),
+             ("5%", T.mutate(reference, np.random.default_rng(32), 0.05, 0.002)),
+             ("unrelated", random_reference(16569, seed=33))]
+    return [(name, panel, b, max(len(panel), len(b)) // 10) for name, b in pairs]
+
+
+def time_myers_kernel(bm_a, bm_b, len_a: int, len_b: int, maxd: int, iters: int) -> float:
+    """Mean device ms of the Myers kernel alone (CUDA events over ``iters``
+    launches into one history, no copy back)."""
+    import torch
+
+    from mia_tpu_torch.ops.myers_torch import _NEG
+    from mia_tpu_torch.utils.torchcfg import kernel_library
+
+    lib = kernel_library()
+    hist = torch.full((maxd + 1, 2 * maxd + 1), _NEG, dtype=torch.int32, device=bm_a.device)
+    found = torch.empty(2, dtype=torch.int32, device=bm_a.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        rc = lib.mia_myers_waves(bm_a.data_ptr(), len_a, bm_b.data_ptr(), len_b, maxd, 0, 0,
+                                 hist.data_ptr(), found.data_ptr(), stream)
+        if rc:
+            raise RuntimeError(f"myers_waves kernel launch failed: CUDA error {rc}")
+
+    cuda_ms(launch, 2)
+    return cuda_ms(launch, iters)
+
+
+def phase_myers_kernel(dev) -> dict:
+    import torch
+
+    from mia_tpu.ops.myers import UINT_MAX, Mode, myers_diff
+    from mia_tpu_torch.ops import myers_cuda
+    from mia_tpu_torch.ops.myers_torch import bitmaps, myers_diff_torch, waves_plain
+
+    out = {}
+    err = 0
+    for name, a, b, maxd in myers_phase_pairs():
+        bm_a, bm_b = (torch.from_numpy(x).to(dev) for x in bitmaps(a, b))
+        args = (bm_a, bm_b, len(a), len(b))
+        flags = dict(maxd=maxd, mode_is_prefix=False, mode_has_prefix=False)
+        kd, kk, khist = myers_cuda.waves(*args, **flags)
+        pd, pk, phist = waves_plain(*args, **flags)
+        torch.cuda.synchronize()
+        if (kd, kk) != (pd, pk):
+            raise AssertionError(f"myers {name}: kernel found (d, k) = {(kd, kk)}, "
+                                 f"plain {(pd, pk)}")
+        err = max(err, check_equal(f"myers {name}: history != plain",
+                                   khist[: kd + 1], phist[: pd + 1]))
+        t0 = time.time()
+        want = myers_diff(a, Mode.GLOBAL, b, maxd)
+        host_s = time.time() - t0
+        got = myers_diff_torch(a, Mode.GLOBAL, b, maxd, device=dev)
+        if got != want:
+            raise AssertionError(f"myers {name}: myers_diff_torch on the card gives "
+                                 f"d={got[0]}, host myers_diff d={want[0]}")
+        if (name == "unrelated") != (want[0] == UINT_MAX):
+            raise AssertionError(f"myers {name}: unexpected distance {want[0]}")
+        ms = time_myers_kernel(bm_a, bm_b, len(a), len(b), maxd, 10)
+        plain_ms = cuda_ms(lambda: waves_plain(*args, **flags), 2)
+        say(f"myers kernel: {name} pair {len(a)} x {len(b)}, maxd {maxd}: d="
+            f"{'none (UINT_MAX)' if kd == maxd else kd}, k={kk}, "
+            f"{maxd if kd == maxd else kd + 1} waves; "
+            f"kernel == plain (found and history rows 0..{kd}, exact) and "
+            f"myers_diff_torch == host myers_diff (d, bt_a, bt_b); kernel {ms:.4f} ms, "
+            f"plain version {plain_ms:.4f} ms, host myers_diff {host_s:.3f} s")
+        out[name] = {"ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, **out["1%"]}
+
+
+def run_ccheck(main, argv: list[str], profile: bool) -> tuple[bytes, dict, float]:
+    """One ccheck CLI (the port's or mia_tpu's ``main``) in this process:
+    (stdout bytes, profile or {}, wall s).  Raises unless it exits 0."""
+    import contextlib
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main([*argv, "--profile"] if profile else argv)
+    wall = time.time() - t0
+    if rc != 0:
+        raise RuntimeError(f"ccheck {' '.join(argv)} exited {rc}:\n{err.getvalue()}")
+    prof = {}
+    for line in err.getvalue().splitlines():
+        if line.startswith("MIA_PROFILE "):
+            prof = json.loads(line.split(" ", 1)[1])
+    return out.getvalue().encode(), prof, wall
+
+
+def run_port_ccheck(argv: list[str], what: str) -> tuple[bytes, dict, float, dict]:
+    """The port's ccheck under ``--engine torch`` with every count set to 0
+    just before it and read just after; raises unless the run went through
+    one Myers kernel launch and the scorer, with no plain call.  Returns
+    (stdout, profile, wall s, counts)."""
+    from mia_tpu_torch.cli import ccheck
+
+    reset_counts()
+    out, prof, wall = run_ccheck(ccheck.main, argv, profile=True)
+    counts = ccheck.counts()
+    if not (counts["myers.kernel_launches"] == 1 and counts["dp.kernel_launches"] > 0
+            and counts["ccheck.device_entries"] > 0
+            and counts["myers.plain_calls"] == counts["dp.plain_calls"] == 0):
+        raise AssertionError(f"ccheck device path not taken ({what}): {counts}")
+    return out, prof, wall, counts
+
+
+def phase_ccheck_golden() -> None:
+    d = os.path.join(REPO, "tests", "golden", "ccheck")
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        for argv, golden in ((["cc.maln.1"], "prose.txt"),
+                             (["-T", "-a", "cc.maln.1"], "table_a.txt")):
+            out, _, wall, counts = run_port_ccheck(argv, golden)
+            with open(golden, "rb") as f:
+                if out != f.read():
+                    raise AssertionError(f"ccheck {' '.join(argv)} differs from {golden}")
+            say(f"ccheck golden: {' '.join(argv)} byte-identical to "
+                f"tests/golden/ccheck/{golden} ({wall:.3f} s); {json.dumps(counts)}")
+    finally:
+        os.chdir(cwd)
+
+
+def ccheck_workload(n_endo: int, n_cont: int) -> tuple[list[str], str]:
+    """Writes phase 11's sample: reads of an mt311-derived sample and of a
+    contaminant, and the resolved mt311 as reference.  Returns the mia
+    arguments and the maln root."""
+    from mia_tpu.models.simulate import SimConfig, simulate_reads
+    from mia_tpu_torch import testing as T
+
+    d = os.path.join(WORK, "ccheck")
+    os.makedirs(d)
+    reference, sample, contaminant = T.ccheck_sample(seed=41)
+    ref_fn, frag_fn = os.path.join(d, "mt311_resolved.fna"), os.path.join(d, "reads.fastq")
+    with open(ref_fn, "w") as f:
+        f.write(">mt311_resolved\n")
+        for i in range(0, len(reference), 70):
+            f.write(reference[i : i + 70] + "\n")
+    with open(frag_fn, "w") as f:
+        for tag, src, n, seed in (("e", sample, n_endo, 42), ("c", contaminant, n_cont, 43)):
+            for name, seq, qual in simulate_reads(
+                src, SimConfig(num_reads=n, mean_len=60, seed=seed)
+            ):
+                f.write(f"@{tag}_{name}\n{seq}\n+\n{qual}\n")
+    return (["-r", ref_fn, "-f", frag_fn, "-c", "-u", "-k", "12",
+             "-s", os.path.join(REPO, SUBMAT)], os.path.join(d, "out.maln"))
+
+
+def phase_ccheck_e2e(n_endo: int = 9000, n_cont: int = 1000) -> dict:
+    from mia_tpu.cli.ccheck import find_maln
+    from mia_tpu.cli.ccheck import main as tpu_main
+
+    args, root = ccheck_workload(n_endo, n_cont)
+    t0 = time.time()
+    run_port(args, root)
+    t_mia = time.time() - t0
+    maln = find_maln(root + ".1")
+    os.environ.pop("MIA_JAX_PLATFORM", None)  # mia_tpu's CLI would import jax for it
+    launches = 0
+    for argv in (["-a", maln], ["-T", "-a", maln]):
+        what = " ".join(argv[:-1])
+        out, prof, t_torch, counts = run_port_ccheck(argv, what)
+        want, _, t_native = run_ccheck(tpu_main, ["--engine", "native", *argv], profile=False)
+        if out != want:
+            raise AssertionError(f"ccheck {what} on the {n_endo + n_cont}-read sample "
+                                 f"differs from mia_tpu --engine native")
+        launches += counts["myers.kernel_launches"]
+        lines = out.decode().splitlines()
+        if "-T" in argv:
+            result = "table row " + lines[1]
+        else:
+            result = "; ".join(ln.strip() for ln in lines if "alignment distance" in ln
+                               or "polluting" in ln)
+        ph = prof["phases_s"]
+        say(f"ccheck e2e {what}: {n_endo} + {n_cont} reads, final maln "
+            f"{os.path.basename(maln)}: {result}; stdout byte-identical to "
+            f"mia_tpu --engine native; {json.dumps(counts)}")
+        say(f"ccheck e2e {what}: wall s in this process, torch {t_torch:.3f} "
+            f"(Myers {ph['ccheck.myers']:.3f}, realignment {ph['ccheck.realign']:.3f}), "
+            f"native {t_native:.3f}; assembly by the port's mia {t_mia:.3f}")
+    return {"myers.kernel_launches": launches}
+
 
 def main() -> int:
     t_start = t0 = time.time()
@@ -417,6 +633,9 @@ def main() -> int:
     args = e2e_workload()
     main_counts = run_e2e("e2e", args, hp=False, new_process=True)
     hp_counts = run_e2e("e2e_hp", [*args, "-h"], hp=True, new_process=False)
+    myers_kern = phase_myers_kernel(dev)
+    phase_ccheck_golden()
+    cc_counts = phase_ccheck_e2e()
     if any("jax" in m.split(".")[0] for m in sys.modules):
         raise AssertionError("jax was imported")
     say(json.dumps({"kernels": [{
@@ -441,6 +660,14 @@ def main() -> int:
         # both e2e paths run it: their launches together
         "launches": main_counts["cons.kernel_launches"] + hp_counts["cons.kernel_launches"],
         **cons_kern,
+    }, {
+        "name": "myers_waves",
+        "route": "cuda",
+        "source": "mia_tpu_torch/csrc/myers_waves.cu",
+        "replaces": "mia_tpu/ops/myers_jax.py:36",
+        # both ccheck runs of the e2e path: one launch each
+        "launches": cc_counts["myers.kernel_launches"],
+        **myers_kern,
     }]}))
     say(f"total: {time.time() - t_start:.1f} s")
     say(nvidia_smi())

@@ -1,0 +1,441 @@
+"""Contamination analysis engine of the port (ccheck, src/ccheck.cc).
+
+Port of :mod:`mia_tpu.core.contamination` under ``--engine torch``: the two
+device stages run on the port's device, everything else is imported.
+
+* The Myers alignment of the contaminant consensus against the assembly
+  (``myers_diff_torch``: the wavefront kernel ``csrc/myers_waves.cu`` on a
+  card, its plain PyTorch version on the CPU).
+* The pass-1 read realignment (:func:`_realign_all`): every read whose
+  lifted window fits the device window is scored by the port's
+  :class:`~mia_tpu_torch.core.torch_engine.Pass1Scorer` (the fused entry
+  kernel), and the host rebuilds the traceback (``BatchHost.finish``); the
+  rest go to the native window solver and the per-read Python DP, exactly
+  as in ``mia_tpu``.
+
+Unlike ``mia_tpu``, a device failure raises: neither stage falls back to
+the host without a word.  ``device_entries`` / ``host_entries`` count the
+reads realigned on the device and on the host.
+"""
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+
+from mia_tpu.core.contamination import (
+    EFFECTIVE,
+    MAXWHATSITS,
+    STRONG,
+    WEAK,
+    CachedPwaln,
+    Whatsit,
+    _ch,
+    _python_realign_one,
+    consistent,
+    fixup_name,
+    is_transversion,
+    is_weakly_diagnostic,
+    lift_over,
+    merge_whatsit,
+    mk_dp_list,
+    overlapped_positions,
+    print_results,
+    update_class,
+)
+from mia_tpu.core.jax_engine import L_MAX, MAX_INTERVALS, WIN_W, pack_s2c
+from mia_tpu.core.types import MapAlignment
+from mia_tpu.ops.myers import UINT_MAX, Mode
+from mia_tpu.utils import profiling
+from mia_tpu.utils.encoding import encode_seq
+
+from ..ops.myers_torch import myers_diff_torch
+from .torch_engine import Pass1Scorer
+
+device_entries = 0
+host_entries = 0
+
+
+def reset_counts() -> None:
+    global device_entries, host_entries
+    device_entries = 0
+    host_entries = 0
+
+
+def _solve_device(bh, reads, wlo, whi, lens, submat, big_ref: str, device) -> dict:
+    """Score every read whose window fits the device window on the port's
+    scorer, in chunks of its batch, and rebuild the winners' tracebacks on
+    the host; returns {read index: CachedPwaln} for the reads finished."""
+    global device_entries
+    ws = np.maximum(wlo - 2, 0)
+    dev = [j for j in range(len(reads))
+           if whi[j] - ws[j] <= WIN_W and lens[j] <= L_MAX and lens[j] > 0]
+    solved: dict[int, CachedPwaln] = {}
+    if not dev:
+        return solved
+    codes = encode_seq(big_ref)
+    scorer = Pass1Scorer(codes, codes, len(big_ref), submat, device=device)
+    cap = bh.TRACE_CAP
+    for c0 in range(0, len(dev), scorer.E):
+        chunk = dev[c0 : c0 + scorer.E]
+        m = len(chunk)
+        a2, o2, l2 = bh.pack_reads([reads[j] for j in chunk])
+        s2c = pack_s2c(a2, o2[:-1], l2)
+        ivl = np.zeros((m, MAX_INTERVALS, 2), np.int32)
+        ivl[:, 0, 0] = wlo[chunk] - ws[chunk]
+        ivl[:, 0, 1] = whi[chunk] - ws[chunk]
+        h = scorer.dispatch_entries(
+            np.zeros(m, np.int8), ws[chunk], ivl, s2c, l2, np.zeros(m, np.int8),
+        )
+        best, aecl = scorer.collect_entries(h)
+        device_entries += m
+        aec = (aecl + ws[chunk]).astype(np.int32)
+        ivg = np.zeros((m, 1, 2), np.int32)
+        ivg[:, 0, 0] = wlo[chunk]
+        ivg[:, 0, 1] = whi[chunk]
+        meta, ra, fa = bh.finish(
+            a2, o2[:-1], l2, np.zeros(m, np.uint8), np.zeros(m, np.uint8),
+            best.astype(np.int32), aec, ivg,
+        )
+        for t, j in enumerate(chunk):
+            n = int(meta[t, 3])
+            if n < 0:
+                continue
+            solved[j] = CachedPwaln(
+                start=int(meta[t, 1]) - int(wlo[j]),
+                ref_seq=ra[t * cap : t * cap + n].decode("latin-1"),
+                frag_seq=fa[t * cap : t * cap + n].decode("latin-1"),
+            )
+    return solved
+
+
+def _realign_all(maln, aln_con: str, aln_ass: str, submat, device=None) -> list[CachedPwaln]:
+    """Pass-1 read re-alignments to the lifted contaminant windows
+    (src/ccheck.cc:550-603), as ``mia_tpu``'s ``_realign_all(engine="jax")``
+    with the port's scorer: windows that fit the device window score on
+    ``device`` with the native traceback (``mia_p1_finish``); the rest go
+    to the threaded native solver (``mia_rei_solve``) and, where it gives
+    up, to the exact per-read Python DP."""
+    global host_entries
+    from mia_tpu.core.hostbatch import STATUS_OK, BatchHost
+
+    jobs: list[tuple[str, str, str]] = []
+    for s in maln.aln_seqs:
+        parts: list[str] = []
+        for i, nt in enumerate(s.seq):
+            if nt != "-":
+                parts.append(nt)
+            ins = s.ins.get(i)
+            if ins:
+                parts.append(ins)
+        the_read = "".join(parts)
+        lifted = lift_over(aln_con, aln_ass, s.start, s.end + 2)
+        ref_for_mia = "".join(
+            c.upper() if c.upper() in "ACGT" else "N" for c in lifted
+        )
+        jobs.append((the_read, lifted, ref_for_mia))
+
+    cached = [CachedPwaln() for _ in jobs]
+    live = [i for i, (r, _, rm) in enumerate(jobs) if r and rm]
+    if live:
+        big_ref = "".join(jobs[i][2] for i in live)
+        offs = np.zeros(len(live) + 1, np.int64)
+        np.cumsum(
+            np.fromiter((len(jobs[i][2]) for i in live), np.int64, len(live)),
+            out=offs[1:],
+        )
+        bh = BatchHost.create(big_ref, big_ref, len(big_ref), submat, None, -1, False, 0, 0)
+        if bh is None:
+            raise RuntimeError(
+                "--engine torch needs the native host library (make -C native)"
+            )
+        reads = [jobs[i][0] for i in live]
+        _, _, lens = bh.pack_reads(reads)
+        wlo = offs[:-1].astype(np.int32)
+        whi = offs[1:].astype(np.int32)
+        solved = _solve_device(bh, reads, wlo, whi, lens, submat, big_ref, device)
+
+        rest = [j for j in range(len(live)) if j not in solved and lens[j] > 0]
+        host_entries += len(rest)
+        CHUNK = 8192
+        cap = bh.TRACE_CAP
+        for c0 in range(0, len(rest), CHUNK):
+            chunk = rest[c0 : c0 + CHUNK]
+            a2, o2, l2 = bh.pack_reads([reads[j] for j in chunk])
+            meta, ra, fa = bh.solve_rei(
+                a2, o2[:-1], l2,
+                np.zeros(len(chunk), np.uint8),
+                wlo[chunk], whi[chunk],
+            )
+            for t, j in enumerate(chunk):
+                if meta[t, 0] != STATUS_OK:
+                    continue  # per-read python path below
+                n = int(meta[t, 4])
+                solved[j] = CachedPwaln(
+                    start=int(meta[t, 2]) - int(wlo[j]),
+                    ref_seq=ra[t * cap : t * cap + n].decode("latin-1"),
+                    frag_seq=fa[t * cap : t * cap + n].decode("latin-1"),
+                )
+        bh.close()
+        for j, i in enumerate(live):
+            if j in solved:
+                cached[i] = solved[j]
+
+    for i, (the_read, lifted, ref_for_mia) in enumerate(jobs):
+        if cached[i].ref_seq or not (ref_for_mia and the_read):
+            continue
+        cached[i] = _python_realign_one(submat, ref_for_mia, the_read, len(lifted))
+    return cached
+
+
+def check_contamination(
+    maln: MapAlignment,
+    hum_ref_seq: str,
+    *,
+    adna: bool = False,
+    transversions: bool = False,
+    min_diag_posns: int = 1,
+    span_from: int = 0,
+    span_to: int = 2**31 - 1,
+    maxd: int = 0,
+    mktable: bool = False,
+    really: bool = False,
+    verbose: int = 0,
+    out=None,
+    infile: str = "",
+    device=None,
+) -> int:
+    """``mia_tpu``'s ``check_contamination`` with the Myers alignment and the
+    read realignment on ``device`` (default: ``torchcfg.select_device``);
+    returns 0 on success, 1 on the safety stop / alignment failure.  Under
+    ``mia_tpu.utils.profiling`` the two stages time as ``ccheck.myers`` and
+    ``ccheck.realign``."""
+    out = out or sys.stdout
+    err = sys.stderr
+    submat = maln.fpsm
+
+    if not maxd:
+        maxd = max(len(hum_ref_seq), len(maln.ref.seq)) // 10
+    with profiling.phase("ccheck.myers"):
+        d, aln_con, aln_ass = myers_diff_torch(
+            hum_ref_seq, Mode.GLOBAL, maln.ref.seq, maxd, device=device
+        )
+    if d == UINT_MAX:
+        err.write(
+            f"\n *** Could not align references with up to {maxd} mismatches.\n"
+            " *** This is usually a sign of trouble, but\n"
+            " *** IF AND ONLY IF YOU KNOW WHAT YOU ARE DOING, you can\n"
+            f" *** try the -d N option with N > {maxd}.\n\n"
+        )
+        return 1
+    if mktable:
+        out.write(f"{d}\t")
+    else:
+        out.write(f"  {d} alignment distance between reference and assembly.\n")
+
+    dps = mk_dp_list(aln_con, aln_ass, span_from, span_to)
+    if mktable:
+        out.write(f"{len(dps)}\t")
+    else:
+        out.write(
+            f"  {len(dps)} total differences between reference and assembly.\n"
+        )
+
+    num_strong = sum(1 for v in dps.values() if v.strength > WEAK)
+    if mktable:
+        out.write(f"{len(dps)}\t")
+    else:
+        out.write(f"  {len(dps)} diagnostic positions")
+        if span_from != 0 or span_to != 2**31 - 1:
+            out.write(f" in range [{span_from},{span_to})")
+        out.write(f", {num_strong} of which are strongly diagnostic.\n")
+
+    if num_strong < 40 and not really:
+        err.write(
+            f"\n *** Low number ({num_strong}) of diagnostic positions found.\n"
+            " *** I will stop now for your own safety.\n"
+            " *** If you are sure you want to shoot yourself\n"
+            " *** in the foot, read the man page to learn\n"
+            " *** how to lift this restriction.\n\n"
+        )
+        return 1
+
+    # ---- pass 1: find actually diagnostic positions ----
+    # all read-vs-lifted-window re-alignments run batched up front on the
+    # device (the rest on the host); the loop below only walks them
+    with profiling.phase("ccheck.realign"):
+        cached = _realign_all(maln, aln_con, aln_ass, submat, device)
+    for s, pwaln in zip(maln.aln_seqs, cached):
+        fixup_name(s)
+        lifted = lift_over(aln_con, aln_ass, s.start, s.end + 2)
+
+        # walk the global alignment to this read's span
+        p = 0
+        ass_pos = 0
+        n_aln = min(len(aln_con), len(aln_ass))
+        while ass_pos != s.start and p < n_aln:
+            if aln_ass[p] != "-":
+                ass_pos += 1
+            p += 1
+
+        in_ref = lifted[: pwaln.start] + pwaln.ref_seq
+        ir = 0  # index into in_ref
+        ifr = 0  # index into pwaln.frag_seq
+        ia = 0  # offset into assembly bases from s.start
+        ifa = 0  # index into s.seq
+
+        while (
+            ass_pos != s.end + 1
+            and _ch(aln_con, p) != "\0"
+            and _ch(aln_ass, p) != "\0"
+            and ir < len(in_ref)
+            and _ch(maln.ref.seq, s.start + ia) != "\0"
+            and _ch(s.seq, ifa) != "\0"
+            and _ch(pwaln.frag_seq, ifr) != "\0"
+        ):
+            if is_weakly_diagnostic(aln_con[p], aln_ass[p]):
+                dpv = dps.get(ass_pos)
+                if dpv is None:
+                    err.write(f"diagnostic site not found: {ass_pos}\n")
+                else:
+                    if _ch(pwaln.frag_seq, ifr) == _ch(s.seq, ifa):
+                        maybe_clean = consistent(adna, dpv.assembly, _ch(s.seq, ifa))
+                        maybe_dirt = consistent(
+                            adna, dpv.consensus, _ch(pwaln.frag_seq, ifr)
+                        )
+                        if not maybe_clean and maybe_dirt and dpv.strength == WEAK:
+                            dpv.contaminant = _ch(pwaln.frag_seq, ifr)
+                            dpv.strength = EFFECTIVE
+            if _ch(aln_con, p) != "-":
+                while True:
+                    ir += 1
+                    ifr += 1
+                    if _ch(in_ref, ir) != "-":
+                        break
+            if _ch(aln_ass, p) != "-":
+                ass_pos += 1
+                while True:
+                    ia += 1
+                    ifa += 1
+                    if _ch(maln.ref.seq, s.start + ia) != "-":
+                        break
+            p += 1
+
+    # drop surviving weak positions
+    dps = {k: v for k, v in dps.items() if v.strength != WEAK}
+
+    t = sum(
+        1 for v in dps.values() if is_transversion(v.consensus, v.assembly)
+    )
+    if mktable:
+        out.write(f"{t}\t{num_strong}\t")
+    else:
+        out.write(f"  {len(dps)} effectively diagnostic positions")
+        if span_from != 0 or span_to != 2**31 - 1:
+            out.write(f" in range [{span_from},{span_to})")
+        out.write(f", {t} of which are transversions.\n\n")
+
+    keys = sorted(dps.keys())
+
+    # ---- pass 2: classify fragments ----
+    summary = [0] * MAXWHATSITS
+    summary2 = [0] * MAXWHATSITS
+    bfrags: dict[str, tuple[Whatsit, int]] = {}
+    bfrags2: dict[str, tuple[Whatsit, int]] = {}
+
+    for s, cpw in zip(maln.aln_seqs, cached):
+        klass = Whatsit.unknown
+        klass2 = Whatsit.unknown
+        votes = 0
+        votes2 = 0
+
+        lo, hi = overlapped_positions(keys, s)
+        if hi - lo >= min_diag_posns:
+            p = 0
+            ass_pos = 0
+            n_aln = min(len(aln_con), len(aln_ass))
+            while ass_pos != s.start and p < n_aln:
+                if aln_ass[p] != "-":
+                    ass_pos += 1
+                p += 1
+
+            lifted = lift_over(aln_con, aln_ass, s.start, s.end + 1)
+            in_ref = lifted[: cpw.start] + cpw.ref_seq
+            ir = 0
+            ifr = 0
+            ia = 0
+            ifa = 0
+
+            while (
+                ass_pos != s.end + 1
+                and _ch(aln_con, p) != "\0"
+                and _ch(aln_ass, p) != "\0"
+                and ir < len(in_ref)
+                and _ch(maln.ref.seq, s.start + ia) != "\0"
+                and _ch(s.seq, ifa) != "\0"
+                and _ch(cpw.frag_seq, ifr) != "\0"
+            ):
+                if is_weakly_diagnostic(aln_con[p], aln_ass[p]):
+                    dpv = dps.get(ass_pos)
+                    if dpv is not None and _ch(cpw.frag_seq, ifr) == _ch(s.seq, ifa):
+                        maybe_clean = consistent(adna, dpv.assembly, _ch(s.seq, ifa))
+                        maybe_dirt = consistent(
+                            adna, dpv.consensus, _ch(cpw.frag_seq, ifr)
+                        )
+                        klass2, votes2 = update_class(
+                            klass2, votes2, maybe_clean, maybe_dirt and not maybe_clean
+                        )
+                        if dpv.strength == STRONG:
+                            klass, votes = update_class(
+                                klass, votes, maybe_clean, maybe_dirt
+                            )
+                if _ch(aln_con, p) != "-":
+                    while True:
+                        ir += 1
+                        ifr += 1
+                        if _ch(in_ref, ir) != "-":
+                            break
+                if _ch(aln_ass, p) != "-":
+                    ass_pos += 1
+                    while True:
+                        ia += 1
+                        ifa += 1
+                        if _ch(maln.ref.seq, s.start + ia) != "-":
+                            break
+                p += 1
+
+        if s.segment == "b":
+            bfrags[s.id] = (klass, votes)
+            bfrags2[s.id] = (klass2, votes2)
+        elif s.segment in ("f", "a"):
+            if s.segment == "f":
+                i1 = bfrags.get(s.id)
+                if i1 is None:
+                    err.write(f"{s.id}/f is missing its back.\n")
+                else:
+                    votes += i1[1]
+                    klass = merge_whatsit(klass, i1[0])
+                i2 = bfrags2.get(s.id)
+                if i2 is None:
+                    err.write(f"{s.id}/f is missing its back.\n")
+                elif i1 is not None:
+                    # reference quirk: the second estimate merges the FIRST
+                    # map's entry (src/ccheck.cc:843-852)
+                    votes2 += i1[1]
+                    klass2 = merge_whatsit(klass2, i1[0])
+            summary[klass] += 1
+            summary2[klass2] += 1
+        else:
+            err.write(f"don't know how to handle fragment type {s.segment}\n")
+
+    if not mktable:
+        t = sum(1 for v in dps.values() if v.strength == STRONG)
+        out.write(f"  strongly diagnostic positions: {t}\n")
+    print_results(summary, mktable, out)
+    if not mktable:
+        out.write(f"  effectively diagnostic positions: {len(dps)}\n")
+    else:
+        out.write(f"{len(dps)}\t")
+    print_results(summary2, mktable, out)
+    out.write("\n")
+    return 0

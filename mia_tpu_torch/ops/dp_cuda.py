@@ -20,7 +20,10 @@ Tensors on the CPU go to the plain versions,
 :func:`~mia_tpu_torch.ops.dp_torch.entries_core_hp_plain`.  CUDA tensors go
 to the kernel, or the call raises: there is no fallback.
 ``kernel_launches`` / ``plain_calls`` and ``hp_kernel_launches`` /
-``hp_plain_calls`` count the two routes of each.
+``hp_plain_calls`` count the two routes of each.  Both kernels share one
+library (``torchcfg.kernel_library``) with the consensus column counts
+(``csrc/column_counts.cu``) and ccheck's Myers wavefront
+(``csrc/myers_waves.cu``), whose wrappers use :func:`check_tensor` too.
 """
 from __future__ import annotations
 

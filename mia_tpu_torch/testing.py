@@ -274,3 +274,91 @@ def random_records(n: int, R: int, seed: int = 0, mean_len: int = 60):
         o += ln
     maln.set_aln_seqs(recs)
     return maln
+
+
+# ---- ccheck: Myers pairs and the mt311-derived sample ----
+
+_IUPAC = "ACGTRYSWKMBDHVN"
+
+
+def resolve_iupac(seq: str, rng) -> str:
+    """``seq`` upper-cased with every IUPAC code replaced by a compatible
+    base drawn by ``rng``: a concrete sequence that matches ``seq``
+    everywhere."""
+    from mia_tpu.utils.encoding import IUPAC_BITMAP
+
+    bm = IUPAC_BITMAP[np.frombuffer(seq.upper().encode(), np.uint8)]
+    base_bm = IUPAC_BITMAP[np.frombuffer(b"ACGT", np.uint8)]
+    ok = (bm[:, None] & base_bm[None, :]) != 0
+    pick = np.argmax(ok * rng.random(ok.shape), axis=1)
+    return np.frombuffer(b"ACGT", np.uint8)[pick].tobytes().decode()
+
+
+def mutate(seq: str, rng, sub: float, indel: float, max_indel: int = 3,
+           alpha: str = "ACGT") -> str:
+    """``seq`` with a share ``sub`` of its bases substituted (by a different
+    base) and a share ``indel`` of its positions starting an insertion or a
+    deletion of 1..``max_indel`` bases."""
+    out: list[str] = []
+    i = 0
+    while i < len(seq):
+        r = rng.random()
+        if r < indel / 2:      # deletion
+            i += int(rng.integers(1, max_indel + 1))
+            continue
+        if r < indel:          # insertion before this base
+            out.append("".join(rng.choice(list(alpha), int(rng.integers(1, max_indel + 1)))))
+        c = seq[i]
+        if rng.random() < sub:
+            c = str(rng.choice([b for b in alpha if b != c.upper()]))
+        out.append(c)
+        i += 1
+    return "".join(out)
+
+
+def myers_pairs(seed: int = 0) -> list[tuple]:
+    """(seq_a, mode, seq_b, maxd) cases for the Myers aligner: an IUPAC
+    panel against concrete sequences, mutated copies with prefixes added or
+    cut for the two prefix modes, identical and empty sequences, maxd too
+    small (no alignment), pairs whose distance exceeds a length, and a
+    pair that differs completely."""
+    from mia_tpu.ops.myers import Mode
+
+    rng = np.random.default_rng(seed)
+    out: list[tuple] = []
+    for mode in Mode:
+        for _ in range(3):
+            n = int(rng.integers(20, 160))
+            a = "".join(rng.choice(list(_IUPAC), n))
+            b = mutate(resolve_iupac(a, rng), rng, 0.05, 0.03)
+            if mode == Mode.IS_PREFIX:
+                b += "".join(rng.choice(list("ACGT"), int(rng.integers(0, 12))))
+            elif mode == Mode.HAS_PREFIX:
+                a += "".join(rng.choice(list("ACGT"), int(rng.integers(0, 12))))
+            out.append((a, mode, b, max(8, (len(a) + len(b)) // 8)))
+            out.append((a, mode, b, 3))                      # maxd too small
+        for la, lb in ((0, 0), (0, 5), (4, 0), (3, 11), (12, 2)):  # d > a length
+            a = "".join(rng.choice(list(_IUPAC), la))
+            b = "".join(rng.choice(list("ACGT"), lb))
+            out.append((a, mode, b, la + lb + 2))
+        s = "".join(rng.choice(list("ACGT"), 50))
+        out.append((s, mode, s, 5))                          # identical
+        out.append(("A" * 40, mode, "C" * 40, 60))           # all mismatches
+    return out
+
+
+def ccheck_sample(seed: int = 0) -> tuple[str, str, str]:
+    """(reference, sample, contaminant) derived from mt311: ``reference``
+    resolves mt311's IUPAC codes to compatible bases, ``sample`` is that
+    with ~1% substitutions and a few short indels (so mt311 and an assembly
+    of it differ at well over 40 strongly diagnostic positions), and
+    ``contaminant`` is another resolution of mt311 (the builtin panel,
+    ``mia_tpu/data/mt311.fa``: 16,619 columns, IUPAC codes and lower case
+    included)."""
+    from mia_tpu.cli.ccheck import load_mt311
+
+    rng = np.random.default_rng(seed)
+    panel = load_mt311()
+    reference = resolve_iupac(panel, rng)
+    sample = mutate(reference, rng, 0.01, 0.0005)
+    return reference, sample, resolve_iupac(panel, rng)

@@ -1,5 +1,6 @@
 """Process-wide PyTorch set-up for the port: device selection and the
-build of the hand-written CUDA kernels.
+build of the hand-written CUDA kernels (the entry scorers, the consensus
+column counts and ccheck's Myers wavefront).
 
 Port of :mod:`mia_tpu.utils.jaxcfg`.  JAX's "compile once" was its
 persistent compilation cache; here it is one shared library built by
@@ -88,19 +89,30 @@ def expected_constants() -> list[int]:
             GEP, HIM, _LOW, HPW_ROUTE, len(hp_pengop_table())]
 
 
+def expected_myers_constants() -> list[int]:
+    """The values ``mia_myers_constants`` must report: the sentinel of
+    out-of-range diagonals (``myers_torch._NEG``)."""
+    from ..ops.myers_torch import _NEG
+
+    return [_NEG]
+
+
 def check_constants(lib) -> None:
     """Raise unless the kernel library was built with the constants the
     Python side uses (a kernel built for other bounds or penalties would
-    read too few intervals, overrun its row buffer or score differently)."""
-    want = expected_constants()
-    buf = (ctypes.c_int32 * len(want))()
-    n = lib.mia_dp_entries_constants(buf, len(want))
-    got = list(buf)
-    if n != len(want) or got != want:
-        raise RuntimeError(
-            f"kernel library constants {got} (count {n}) differ from the "
-            f"Python side's {want}: rebuild from matching sources"
-        )
+    read too few intervals, overrun its row buffer or score differently; a
+    Myers kernel with another sentinel would write another history)."""
+    for entry, expected in (("mia_dp_entries_constants", expected_constants),
+                            ("mia_myers_constants", expected_myers_constants)):
+        want = expected()
+        buf = (ctypes.c_int32 * len(want))()
+        n = getattr(lib, entry)(buf, len(want))
+        got = list(buf)
+        if n != len(want) or got != want:
+            raise RuntimeError(
+                f"kernel library constants {got} (count {n}, {entry}) differ "
+                f"from the Python side's {want}: rebuild from matching sources"
+            )
 
 
 def _run_all(cmds: list[list[str]]) -> list[str]:
@@ -174,6 +186,10 @@ def kernel_library() -> ctypes.CDLL:
         ]
         lib.mia_dp_entries_constants.restype = ci
         lib.mia_dp_entries_constants.argtypes = [vp, ci]
+        lib.mia_myers_waves.restype = ci
+        lib.mia_myers_waves.argtypes = [vp, ci, vp, ci, ci, ci, ci, vp, vp, vp]
+        lib.mia_myers_constants.restype = ci
+        lib.mia_myers_constants.argtypes = [vp, ci]
         check_constants(lib)
         _LIB = lib
     return _LIB

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
 entry scorer and its -h instantiation (mia_tpu_torch/csrc/dp_entries.cu,
-also against the exact host DP) and the consensus column counts
-(mia_tpu_torch/csrc/column_counts.cu, also against the host accumulator).
+also against the exact host DP), the consensus column counts
+(mia_tpu_torch/csrc/column_counts.cu, also against the host accumulator)
+and ccheck's Myers wavefront (mia_tpu_torch/csrc/myers_waves.cu, also
+against the host aligner).
 
 Needs an NVIDIA card: without one every test skips (a CUDA kernel has no
 CPU mode).  The repository's conftest imports jax, which the machine with
@@ -17,7 +19,7 @@ import torch
 
 from mia_tpu_torch import testing as T
 from mia_tpu_torch.core.torch_engine import Pass1Scorer, state_from_numpy
-from mia_tpu_torch.ops import consensus_torch, dp_cuda, dp_torch
+from mia_tpu_torch.ops import consensus_torch, dp_cuda, dp_torch, myers_cuda, myers_torch
 
 pytestmark = pytest.mark.cuda
 
@@ -133,3 +135,64 @@ def test_column_counts_kernel_rejects_mixed_devices(cuda):
     args[5] = args[5].cpu()
     with pytest.raises(ValueError):
         consensus_torch.column_counts(*args, 100)
+
+
+def _myers_case(kind, seed):
+    """(seq_a, mode, seq_b, maxd) of one kernel test case."""
+    from mia_tpu.cli.ccheck import load_mt311
+    from mia_tpu.models.simulate import random_reference
+    from mia_tpu.ops.myers import Mode
+
+    rng = np.random.default_rng(seed)
+    if kind == "pairs":
+        return T.myers_pairs(seed)
+    panel = load_mt311()
+    if kind == "mt311":
+        b = T.ccheck_sample(seed)[1]
+    elif kind == "mt311_5pct":
+        b = T.mutate(T.ccheck_sample(seed)[0], rng, 0.05, 0.002)
+    elif kind == "unrelated":
+        b = random_reference(16569, seed)
+    elif kind == "long":  # bitmaps too long for shared memory: read from global
+        panel = panel * 7
+        b = T.mutate(T.resolve_iupac(panel, rng), rng, 0.0005, 0.0001)
+        return [(panel, Mode.GLOBAL, b, 200)]
+    else:  # a 3 kb slice of mt311 against a mutated copy
+        panel = panel[2000:5000]
+        b = T.mutate(T.resolve_iupac(panel, rng), rng, 0.03, 0.005)
+    return [(panel, Mode.GLOBAL, b, max(len(panel), len(b)) // 10)]
+
+
+@pytest.mark.parametrize("kind,seed", [("pairs", 0), ("pairs", 1), ("slice", 2),
+                                       ("mt311", 3), ("mt311_5pct", 4),
+                                       ("unrelated", 5), ("long", 6)])
+def test_myers_kernel_matches_plain_and_host(cuda, kind, seed):
+    from mia_tpu.ops.myers import Mode, UINT_MAX, myers_diff
+
+    for a, mode, b, maxd in _myers_case(kind, seed):
+        maxd = min(maxd, len(a) + len(b))
+        if maxd <= 0:
+            continue
+        bm_a, bm_b = myers_torch.bitmaps(a, b)
+        flags = dict(maxd=maxd, mode_is_prefix=mode == Mode.IS_PREFIX,
+                     mode_has_prefix=mode == Mode.HAS_PREFIX)
+        args = (torch.from_numpy(bm_a).to(cuda), torch.from_numpy(bm_b).to(cuda),
+                len(a), len(b))
+        myers_cuda.reset_counts()
+        kd, kk, khist = myers_cuda.waves(*args, **flags)
+        torch.cuda.synchronize()
+        assert (myers_cuda.kernel_launches, myers_cuda.plain_calls) == (1, 0)
+        pd, pk, phist = myers_torch.waves_plain(*args, **flags)
+        assert (kd, kk) == (pd, pk), (kind, len(a), len(b), maxd)
+        assert torch.equal(khist, phist)
+        want = myers_diff(a, mode, b, maxd)
+        assert myers_torch.myers_diff_torch(a, mode, b, maxd, device=cuda) == want
+        if kind == "unrelated":
+            assert want[0] == UINT_MAX and kd == maxd
+
+
+def test_myers_kernel_rejects_mixed_devices(cuda):
+    bm_a, bm_b = (torch.from_numpy(x) for x in myers_torch.bitmaps("ACGTA", "ACGA"))
+    with pytest.raises(ValueError):
+        myers_cuda.waves(bm_a.to(cuda), bm_b, 5, 4, maxd=3, mode_is_prefix=False,
+                         mode_has_prefix=False)

@@ -130,13 +130,21 @@ def test_kernel_library_path_keys_on_sources(tmp_path, monkeypatch):
 class _FakeKernelLibrary:
     """Stands in for the ctypes library: reports the given constants."""
 
-    def __init__(self, values):
+    def __init__(self, values, myers=None):
         self.values = values
+        self.myers = torchcfg.expected_myers_constants() if myers is None else myers
+
+    @staticmethod
+    def _fill(values, buf, n):
+        for i, v in enumerate(values[:n]):
+            buf[i] = v
+        return len(values)
 
     def mia_dp_entries_constants(self, buf, n):
-        for i, v in enumerate(self.values[:n]):
-            buf[i] = v
-        return len(self.values)
+        return self._fill(self.values, buf, n)
+
+    def mia_myers_constants(self, buf, n):
+        return self._fill(self.myers, buf, n)
 
 
 def _constants_with(index, delta):
@@ -166,6 +174,13 @@ def test_kernel_library_constants_checked(values, ok):
             torchcfg.check_constants(lib)
 
 
+@pytest.mark.parametrize("myers", [[-(2**30) + 1], [-(2**30), 0]])
+def test_kernel_library_myers_constants_checked(myers):
+    assert torchcfg.expected_myers_constants() == [-(2**30)]
+    with pytest.raises(RuntimeError, match="mia_myers_constants"):
+        torchcfg.check_constants(_FakeKernelLibrary(torchcfg.expected_constants(), myers))
+
+
 def test_kernel_constants_match_python_side():
     from mia_tpu.constants import GEP, GOP, HIM, PSSM_DEPTH
     from mia_tpu_torch.ops.dp_torch import _LOW
@@ -180,6 +195,9 @@ def test_kernel_constants_match_python_side():
         assert f"constexpr int {decl}" in src, decl
     assert (je.WIN_W, je.MAX_INTERVALS, je.L_MAX, PSSM_DEPTH, GOP, GEP, je.HPW_ROUTE,
             len(je.hp_pengop_table())) == (384, 16, 256, 15, 1000, 200, 32, 11)
+    src = open(os.path.join(torchcfg.CSRC_DIR, "myers_waves.cu")).read()
+    assert "constexpr int kNeg = -(1 << 30);" in src
+    assert torchcfg.expected_myers_constants() == [-(1 << 30)]
 
 
 NO_JAX_RUN = r"""
