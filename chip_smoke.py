@@ -6,13 +6,16 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure exits non-zero before the
-result line:
+result line.  Every reference is the port's own: its plain PyTorch versions,
+its host code (``--engine native``, the host aligner, the host consensus
+counts) and the committed goldens.
 
 1. device: a CUDA card must be present; prints nvidia-smi's name and power
    limit.
-2. build: the native host library (``native/``, through ``mia_tpu.io.native``)
-   and the CUDA kernel library (``mia_tpu_torch/csrc``, one nvcc per source,
-   all at once); prints ptxas's registers, spills and shared memory.
+2. build: the native host library (``native/``, through
+   ``mia_tpu_torch.io.native``) and the CUDA kernel library
+   (``mia_tpu_torch/csrc``, one nvcc per source, all at once); prints ptxas's
+   registers, spills and shared memory.
 3. kernel: the fused entry scorer against its plain PyTorch version at the
    production shape (E=16384 entries, 384 columns, 256 rows), exact int32
    equality, and 32 entries against the exact host DP (dp_numpy.solve_sg);
@@ -28,14 +31,14 @@ result line:
 7. end to end: 20,000 simulated reads on a 16,569-column circular reference
    with ``-c -u -k 12 -s ancient.submat.solexa.pe.txt``: the port under
    ``--engine torch`` (in this process, launch counts reset just before)
-   must write the same maln bytes as ``mia_tpu --engine native``, with
+   must write the same maln bytes as its own ``--engine native``, with
    scorer and consensus kernel launches, pass-1 device reads and realign
    device entries > 0, no call of a plain version and no host fallback of
    the consensus.  Both engines are timed in this process (warm) and as a
    new process.
 8. -h end to end: the same workload with ``-h``, in this process only,
-   against ``mia_tpu --engine native -h``, the ``-h`` scorer's launches in
-   place of the scorer's.
+   against ``--engine native -h``, the ``-h`` scorer's launches in place of
+   the scorer's.
 9. Myers kernel: ccheck's wavefront at full size, mt311 (16,619 columns)
    against three ~16.6 kb sequences (an mt311-derived sample with ~1%
    divergence, one with ~5%, an unrelated random one that runs every wave
@@ -53,14 +56,41 @@ result line:
     a contaminant (another resolution of mt311), assembled by the port's mia
     (``-c -u -k 12 -s ancient.submat.solexa.pe.txt``, the resolved mt311 as
     reference); ccheck on the final maln with the builtin mt311, ``-a`` and
-    ``-T -a``: the port under ``--engine torch`` must print what
-    ``mia_tpu``'s ccheck prints under ``--engine native``, byte for byte,
-    with the launch conditions of phase 10 (counts set to 0 just before
-    each run and read just after); prints the distance, both engines' wall
-    times and the port's Myers and realignment times.
+    ``-T -a``: the port under ``--engine torch`` must print what it prints
+    under ``--engine native``, byte for byte, with the launch conditions of
+    phase 10 (counts set to 0 just before each run and read just after);
+    prints the distance, both engines' wall times and the port's Myers and
+    realignment times.
+12. last-row kernel: the general-width scorer (``dp_last_row``) against its
+    plain version at the JAX bench's full-width shape (B=512 reads of 30-119
+    bases, W=17,024 columns, L=256 rows), reference shared by the batch and
+    one per read, the whole [B, W] row exact; 32 rows against
+    dp_numpy.solve_sg; prints both versions' times.
+13. pileup and consensus-call kernels against their plain versions at
+    B=2,048, W=17,024, L=256, exact, with times.
+14. assembly step: dp=4, sp=2 with every shard on cuda:0, B=2,048 reads drawn
+    from a 17,024-column reference with 5% of their bases redrawn: (best, aec)
+    equal to the single-device scorer's, whose rows for the first dp shard
+    equal the plain version's on these inputs, the consensus equal to a numpy
+    rebuild; the three kernels' launch counts set to 0 just before and read
+    just after.
+15. sharded scorer and consensus counts: E=16,384 entries over 4 shards equal
+    to the single scorer; the record set of phase 5 over 4 shards equal to
+    one shard and to the host counts.
+16. sharded end to end: the 20k-read assembly of phase 7 with a list of 4
+    devices (all cuda:0) byte-identical to the single-device run, with
+    ``dp.shards`` = 4, four launches where the single run had one, and no
+    plain call.
+17. dry run: ``mia_tpu_torch.entry.dryrun_multichip(4)``.
 
-The last lines are a JSON line of per-kernel numbers, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+The last lines are a JSON line of per-kernel numbers (``ms``, the time of a
+call of the kernel's wrapper, for every kernel; the plain version's time; the
+bound, with padded per-read arrays counted up to each read's own length, and
+what bounds it; a library call's time where one computes the same scatter;
+``kernel_only_ms``, the bare launch, for the two kernels small enough that
+the wrapper's host work is most of ``ms``), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
+the JAX package.
 """
 from __future__ import annotations
 
@@ -74,9 +104,42 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, ".smoke")
-SUBMAT = os.path.join("mia_tpu", "data", "matrices", "ancient.submat.solexa.pe.txt")
+SUBMAT = os.path.join("mia_tpu_torch", "data", "matrices", "ancient.submat.solexa.pe.txt")
 E_BATCH, L_ROWS = 16384, 256
 N_COLS, N_RECORDS = 16569, 20000
+FW_B, FW_W = 512, 17024      # the JAX bench's full-width shape
+STEP_B = 2048                # reads of one assembly step
+N_SHARDS = 4
+
+# The card's peaks for the bounds (NVIDIA's H100 SXM data sheet): 3.35 TB/s of
+# device memory; int32 outside the tensor cores at half the float32 lanes
+# (64 of 128 per SM), one operation each where the sheet's 67 TFLOP/s counts
+# a fused multiply-add as two: 67 / 2 / 2 = 16.75 T int32 operations a second.
+PEAK_BYTES_S = 3.35e12
+PEAK_INT32_S = 16.75e12
+DP_OPS_PER_CELL = 14         # the JAX package's count (dp_pallas.py, cost_estimate)
+
+
+def bound(bytes_moved: int, int_ops: int) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and integer operations over the int32 peak."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_S * 1e3, int_ops / PEAK_INT32_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*arrays) -> int:
+    return sum(int(a.numel() * a.element_size()) if hasattr(a, "element_size")
+               else int(a.nbytes) for a in arrays)
+
+
+def read_bytes(lengths, *padded) -> int:
+    """Bytes of the [B, L] arrays ``padded`` that lie inside a read: a row
+    counts up to its read's own length, the padding after it not at all."""
+    import numpy as np
+
+    inside = int(np.clip(np.asarray(lengths, np.int64), 0, padded[0].shape[1]).sum())
+    return inside * sum(int(a.element_size()) for a in padded)
 
 
 def say(msg: str) -> None:
@@ -118,13 +181,15 @@ def cuda_ms(fn, iters: int) -> float:
 def reset_counts() -> None:
     from mia_tpu_torch.cli import ccheck
     from mia_tpu_torch.ops import consensus_torch
+    from mia_tpu_torch.parallel import sharded
 
-    ccheck.reset_counts()  # Myers, scorer, ccheck's realignment
+    ccheck.reset_counts()  # Myers, scorers, ccheck's realignment
     consensus_torch.reset_counts()
+    sharded.reset_counts()
 
 
 def phase_build() -> None:
-    from mia_tpu.io.native import native_available
+    from mia_tpu_torch.io.native import native_available
     from mia_tpu_torch.utils.torchcfg import build_kernels, kernel_library, ptxas_report
 
     t0 = time.time()
@@ -194,15 +259,17 @@ def phase_kernel(dev) -> dict:
     t = time_pair(lambda: dp_cuda.dp_entries(*args), lambda: entries_core_plain(*args),
                   T.dp_cells(d["lengths"]), "kernel")
     say(f"kernel: mean read length {float(np.mean(d['lengths'])):.1f}")
-    return {"max_abs_err": err, **t}
+    moved = nbytes(*args[:5], *args[6:], got) + read_bytes(d["lengths"], args[5])
+    return {"max_abs_err": err, **t, "library_ms": None,
+            **bound(moved, DP_OPS_PER_CELL * T.dp_cells(d["lengths"]))}
 
 
 def phase_hp_kernel(dev) -> dict:
     import numpy as np
     import torch
 
-    from mia_tpu.core.jax_engine import hp_routes_to_host
     from mia_tpu_torch import testing as T
+    from mia_tpu_torch.core.entries import hp_routes_to_host
     from mia_tpu_torch.ops import dp_cuda
     from mia_tpu_torch.ops.dp_torch import entries_core_hp_plain
 
@@ -229,14 +296,18 @@ def phase_hp_kernel(dev) -> dict:
     t = time_pair(lambda: dp_cuda.dp_entries_hp(*args), lambda: entries_core_hp_plain(*args),
                   T.dp_cells(d["lengths"]), "hp kernel")
     say(f"hp kernel: mean read length {float(np.mean(d['lengths'])):.1f}")
-    return {"max_abs_err": err, **t}
+    # the same 14 operations a cell as the plain scorer: the bound reads the
+    # DP's work, not the -h candidates on top of it
+    moved = nbytes(*args[:9], *args[10:], got) + read_bytes(d["lengths"], args[9])
+    return {"max_abs_err": err, **t, "library_ms": None,
+            **bound(moved, DP_OPS_PER_CELL * T.dp_cells(d["lengths"]))}
 
 
 def phase_consensus_kernel(dev) -> dict:
     import numpy as np
     import torch
 
-    from mia_tpu.core.columns import _record_arrays, main_column_counts
+    from mia_tpu_torch.core.columns import _record_arrays, main_column_counts
     from mia_tpu_torch import testing as T
     from mia_tpu_torch.ops import consensus_torch
 
@@ -279,14 +350,24 @@ def phase_consensus_kernel(dev) -> dict:
         f"plain version {plain_ms:.4f} ms, host main_column_counts {host_ms:.3f} ms "
         f"(host clock, records to counts); the hook with its copies "
         f"{hook_ms:.3f} ms (host clock)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    # one library call does the scatter alone: index_add_ of the score terms,
+    # columns and terms worked out beforehand (the lookups are not in it)
+    cols = torch.randint(0, N_COLS, (n_obs,), device=dev)
+    terms = torch.randint(-600, 200, (n_obs, 4), device=dev)
+    acc = torch.zeros((N_COLS, 4), dtype=torch.int64, device=dev)
+    library_ms = cuda_ms(lambda: acc.index_add_(0, cols, terms), 20)
+    say(f"consensus kernel: index_add_ of {n_obs} x 4 score terms alone "
+        f"{library_ms:.4f} ms (the scatter without the lookups)")
+    # an observation is up to 6 int64 atomic adds
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            **bound(nbytes(*args, *got), 6 * n_obs)}
 
 
-def run_mia(main, args: list[str], maln_root: str, engine: str,
-            profile: bool = False) -> dict:
-    """One mia CLI (the port's or mia_tpu's ``main``) in this process;
-    returns its profile (phases and counters) under ``profile``."""
-    from mia_tpu.utils import profiling
+def run_mia(args: list[str], maln_root: str, engine: str, profile: bool = False) -> dict:
+    """The port's mia CLI in this process; returns its profile (phases and
+    counters) under ``profile``."""
+    from mia_tpu_torch.cli.mia import main
+    from mia_tpu_torch.utils import profiling
 
     extra = ["--profile"] if profile else []
     if main([*args, "-m", maln_root, "--engine", engine, *extra]) != 0:
@@ -296,9 +377,7 @@ def run_mia(main, args: list[str], maln_root: str, engine: str,
 
 def run_port(args: list[str], maln_root: str, profile: bool = False) -> dict:
     """The port's CLI in this process under ``--engine torch``."""
-    from mia_tpu_torch.cli.mia import main
-
-    return run_mia(main, args, maln_root, "torch", profile)
+    return run_mia(args, maln_root, "torch", profile)
 
 
 def phase_golden() -> None:
@@ -318,7 +397,7 @@ def phase_golden() -> None:
 
 def e2e_workload() -> list[str]:
     """Writes the 20k-read workload; returns the mia arguments for it."""
-    from mia_tpu.models.simulate import SimConfig, random_reference, simulate_reads
+    from mia_tpu_torch.models.simulate import SimConfig, random_reference, simulate_reads
 
     d = os.path.join(WORK, "e2e")
     os.makedirs(d)
@@ -339,9 +418,8 @@ def e2e_workload() -> list[str]:
 
 def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool) -> dict:
     """One e2e path: the port in this process with every count set to 0 just
-    before it and read just after, checked byte for byte against mia_tpu
-    --engine native.  Returns the launch counts of the run."""
-    from mia_tpu.cli.mia import main as tpu_main
+    before it and read just after, checked byte for byte against the port's
+    own --engine native.  Returns the launch counts of the run."""
     from mia_tpu_torch.ops import consensus_torch, dp_cuda
 
     d = os.path.join(WORK, tag)
@@ -363,22 +441,22 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool) -> dict:
         "cons.plain_calls": consensus_torch.plain_calls,
     }
     t0 = time.time()
-    native_prof = run_mia(tpu_main, args, os.path.join(d, "native_inproc", "out.maln"),
-                          "native", profile=True)
+    native_prof = run_mia(args, os.path.join(d, "native_inproc", "out.maln"), "native",
+                          profile=True)
     t_native_warm = time.time() - t0
     times = f"wall s in this process (warm): torch {t_torch_warm:.3f}, native {t_native_warm:.3f}"
     if new_process:
         env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
 
-        def cli(module: str, engine: str) -> float:
+        def cli(engine: str) -> float:
             t0 = time.time()
-            subprocess.run([sys.executable, "-m", module, *args, "-m",
+            subprocess.run([sys.executable, "-m", "mia_tpu_torch.cli.mia", *args, "-m",
                             os.path.join(d, engine, "out.maln"), "--engine", engine],
                            env=env, check=True, capture_output=True, timeout=900)
             return time.time() - t0
 
-        times += (f"; as a new process: torch {cli('mia_tpu_torch.cli.mia', 'torch'):.3f}, "
-                  f"native {cli('mia_tpu.cli.mia', 'native'):.3f}")
+        times += (f"; as a new process: torch {cli('torch'):.3f}, "
+                  f"native {cli('native'):.3f}")
 
     want = maln_bytes(os.path.join(d, "native_inproc", "out.maln"))
     for e in engines:
@@ -401,7 +479,7 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool) -> dict:
             and checks["reiterate.device_entries"] > 0
             and checks["consensus.device_fallbacks"] == 0):
         raise AssertionError(f"device path not taken ({tag}): {checks}")
-    say(f"{tag}: 20k reads, {len(want)} maln files byte-identical to mia_tpu "
+    say(f"{tag}: 20k reads, {len(want)} maln files byte-identical to "
         f"--engine native; {json.dumps(checks)}")
     say(f"{tag}: {times}")
     say(f"{tag}: profile " + json.dumps(counters, sort_keys=True))
@@ -413,9 +491,9 @@ def myers_phase_pairs() -> list[tuple[str, str, str, int]]:
     """Phase 9's pairs: (name, mt311, other sequence, ccheck's maxd)."""
     import numpy as np
 
-    from mia_tpu.cli.ccheck import load_mt311
-    from mia_tpu.models.simulate import random_reference
     from mia_tpu_torch import testing as T
+    from mia_tpu_torch.cli.ccheck import load_mt311
+    from mia_tpu_torch.models.simulate import random_reference
 
     panel = load_mt311()
     reference, sample, _ = T.ccheck_sample(seed=31)
@@ -451,8 +529,8 @@ def time_myers_kernel(bm_a, bm_b, len_a: int, len_b: int, maxd: int, iters: int)
 def phase_myers_kernel(dev) -> dict:
     import torch
 
-    from mia_tpu.ops.myers import UINT_MAX, Mode, myers_diff
     from mia_tpu_torch.ops import myers_cuda
+    from mia_tpu_torch.ops.myers import UINT_MAX, Mode, myers_diff
     from mia_tpu_torch.ops.myers_torch import bitmaps, myers_diff_torch, waves_plain
 
     out = {}
@@ -486,14 +564,22 @@ def phase_myers_kernel(dev) -> dict:
             f"kernel == plain (found and history rows 0..{kd}, exact) and "
             f"myers_diff_torch == host myers_diff (d, bt_a, bt_b); kernel {ms:.4f} ms, "
             f"plain version {plain_ms:.4f} ms, host myers_diff {host_s:.3f} s")
-        out[name] = {"ms": ms, "plain_ms": plain_ms}
+        # what this pair's data needs: wave w has 2 w + 1 live lanes (about 10
+        # operations and one history word written each), and the snakes walk
+        # about one reference's length in all (about 3 operations a step)
+        lanes = (kd + 1) ** 2 if kd < maxd else maxd ** 2
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                     **bound(len(a) + len(b) + 4 * lanes + 8,
+                             10 * lanes + 3 * max(len(a), len(b)))}
     return {"max_abs_err": err, **out["1%"]}
 
 
-def run_ccheck(main, argv: list[str], profile: bool) -> tuple[bytes, dict, float]:
-    """One ccheck CLI (the port's or mia_tpu's ``main``) in this process:
-    (stdout bytes, profile or {}, wall s).  Raises unless it exits 0."""
+def run_ccheck(argv: list[str], profile: bool) -> tuple[bytes, dict, float]:
+    """The port's ccheck CLI in this process: (stdout bytes, profile or {},
+    wall s).  Raises unless it exits 0."""
     import contextlib
+
+    from mia_tpu_torch.cli.ccheck import main
 
     out, err = io.StringIO(), io.StringIO()
     t0 = time.time()
@@ -517,7 +603,7 @@ def run_port_ccheck(argv: list[str], what: str) -> tuple[bytes, dict, float, dic
     from mia_tpu_torch.cli import ccheck
 
     reset_counts()
-    out, prof, wall = run_ccheck(ccheck.main, argv, profile=True)
+    out, prof, wall = run_ccheck(argv, profile=True)
     counts = ccheck.counts()
     if not (counts["myers.kernel_launches"] == 1 and counts["dp.kernel_launches"] > 0
             and counts["ccheck.device_entries"] > 0
@@ -547,8 +633,8 @@ def ccheck_workload(n_endo: int, n_cont: int) -> tuple[list[str], str]:
     """Writes phase 11's sample: reads of an mt311-derived sample and of a
     contaminant, and the resolved mt311 as reference.  Returns the mia
     arguments and the maln root."""
-    from mia_tpu.models.simulate import SimConfig, simulate_reads
     from mia_tpu_torch import testing as T
+    from mia_tpu_torch.models.simulate import SimConfig, simulate_reads
 
     d = os.path.join(WORK, "ccheck")
     os.makedirs(d)
@@ -569,23 +655,21 @@ def ccheck_workload(n_endo: int, n_cont: int) -> tuple[list[str], str]:
 
 
 def phase_ccheck_e2e(n_endo: int = 9000, n_cont: int = 1000) -> dict:
-    from mia_tpu.cli.ccheck import find_maln
-    from mia_tpu.cli.ccheck import main as tpu_main
+    from mia_tpu_torch.cli.ccheck import find_maln
 
     args, root = ccheck_workload(n_endo, n_cont)
     t0 = time.time()
     run_port(args, root)
     t_mia = time.time() - t0
     maln = find_maln(root + ".1")
-    os.environ.pop("MIA_JAX_PLATFORM", None)  # mia_tpu's CLI would import jax for it
     launches = 0
     for argv in (["-a", maln], ["-T", "-a", maln]):
         what = " ".join(argv[:-1])
         out, prof, t_torch, counts = run_port_ccheck(argv, what)
-        want, _, t_native = run_ccheck(tpu_main, ["--engine", "native", *argv], profile=False)
+        want, _, t_native = run_ccheck(["--engine", "native", *argv], profile=False)
         if out != want:
             raise AssertionError(f"ccheck {what} on the {n_endo + n_cont}-read sample "
-                                 f"differs from mia_tpu --engine native")
+                                 f"differs from --engine native")
         launches += counts["myers.kernel_launches"]
         lines = out.decode().splitlines()
         if "-T" in argv:
@@ -596,11 +680,314 @@ def phase_ccheck_e2e(n_endo: int = 9000, n_cont: int = 1000) -> dict:
         ph = prof["phases_s"]
         say(f"ccheck e2e {what}: {n_endo} + {n_cont} reads, final maln "
             f"{os.path.basename(maln)}: {result}; stdout byte-identical to "
-            f"mia_tpu --engine native; {json.dumps(counts)}")
+            f"--engine native; {json.dumps(counts)}")
         say(f"ccheck e2e {what}: wall s in this process, torch {t_torch:.3f} "
             f"(Myers {ph['ccheck.myers']:.3f}, realignment {ph['ccheck.realign']:.3f}), "
             f"native {t_native:.3f}; assembly by the port's mia {t_mia:.3f}")
     return {"myers.kernel_launches": launches}
+
+
+def time_plain_pair(kernel, plain, what: str, unit: str = "") -> dict:
+    """Kernel and plain times per call (CUDA events, warmed up)."""
+    cuda_ms(kernel, 3)
+    ms = cuda_ms(kernel, 20)
+    plain()
+    plain_ms = cuda_ms(plain, 3)
+    say(f"{what}: {ms:.4f} ms, plain version {plain_ms:.4f} ms{unit}")
+    return {"ms": ms, "plain_ms": plain_ms}
+
+
+def phase_last_row_kernel(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from mia_tpu_torch import testing as T
+    from mia_tpu_torch.core.driver import init_alignment, set_seq1, set_seq2
+    from mia_tpu_torch.ops import dp_cuda, dp_numpy
+    from mia_tpu_torch.ops.dp_torch import batch_last_row
+
+    res = {}
+    for shared in (True, False):
+        what = "shared reference" if shared else "per-read reference"
+        d = T.fullwidth_inputs(FW_B, FW_W, L_ROWS, seed=21, shared=shared)
+        args = [torch.from_numpy(d[k]).to(dev) for k in T.LAST_ROW_KEYS]
+        got = dp_cuda.dp_last_row(*args)
+        want = batch_last_row(*args)
+        torch.cuda.synchronize()
+        err = check_equal(f"dp_last_row != plain ({what})", got, want)
+        cells = int((d["lengths"].astype(np.int64) - 1).sum()) * FW_W
+        say(f"last-row kernel: dp_last_row == batch_last_row on B={FW_B} W={FW_W} "
+            f"L={L_ROWS}, {what} (the whole [B, W] row, exact; max |diff| {err})")
+        t = time_plain_pair(lambda: dp_cuda.dp_last_row(*args), lambda: batch_last_row(*args),
+                            f"last-row kernel, {what}",
+                            f"; {cells} cells, mean read length "
+                            f"{float(np.mean(d['lengths'])):.1f}")
+        say(f"last-row kernel, {what}: {cells / t['ms'] / 1e6:.3f} Gcells/s, plain "
+            f"version {cells / t['plain_ms'] / 1e6:.3f} Gcells/s")
+        # s2c and depths count up to each read's own length
+        moved = (nbytes(args[0], args[1], args[3], args[5], got)
+                 + read_bytes(d["lengths"], args[2], args[4]))
+        res[shared] = {"max_abs_err": err, **t, "library_ms": None,
+                       **bound(moved, DP_OPS_PER_CELL * cells)}
+        if not shared:
+            continue
+        # 32 rows against the exact host DP: best score and its earliest column
+        out = got[:32].cpu().numpy()
+        chars = np.array(list("ACGTN"))
+        a = init_alignment(L_ROWS, FW_W + 16, False, False)
+        a.submat = d["submat"]
+        set_seq1(a, "".join(chars[d["s1c"]]))
+        a.sg5 = a.sg3 = True
+        for b in range(32):
+            set_seq2(a, "".join(chars[d["s2c"][b, : d["lengths"][b]]]))
+            dp_numpy.solve_sg(a, do_trace=False)
+            if (int(a.best_score), int(a.aec)) != (int(out[b].max()), int(out[b].argmax())):
+                raise AssertionError(f"last-row kernel != solve_sg on read {b}")
+        say("last-row kernel: dp_last_row's (max, earliest argmax) == dp_numpy.solve_sg "
+            "on 32 reads")
+    say(f"last-row kernel: per-read reference {res[False]['ms']:.4f} ms against shared "
+        f"{res[True]['ms']:.4f} ms")
+    return res[True]
+
+
+def time_raw_launch(call, what: str, wrapper_ms: float) -> float:
+    """Mean device ms of a small kernel alone: ``call(library, stream)``
+    launched back to back into buffers made beforehand (CUDA events).  The
+    ``kernels`` line carries it as ``kernel_only_ms`` beside ``ms``, which is
+    the wrapper's time for every kernel: for a kernel this small the events
+    around the wrapper see its host work (checks, allocations, the launch)."""
+    import torch
+
+    from mia_tpu_torch.utils.torchcfg import kernel_library
+
+    lib, stream = kernel_library(), torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        rc = call(lib, stream)
+        if rc:
+            raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+    cuda_ms(launch, 5)
+    ms = cuda_ms(launch, 200)
+    say(f"{what}: the kernel alone {ms:.4f} ms ({wrapper_ms:.4f} ms through its wrapper, "
+        f"which is host work: checks, allocations, the launch)")
+    return ms
+
+
+def phase_step_kernels(dev) -> tuple[dict, dict]:
+    import torch
+
+    from mia_tpu_torch import testing as T
+    from mia_tpu_torch.parallel import sharded
+
+    d = T.pileup_inputs(STEP_B, FW_W, L_ROWS, seed=22)
+    args = [torch.from_numpy(d[k]).to(dev) for k in T.PILEUP_KEYS]
+    counts, scores = sharded.pileup_counts(*args, FW_W)
+    pc, ps = sharded._pileup_counts(*args, FW_W)
+    torch.cuda.synchronize()
+    err = max(check_equal("pileup_counts != plain (counts)", counts, pc),
+              check_equal("pileup_counts != plain (scores)", scores, ps))
+    n_obs = int(counts.sum())
+    say(f"pileup kernel: pileup_counts == _pileup_counts on B={STEP_B} W={FW_W} "
+        f"L={L_ROWS}, {n_obs} bases in range (exact)")
+    t = time_plain_pair(lambda: sharded.pileup_counts(*args, FW_W),
+                        lambda: sharded._pileup_counts(*args, FW_W), "pileup kernel")
+    # the scatter alone, as one library call: index_add_ of the score terms
+    cols = torch.randint(0, FW_W, (n_obs,), device=dev)
+    terms = torch.randint(-600, 200, (n_obs, 4), dtype=torch.int32, device=dev)
+    acc = torch.zeros((FW_W, 4), dtype=torch.int32, device=dev)
+    library_ms = cuda_ms(lambda: acc.index_add_(0, cols, terms), 20)
+    say(f"pileup kernel: index_add_ of {n_obs} x 4 score terms alone {library_ms:.4f} ms "
+        f"(the scatter without the lookups)")
+    acc_c, acc_s = torch.zeros_like(counts), torch.zeros_like(scores)
+    t["kernel_only_ms"] = time_raw_launch(lambda lib, stream: lib.mia_pileup_counts(
+        *(a.data_ptr() for a in (args[0], args[3], args[1], args[2], args[4], args[5],
+                                 args[6])),
+        STEP_B, L_ROWS, FW_W, acc_c.data_ptr(), acc_s.data_ptr(), stream),
+        "pileup kernel", t["ms"])
+    # PILEUP_KEYS: s2c and depths count up to each read's own length (the
+    # kernel skips the rows past it), everything else whole
+    moved = (nbytes(args[1], args[2], args[4], args[5], args[6], counts, scores)
+             + read_bytes(d["lengths"], args[0], args[3]))
+    pile = {"max_abs_err": err, **t, "library_ms": library_ms, **bound(moved, 5 * n_obs)}
+
+    err = 0
+    for what, (c, s) in (("pileup", (counts, scores)),
+                         ("ties", tuple(torch.from_numpy(a).to(dev)
+                                        for a in T.tie_counts(FW_W, seed=23)))):
+        got = sharded.consensus_call(c, s)
+        err = max(err, check_equal(f"consensus_call != plain ({what})", got,
+                                   sharded.consensus_from_counts(c, s)))
+    say(f"consensus-call kernel: consensus_call == consensus_from_counts on {FW_W} "
+        f"columns (the pileup's counts, and ties / empty columns / thresholds; exact)")
+    t = time_plain_pair(lambda: sharded.consensus_call(counts, scores),
+                        lambda: sharded.consensus_from_counts(counts, scores),
+                        "consensus-call kernel")
+    out = torch.empty(FW_W, dtype=torch.uint8, device=dev)
+    t["kernel_only_ms"] = time_raw_launch(lambda lib, stream: lib.mia_consensus_call(
+        counts.data_ptr(), scores.data_ptr(), FW_W, out.data_ptr(), stream),
+        "consensus-call kernel", t["ms"])
+    # per column about 15 compares and adds
+    cons = {"max_abs_err": err, **t, "library_ms": None,
+            **bound(nbytes(counts, scores) + FW_W, 15 * FW_W)}
+    return pile, cons
+
+
+def phase_step(dev) -> dict:
+    """One assembly step at dp=4, sp=2 with all eight mesh cells on the one
+    card; returns the three kernels' launch counts of the step."""
+    import numpy as np
+    import torch
+
+    from mia_tpu_torch import testing as T
+    from mia_tpu_torch.ops import dp_cuda
+    from mia_tpu_torch.ops.dp_torch import batch_best_and_aec, batch_last_row
+    from mia_tpu_torch.parallel import sharded
+
+    args = T.step_inputs(STEP_B, FW_W, 120, seed=24)
+    s1c, mask, s2c, lengths, depths, fpsm, rpsm = args
+    step = sharded.make_assembly_step(sharded.make_mesh(4, 2, [dev] * 8))
+    reset_counts()
+    t0 = time.time()
+    best, aec, cons = step(*args)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {"dp.last_row_launches": dp_cuda.last_row_launches,
+              "dp.last_row_plain_calls": dp_cuda.last_row_plain_calls,
+              "step.pileup_launches": sharded.pileup_launches,
+              "step.pileup_plain_calls": sharded.pileup_plain_calls,
+              "step.consensus_launches": sharded.consensus_launches,
+              "step.consensus_plain_calls": sharded.consensus_plain_calls}
+    if counts != {"dp.last_row_launches": 4, "dp.last_row_plain_calls": 0,
+                  "step.pileup_launches": 4, "step.pileup_plain_calls": 0,
+                  "step.consensus_launches": 2, "step.consensus_plain_calls": 0}:
+        # W = 17,024 divides by sp = 2: no tail to call
+        raise AssertionError(f"assembly step: kernels not launched as expected: {counts}")
+
+    # the single-device scorer on the whole batch, and the first dp shard's
+    # rows of it against the plain version on the step's own inputs
+    on_dev = [torch.from_numpy(a).to(dev) for a in (s1c, mask, s2c, lengths, depths, fpsm)]
+    one = dp_cuda.dp_last_row(*on_dev)
+    n0 = STEP_B // 4
+    check_equal("assembly step: dp_last_row != plain on the first shard's rows", one[:n0],
+                batch_last_row(on_dev[0], *(a[:n0] for a in on_dev[1:5]), on_dev[5]))
+    best1, aec1 = batch_best_and_aec(one)
+    check_equal("assembly step: best != single-device scorer", best, best1)
+    check_equal("assembly step: aec != single-device scorer", aec, aec1)
+    # the consensus rebuilt with numpy scatter-adds
+    aec_np = aec1.cpu().numpy()
+    rows = np.arange(s2c.shape[1])[None, :]
+    cols = (aec_np - lengths + 1)[:, None] + rows
+    ok = (rows < lengths[:, None]) & (cols >= 0) & (cols < FW_W)
+    cnt = np.zeros((FW_W, 5), np.int32)
+    sco = np.zeros((FW_W, 4), np.int32)
+    np.add.at(cnt, (cols[ok], s2c[ok]), 1)
+    np.add.at(sco, cols[ok], fpsm[depths[ok], :4, s2c[ok]])
+    want = sharded.consensus_from_counts(torch.from_numpy(cnt), torch.from_numpy(sco))
+    check_equal("assembly step: consensus != numpy rebuild", cons.cpu(), want)
+    called = bytes(want.numpy())
+    say(f"assembly step: dp=4 sp=2 on {dev} eight times over, B={STEP_B} W={FW_W}: "
+        f"(best, aec) == single-device scorer (its first {n0} rows == plain version, "
+        f"the whole row), consensus == numpy rebuild "
+        f"({sum(called.count(c) for c in b'ACGT')} columns called, "
+        f"{called.count(b'N')} N); {wall:.3f} s with the host's copies; "
+        f"{json.dumps(counts)}")
+    return counts
+
+
+def phase_sharded(dev) -> None:
+    import numpy as np
+    import torch
+
+    from mia_tpu_torch import testing as T
+    from mia_tpu_torch.core.columns import _record_arrays, main_column_counts
+    from mia_tpu_torch.core.torch_engine import Pass1Scorer, state_from_numpy
+    from mia_tpu_torch.ops import consensus_torch, dp_cuda
+
+    d = T.random_entries(E_BATCH, L_ROWS, seed=25)
+    entries = [d[k] for k in T.ENTRY_KEYS[2:]]
+    res, wall = [], []
+    for devs in ([dev], [dev] * N_SHARDS):
+        states = [state_from_numpy(d["refs"], d["sms"], x) for x in devs]
+        sc = Pass1Scorer.from_state(states, d["len1"], batch=E_BATCH // 2)
+        sc.collect_entries(sc.dispatch_entries(*entries))  # warm
+        dp_cuda.reset_counts()
+        t0 = time.time()
+        res.append(sc.collect_entries(sc.dispatch_entries(*entries)))
+        wall.append(time.time() - t0)
+        if (dp_cuda.kernel_launches, dp_cuda.shards, dp_cuda.plain_calls) != \
+                (len(devs), len(devs), 0):
+            raise AssertionError(f"sharded scorer: {dp_cuda.kernel_launches} launches over "
+                                 f"{dp_cuda.shards} shards")
+    for name, a, b in zip(("best", "aec"), *res):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"sharded scorer: {name} differs from the single scorer")
+    say(f"sharded scorer: E={E_BATCH} over {N_SHARDS} shards on {dev} == single scorer "
+        f"(best, aec in the caller's order); dispatch to collect {wall[1] * 1e3:.3f} ms "
+        f"against {wall[0] * 1e3:.3f} ms single (host clock, copies included)")
+
+    maln = T.random_records(N_COLS, N_RECORDS, seed=15)
+    _, spans, starts, revs, seq, smp, seq_off, smp_off = _record_arrays(maln, True)
+    hook = (seq, smp, starts, spans, seq_off, smp_off, revs, maln.fpsm, maln.rpsm, N_COLS)
+    one = consensus_torch.device_column_counts(*hook, device=dev)
+    consensus_torch.reset_counts()
+    four = consensus_torch.device_column_counts(*hook, devices=[dev] * N_SHARDS)
+    if (consensus_torch.kernel_launches, consensus_torch.plain_calls) != (N_SHARDS, 0):
+        raise AssertionError(f"sharded consensus: {consensus_torch.kernel_launches} launches")
+    host = main_column_counts(maln, exclude_dropped=True)
+    for name, f, o, h in zip(("counts", "cov", "scores"), four, one,
+                             (host.counts, host.cov, host.scores)):
+        if not (np.array_equal(f, o) and np.array_equal(f, h)):
+            raise AssertionError(f"sharded consensus: {name} differs")
+    sizes = [int(spans[lo:hi].sum()) for lo, hi in
+             consensus_torch._split_records(spans, N_SHARDS)]
+    say(f"sharded consensus: device_column_counts over {N_SHARDS} shards == one shard == "
+        f"host main_column_counts on {int(spans.sum())} observations (shards of {sizes})")
+
+
+def phase_sharded_e2e(args: list[str], dev, single_counts: dict) -> None:
+    """The 20k-read assembly with a list of four devices against phase 7's
+    single-device run."""
+    from mia_tpu_torch.core import assembler, torch_engine
+    from mia_tpu_torch.ops import consensus_torch, dp_cuda
+
+    root = os.path.join(WORK, "e2e_sharded", "out.maln")
+    os.makedirs(os.path.dirname(root))
+    assembler.make_dp_devices = lambda n: torch_engine.make_dp_devices(
+        n, devices=[dev] * n if n > 0 else None)
+    try:
+        reset_counts()
+        t0 = time.time()
+        prof = run_port([*args, "--dp-devices", str(N_SHARDS)], root, profile=True)
+        wall = time.time() - t0
+    finally:
+        assembler.make_dp_devices = torch_engine.make_dp_devices
+    counts = {"dp.shards": dp_cuda.shards, "dp.kernel_launches": dp_cuda.kernel_launches,
+              "dp.plain_calls": dp_cuda.plain_calls,
+              "cons.kernel_launches": consensus_torch.kernel_launches,
+              "cons.plain_calls": consensus_torch.plain_calls}
+    want = maln_bytes(os.path.join(WORK, "e2e", "torch_inproc", "out.maln"))
+    if not want or maln_bytes(root) != want:
+        raise AssertionError("20k assembly over 4 shards differs from the single-device run")
+    if not (counts["dp.shards"] == N_SHARDS
+            and counts["dp.kernel_launches"] == N_SHARDS * single_counts["dp.kernel_launches"]
+            and counts["cons.kernel_launches"]
+            == N_SHARDS * single_counts["cons.kernel_launches"]
+            and counts["dp.plain_calls"] == counts["cons.plain_calls"] == 0
+            and prof["counters"].get("consensus.device_fallbacks", 0) == 0):
+        raise AssertionError(f"sharded device path not taken: {counts} against the single "
+                             f"run's {single_counts}")
+    say(f"e2e sharded: 20k reads over {N_SHARDS} shards on {dev}, {len(want)} maln files "
+        f"byte-identical to the single-device run; {json.dumps(counts)}; wall "
+        f"{wall:.3f} s in this process")
+
+
+def phase_dryrun() -> None:
+    from mia_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.time()
+    dryrun_multichip(N_SHARDS)
+    say(f"dry run: dryrun_multichip({N_SHARDS}) passed ({time.time() - t0:.3f} s)")
 
 
 def main() -> int:
@@ -636,8 +1023,15 @@ def main() -> int:
     myers_kern = phase_myers_kernel(dev)
     phase_ccheck_golden()
     cc_counts = phase_ccheck_e2e()
-    if any("jax" in m.split(".")[0] for m in sys.modules):
-        raise AssertionError("jax was imported")
+    last_row_kern = phase_last_row_kernel(dev)
+    pileup_kern, cons_call_kern = phase_step_kernels(dev)
+    step_counts = phase_step(dev)
+    phase_sharded(dev)
+    phase_sharded_e2e(args, dev, main_counts)
+    phase_dryrun()
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "mia_tpu")]
+    if bad:
+        raise AssertionError(f"jax or the JAX package was imported: {bad[:5]}")
     say(json.dumps({"kernels": [{
         "name": "dp_entries",
         "route": "cuda",
@@ -668,6 +1062,28 @@ def main() -> int:
         # both ccheck runs of the e2e path: one launch each
         "launches": cc_counts["myers.kernel_launches"],
         **myers_kern,
+    }, {
+        "name": "dp_last_row",
+        "route": "cuda",
+        "source": "mia_tpu_torch/csrc/dp_last_row.cu",
+        "replaces": "mia_tpu/ops/dp_pallas.py:133",
+        # the assembly step: one launch per dp shard
+        "launches": step_counts["dp.last_row_launches"],
+        **last_row_kern,
+    }, {
+        "name": "pileup_counts",
+        "route": "cuda",
+        "source": "mia_tpu_torch/csrc/pileup_counts.cu",
+        "replaces": "mia_tpu/parallel/sharded.py:51",
+        "launches": step_counts["step.pileup_launches"],
+        **pileup_kern,
+    }, {
+        "name": "consensus_call",
+        "route": "cuda",
+        "source": "mia_tpu_torch/csrc/consensus_call.cu",
+        "replaces": "mia_tpu/parallel/sharded.py:34",
+        "launches": step_counts["step.consensus_launches"],
+        **cons_call_kern,
     }]}))
     say(f"total: {time.time() - t_start:.1f} s")
     say(nvidia_smi())

@@ -1,13 +1,12 @@
 """ccheck CLI of the port: contamination checker over maln files
 (src/ccheck.cc:369-886).
 
-Same flag surface as ``mia_tpu``'s ``ccheck`` (its ``usage``, ``load_mt311``
-and ``find_maln`` are reused), with ``--engine torch`` as the default: the
-Myers alignment of the contaminant against the assembly and the read
-realignment run on the card (:mod:`mia_tpu_torch.core.contamination`).
-``--engine native`` and ``--engine numpy`` hand each file to ``mia_tpu``'s
-own ``check_contamination``, which imports no jax under those engines;
-``--engine jax`` belongs to ``mia_tpu`` and is refused here.
+Same flag surface as the reference binary, plus ``--engine`` and
+``--profile``.  ``--engine torch`` is the default: the Myers alignment of the
+contaminant against the assembly and the read realignment run on the card
+(:mod:`mia_tpu_torch.core.contamination`).  ``--engine native`` and
+``--engine numpy`` keep both on the host; ``--engine jax`` belongs to the
+JAX package and is refused here.
 
     python -m mia_tpu_torch.cli.ccheck [-r ref.fa] [-a] [-T] ... aln.maln [--profile]
 
@@ -20,18 +19,17 @@ the device and on the host).
 """
 from __future__ import annotations
 
+import os
 import re
 import sys
 
-from mia_tpu.cli.ccheck import find_maln, load_mt311, usage
-from mia_tpu.core.contamination import LABELS, sanity_check_sequence
-from mia_tpu.core.contamination import check_contamination as check_contamination_host
-from mia_tpu.io.fasta import read_fasta_ref
-from mia_tpu.io.maln import read_ma
-from mia_tpu.utils import profiling
-
 from ..core import contamination
+from ..core.contamination import LABELS, sanity_check_sequence
+from ..io.fasta import read_fasta_ref
+from ..io.maln import read_ma
+from ..io.pssm_io import DATA_DIR
 from ..ops import dp_cuda, myers_cuda
+from ..utils import profiling
 
 ENGINES = ("torch", "native", "numpy")
 LONG_FLAGS = {
@@ -40,6 +38,54 @@ LONG_FLAGS = {
     "--shoot": "F", "--foot": "F", "--force": "f", "--numpos": "n",
 }
 NEEDS_ARG = set("rsdn")
+
+
+def usage(pname: str) -> str:
+    return (
+        f"Usage: {pname} [-r <ref.fa>] [-a] [-t] [-s M-N] [-v] <aln.maln> \n\n"
+        "Reads a maln file and tries to quantify contained contamination.\n"
+        "Options:\n"
+        "  -r, --reference FILE     FASTA file with the likely contaminant (default: builtin mt311)\n"
+        "  -a, --ancient            Treat DNA as ancient (i.e. likely deaminated)\n"
+        "  -t, --transversions      Treat only transversions as diagnostic\n"
+        "  -s, --span M-N           Look only at range from M to N\n"
+        "  -n, --numpos N           Require N diagnostic sites in a single read (default: 1)\n"
+        "  -f, --force              Do not look for a higher numbered .maln\n"
+        "  -T, --table              Output as tables (easier for scripts, harder on the eyes)\n"
+        "  -v, --verbose            Increase verbosity level (can be repeated)\n"
+        "  -h, --help               Print this help message\n\n"
+    )
+
+
+def load_mt311() -> str:
+    path = os.path.join(DATA_DIR, "mt311.fa")
+    with open(path) as fh:
+        lines = fh.read().split("\n")
+    return "".join(l for l in lines[1:] if l and not l.startswith(">"))
+
+
+def find_maln(fn: str) -> str:
+    """Auto-pick the highest-numbered maln iteration file
+    (src/ccheck.cc:206-236)."""
+    d, base = os.path.split(fn)
+    d = d or "."
+    while base and base[-1].isdigit():
+        base = base[:-1]
+    num = 1
+    best = fn
+    try:
+        entries = os.listdir(d)
+    except OSError:
+        return fn
+    for name in entries:
+        if len(name) > len(base) and name.startswith(base):
+            rest = name[len(base):]
+            if rest.isdigit():
+                n = int(rest)
+                if n > num:
+                    num = n
+                    best = name if os.path.split(fn)[0] == "" else os.path.join(d, name)
+    return best
 
 
 def reset_counts() -> None:
@@ -195,10 +241,7 @@ def main(argv: list[str] | None = None) -> int:
                     min_diag_posns=min_diag_posns, span_from=span_from,
                     span_to=span_to, maxd=maxd, mktable=mktable, really=really,
                     verbose=verbose, infile=infile)
-        if engine == "torch":
-            rc = contamination.check_contamination(maln, ref_seq, **opts)
-        else:
-            rc = check_contamination_host(maln, ref_seq, engine=engine, **opts)
+        rc = contamination.check_contamination(maln, ref_seq, engine=engine, **opts)
         if rc:
             break
     if profile:

@@ -1,26 +1,26 @@
 """End-to-end iterative assembly pipeline of the port (mia main,
 src/mia_main.c:394-989).
 
-Port of :func:`mia_tpu.core.assembler.run_assembly` for ``--engine torch``,
-single process.  Pass 1 aligns every read fw+rc against the (wrapped)
-reference, then the engine iterates: consensus -> realign -> filter -> cull
--> write maln, until the consensus string repeats or MAX_ITER is hit.  Pass 1
-and every realignment score their entries with the port's scorer
-(:mod:`mia_tpu_torch.core.torch_engine`).  The host engines (``native``,
-``numpy``) are not copied here: the port's CLI runs ``mia_tpu``'s own
-``run_assembly`` for them.
+Pass 1 aligns every read fw+rc against the (wrapped) reference, then the
+engine iterates: consensus -> realign -> filter -> cull -> write maln, until
+the consensus string repeats or MAX_ITER is hit.  It is the JAX package's
+``mia_tpu/core/assembler.py`` in a single process, with the device engine
+replaced:
 
-Every consensus counts its main columns on the device
-(:mod:`mia_tpu_torch.ops.consensus_torch`, through the ``device_hook`` of
-``mia_tpu.core.columns.consensus_assembly_string``), with no size threshold;
-insertion columns stay on the host, as in ``mia_tpu``.
+* ``--engine torch``: pass 1 and every realignment score their entries with
+  the port's scorer (:mod:`mia_tpu_torch.core.torch_engine`), over several
+  cards under ``--dp-devices``; every consensus counts its main columns on
+  the device (:mod:`mia_tpu_torch.ops.consensus_torch`, through the
+  ``device_hook`` of ``columns.consensus_assembly_string``), with no size
+  threshold; insertion columns stay on the host.
+* ``--engine native``: the fully-native batched solver (k-mer filter, banded
+  fw/rc DP and traceback in one threaded FFI call per batch).
+* ``--engine numpy``: the exact per-read host path.
 
 Left out of this port, with the reason each existed: multi-host sharding
-and the dp mesh (not ported yet), and the resident scoring server and
-work-stealing (they hid the TPU's backend start and compiles; here the
-kernel library builds once when the scorer is made).  ``--dp`` and
-multi-host runs raise :class:`NotPortedError` instead of running on a host
-engine unasked.
+(not ported yet: such runs raise :class:`NotPortedError`), and the resident
+scoring server and work-stealing (they hid the TPU's backend start and
+compiles; here the kernel library builds once when the scorer is made).
 """
 from __future__ import annotations
 
@@ -31,12 +31,22 @@ import time
 
 import numpy as np
 
-from mia_tpu.config import MiaConfig
-from mia_tpu.constants import FIRST_ROUND_SCORE_CUTOFF, INIT_ALN_SEQ_LEN, MAX_ITER, PSSM_DEPTH
-from mia_tpu.core.columns import consensus_assembly_string, sort_aln_frags
-from mia_tpu.core.driver import (
+from ..config import MiaConfig
+from ..constants import FIRST_ROUND_SCORE_CUTOFF, INIT_ALN_SEQ_LEN, MAX_ITER, PSSM_DEPTH
+from ..io.fasta import read_fasta_ref
+from ..io.ids import parse_ids
+from ..io.maln import write_ma
+from ..io.native import iter_frag_seqs_fast as iter_frag_seqs
+from ..io.pssm_io import find_read_pssm
+from ..ops import consensus_torch
+from ..ops.kmer import KmerPosArray, new_kmer_filter
+from ..ops.pssm import init_flatsubmat, revcom_submat
+from ..utils import profiling
+from .columns import consensus_assembly_string, sort_aln_frags
+from .driver import (
     finish_alignment,
     init_alignment,
+    reiterate_assembly,
     set_hp_cols,
     set_hp_rows,
     set_seq1,
@@ -44,7 +54,8 @@ from mia_tpu.core.driver import (
     sg_align,
     trim_frag,
 )
-from mia_tpu.core.fsdb import (
+from .entries import L_MAX, MAX_INTERVALS, WIN_W, diag_gapfree, hp_routes_to_host, pack_chars
+from .fsdb import (
     FSDB,
     clean_FSDB,
     collapse_FSDB,
@@ -55,7 +66,7 @@ from mia_tpu.core.fsdb import (
     sort_fsdb_qscore,
     write_fastq,
 )
-from mia_tpu.core.hostbatch import (
+from .hostbatch import (
     FLAG_HOST_ONLY,
     FLAG_SKIP,
     FLAG_WIDE,
@@ -64,28 +75,9 @@ from mia_tpu.core.hostbatch import (
     STATUS_NO_KMER,
     BatchHost,
 )
-from mia_tpu.core.jax_engine import (
-    L_MAX,
-    MAX_INTERVALS,
-    WIN_W,
-    diag_gapfree,
-    hp_routes_to_host,
-    pack_chars,
-)
-from mia_tpu.core.merge import add_ref_wrap
-from mia_tpu.core.types import MapAlignment
-from mia_tpu.io.fasta import read_fasta_ref
-from mia_tpu.io.ids import parse_ids
-from mia_tpu.io.maln import write_ma
-from mia_tpu.io.native import iter_frag_seqs_fast as iter_frag_seqs
-from mia_tpu.io.pssm_io import find_read_pssm
-from mia_tpu.ops.kmer import KmerPosArray, new_kmer_filter
-from mia_tpu.ops.pssm import init_flatsubmat, revcom_submat
-from mia_tpu.utils import profiling
-
-from ..ops import consensus_torch
-from .driver import reiterate_assembly
-from .torch_engine import Pass1Scorer
+from .merge import add_ref_wrap
+from .torch_engine import Pass1Scorer, make_dp_devices
+from .types import MapAlignment
 
 
 class NotPortedError(NotImplementedError):
@@ -93,15 +85,13 @@ class NotPortedError(NotImplementedError):
 
 
 def check_ported(cfg: MiaConfig) -> None:
-    """Refuse what this slice of the port does not run: multi-host runs
-    under any engine (``mia_tpu``'s would start jax.distributed), and
-    ``--dp`` under ``--engine torch``."""
+    """Refuse what the port does not run: multi-host runs, under any engine
+    (the JAX package would start jax.distributed for them), and the JAX
+    package's own engine."""
     if os.environ.get("JAX_COORDINATOR_ADDRESS") is not None:
         raise NotPortedError("multi-host runs are not ported yet")
-    if cfg.engine != "torch":
-        return
-    if cfg.dp_devices != 0:
-        raise NotPortedError("--dp (multi-device scoring) is not ported yet under --engine torch")
+    if cfg.engine not in ("torch", "native", "numpy"):
+        raise NotPortedError(f"--engine {cfg.engine} is not an engine of this port")
 
 
 def _log(msg: str) -> None:
@@ -109,20 +99,23 @@ def _log(msg: str) -> None:
 
 
 class ConsensusHook:
-    """``device_hook`` for ``consensus_assembly_string`` on ``device``.
+    """``device_hook`` for ``consensus_assembly_string`` on ``device``, or
+    with ``devices`` the records split over that device list and summed.
 
     ``main_column_counts`` catches any exception of its hook and counts the
     columns on the host instead; this hook keeps the first failure, and
     :meth:`consensus` raises it once the consensus returns, so a failing
     device is never hidden behind the host's equal answer."""
 
-    def __init__(self, device):
+    def __init__(self, device, devices=None):
         self.device = device
+        self.devices = devices
         self.error: BaseException | None = None
 
     def __call__(self, *args):
         try:
-            return consensus_torch.device_column_counts(*args, device=self.device)
+            return consensus_torch.device_column_counts(
+                *args, device=self.device, devices=self.devices)
         except Exception as e:
             self.error = self.error or e
             raise
@@ -136,8 +129,10 @@ class ConsensusHook:
 
 
 def run_assembly(cfg: MiaConfig) -> MapAlignment:
-    """Run the full mia pipeline under ``--engine torch``; returns the final
-    culled MapAlignment.  Entries are scored on torchcfg.select_device()."""
+    """Run the full mia pipeline; returns the final culled MapAlignment.
+    Under ``--engine torch`` entries are scored on torchcfg.select_device(),
+    or dealt over make_dp_devices(cfg.dp_devices) when that gives two or
+    more."""
     check_ported(cfg)
     if cfg.submat_fn:
         ancsubmat = find_read_pssm(cfg.submat_fn)
@@ -214,37 +209,62 @@ def run_assembly(cfg: MiaConfig) -> MapAlignment:
     fw_align.submat = ancsubmat
     rc_align.submat = ancsubmat
 
-    # pass 1: the native engine applies the k-mer filter, the device scores,
-    # the native engine tracebacks.  The raw (pre-uppercase) strands drive
-    # the k-mer index exactly like populate_kpa runs before make_ref_upper
-    # (src/mia_main.c:659-676)
+    def _batch_host():
+        return BatchHost.create(
+            raw_fw_strand,
+            raw_rc_strand,
+            ref_len1,
+            ancsubmat,
+            None,
+            cfg.kmer_filt_len if cfg.kmer_filt_len > 0 else -1,
+            cfg.soft_mask,
+            WIN_W,
+            MAX_INTERVALS,
+            hp=cfg.hp_special,
+        )
+
+    # engine selection for pass 1:
+    #   "torch"  — the native engine applies the k-mer filter, the device
+    #       scores batches, the native engine tracebacks; -h scores with the
+    #       homopolymer kernel
+    #   "native" — fully-native batched solver (k-mer filter + banded fw/rc
+    #       DP + traceback in one threaded FFI call per batch)
+    #   "numpy"  — exact per-read host path
+    use_torch = cfg.engine == "torch"
+    use_native = cfg.engine == "native"
+    scorer = None
+    bhost = None
     pending: list = []
-    bhost = BatchHost.create(
-        raw_fw_strand,
-        raw_rc_strand,
-        ref_len1,
-        ancsubmat,
-        None,
-        cfg.kmer_filt_len if cfg.kmer_filt_len > 0 else -1,
-        cfg.soft_mask,
-        WIN_W,
-        MAX_INTERVALS,
-        hp=cfg.hp_special,
-    )
-    if bhost is None:
-        raise RuntimeError("--engine torch needs the native host library (make -C native)")
-    # -h: the scorer needs the strands' chars for the homopolymer runs
-    # (src/mia.c:883-905)
-    hp_seqs = None
-    if cfg.hp_special:
-        hp_seqs = (fw_align.seq1[: fw_align.len1], rc_align.seq1[: rc_align.len1])
-    scorer = Pass1Scorer(fw_align.s1c, rc_align.s1c, fw_align.len1, ancsubmat,
-                         hp_seqs=hp_seqs)
+    if use_torch or use_native:
+        # the raw (pre-uppercase) strands drive the k-mer index exactly like
+        # populate_kpa runs before make_ref_upper (src/mia_main.c:659-676)
+        bhost = _batch_host()
+        if bhost is None:
+            if use_torch:
+                raise RuntimeError(
+                    "--engine torch needs the native host library (make -C native)")
+            # no native lib (and the auto-build failed): the exact per-read
+            # numpy path serves instead
+            use_native = False
+    devices = None
+    if use_torch:
+        devices = make_dp_devices(cfg.dp_devices)
+        # -h: the scorer needs the strands' chars for the homopolymer runs
+        # (src/mia.c:883-905); the -h kernel has no sharded form (as in the
+        # JAX package), so -h runs stay on one device
+        hp_seqs = None
+        if cfg.hp_special:
+            devices = None
+            hp_seqs = (fw_align.seq1[: fw_align.len1], rc_align.seq1[: rc_align.len1])
+        scorer = Pass1Scorer(fw_align.s1c, rc_align.s1c, fw_align.len1, ancsubmat,
+                             hp_seqs=hp_seqs, devices=devices)
+
 
     # asynchronous device pipeline: batches dispatch without blocking and
     # drain in read order as their results land (or when the inflight cap is
     # hit), so the device computes while the host streams/packs/merges
     inflight: list = []
+    NATIVE_BATCH = 4096
     MAX_INFLIGHT = 16
     # one worker overlaps each batch's native finish with the previous
     # batch's python merge (pass-1 device path)
@@ -469,6 +489,58 @@ def run_assembly(cfg: MiaConfig) -> MapAlignment:
             )
         profiling.add_time("pass1.py_merge", time.time() - t_merge)
 
+    def _flush_native() -> None:
+        """Fully-native batched pass 1: one threaded FFI call does k-mer
+        filter + banded fw/rc DP + strand pick + gate + traceback for the
+        whole batch; Python only merges the results (in read order)."""
+        records = pending[:]
+        pending.clear()
+        if not records:
+            return
+        reads = [
+            (f.seq[: f.trim_point + 1] if f.trimmed else f.seq[: f.seq_len])
+            for f in records
+        ]
+        arena, off, lens = bhost.pack_reads(reads)
+        meta, ref_arena, frag_arena = bhost.solve_pass1(
+            arena, off[:-1], lens, maln.distant_ref
+        )
+        cap = bhost.TRACE_CAP
+        # wide second pass: reads whose winning window outgrows the default
+        # traceback arena (saturated k-mer bands) re-solve with a full-width
+        # arena — still batched, still native
+        wide: dict[int, tuple] = {}
+        fb_idx = [i for i in range(len(records)) if meta[i, 0] == STATUS_HOST_FALLBACK]
+        if fb_idx:
+            sub = [reads[i] for i in fb_idx]
+            a2, o2, l2 = bhost.pack_reads(sub)
+            wcap = bhost.wide_cap
+            m2, r2, f2 = bhost.solve_pass1(
+                a2, o2[:-1], l2, maln.distant_ref, cap=wcap
+            )
+            for j, i in enumerate(fb_idx):
+                wide[i] = (m2[j], r2[j * wcap : (j + 1) * wcap], f2[j * wcap : (j + 1) * wcap])
+        for i, f in enumerate(records):
+            m = meta[i]
+            ra = ref_arena[i * cap : (i + 1) * cap]
+            fa = frag_arena[i * cap : (i + 1) * cap]
+            if m[0] == STATUS_HOST_FALLBACK and i in wide:
+                m, ra, fa = wide[i]
+            st = int(m[0])
+            if st == STATUS_NO_KMER:
+                continue
+            if st == STATUS_GATED:
+                f.score = int(m[2])
+                continue
+            if st == STATUS_HOST_FALLBACK:
+                _host_align_one(f)
+                continue
+            n = int(m[5])
+            pw = (ra[:n].decode("latin-1"), fa[:n].decode("latin-1"))
+            finish_alignment(
+                maln, f, fsdb, bool(m[1]), int(m[2]), int(m[3]), int(m[4]), pw
+            )
+
     def _prepare_dispatch(records: list):
         """Worker-thread half of a batch submit: pack + k-mer prepare +
         device dispatch (all FFI work off the streaming thread)."""
@@ -525,17 +597,42 @@ def run_assembly(cfg: MiaConfig) -> MapAlignment:
                 trim_frag(frag_seq, cfg.adapter, adapt_align)
             else:
                 frag_seq.trimmed = False
-            pending.append(frag_seq)
-            if len(pending) >= scorer.batch:
-                flush_pending()
+            if use_native:
+                pending.append(frag_seq)
+                if len(pending) >= NATIVE_BATCH:
+                    _flush_native()
+            elif use_torch:
+                pending.append(frag_seq)
+                if len(pending) >= scorer.batch:
+                    flush_pending()
+            else:
+                frag_len = (
+                    frag_seq.trim_point + 1 if frag_seq.trimmed else frag_seq.seq_len
+                )
+                if new_kmer_filter(
+                    frag_seq.seq,
+                    frag_len,
+                    fkpa,
+                    rkpa,
+                    cfg.kmer_filt_len,
+                    fw_align.align_mask,
+                    rc_align.align_mask,
+                    fw_align.len1,
+                    rc_align.len1,
+                ):
+                    sg_align(maln, frag_seq, fsdb, fw_align, rc_align)
         if seen % 1000 == 0:
             sys.stderr.write(".")
         if seen % 80000 == 0:
             sys.stderr.write("\n")
-    flush_pending(final=True)
+    if use_native:
+        _flush_native()
+    elif use_torch:
+        flush_pending(final=True)
     finish_pool.shutdown(wait=True)
     prep_pool.shutdown(wait=True)
-    bhost.close()
+    if bhost is not None:
+        bhost.close()
     profiling.count("pass1.reads_seen", seen)
     profiling.add_time("pass1", time.time() - t_pass1)
 
@@ -588,11 +685,12 @@ def run_assembly(cfg: MiaConfig) -> MapAlignment:
         collapse_FSDB(fsdb, cfg.hard_cut, cfg.score_cut_set, cfg.slope,
                       cfg.intercept)
 
-    rei_device = scorer.device
+    rei_device = scorer.device if use_torch else None
     with profiling.phase("reiterate"):
         reiterate_assembly(
             last_assembly_cons, iter_num, maln, fsdb, fw_align, ancsubmat,
-            rcancsubmat, torch_device=rei_device,
+            rcancsubmat, engine=cfg.engine, torch_device=rei_device,
+            devices=devices,
         )
     pop_smp_from_FSDB(fsdb, PSSM_DEPTH)
     _filter_and_cull()
@@ -602,11 +700,14 @@ def run_assembly(cfg: MiaConfig) -> MapAlignment:
         if cfg.make_fastq:
             write_fastq(cfg.fastq_out_fn, fsdb)
 
-    cons_hook = ConsensusHook(rei_device)
+    if use_torch:
+        consensus = ConsensusHook(rei_device, devices).consensus
+    else:
+        consensus = consensus_assembly_string
     if cfg.iterate:
         _log("Generating new assembly consensus")
         with profiling.phase("consensus"):
-            assembly_cons = cons_hook.consensus(culled)
+            assembly_cons = consensus(culled)
 
         while assembly_cons != last_assembly_cons and iter_num < MAX_ITER:
             iter_num += 1
@@ -621,7 +722,8 @@ def run_assembly(cfg: MiaConfig) -> MapAlignment:
             with profiling.phase("reiterate"):
                 reiterate_assembly(
                     assembly_cons, iter_num, maln, fsdb, fw_align, ancsubmat,
-                    rcancsubmat, torch_device=rei_device,
+                    rcancsubmat, engine=cfg.engine, torch_device=rei_device,
+            devices=devices,
                 )
             with profiling.phase("filters.pop_smp"):
                 pop_smp_from_FSDB(fsdb, PSSM_DEPTH)
@@ -631,7 +733,7 @@ def run_assembly(cfg: MiaConfig) -> MapAlignment:
                 _log(f"Writing maln file for iteration {iter_num}")
                 _write_maln(maln_fn)
             with profiling.phase("consensus"):
-                assembly_cons = cons_hook.consensus(culled)
+                assembly_cons = consensus(culled)
 
         if assembly_cons == last_assembly_cons:
             _log("Assembly convergence - writing final maln")

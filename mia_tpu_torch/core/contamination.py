@@ -1,56 +1,55 @@
-"""Contamination analysis engine of the port (ccheck, src/ccheck.cc).
+"""Contamination analysis engine (ccheck, src/ccheck.cc).
 
-Port of :mod:`mia_tpu.core.contamination` under ``--engine torch``: the two
-device stages run on the port's device, everything else is imported.
+Pipeline: globally align the contaminant consensus vs the assembly with the
+Myers O(ND) aligner; collect weakly/strongly diagnostic positions; pass 1
+re-aligns each read to the lifted contaminant window with the mia DP and
+upgrades weak positions that diagnose contamination to 'effective'; pass 2
+classifies every read clean/dirt/conflict/nonsense by IUPAC consistency at
+the surviving positions (with aDNA deamination leniency), joining circular
+front/back segments; finally a Wilson 95% CI estimates the contamination
+fraction.
 
-* The Myers alignment of the contaminant consensus against the assembly
+The JAX package's ``mia_tpu/core/contamination.py`` with both device stages
+on the port's device under ``--engine torch`` (the default here):
+
+* the Myers alignment of the contaminant consensus against the assembly
   (``myers_diff_torch``: the wavefront kernel ``csrc/myers_waves.cu`` on a
-  card, its plain PyTorch version on the CPU).
-* The pass-1 read realignment (:func:`_realign_all`): every read whose
+  card, its plain PyTorch version on the CPU);
+* the pass-1 read realignment (:func:`_realign_all`): every read whose
   lifted window fits the device window is scored by the port's
   :class:`~mia_tpu_torch.core.torch_engine.Pass1Scorer` (the fused entry
   kernel), and the host rebuilds the traceback (``BatchHost.finish``); the
-  rest go to the native window solver and the per-read Python DP, exactly
-  as in ``mia_tpu``.
+  rest go to the native window solver and the per-read Python DP.
 
-Unlike ``mia_tpu``, a device failure raises: neither stage falls back to
-the host without a word.  ``device_entries`` / ``host_entries`` count the
-reads realigned on the device and on the host.
+``--engine native`` and ``--engine numpy`` keep both stages on the host.
+Unlike the JAX package, a device failure raises: neither stage falls back
+to the host without a word.  ``device_entries`` / ``host_entries`` count the
+reads realigned on the device and on the host under ``--engine torch``.
 """
 from __future__ import annotations
 
+import math
 import sys
+from bisect import bisect_left
+from dataclasses import dataclass
+from enum import IntEnum
 
 import numpy as np
 
-from mia_tpu.core.contamination import (
-    EFFECTIVE,
-    MAXWHATSITS,
-    STRONG,
-    WEAK,
-    CachedPwaln,
-    Whatsit,
-    _ch,
-    _python_realign_one,
-    consistent,
-    fixup_name,
-    is_transversion,
-    is_weakly_diagnostic,
-    lift_over,
-    merge_whatsit,
-    mk_dp_list,
-    overlapped_positions,
-    print_results,
-    update_class,
+from ..ops.dp_numpy import (
+    Alignment,
+    dyn_prog,
+    find_align_begin,
+    max_sg_score,
+    populate_pwaln_to_begin,
 )
-from mia_tpu.core.jax_engine import L_MAX, MAX_INTERVALS, WIN_W, pack_s2c
-from mia_tpu.core.types import MapAlignment
-from mia_tpu.ops.myers import UINT_MAX, Mode
-from mia_tpu.utils import profiling
-from mia_tpu.utils.encoding import encode_seq
-
-from ..ops.myers_torch import myers_diff_torch
-from .torch_engine import Pass1Scorer
+from ..ops.myers import UINT_MAX, Mode, myers_diff
+from ..utils import profiling
+from ..utils.encoding import IUPAC_BITMAP, encode_seq
+from .driver import init_alignment, set_seq1, set_seq2
+from .entries import L_MAX, MAX_INTERVALS, WIN_W, pack_s2c
+from .hostbatch import STATUS_OK, BatchHost
+from .types import AlnSeq, MapAlignment
 
 device_entries = 0
 host_entries = 0
@@ -60,6 +59,180 @@ def reset_counts() -> None:
     global device_entries, host_entries
     device_entries = 0
     host_entries = 0
+
+WEAK, EFFECTIVE, STRONG = 0, 1, 2
+
+
+class Whatsit(IntEnum):
+    unknown = 0
+    clean = 1
+    dirt = 2
+    conflict = 3
+    nonsense = 4
+
+
+MAXWHATSITS = 5
+LABELS = [
+    "unclassified", "clean", "polluting", "conflicting", "nonsensical",
+    "LB", "ML", "UB",
+]
+
+
+@dataclass
+class Dp:
+    consensus: str = "\0"
+    assembly: str = "\0"
+    contaminant: str = "\0"
+    strength: int = WEAK
+
+
+def compatible(x: str, y: str) -> bool:
+    return (IUPAC_BITMAP[ord(x)] & IUPAC_BITMAP[ord(y)]) != 0
+
+
+def is_strongly_diagnostic(a1: str, a2: str) -> bool:
+    return a1 != "-" and a2 != "-" and not compatible(a1, a2)
+
+
+def is_weakly_diagnostic(a1: str, a2: str) -> bool:
+    return a1 != "-" and a2 != "-" and a1.upper() != a2.upper()
+
+
+def is_transversion(a: str, b: str) -> bool:
+    u = a.upper()
+    v = b.upper()
+    if u == "A":
+        return v != "G"
+    if u == "C":
+        return v != "T"
+    if u == "G":
+        return v != "A"
+    if u in ("T", "U"):
+        return v != "C"
+    return False
+
+
+def consistent(adna: bool, x: str, y: str) -> bool:
+    """IUPAC consistency with aDNA deamination leniency: under --ancient, G
+    also matches A (R) and C also matches T (Y) (src/ccheck.cc:178-183)."""
+    if adna:
+        x = {"G": "R", "C": "Y", "g": "r", "c": "y"}.get(x, x)
+    return x == "-" or y == "-" or compatible(x, y)
+
+
+def mk_dp_list(aln1: str, aln2: str, span_from: int, span_to: int) -> dict[int, Dp]:
+    """Diagnostic positions keyed by assembly coordinate
+    (src/ccheck.cc:132-154)."""
+    out: dict[int, Dp] = {}
+    index = 0
+    i = 0
+    n = min(len(aln1), len(aln2))
+    while index != span_from and i < n:
+        if aln2[i] != "-":
+            index += 1
+        i += 1
+    while index != span_to and i < n:
+        if is_weakly_diagnostic(aln1[i], aln2[i]):
+            d = out.setdefault(index, Dp())
+            d.consensus = aln1[i]
+            d.assembly = aln2[i]
+            d.strength = STRONG if is_strongly_diagnostic(aln1[i], aln2[i]) else WEAK
+        if aln2[i] != "-":
+            index += 1
+        i += 1
+    return out
+
+
+def overlapped_positions(keys: list[int], s: AlnSeq) -> tuple[int, int]:
+    """lower_bound(start), lower_bound(end+1) over the sorted key list."""
+    return bisect_left(keys, s.start), bisect_left(keys, s.end + 1)
+
+
+def lift_over(aln1: str, aln2: str, s: int, e: int) -> str:
+    """Contaminant bases covering assembly range [s, e)
+    (src/ccheck.cc:166-176)."""
+    out = []
+    p = 0
+    for c1, c2 in zip(aln1, aln2):
+        if p >= e:
+            break
+        if c1 != "-" and p >= s:
+            out.append(c1)
+        if c2 != "-":
+            p += 1
+    return "".join(out)
+
+
+def sanity_check_sequence(s: str) -> bool:
+    return all(c.upper() in "ACGTBDHVMKYRSWUN" for c in s)
+
+
+def fixup_name(s: AlnSeq) -> None:
+    """Strip the _f/_b suffixes added for circular splits
+    (src/ccheck.cc:240-248)."""
+    q = s.id
+    if len(q) > 3 and q[-1] in "bf" and q[-2] == "_":
+        if q[-3] == ",":
+            s.id = q[:-3]
+        else:
+            s.id = q[:-2]
+
+
+def merge_whatsit(a: Whatsit, b: Whatsit) -> Whatsit:
+    if a == b:
+        return a
+    if a == Whatsit.unknown:
+        return b
+    if b == Whatsit.unknown:
+        return a
+    if a == Whatsit.nonsense or b == Whatsit.nonsense:
+        return Whatsit.nonsense
+    return Whatsit.conflict
+
+
+def update_class(klass: Whatsit, votes: int, maybe_clean: bool, maybe_dirt: bool):
+    if maybe_clean and not maybe_dirt and klass == Whatsit.unknown:
+        klass = Whatsit.clean
+    if maybe_clean and not maybe_dirt and klass == Whatsit.dirt:
+        klass = Whatsit.conflict
+    if not maybe_clean and maybe_dirt and klass == Whatsit.unknown:
+        klass = Whatsit.dirt
+    if not maybe_clean and maybe_dirt and klass == Whatsit.clean:
+        klass = Whatsit.conflict
+    if not maybe_clean and not maybe_dirt:
+        klass = Whatsit.nonsense
+    if maybe_clean != maybe_dirt:
+        votes += 1
+    return klass, votes
+
+
+def _ch(s: str, i: int) -> str:
+    """C-string style indexing: '\\0' past the end."""
+    return s[i] if 0 <= i < len(s) else "\0"
+
+
+@dataclass
+class CachedPwaln:
+    start: int = 0
+    ref_seq: str = ""
+    frag_seq: str = ""
+
+
+def _python_realign_one(submat, ref_for_mia: str, the_read: str, lifted_len: int) -> CachedPwaln:
+    """Exact per-read DP of read vs lifted window (src/ccheck.cc:571-603)."""
+    frag = init_alignment(
+        max(lifted_len, len(the_read)), max(lifted_len, len(the_read)), False, False
+    )
+    frag.submat = submat
+    set_seq1(frag, ref_for_mia)
+    set_seq2(frag, the_read)
+    frag.sg5 = True
+    frag.sg3 = True
+    dyn_prog(frag)
+    max_sg_score(frag)
+    find_align_begin(frag)
+    rs, fs_ = populate_pwaln_to_begin(frag)
+    return CachedPwaln(start=frag.abc, ref_seq=rs, frag_seq=fs_)
 
 
 def _solve_device(bh, reads, wlo, whi, lens, submat, big_ref: str, device) -> dict:
@@ -73,6 +246,8 @@ def _solve_device(bh, reads, wlo, whi, lens, submat, big_ref: str, device) -> di
     solved: dict[int, CachedPwaln] = {}
     if not dev:
         return solved
+    from .torch_engine import Pass1Scorer
+
     codes = encode_seq(big_ref)
     scorer = Pass1Scorer(codes, codes, len(big_ref), submat, device=device)
     cap = bh.TRACE_CAP
@@ -109,16 +284,18 @@ def _solve_device(bh, reads, wlo, whi, lens, submat, big_ref: str, device) -> di
     return solved
 
 
-def _realign_all(maln, aln_con: str, aln_ass: str, submat, device=None) -> list[CachedPwaln]:
+def _realign_all(maln, aln_con: str, aln_ass: str, submat, engine: str = "torch",
+                 device=None) -> list[CachedPwaln]:
     """Pass-1 read re-alignments to the lifted contaminant windows
-    (src/ccheck.cc:550-603), as ``mia_tpu``'s ``_realign_all(engine="jax")``
-    with the port's scorer: windows that fit the device window score on
-    ``device`` with the native traceback (``mia_p1_finish``); the rest go
-    to the threaded native solver (``mia_rei_solve``) and, where it gives
-    up, to the exact per-read Python DP."""
-    global host_entries
-    from mia_tpu.core.hostbatch import STATUS_OK, BatchHost
+    (src/ccheck.cc:550-603), batched.
 
+    "native": all windows concatenate into one pseudo-reference and solve in
+    threaded FFI calls (mia_rei_solve fills exactly the sliced-window DP the
+    per-read path runs).  "torch": windows that fit the device window score
+    on ``device`` first, with the margin-verified native traceback
+    (mia_p1_finish); the rest go the native way.  "numpy": the exact
+    per-read path.  All three are byte-identical."""
+    global host_entries
     jobs: list[tuple[str, str, str]] = []
     for s in maln.aln_seqs:
         parts: list[str] = []
@@ -137,7 +314,7 @@ def _realign_all(maln, aln_con: str, aln_ass: str, submat, device=None) -> list[
 
     cached = [CachedPwaln() for _ in jobs]
     live = [i for i, (r, _, rm) in enumerate(jobs) if r and rm]
-    if live:
+    if engine in ("native", "torch") and live:
         big_ref = "".join(jobs[i][2] for i in live)
         offs = np.zeros(len(live) + 1, np.int64)
         np.cumsum(
@@ -145,47 +322,86 @@ def _realign_all(maln, aln_con: str, aln_ass: str, submat, device=None) -> list[
             out=offs[1:],
         )
         bh = BatchHost.create(big_ref, big_ref, len(big_ref), submat, None, -1, False, 0, 0)
-        if bh is None:
+        if bh is None and engine == "torch":
             raise RuntimeError(
                 "--engine torch needs the native host library (make -C native)"
             )
-        reads = [jobs[i][0] for i in live]
-        _, _, lens = bh.pack_reads(reads)
-        wlo = offs[:-1].astype(np.int32)
-        whi = offs[1:].astype(np.int32)
-        solved = _solve_device(bh, reads, wlo, whi, lens, submat, big_ref, device)
+        if bh is not None:
+            reads = [jobs[i][0] for i in live]
+            _, _, lens = bh.pack_reads(reads)
+            wlo = offs[:-1].astype(np.int32)
+            whi = offs[1:].astype(np.int32)
+            solved: dict[int, CachedPwaln] = {}
+            if engine == "torch":
+                solved = _solve_device(bh, reads, wlo, whi, lens, submat, big_ref, device)
 
-        rest = [j for j in range(len(live)) if j not in solved and lens[j] > 0]
-        host_entries += len(rest)
-        CHUNK = 8192
-        cap = bh.TRACE_CAP
-        for c0 in range(0, len(rest), CHUNK):
-            chunk = rest[c0 : c0 + CHUNK]
-            a2, o2, l2 = bh.pack_reads([reads[j] for j in chunk])
-            meta, ra, fa = bh.solve_rei(
-                a2, o2[:-1], l2,
-                np.zeros(len(chunk), np.uint8),
-                wlo[chunk], whi[chunk],
-            )
-            for t, j in enumerate(chunk):
-                if meta[t, 0] != STATUS_OK:
-                    continue  # per-read python path below
-                n = int(meta[t, 4])
-                solved[j] = CachedPwaln(
-                    start=int(meta[t, 2]) - int(wlo[j]),
-                    ref_seq=ra[t * cap : t * cap + n].decode("latin-1"),
-                    frag_seq=fa[t * cap : t * cap + n].decode("latin-1"),
+            rest = [j for j in range(len(live)) if j not in solved and lens[j] > 0]
+            if engine == "torch":
+                host_entries += len(rest)
+            CHUNK = 8192
+            cap = bh.TRACE_CAP
+            for c0 in range(0, len(rest), CHUNK):
+                chunk = rest[c0 : c0 + CHUNK]
+                a2, o2, l2 = bh.pack_reads([reads[j] for j in chunk])
+                meta, ra, fa = bh.solve_rei(
+                    a2, o2[:-1], l2,
+                    np.zeros(len(chunk), np.uint8),
+                    wlo[chunk], whi[chunk],
                 )
-        bh.close()
-        for j, i in enumerate(live):
-            if j in solved:
-                cached[i] = solved[j]
+                for t, j in enumerate(chunk):
+                    if meta[t, 0] != STATUS_OK:
+                        continue  # per-read python path below
+                    n = int(meta[t, 4])
+                    solved[j] = CachedPwaln(
+                        start=int(meta[t, 2]) - int(wlo[j]),
+                        ref_seq=ra[t * cap : t * cap + n].decode("latin-1"),
+                        frag_seq=fa[t * cap : t * cap + n].decode("latin-1"),
+                    )
+            bh.close()
+            for j, i in enumerate(live):
+                if j in solved:
+                    cached[i] = solved[j]
 
     for i, (the_read, lifted, ref_for_mia) in enumerate(jobs):
         if cached[i].ref_seq or not (ref_for_mia and the_read):
             continue
         cached[i] = _python_realign_one(submat, ref_for_mia, the_read, len(lifted))
     return cached
+
+
+def print_results(summary: list[int], mktable: bool, out) -> None:
+    """Wilson 95% CI contamination estimate (src/ccheck.cc:329-367)."""
+    z = 1.96
+    k = float(summary[Whatsit.dirt])
+    n = k + summary[Whatsit.clean]
+    lb = ml = ub = 0.0
+    nn = summary[Whatsit.dirt] + summary[Whatsit.clean]
+    if n:
+        p_ = k / n
+        c = p_ + 0.5 * z * z / n
+        w = z * math.sqrt(p_ * (1 - p_) / n + 0.25 * z * z / (n * n))
+        d = 1 + z * z / n
+        lb = 100.0 * (c - w) / d
+        ml = 100.0 * p_
+        ub = 100.0 * (c + w) / d
+    labellen = max(len(LABELS[k_]) for k_ in range(MAXWHATSITS))
+    lb = max(lb, 0.0)
+    ub = min(ub, 100.0)
+    for klass in range(MAXWHATSITS):
+        if mktable:
+            out.write(f"{summary[klass]}\t")
+        else:
+            out.write(f"  {LABELS[klass]:>{labellen}} fragments: {summary[klass]}")
+            if klass == Whatsit.dirt and nn:
+                out.write(f" ({lb:.1f} .. {ml:.1f} .. {ub:.1f}%)")
+            out.write("\n")
+    if mktable:
+        if nn:
+            out.write(f"{lb:.1f}\t{ml:.1f}\t{ub:.1f}\t")
+        else:
+            out.write("N/A\tN/A\tN/A\t")
+    else:
+        out.write("\n")
 
 
 def check_contamination(
@@ -203,13 +419,15 @@ def check_contamination(
     verbose: int = 0,
     out=None,
     infile: str = "",
+    engine: str = "torch",
     device=None,
 ) -> int:
-    """``mia_tpu``'s ``check_contamination`` with the Myers alignment and the
-    read realignment on ``device`` (default: ``torchcfg.select_device``);
-    returns 0 on success, 1 on the safety stop / alignment failure.  Under
-    ``mia_tpu.utils.profiling`` the two stages time as ``ccheck.myers`` and
-    ``ccheck.realign``."""
+    """Run the two-pass contamination analysis on one maln; returns 0 on
+    success, 1 on the safety stop / alignment failure.  Under ``engine ==
+    "torch"`` the Myers alignment and the read realignment run on ``device``
+    (default: ``torchcfg.select_device``).  Under
+    :mod:`mia_tpu_torch.utils.profiling` the two stages time as
+    ``ccheck.myers`` and ``ccheck.realign``."""
     out = out or sys.stdout
     err = sys.stderr
     submat = maln.fpsm
@@ -217,9 +435,16 @@ def check_contamination(
     if not maxd:
         maxd = max(len(hum_ref_seq), len(maln.ref.seq)) // 10
     with profiling.phase("ccheck.myers"):
-        d, aln_con, aln_ass = myers_diff_torch(
-            hum_ref_seq, Mode.GLOBAL, maln.ref.seq, maxd, device=device
-        )
+        if engine == "torch":
+            from ..ops.myers_torch import myers_diff_torch
+
+            d, aln_con, aln_ass = myers_diff_torch(
+                hum_ref_seq, Mode.GLOBAL, maln.ref.seq, maxd, device=device
+            )
+        else:
+            d, aln_con, aln_ass = myers_diff(
+                hum_ref_seq, Mode.GLOBAL, maln.ref.seq, maxd
+            )
     if d == UINT_MAX:
         err.write(
             f"\n *** Could not align references with up to {maxd} mismatches.\n"
@@ -261,10 +486,10 @@ def check_contamination(
         return 1
 
     # ---- pass 1: find actually diagnostic positions ----
-    # all read-vs-lifted-window re-alignments run batched up front on the
-    # device (the rest on the host); the loop below only walks them
+    # all read-vs-lifted-window re-alignments run batched up front (native
+    # threads / device scoring per `engine`); the loop below only walks them
     with profiling.phase("ccheck.realign"):
-        cached = _realign_all(maln, aln_con, aln_ass, submat, device)
+        cached = _realign_all(maln, aln_con, aln_ass, submat, engine, device)
     for s, pwaln in zip(maln.aln_seqs, cached):
         fixup_name(s)
         lifted = lift_over(aln_con, aln_ass, s.start, s.end + 2)

@@ -1,32 +1,210 @@
-"""Iterative realignment engine of the port.
+"""Per-read alignment driver and the iterative realignment engine.
 
-Copy of :func:`mia_tpu.core.driver.reiterate_assembly` (src/mia_main.c:
-24-280) in which only the device group changes: device-sized windows are
-scored by the port's :class:`~mia_tpu_torch.core.torch_engine.Pass1Scorer`
-(one entry per strand-known read against the new consensus, its strand
-picking the fw or rc PSSM).  Everything else, and every helper it calls, is
-``mia_tpu``'s host code, imported unchanged.
+Ports sg_align (src/map_align.c:1500-1665), trim_frag
+(src/map_align.c:1304-1368) and reiterate_assembly (src/mia_main.c:24-280).
+The DP itself runs through :mod:`mia_tpu_torch.ops.dp_numpy` (exact), the
+native batch engine, or under ``--engine torch`` the port's scorer
+(:class:`~mia_tpu_torch.core.torch_engine.Pass1Scorer`); this module owns
+the strand choice, coordinate fixups, circular splits and maln/FSDB
+bookkeeping.  It is the JAX package's ``mia_tpu/core/driver.py`` with the
+device group of ``reiterate_assembly`` on the port's scorer: no resident
+server, no work-stealing, and a device failure raises.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from mia_tpu.constants import FIRST_ROUND_SCORE_CUTOFF, REALIGN_BUFFER
-from mia_tpu.core.jax_engine import (
+from ..constants import (
+    FIRST_ROUND_SCORE_CUTOFF,
+    FLAT_MATCH,
+    GEP,
+    GOP,
+    INIT_ALN_SEQ_LEN,
+    REALIGN_BUFFER,
+    TRIM_SCORE_CUT,
+)
+from ..ops.dp_numpy import (
+    Alignment,
+    dyn_prog,
+    find_align_begin,
+    max_sg_score,
+    populate_pwaln_to_begin,
+    solve_sg,
+    trim_argmax_last_col,
+)
+from ..utils import profiling
+from ..utils.encoding import encode_seq, pop_hpl_and_hps, revcom
+from .entries import (
     L_MAX,
     MAX_INTERVALS,
     WIN_W,
+    diag_gapfree,
     hp_routes_to_host,
     pack_chars,
     pack_s2c,
 )
-from mia_tpu.core.driver import set_hp_cols, set_hp_rows, set_seq1, set_seq2
-from mia_tpu.core.merge import add_ref_wrap, merge_pwaln_into_maln, split_pwaln
-from mia_tpu.core.types import FSDB, FragSeq, MapAlignment, PWAlnFrag
-from mia_tpu.ops.dp_numpy import Alignment, populate_pwaln_to_begin, solve_sg
-from mia_tpu.utils.encoding import encode_seq, pop_hpl_and_hps, revcom
+from .fsdb import add_virgin_fs2fsdb
+from .hostbatch import STATUS_OK, BatchHost
+from .merge import add_ref_wrap, c2rcc, merge_pwaln_into_maln, revcom_PWAF, split_pwaln
+from .types import FSDB, FragSeq, MapAlignment, PWAlnFrag
 
-from .torch_engine import Pass1Scorer
+
+def init_alignment(size1: int, size2: int, rc: bool, hp_special: bool) -> Alignment:
+    """Workspace sized like the reference's init_alignment
+    (src/mia.c:988-1030): size1 rows (fragment) x size2 cols (reference)."""
+    a = Alignment()
+    a.hp = hp_special
+    a.rc = rc
+    a.align_mask = np.ones(size2, dtype=np.uint8)
+    a.s1c = np.zeros(size2, dtype=np.int8)
+    a.s2c = np.zeros(size1, dtype=np.int8)
+    return a
+
+
+def set_seq1(a: Alignment, seq: str, length: int | None = None) -> None:
+    a.seq1 = seq
+    a.len1 = len(seq) if length is None else length
+    enc = encode_seq(seq[: a.len1])
+    if len(enc) > len(a.s1c):
+        a.s1c = np.zeros(len(enc) + 16, dtype=np.int8)
+    a.s1c[: a.len1] = enc
+
+
+def set_seq2(a: Alignment, seq: str, length: int | None = None) -> None:
+    a.seq2 = seq
+    a.len2 = len(seq) if length is None else length
+    enc = encode_seq(seq[: a.len2])
+    if len(enc) > len(a.s2c):
+        a.s2c = np.zeros(len(enc) + 16, dtype=np.int8)
+    a.s2c[: a.len2] = enc
+
+
+def set_hp_cols(a: Alignment) -> None:
+    a.hpcl, a.hpcs = pop_hpl_and_hps(a.seq1[: a.len1])
+
+
+def set_hp_rows(a: Alignment) -> None:
+    a.hprl, a.hprs = pop_hpl_and_hps(a.seq2[: a.len2])
+
+
+def trim_frag(frag_seq: FragSeq, adapter: str, align: Alignment) -> None:
+    """Adapter trimming via DP of adapter (rows) vs read (columns); sets
+    trimmed/trim_point (src/map_align.c:1304-1368)."""
+    set_seq1(align, frag_seq.seq)
+    if align.hp:
+        set_hp_cols(align)
+    dyn_prog(align)
+    max_score = trim_argmax_last_col(align)
+    find_align_begin(align)
+    if max_score >= TRIM_SCORE_CUT or max_score >= (
+        (align.aer - align.abr + 1) * FLAT_MATCH
+    ):
+        frag_seq.trimmed = True
+        frag_seq.trim_point = align.abc - 1
+    else:
+        frag_seq.trimmed = False
+
+
+def sg_align(
+    maln: MapAlignment,
+    fs: FragSeq,
+    fsdb: FSDB,
+    fw_a: Alignment,
+    rc_a: Alignment,
+) -> bool:
+    """Align one read fw+rc, keep the better strand, merge into the maln and
+    insert into the FSDB (src/map_align.c:1500-1665)."""
+    rs = maln.ref
+    length = fs.trim_point + 1 if fs.trimmed else fs.seq_len
+    if length <= 0:
+        # adapter trimming consumed the whole read: the reference runs a
+        # len2=0 DP here and emits uninitialised-memory garbage
+        # (src/mia.c:1514-1543 with trim_point == -1); we define such reads
+        # as unalignable and skip them
+        return True
+    set_seq2(fw_a, fs.seq, length)
+    set_seq2(rc_a, fs.seq, length)
+    if fw_a.hp:
+        set_hp_rows(fw_a)
+        set_hp_rows(rc_a)
+    fw_a.sg5 = fw_a.sg3 = True
+    rc_a.sg5 = rc_a.sg3 = True
+
+    # traceback emit is O(path length) — cheap enough to do for both
+    # strands rather than refill the winner
+    solve_sg(fw_a)
+    solve_sg(rc_a)
+    best_a = fw_a if fw_a.best_score > rc_a.best_score else rc_a
+
+    pw = best_a.pw if best_a.pw is not None else populate_pwaln_to_begin(best_a)
+    finish_alignment(
+        maln, fs, fsdb, best_a.rc, best_a.best_score, best_a.abc, best_a.aec, pw
+    )
+    return True
+
+
+def finish_alignment(
+    maln: MapAlignment,
+    fs: FragSeq,
+    fsdb: FSDB,
+    rc: bool,
+    best_score: int,
+    abc: int,
+    aec: int,
+    pw: tuple[str, str],
+) -> None:
+    """Merge one aligned read into the maln + FSDB given its winning strand's
+    traceback (the bookkeeping half of sg_align, src/map_align.c:1560-1665).
+    Shared between the per-read host path and the batched native/device path."""
+    rs = maln.ref
+    front = PWAlnFrag()
+    front.ref_id = rs.id
+    front.ref_desc = rs.desc
+    front.frag_id = fs.id
+    front.frag_desc = fs.desc
+    front.ref_seq, front.frag_seq = pw
+    front.start = abc
+    front.end = aec
+    front.trimmed = fs.trimmed
+    front.segment = "a"
+    front.score = best_score
+    fs.score = best_score
+
+    if rc:
+        revcom_PWAF(front)
+        front.revcom = True
+        fs.rc = True
+        front.start = c2rcc(aec, rs.seq_len)
+        front.end = c2rcc(abc, rs.seq_len)
+        fs.as_ = c2rcc(aec, rs.seq_len)
+        fs.ae = c2rcc(abc, rs.seq_len)
+    else:
+        front.revcom = False
+        fs.rc = False
+        fs.as_ = abc
+        fs.ae = aec
+    if fs.as_ > fs.ae:
+        # wrapped rc alignment: keep ae beyond seq_len for the next round
+        # (src/map_align.c:1600-1604)
+        fs.ae = rs.seq_len + fs.as_
+
+    if front.end > rs.seq_len:
+        front.end = front.end - rs.seq_len
+
+    if fs.score >= FIRST_ROUND_SCORE_CUTOFF or maln.distant_ref:
+        if front.start > front.end:
+            back = split_pwaln(front, rs.seq_len)
+            fs.front_asp = merge_pwaln_into_maln(front, maln)
+            fs.back_asp = merge_pwaln_into_maln(back, maln)
+            fs.back_fresh = True
+        else:
+            fs.front_asp = merge_pwaln_into_maln(front, maln)
+            fs.back_asp = None
+            fs.back_fresh = False
+        fs.unique_best = True
+        fs.num_inputs = 1
+        fs.strand_known = fs.score > FIRST_ROUND_SCORE_CUTOFF
+        add_virgin_fs2fsdb(fs, fsdb)
 
 
 def reiterate_assembly(
@@ -37,7 +215,9 @@ def reiterate_assembly(
     a: Alignment,
     ancsubmat: np.ndarray,
     rcancsubmat: np.ndarray,
+    engine: str = "native",
     torch_device=None,
+    devices=None,
 ) -> None:
     """Re-align every FSDB read against the new consensus
     (src/mia_main.c:24-280).
@@ -47,13 +227,17 @@ def reiterate_assembly(
     reference orientation score with the revcom PSSM so end-damage stays on
     the right molecular end.
 
-    The window DP scoring for every device-sized window runs batched on
-    ``torch_device`` (one entry per read against the new consensus, the read's
-    strand picking the fw/rc PSSM) and only the score-verified margin-window
+    With ``engine == "torch"`` the window DP scoring for every device-sized
+    window runs batched on ``torch_device`` (one entry per read against the
+    new consensus, the read's strand picking the fw/rc PSSM), or sharded over
+    ``devices`` (``--dp-devices``), and only the score-verified margin-window
     traceback stays on the native threads; windows wider than the device
     window, and under ``-h`` reads with a homopolymer run of HPW or more, go
     to the native solver (a work partition, counted as
-    ``reiterate.native_entries``)."""
+    ``reiterate.native_entries``).  Under ``-h`` the scorer stays on one
+    device: the ``-h`` kernel has no sharded form in the JAX package either
+    (there a mesh sends ``-h`` realignment to the native engine; here the
+    single-device ``-h`` kernel keeps it on the card, with equal bytes)."""
     import time as _time0
 
     _t_setup = _time0.time()
@@ -181,14 +365,11 @@ def reiterate_assembly(
         pw = a.pw if a.pw is not None else populate_pwaln_to_begin(a)
         _merge_front(fs, a.best_score, a.abc + ref_start, a.aec + ref_start, pw)
 
-    from mia_tpu.utils import profiling
-
     # batched native realignment: one threaded FFI call per chunk does the
     # window DP + traceback for every strand-known read; the merge
     # bookkeeping below then runs in FSDB order as before
     native_results: dict[int, tuple] = {}
-    from mia_tpu.core.hostbatch import STATUS_OK, BatchHost
-
+    reprobed = False
     bh = BatchHost.create(
         ref.seq[: ref.wrap_seq_len],
         ref.seq[: ref.wrap_seq_len],
@@ -202,265 +383,279 @@ def reiterate_assembly(
         upper=False,
         hp=a.hp,
     )
-    if bh is None:
+    if bh is None and engine == "torch":
         raise RuntimeError(
             "--engine torch needs the native host library (make -C native)"
         )
-    # re-probes first: they can set strand_known (and flip fs.seq).
-    # Both strands of every unknown read go through the threaded native
-    # full-width window solver in chunks (the per-read python probe is
-    # quadratic pain at distant-ref scale, src/mia_main.c:120-174)
-    if maln.distant_ref and iter_num > 1:
-        todo = [fs for fs in fsdb.fss if not fs.strand_known]
-        if todo:
-            probe_reads: list[str] = []
-            for fs in todo:
-                probe_reads.append(fs.seq)
-                probe_reads.append(revcom(fs.seq))
-            cap = bh.wide_cap
-            chunk_n = max(1, (8192 * bh.TRACE_CAP) // max(cap, 1))
-            results: list[tuple[int, int, int, int]] = []
-            for c0 in range(0, len(probe_reads), chunk_n):
-                chunk = probe_reads[c0 : c0 + chunk_n]
-                arena, off, lens = bh.pack_reads(chunk)
+    if bh is not None:
+        # re-probes first: they can set strand_known (and flip fs.seq).
+        # Both strands of every unknown read go through the threaded native
+        # full-width window solver in chunks (the per-read python probe is
+        # quadratic pain at distant-ref scale, src/mia_main.c:120-174)
+        if maln.distant_ref and iter_num > 1:
+            todo = [fs for fs in fsdb.fss if not fs.strand_known]
+            if todo:
+                probe_reads: list[str] = []
+                for fs in todo:
+                    probe_reads.append(fs.seq)
+                    probe_reads.append(revcom(fs.seq))
+                cap = bh.wide_cap
+                chunk_n = max(1, (8192 * bh.TRACE_CAP) // max(cap, 1))
+                results: list[tuple[int, int, int, int]] = []
+                for c0 in range(0, len(probe_reads), chunk_n):
+                    chunk = probe_reads[c0 : c0 + chunk_n]
+                    arena, off, lens = bh.pack_reads(chunk)
+                    m = len(chunk)
+                    smidx = np.fromiter(
+                        ((c0 + j) % 2 for j in range(m)), np.uint8, m
+                    )
+                    wlo = np.zeros(m, np.int32)
+                    whi = np.full(m, ref.wrap_seq_len, np.int32)
+                    meta, _, _ = bh.solve_rei(
+                        arena, off[:-1], lens, smidx, wlo, whi, cap=cap
+                    )
+                    for j in range(m):
+                        results.append(
+                            (int(meta[j, 0]), int(meta[j, 1]), int(meta[j, 2]),
+                             int(meta[j, 3]))
+                        )
+                for t, fs in enumerate(todo):
+                    st_f, best_f, abc_f, aec_f = results[2 * t]
+                    st_r, best_r, abc_r, aec_r = results[2 * t + 1]
+                    if st_f != STATUS_OK or st_r != STATUS_OK:
+                        _reprobe(fs)  # arena overflow etc.: exact per-read
+                        continue
+                    if best_f > FIRST_ROUND_SCORE_CUTOFF:
+                        fs.strand_known = True
+                        fs.rc = False
+                        fs.as_ = abc_f
+                        fs.ae = aec_f
+                        fs.score = best_f
+                    if best_r > FIRST_ROUND_SCORE_CUTOFF and best_r > fs.score:
+                        fs.strand_known = True
+                        fs.rc = True
+                        fs.as_ = abc_r
+                        fs.ae = aec_r
+                        fs.score = best_r
+                        fs.seq = revcom(fs.seq)
+            reprobed = True
+        # window sizes are known up front: group reads by whether their
+        # window fits the device scorer, then by whether their traceback
+        # fits the default arena; solve each group batched
+        narrow: list = []
+        wide: list = []
+        device: list = []
+        scorer = None
+        if engine == "torch":
+            from .torch_engine import Pass1Scorer
+
+            enc = encode_seq(ref.seq[: ref.wrap_seq_len])
+            # -h: reads realign on the fw strand (smidx picks the PSSM), so
+            # both strand slots carry the consensus's chars and runs
+            hp_seqs = None
+            if a.hp:
+                s_fw = ref.seq[: ref.wrap_seq_len]
+                hp_seqs = (s_fw, s_fw)
+            scorer = Pass1Scorer(
+                enc, enc, ref.wrap_seq_len, ancsubmat, rcancsubmat,
+                device=torch_device, hp_seqs=hp_seqs,
+                devices=None if a.hp else devices,
+            )
+        profiling.add_time(
+            "reiterate.setup", __import__("time").time() - _t_setup
+        )
+        _t_cls = __import__("time").time()
+        for fs in fsdb.fss:
+            if not fs.strand_known:
+                continue
+            len2 = len(fs.seq)
+            lo, hi = _window(fs, len2)
+            job = (fs, lo, hi)
+            if (hi - lo) + len2 + 2 > bh.TRACE_CAP:
+                wide.append(job)
+            elif (
+                scorer is not None
+                and hi - max(lo - 2, 0) <= WIN_W
+                and len2 <= L_MAX
+                and not (a.hp and hp_routes_to_host(fs.seq))
+            ):
+                device.append(job)
+            else:
+                narrow.append(job)
+        profiling.add_time(
+            "reiterate.classify", __import__("time").time() - _t_cls
+        )
+        if scorer is not None:
+            profiling.count("reiterate.device_entries", len(device))
+            profiling.count("reiterate.native_entries", len(narrow) + len(wide))
+        # device-sized windows: dispatch ALL chunks asynchronously, then
+        # run the native groups (the device scores while the host solves)
+        _t_disp = __import__("time").time()
+        dev_handles: list = []
+        if device:
+            E = scorer.E
+            for c0 in range(0, len(device), E):
+                chunk = device[c0 : c0 + E]
                 m = len(chunk)
+                arena, off, lens = bh.pack_reads([fs.seq for fs, _, _ in chunk])
+                los = np.fromiter((lo for _, lo, _ in chunk), np.int32, m)
+                his = np.fromiter((hi for _, _, hi in chunk), np.int32, m)
+                ws = np.maximum(los - 2, 0)
+                ivl = np.zeros((m, MAX_INTERVALS, 2), np.int32)
+                ivl[:, 0, 0] = los - ws
+                ivl[:, 0, 1] = his - ws
                 smidx = np.fromiter(
-                    ((c0 + j) % 2 for j in range(m)), np.uint8, m
+                    (1 if fs.rc else 0 for fs, _, _ in chunk), np.int8, m
                 )
-                wlo = np.zeros(m, np.int32)
-                whi = np.full(m, ref.wrap_seq_len, np.int32)
-                meta, _, _ = bh.solve_rei(
+                s2c = (pack_chars if scorer.hp else pack_s2c)(
+                    arena, off[:-1], lens
+                )
+                handle = scorer.dispatch_entries(
+                    np.zeros(m, np.int8), ws, ivl, s2c, lens, smidx
+                )
+                dev_handles.append(
+                    (chunk, handle, arena, off, lens, ws, los, his, smidx)
+                )
+        profiling.add_time(
+            "reiterate.dispatch", __import__("time").time() - _t_disp
+        )
+        _t_ns = _time2 = __import__("time").time()
+        CHUNK = 8192
+        # bound per-chunk output-arena allocation (2 arenas of n*cap
+        # bytes): the wide group's cap is the full reference width, so
+        # scale its chunk size down to ~TARGET_ARENA bytes per arena
+        TARGET_ARENA = CHUNK * bh.TRACE_CAP
+        for jobs, cap in ((narrow, bh.TRACE_CAP), (wide, bh.wide_cap)):
+            chunk_n = max(1, min(CHUNK, TARGET_ARENA // max(cap, 1)))
+            for c0 in range(0, len(jobs), chunk_n):
+                chunk = jobs[c0 : c0 + chunk_n]
+                arena, off, lens = bh.pack_reads([fs.seq for fs, _, _ in chunk])
+                wlo = np.fromiter((lo for _, lo, _ in chunk), np.int32, len(chunk))
+                whi = np.fromiter((hi for _, _, hi in chunk), np.int32, len(chunk))
+                smidx = np.fromiter(
+                    (1 if fs.rc else 0 for fs, _, _ in chunk), np.uint8, len(chunk)
+                )
+                meta, ref_a, frag_a = bh.solve_rei(
                     arena, off[:-1], lens, smidx, wlo, whi, cap=cap
                 )
-                for j in range(m):
-                    results.append(
-                        (int(meta[j, 0]), int(meta[j, 1]), int(meta[j, 2]),
-                         int(meta[j, 3]))
+                for j, (fs, _, _) in enumerate(chunk):
+                    if meta[j, 0] != STATUS_OK:
+                        continue  # falls back to the per-read path below
+                    n = int(meta[j, 4])
+                    native_results[id(fs)] = (
+                        int(meta[j, 1]),
+                        int(meta[j, 2]),
+                        int(meta[j, 3]),
+                        ref_a[j * cap : j * cap + n],
+                        frag_a[j * cap : j * cap + n],
                     )
-            for t, fs in enumerate(todo):
-                st_f, best_f, abc_f, aec_f = results[2 * t]
-                st_r, best_r, abc_r, aec_r = results[2 * t + 1]
-                if st_f != STATUS_OK or st_r != STATUS_OK:
-                    _reprobe(fs)  # arena overflow etc.: exact per-read
-                    continue
-                if best_f > FIRST_ROUND_SCORE_CUTOFF:
-                    fs.strand_known = True
-                    fs.rc = False
-                    fs.as_ = abc_f
-                    fs.ae = aec_f
-                    fs.score = best_f
-                if best_r > FIRST_ROUND_SCORE_CUTOFF and best_r > fs.score:
-                    fs.strand_known = True
-                    fs.rc = True
-                    fs.as_ = abc_r
-                    fs.ae = aec_r
-                    fs.score = best_r
-                    fs.seq = revcom(fs.seq)
-    # window sizes are known up front: group reads by whether their
-    # window fits the device scorer, then by whether their traceback
-    # fits the default arena; solve each group batched
-    narrow: list = []
-    wide: list = []
-    device: list = []
-    enc = encode_seq(ref.seq[: ref.wrap_seq_len])
-    # -h: reads realign on the fw strand (smidx picks the PSSM), so both
-    # strand slots carry the consensus's chars and runs
-    hp_seqs = None
-    if a.hp:
-        s_fw = ref.seq[: ref.wrap_seq_len]
-        hp_seqs = (s_fw, s_fw)
-    scorer = Pass1Scorer(
-        enc, enc, ref.wrap_seq_len, ancsubmat, rcancsubmat, device=torch_device,
-        hp_seqs=hp_seqs,
-    )
-    profiling.add_time(
-        "reiterate.setup", __import__("time").time() - _t_setup
-    )
-    _t_cls = __import__("time").time()
-    for fs in fsdb.fss:
-        if not fs.strand_known:
-            continue
-        len2 = len(fs.seq)
-        lo, hi = _window(fs, len2)
-        job = (fs, lo, hi)
-        if (hi - lo) + len2 + 2 > bh.TRACE_CAP:
-            wide.append(job)
-        elif (hi - max(lo - 2, 0) <= WIN_W and len2 <= L_MAX
-              and not (a.hp and hp_routes_to_host(fs.seq))):
-            device.append(job)
-        else:
-            narrow.append(job)
-    profiling.add_time(
-        "reiterate.classify", __import__("time").time() - _t_cls
-    )
-    profiling.count("reiterate.device_entries", len(device))
-    profiling.count("reiterate.native_entries", len(narrow) + len(wide))
-    # device-sized windows: dispatch ALL chunks asynchronously, then
-    # run the native groups (the device scores while the host solves)
-    _t_disp = __import__("time").time()
-    dev_handles: list = []
-    if device:
+        profiling.add_time("reiterate.native_solve", __import__("time").time() - _t_ns)
+        _t_dev = __import__("time").time()
+        # drain the device chunks: verified margin-window traceback on
+        # the native threads (mia_p1_finish), results in global coords.
+        # The finish FFI call releases the GIL, so it runs on a worker
+        # thread while the main thread waits on the NEXT chunk's device
+        # collect — the same overlap pass 1 uses.
+        sms2 = np.stack(
+            [np.asarray(ancsubmat, np.int64), np.asarray(rcancsubmat, np.int64)]
+        )
+        from ..utils import encoding as _encoding
 
-        E = scorer.E
-        for c0 in range(0, len(device), E):
-            chunk = device[c0 : c0 + E]
+        ref_str = ref.seq[: ref.wrap_seq_len]
+        enc_codes = _encoding.encode_seq(ref_str)
+
+        def _finish_chunk(args):
+            chunk, arena, off, lens, ws, los, his, smidx, best, aecl = args
+            aec = (aecl + ws).astype(np.int32)
             m = len(chunk)
-            arena, off, lens = bh.pack_reads([fs.seq for fs, _, _ in chunk])
-            los = np.fromiter((lo for _, lo, _ in chunk), np.int32, m)
-            his = np.fromiter((hi for _, _, hi in chunk), np.int32, m)
-            ws = np.maximum(los - 2, 0)
-            ivl = np.zeros((m, MAX_INTERVALS, 2), np.int32)
-            ivl[:, 0, 0] = los - ws
-            ivl[:, 0, 1] = his - ws
-            smidx = np.fromiter(
-                (1 if fs.rc else 0 for fs, _, _ in chunk), np.int8, m
+            ivg = np.zeros((m, 1, 2), np.int32)
+            ivg[:, 0, 0] = los
+            ivg[:, 0, 1] = his
+            # provably gap-free realignments skip the native window refill
+            # (entries.diag_gapfree; PSSM selected per read by smidx)
+            gf_ok, gf_abc = diag_gapfree(
+                arena, off[:-1], lens, best.astype(np.int64),
+                aec.astype(np.int64), ivg.astype(np.int64),
+                enc_codes, enc_codes, np.zeros(m, np.int8), sms2,
+                sm_sel=smidx,
             )
-            s2c = (pack_chars if a.hp else pack_s2c)(arena, off[:-1], lens)
-            handle = scorer.dispatch_entries(
-                np.zeros(m, np.int8), ws, ivl, s2c, lens, smidx
+            diag = {}
+            for j in np.flatnonzero(gf_ok):
+                fs = chunk[j][0]
+                a0, a1 = int(gf_abc[j]), int(aec[j])
+                diag[id(fs)] = (
+                    int(best[j]), a0, a1,
+                    ref_str[a0 : a1 + 1], fs.seq,
+                )
+            profiling.count("reiterate.gapfree_shortcut", len(diag))
+            fin = np.flatnonzero(~gf_ok)
+            if len(fin) == 0:
+                return chunk, diag, None, None, None, None, 0
+            fcap = min(
+                bh.TRACE_CAP,
+                int((his - los).max(initial=1)) + int(lens.max(initial=1)) + 64,
             )
-            dev_handles.append(
-                (chunk, handle, arena, off, lens, ws, los, his, smidx)
+            meta, ref_a, frag_a = bh.finish(
+                arena,
+                off[:-1][fin],
+                lens[fin],
+                np.zeros(len(fin), np.uint8),
+                smidx[fin].astype(np.uint8),
+                best[fin].astype(np.int32),
+                aec[fin],
+                ivg[fin],
+                cap=fcap,
             )
-    profiling.add_time(
-        "reiterate.dispatch", __import__("time").time() - _t_disp
-    )
-    _t_ns = _time2 = __import__("time").time()
-    CHUNK = 8192
-    # bound per-chunk output-arena allocation (2 arenas of n*cap
-    # bytes): the wide group's cap is the full reference width, so
-    # scale its chunk size down to ~TARGET_ARENA bytes per arena
-    TARGET_ARENA = CHUNK * bh.TRACE_CAP
-    for jobs, cap in ((narrow, bh.TRACE_CAP), (wide, bh.wide_cap)):
-        chunk_n = max(1, min(CHUNK, TARGET_ARENA // max(cap, 1)))
-        for c0 in range(0, len(jobs), chunk_n):
-            chunk = jobs[c0 : c0 + chunk_n]
-            arena, off, lens = bh.pack_reads([fs.seq for fs, _, _ in chunk])
-            wlo = np.fromiter((lo for _, lo, _ in chunk), np.int32, len(chunk))
-            whi = np.fromiter((hi for _, _, hi in chunk), np.int32, len(chunk))
-            smidx = np.fromiter(
-                (1 if fs.rc else 0 for fs, _, _ in chunk), np.uint8, len(chunk)
-            )
-            meta, ref_a, frag_a = bh.solve_rei(
-                arena, off[:-1], lens, smidx, wlo, whi, cap=cap
-            )
-            for j, (fs, _, _) in enumerate(chunk):
-                if meta[j, 0] != STATUS_OK:
-                    continue  # falls back to the per-read path below
-                n = int(meta[j, 4])
+            return chunk, diag, fin, meta, ref_a, frag_a, fcap
+
+        from concurrent.futures import ThreadPoolExecutor
+
+        def _store(fut) -> None:
+            chunk, diag, fin, meta, ref_a, frag_a, cap = fut.result()
+            native_results.update(diag)
+            if fin is None:
+                return
+            for j, w in enumerate(fin):
+                fs = chunk[w][0]
+                n = int(meta[j, 3])
+                if n < 0:
+                    continue  # native finish failed: per-read path below
                 native_results[id(fs)] = (
+                    int(meta[j, 0]),
                     int(meta[j, 1]),
                     int(meta[j, 2]),
-                    int(meta[j, 3]),
                     ref_a[j * cap : j * cap + n],
                     frag_a[j * cap : j * cap + n],
                 )
-    profiling.add_time("reiterate.native_solve", __import__("time").time() - _t_ns)
-    _t_dev = __import__("time").time()
-    # drain the device chunks: verified margin-window traceback on
-    # the native threads (mia_p1_finish), results in global coords.
-    # The finish FFI call releases the GIL, so it runs on a worker
-    # thread while the main thread waits on the NEXT chunk's device
-    # collect — the same overlap pass 1 uses.
-    sms2 = np.stack(
-        [np.asarray(ancsubmat, np.int64), np.asarray(rcancsubmat, np.int64)]
-    )
-    from mia_tpu.utils import encoding as _encoding
 
-    ref_str = ref.seq[: ref.wrap_seq_len]
-    enc_codes = _encoding.encode_seq(ref_str)
-
-    def _finish_chunk(args):
-        chunk, arena, off, lens, ws, los, his, smidx, best, aecl = args
-        aec = (aecl + ws).astype(np.int32)
-        m = len(chunk)
-        ivg = np.zeros((m, 1, 2), np.int32)
-        ivg[:, 0, 0] = los
-        ivg[:, 0, 1] = his
-        # provably gap-free realignments skip the native window refill
-        # (jax_engine.diag_gapfree; PSSM selected per read by smidx)
-        from mia_tpu.core.jax_engine import diag_gapfree
-
-        gf_ok, gf_abc = diag_gapfree(
-            arena, off[:-1], lens, best.astype(np.int64),
-            aec.astype(np.int64), ivg.astype(np.int64),
-            enc_codes, enc_codes, np.zeros(m, np.int8), sms2,
-            sm_sel=smidx,
-        )
-        diag = {}
-        for j in np.flatnonzero(gf_ok):
-            fs = chunk[j][0]
-            a0, a1 = int(gf_abc[j]), int(aec[j])
-            diag[id(fs)] = (
-                int(best[j]), a0, a1,
-                ref_str[a0 : a1 + 1], fs.seq,
-            )
-        profiling.count("reiterate.gapfree_shortcut", len(diag))
-        fin = np.flatnonzero(~gf_ok)
-        if len(fin) == 0:
-            return chunk, diag, None, None, None, None, 0
-        fcap = min(
-            bh.TRACE_CAP,
-            int((his - los).max(initial=1)) + int(lens.max(initial=1)) + 64,
-        )
-        meta, ref_a, frag_a = bh.finish(
-            arena,
-            off[:-1][fin],
-            lens[fin],
-            np.zeros(len(fin), np.uint8),
-            smidx[fin].astype(np.uint8),
-            best[fin].astype(np.int32),
-            aec[fin],
-            ivg[fin],
-            cap=fcap,
-        )
-        return chunk, diag, fin, meta, ref_a, frag_a, fcap
-
-    from concurrent.futures import ThreadPoolExecutor
-
-    def _store(fut) -> None:
-        chunk, diag, fin, meta, ref_a, frag_a, cap = fut.result()
-        native_results.update(diag)
-        if fin is None:
-            return
-        for j, w in enumerate(fin):
-            fs = chunk[w][0]
-            n = int(meta[j, 3])
-            if n < 0:
-                continue  # native finish failed: per-read path below
-            native_results[id(fs)] = (
-                int(meta[j, 0]),
-                int(meta[j, 1]),
-                int(meta[j, 2]),
-                ref_a[j * cap : j * cap + n],
-                frag_a[j * cap : j * cap + n],
-            )
-
-    with ThreadPoolExecutor(1) as fin_pool:
-        futs: list = []
-        for chunk, handle, arena, off, lens, ws, los, his, smidx in dev_handles:
-            _tc = __import__("time").time()
-            best, aecl = scorer.collect_entries(handle)
-            profiling.add_time(
-                "reiterate.drain_collect", __import__("time").time() - _tc
-            )
-            futs.append(
-                fin_pool.submit(
-                    _finish_chunk,
-                    (chunk, arena, off, lens, ws, los, his, smidx, best, aecl),
+        with ThreadPoolExecutor(1) as fin_pool:
+            futs: list = []
+            for chunk, handle, arena, off, lens, ws, los, his, smidx in dev_handles:
+                _tc = __import__("time").time()
+                best, aecl = scorer.collect_entries(handle)
+                profiling.add_time(
+                    "reiterate.drain_collect", __import__("time").time() - _tc
                 )
-            )
-            while len(futs) > 1:
+                futs.append(
+                    fin_pool.submit(
+                        _finish_chunk,
+                        (chunk, arena, off, lens, ws, los, his, smidx, best, aecl),
+                    )
+                )
+                while len(futs) > 1:
+                    _store(futs.pop(0))
+            while futs:
                 _store(futs.pop(0))
-        while futs:
-            _store(futs.pop(0))
-    profiling.add_time("reiterate.device_drain", __import__("time").time() - _t_dev)
-    bh.close()
+        profiling.add_time("reiterate.device_drain", __import__("time").time() - _t_dev)
+        bh.close()
 
     import time as _time
 
     _t_merge = _time.time()
     for fs in fsdb.fss:
+        if maln.distant_ref and not fs.strand_known and iter_num > 1 and not reprobed:
+            _reprobe(fs)
+
         if fs.strand_known:
             res = native_results.get(id(fs))
             if res is not None:

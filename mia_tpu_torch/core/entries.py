@@ -1,0 +1,256 @@
+"""Scoring entries: the shape constants of the entry kernels and the numpy
+helpers that build, pack and check entries on the host.
+
+Everything the device sees is an **entry**: a (reference-strand select,
+window start, band intervals, read codes, PSSM select) tuple.  Pass 1 ships
+each read as two entries (fw + rc strand); iteration realignment ships each
+strand-known read as one entry against the new consensus with its strand's
+PSSM.  The constants here are the compile-time bounds of
+``csrc/dp_entries.cu`` (``torchcfg.check_constants`` holds the built library
+against them); the helpers are the host half of the device engine
+(:mod:`mia_tpu_torch.core.torch_engine`): entry arrays for a pass-1 read
+batch, packed reads, the gap-free traceback shortcut and the windowed exact
+DP.  The JAX package keeps the same names in ``mia_tpu/core/jax_engine.py``.
+
+Window verification: the host recomputes the winning strand's DP restricted
+to [aec - margin, aec] (margin from the score bound: a gated alignment of
+score >= s spans at most len2 + (len2*max_sub - s)/GEP extra columns) and
+checks that (best, aec) and the alignment start reproduce exactly; any
+disagreement falls back to the full-width exact computation
+(native/src/hostbatch.cc: mia_p1_finish).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..constants import GEP, INIT_ALN_SEQ_LEN, PSSM_DEPTH
+from ..ops.dp_numpy import Alignment
+
+# route-to-host threshold of the -h kernel's row reach (HPW)
+HPW_ROUTE = 32
+
+
+def hp_routes_to_host(seq: str) -> bool:
+    """True when the read's longest homopolymer run is >= HPW_ROUTE: past
+    the -h kernel's row reach (the JAX package's ring depth, kept as a
+    guard), so the read stays on the exact host path (shared by pass 1 and
+    the realigner)."""
+    if len(seq) < HPW_ROUTE:
+        return False
+    b = np.frombuffer(seq.encode("latin-1"), np.uint8)
+    brk = np.flatnonzero(np.diff(b) != 0)
+    runs = np.diff(np.concatenate(([-1], brk, [len(b) - 1])))
+    return int(runs.max()) >= HPW_ROUTE
+
+
+SCORE_BATCH = 8192           # reads per pass-1 batch (2 entries each)
+
+
+def default_batch() -> int:
+    """Reads per batch; MIA_SCORE_BATCH overrides (smaller batches keep the
+    CPU tests fast)."""
+    import os
+
+    return int(os.environ.get("MIA_SCORE_BATCH", SCORE_BATCH))
+
+
+MAX_INTERVALS = 16
+# per-read reference window for the banded scorer; strands whose band spans
+# more than WIN_W columns are solved by the native engine instead
+WIN_W = 384
+L_MAX = INIT_ALN_SEQ_LEN     # 256: the reference's hard read-length cap
+REF_BUCKET = 2048            # reference width pads to a multiple of this
+
+
+@dataclass
+class StrandScore:
+    best: int
+    aec: int
+
+
+def build_pass1_entries(s2c, lens, fw_ws, rc_ws, fw_ivg, rc_ivg, flags):
+    """(ref_sel, starts, ivl, s2c2, ln2, smidx) entry arrays for one pass-1
+    read batch (each read = fw + rc entries).  flags: FLAG_SKIP/HOST_ONLY/WIDE reads get empty
+    intervals (their scores are garbage the caller ignores)."""
+    from .hostbatch import FLAG_HOST_ONLY, FLAG_SKIP, FLAG_WIDE
+
+    n = len(lens)
+    inactive = (flags & (FLAG_SKIP | FLAG_HOST_ONLY | FLAG_WIDE)) != 0
+
+    def local_iv(ivg, ws):
+        used = (ivg[:, :, 1] > 0) & ~inactive[:n, None]
+        return np.where(used[:, :, None], ivg - ws[:n, None, None], 0).astype(
+            np.int32
+        )
+
+    ref_sel = np.repeat(np.array([0, 1], np.int8), n)
+    starts = np.concatenate([fw_ws, rc_ws]).astype(np.int32)
+    ivl = np.concatenate([local_iv(fw_ivg, fw_ws), local_iv(rc_ivg, rc_ws)])
+    s2c2 = np.concatenate([s2c, s2c]).astype(np.int8)
+    ln2 = np.concatenate([lens, lens]).astype(np.int32)
+    smidx = np.zeros(2 * n, np.int8)
+    return ref_sel, starts, ivl, s2c2, ln2, smidx
+
+
+def split_pass1_results(best, aec, fw_ws, rc_ws):
+    """(fb, fa, rb, ra) with aec in GLOBAL reference coordinates."""
+    n = len(best) // 2
+    fb = best[:n]
+    fa = aec[:n] + fw_ws[:n]
+    rb = best[n:]
+    ra = aec[n:] + rc_ws[:n]
+    return fb, fa, rb, ra
+
+
+def mask_intervals(mask: np.ndarray) -> np.ndarray | None:
+    """[K,2] (lo, hi-exclusive) intervals of the open columns, or None when
+    the mask needs more than MAX_INTERVALS (caller falls back to host)."""
+    m = mask.astype(bool)
+    d = np.diff(m.astype(np.int8))
+    starts = list(np.flatnonzero(d == 1) + 1)
+    ends = list(np.flatnonzero(d == -1) + 1)
+    if m[0]:
+        starts.insert(0, 0)
+    if m[-1]:
+        ends.append(len(m))
+    if len(starts) > MAX_INTERVALS:
+        return None
+    out = np.zeros((MAX_INTERVALS, 2), np.int32)
+    for k, (s, e) in enumerate(zip(starts, ends)):
+        out[k] = (s, e)
+    return out
+
+
+def pack_s2c(arena: bytes, off: np.ndarray, lens: np.ndarray, L: int = L_MAX) -> np.ndarray:
+    """[n, L] int8 read codes from a packed read arena (one vectorised
+    gather; pad code 4)."""
+    from ..utils.encoding import BASE2INX
+
+    buf = np.frombuffer(arena, np.uint8)
+    cols = np.arange(L, dtype=np.int64)[None, :]
+    idx = np.minimum(off[:, None] + cols, max(len(buf) - 1, 0))
+    valid = cols < lens[:, None]
+    return np.where(valid, BASE2INX[buf[idx]], 4).astype(np.int8)
+
+
+def diag_gapfree(
+    arena: bytes,
+    off: np.ndarray,      # [n] read arena offsets (winners)
+    lens: np.ndarray,     # [n] read lengths
+    bests: np.ndarray,    # [n] device best scores
+    aecs: np.ndarray,     # [n] GLOBAL end columns
+    ivg: np.ndarray,      # [n, K, 2] GLOBAL band intervals (0,0 = unused)
+    ref_fw: np.ndarray,   # [len1] forward-strand reference codes
+    ref_rc: np.ndarray,   # [len1] rc-strand codes (pass ref_fw again if n/a)
+    sel: np.ndarray,      # [n] strand select (1 = rc row)
+    submat: np.ndarray,   # [31,5,5], or [2,31,5,5] selected per entry by
+                          # ``sm_sel`` (the realign path's fw/rc PSSM choice)
+    sm_sel: np.ndarray | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Provably gap-free winners: (mask [n] bool, abc [n] int32).
+
+    If the pure-diagonal substitution sum ending at ``aec`` equals the
+    device best and the whole diagonal lies inside one open band interval,
+    the reference's traceback IS that gap-free diagonal: S along the
+    diagonal can never exceed the prefix sums (or the end value would
+    exceed the total, contradiction via the diag candidate
+    S[r+1][c+1] >= S[r][c]+sub), so every cell's value equals its diagonal
+    prefix, every competing candidate is <= the diagonal predecessor, and
+    the reference's tie-breaking prefers diag over gaps/hp while restart
+    needs STRICT > (src/mia.c:907-965).  Such winners skip the native
+    window refill entirely — the dominant case for short aDNA reads, where
+    indels are rare."""
+    n = len(off)
+    if n == 0:
+        return np.zeros(0, bool), np.zeros(0, np.int32)
+    L = int(lens.max())
+    abcs = (aecs - lens + 1).astype(np.int64)
+    # one interval must cover the whole diagonal's columns
+    used = ivg[:, :, 1] > 0
+    cover = (
+        used
+        & (ivg[:, :, 0] <= abcs[:, None])
+        & (aecs[:, None] < ivg[:, :, 1])
+    ).any(axis=1) & (abcs >= 0)
+
+    buf = np.frombuffer(arena, np.uint8)
+    rows = np.arange(L, dtype=np.int64)[None, :]
+    valid = rows < lens[:, None]
+    ridx = np.minimum(off[:, None] + rows, max(len(buf) - 1, 0))
+    from ..utils.encoding import BASE2INX
+
+    s2 = np.where(valid, BASE2INX[buf[ridx]], 4).astype(np.int64)
+    cidx = np.clip(abcs[:, None] + rows, 0, len(ref_fw) - 1)
+    s1 = np.where(
+        np.asarray(sel)[:, None] == 1,
+        np.asarray(ref_rc, np.int64)[cidx],
+        np.asarray(ref_fw, np.int64)[cidx],
+    )
+    # find_sm_depth per (read, row), src/pssm.c:36-46
+    from_back = lens[:, None] - (rows + 1)
+    d = np.where(
+        rows < PSSM_DEPTH,
+        rows,
+        np.where(from_back < PSSM_DEPTH, 2 * PSSM_DEPTH - from_back, PSSM_DEPTH),
+    )
+    d = np.clip(d, 0, 2 * PSSM_DEPTH)
+    sm = np.asarray(submat)
+    if sm.ndim == 4:
+        subs = np.where(valid, sm[np.asarray(sm_sel)[:, None], d, s1, s2], 0)
+    else:
+        subs = np.where(valid, sm[d, s1, s2], 0)
+    diag_sum = subs.sum(axis=1)
+    ok = cover & (diag_sum == bests)
+    return ok, abcs.astype(np.int32)
+
+
+def pack_chars(arena: bytes, off: np.ndarray, lens: np.ndarray, L: int = L_MAX) -> np.ndarray:
+    """[n, L] uint8 raw read chars from a packed read arena (pad 0) — the
+    hp device program's input form."""
+    buf = np.frombuffer(arena, np.uint8)
+    cols = np.arange(L, dtype=np.int64)[None, :]
+    idx = np.minimum(off[:, None] + cols, max(len(buf) - 1, 0))
+    valid = cols < lens[:, None]
+    return np.where(valid, buf[idx], 0).astype(np.uint8)
+
+
+def hp_pengop_table() -> np.ndarray:
+    """int(GOP * frac) per homopolymer length slot (exact C double->int
+    truncation: int(a+b) == a + int(b) for integer a, positive b — so the
+    gap-length term adds back in integer arithmetic on device)."""
+    from ..constants import GOP
+    from ..ops.dp_numpy import _HP_FRac
+
+    return np.array([int(GOP * f) for f in list(_HP_FRac) + [0.10]], np.int32)
+
+
+def windowed_exact_dp(a: Alignment, device_best: int, device_aec: int) -> None:
+    """Run the exact host DP for ``a`` restricted to a score-bounded window
+    ending at the device-reported end column; falls back to the full width
+    when the window result disagrees.  On return a.pw holds the winning
+    traceback strings (solve_sg)."""
+    from ..ops.dp_numpy import solve_sg
+
+    len2 = a.len2
+    max_sub = int(np.max(a.submat))
+    slack = (
+        max(0, (len2 * max_sub - device_best) // GEP)
+        if device_best < len2 * max_sub
+        else 0
+    )
+    margin = len2 + slack + 16
+
+    full_mask = a.align_mask[: a.len1].copy()
+    lo = max(device_aec - margin, 0)
+    if lo > 0 or device_aec < a.len1 - 1:
+        a.align_mask[: a.len1] = 0
+        a.align_mask[lo : device_aec + 1] = full_mask[lo : device_aec + 1]
+        solve_sg(a)
+        a.align_mask[: a.len1] = full_mask
+        if a.best_score == device_best and a.aec == device_aec:
+            if lo == 0 or a.abc > lo + 2:
+                return
+        # fall back: recompute over the full (kmer-banded) width
+    solve_sg(a)

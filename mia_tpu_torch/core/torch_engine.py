@@ -24,10 +24,17 @@ What changed from the TPU engine, and why:
   it has landed (:meth:`Pass1Scorer.ready`).
 * There is no background compile, no warm-up and no fallback: the kernel
   library is built when the scorer is made on a card, and a failure raises.
+* ``--dp-devices`` (the JAX package's ``_mesh_fn``: the same program under
+  ``shard_map`` over a ``dp`` mesh, reference and PSSMs replicated) is a
+  list of devices here: the scorer keeps one copy of its state and one CUDA
+  stream per shard, deals entry i to shard i mod n (every shard gets the
+  same mix of lengths, and each warp stops at its own row, so no length
+  sort), launches the kernel once per shard on that shard's stream, and
+  puts the results back in the caller's order.
 
 The numpy helpers (``build_pass1_entries``, ``split_pass1_results``,
-``pack_s2c``, ``diag_gapfree``) and the shape constants come from
-:mod:`mia_tpu.core.jax_engine`, which imports no jax at load.
+``pack_s2c``, ``diag_gapfree``) and the shape constants live in
+:mod:`mia_tpu_torch.core.entries`.
 """
 from __future__ import annotations
 
@@ -37,7 +44,10 @@ from functools import partial
 import numpy as np
 import torch
 
-from mia_tpu.core.jax_engine import (
+from ..ops import dp_cuda
+from ..utils.encoding import BASE2INX, pop_hpl_and_hps
+from ..utils.torchcfg import kernel_library, select_device
+from .entries import (
     L_MAX,
     MAX_INTERVALS,
     REF_BUCKET,
@@ -47,10 +57,6 @@ from mia_tpu.core.jax_engine import (
     hp_pengop_table,
     split_pass1_results,
 )
-from mia_tpu.utils.encoding import BASE2INX, pop_hpl_and_hps
-
-from ..ops import dp_cuda
-from ..utils.torchcfg import kernel_library, select_device
 
 
 @dataclass(frozen=True)
@@ -126,18 +132,48 @@ def state_from_numpy(refs_np: np.ndarray, sms_np: np.ndarray, device,
                        on(hp[1], np.int32), on(hp[2], np.int32), on(BASE2INX, np.int8))
 
 
+def make_dp_devices(n_dp: int, devices=None) -> list[torch.device] | None:
+    """The device list of ``--dp-devices``: the first ``n_dp`` of
+    ``cuda:0 .. cuda:{count-1}`` (``-1`` = all), or None when fewer than two
+    would result (the single-device path).  An explicit ``devices`` list is
+    taken as it is and may name one device several times: the port's
+    stand-in for XLA's virtual host devices, for tests and dry runs on one
+    card or on the CPU.  The JAX package rounds the count down to a divisor
+    of the batch so that its entry axis shards evenly; the shards here may
+    be uneven, so no rounding is needed."""
+    if devices is not None:
+        devs = [torch.device(d) for d in devices]
+    elif n_dp == 0:
+        return None
+    else:
+        count = torch.cuda.device_count()
+        n = count if n_dp < 0 else min(n_dp, count)
+        devs = [torch.device("cuda", i) for i in range(n)]
+    return devs if len(devs) >= 2 else None
+
+
+@dataclass
+class _Shard:
+    """One device's share of a scorer: its copy of the state and, on a card,
+    the stream its copies and launches are enqueued on."""
+
+    state: ScorerState
+    stream: torch.cuda.Stream | None
+
+
 @dataclass
 class _Batch:
-    """A dispatched batch: the [2, n] result (host memory; pinned on a card)
-    and, on a card, the event recorded after its copy back."""
+    """A dispatched batch: per shard the [2, n_k] result (host memory; pinned
+    on a card) and, on a card, the event recorded on the shard's stream
+    after its copy back.  A single-device batch has one part."""
 
-    out: torch.Tensor | None
+    parts: list  # [(out, event or None)]
     n: int
-    event: torch.cuda.Event | None = None
 
 
 class Pass1Scorer:
-    """Scores entries against up to two reference strands on one device.
+    """Scores entries against up to two reference strands on one device, or
+    with ``devices`` (:func:`make_dp_devices`) dealt over several.
 
     ``device`` defaults to :func:`select_device` (the card; the CPU only on
     request).  Same driving interface as the JAX engine's scorer:
@@ -147,30 +183,38 @@ class Pass1Scorer:
 
     def __init__(self, fw_s1c, rc_s1c, len1: int, submat, submat_b=None,
                  batch: int | None = None, device=None,
-                 hp_seqs: tuple[str, str] | None = None):
-        dev = select_device() if device is None else torch.device(device)
+                 hp_seqs: tuple[str, str] | None = None, devices=None):
         refs, sms = padded_state_numpy(fw_s1c, rc_s1c, len1, submat, submat_b)
         hp = () if hp_seqs is None else hp_state_numpy(hp_seqs, len1, refs.shape[1])
-        self._bind(state_from_numpy(refs, sms, dev, *hp), len1, batch)
+        if devices is None:
+            devices = [select_device() if device is None else torch.device(device)]
+        self._bind([state_from_numpy(refs, sms, d, *hp) for d in devices], len1, batch)
 
     @classmethod
-    def from_state(cls, state: ScorerState, len1: int,
-                   batch: int | None = None) -> "Pass1Scorer":
-        """A scorer over state already on its device (state_from_numpy)."""
+    def from_state(cls, state, len1: int, batch: int | None = None) -> "Pass1Scorer":
+        """A scorer over state already on its device (state_from_numpy), or
+        over a list of states, one per shard."""
         self = cls.__new__(cls)
-        self._bind(state, len1, batch)
+        self._bind(state if isinstance(state, (list, tuple)) else [state], len1, batch)
         return self
 
-    def _bind(self, state: ScorerState, len1: int, batch: int | None) -> None:
-        self.state = state
-        self.hp = state.hp
-        self.device = state.refs.device
+    def _bind(self, states: list[ScorerState], len1: int, batch: int | None) -> None:
+        self.state = states[0]
+        self.hp = self.state.hp
+        self.device = self.state.refs.device
         self.len1 = len1
-        self.WTOT = state.refs.shape[1]
+        self.WTOT = self.state.refs.shape[1]
         self.batch = batch or default_batch()
         self.E = 2 * self.batch
-        if self.device.type == "cuda":
+        if any(st.refs.device.type == "cuda" for st in states):
             kernel_library()  # build/load now, not inside the first dispatch
+        # a single device works on the current stream; shards get a stream
+        # each, so that their copies and kernels may overlap
+        self.shards = [
+            _Shard(st, torch.cuda.Stream(st.refs.device)
+                   if len(states) > 1 and st.refs.device.type == "cuda" else None)
+            for st in states
+        ]
 
     # ------------------------------------------------------------- dispatch
     def dispatch_entries(self, ref_sel, starts, ivl, s2c, lengths, smidx) -> _Batch:
@@ -178,10 +222,11 @@ class Pass1Scorer:
 
         ivl holds WINDOW-LOCAL [lo, hi) intervals (global band minus the
         entry's window start); entries with all-zero intervals score HIM.
-        Returns a handle for :meth:`collect_entries`."""
+        With k shards entry i goes to shard i mod k.  Returns a handle for
+        :meth:`collect_entries`."""
         n = len(ref_sel)
         if n == 0:
-            return _Batch(None, 0)
+            return _Batch([], 0)
         if n > self.E:
             raise ValueError(f"{n} entries exceed the batch of {self.E}")
         s2c = np.asarray(s2c)
@@ -196,37 +241,64 @@ class Pass1Scorer:
             np.maximum(np.ascontiguousarray(lengths, np.int32), 1),
             np.ascontiguousarray(smidx, np.int8),
         )
-        st = self.state
+        k = len(self.shards)
+        dp_cuda.shards = max(dp_cuda.shards, k)
+        if k == 1:
+            return _Batch([self._dispatch_shard(self.shards[0], host)], n)
+        parts = []
+        for j, shard in enumerate(self.shards):
+            part = tuple(np.ascontiguousarray(a[j::k]) for a in host)
+            parts.append(self._dispatch_shard(shard, part) if len(part[0])
+                         else (None, None))
+        return _Batch(parts, n)
+
+    def _dispatch_shard(self, shard: _Shard, host: tuple):
+        """Score one shard's entries on its device: (result [2, m] in host
+        memory, event or None).  On a card the inputs are staged in pinned
+        memory of their own (never reused while a copy may still read it),
+        and copies in, kernel, copy out and event all go to the shard's
+        stream in that order (a single device: the current stream)."""
+        st = shard.state
+        dev = st.refs.device
         score = (partial(dp_cuda.dp_entries_hp, st.refs, st.refchr, st.hpcs, st.sms,
                          st.pengop, st.b2i)
                  if self.hp else partial(dp_cuda.dp_entries, st.refs, st.sms))
-        if self.device.type == "cpu":
-            return _Batch(score(*(torch.from_numpy(a) for a in host)), n)
-        args = [torch.from_numpy(a).pin_memory().to(self.device, non_blocking=True)
-                for a in host]
-        out_dev = score(*args)
-        out = torch.empty((2, n), dtype=torch.int32, pin_memory=True)
-        out.copy_(out_dev, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        return _Batch(out, n, event)
+        if dev.type == "cpu":
+            return score(*(torch.from_numpy(a) for a in host)), None
+        with torch.cuda.device(dev):
+            stream = shard.stream or torch.cuda.current_stream(dev)
+            with torch.cuda.stream(stream):
+                args = [torch.from_numpy(a).pin_memory().to(dev, non_blocking=True)
+                        for a in host]
+                out_dev = score(*args)
+                out = torch.empty(tuple(out_dev.shape), dtype=torch.int32, pin_memory=True)
+                out.copy_(out_dev, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(stream)
+        return out, event
 
     @staticmethod
     def ready(handle) -> bool:
-        """True when the batch's results have landed (non-blocking); takes
+        """True when every shard's results have landed (non-blocking); takes
         an entries handle or a packed pass-1 handle."""
         batch = handle[0] if isinstance(handle, tuple) else handle
-        return batch.event is None or batch.event.query()
+        return all(event is None or event.query() for _, event in batch.parts)
 
     def collect_entries(self, handle: _Batch):
-        """Materialise a dispatched batch: (best, aec) int64 arrays [n];
-        aec is WINDOW-LOCAL (add the entry's window start)."""
-        if handle.out is None:
+        """Materialise a dispatched batch: (best, aec) int64 arrays [n] in
+        the caller's order; aec is WINDOW-LOCAL (add the entry's window
+        start)."""
+        if not handle.parts:
             return np.zeros(0, np.int64), np.zeros(0, np.int64)
-        if handle.event is not None:
-            handle.event.synchronize()
-        arr = handle.out.numpy()
-        return arr[0].astype(np.int64), arr[1].astype(np.int64)
+        k = len(handle.parts)
+        arr = np.empty((2, handle.n), np.int64)
+        for j, (out, event) in enumerate(handle.parts):
+            if out is None:
+                continue
+            if event is not None:
+                event.synchronize()
+            arr[:, j::k] = out.numpy()
+        return arr[0], arr[1]
 
     # ------------------------------------------------- pass-1 (two strands)
     def dispatch_packed(self, s2c, lens, fw_ws, rc_ws, fw_ivg, rc_ivg, flags):
@@ -239,7 +311,7 @@ class Pass1Scorer:
         if n > self.batch:
             raise ValueError(f"{n} reads exceed the batch of {self.batch}")
         if n == 0:
-            return _Batch(None, 0), fw_ws.copy(), rc_ws.copy()
+            return _Batch([], 0), fw_ws.copy(), rc_ws.copy()
         entries = build_pass1_entries(s2c, lens, fw_ws, rc_ws, fw_ivg, rc_ivg, flags)
         return self.dispatch_entries(*entries), fw_ws.copy(), rc_ws.copy()
 

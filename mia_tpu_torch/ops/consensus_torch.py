@@ -5,7 +5,7 @@ Port of :mod:`mia_tpu.ops.consensus_device` (``_accum_fn``'s ``core``): one
 scatter-add of the flattened observation stream into per-column one-hot
 counts [n, 5], coverage [n] and PSSM-weighted candidate scores [n, 4]
 (add_base, src/map_align.c:229-263), fed from the per-record arena layout of
-``mia_tpu.core.columns._record_arrays``:
+``mia_tpu_torch.core.columns._record_arrays``:
 
     record r, offset k  ->  column starts[r] + k, char seq[seq_off[r] + k],
                             depth smp[smp_off[r] + k] - 'A', strand revs[r]
@@ -20,7 +20,7 @@ int64 from the start.
 :func:`column_counts` sends CPU tensors to the plain version and CUDA
 tensors to the kernel, or raises: there is no fallback.
 :func:`device_column_counts` is the ``device_hook`` of
-``mia_tpu.core.columns.consensus_assembly_string``.  ``kernel_launches`` and
+``mia_tpu_torch.core.columns.consensus_assembly_string``.  ``kernel_launches`` and
 ``plain_calls`` count the two routes.
 """
 from __future__ import annotations
@@ -28,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mia_tpu.ops.consensus import _BASE_IDX, _SUB_IDX
+from .consensus import _BASE_IDX, _SUB_IDX
 
 from .dp_cuda import check_tensor
 
@@ -140,24 +140,60 @@ def column_counts(seq, smp, starts, spans, seq_off, smp_off, revs, fpsm, rpsm, n
     return counts, cov, scores
 
 
+def _split_records(spans: np.ndarray, k: int) -> list[tuple[int, int]]:
+    """Contiguous record ranges [lo, hi), one per shard, each holding about
+    the same number of observations: the greedy fill of the JAX package's
+    mesh form (a shard closes when the next record would pass its share),
+    without its padding record, since the kernel takes any length."""
+    share = -(-int(spans.sum()) // k)
+    bounds, lo, acc, g = [], 0, 0, 0
+    for r, span in enumerate(spans):
+        if g < k - 1 and acc + int(span) > share and r > lo:
+            bounds.append((lo, r))
+            lo, acc, g = r, 0, g + 1
+        acc += int(span)
+    bounds.append((lo, len(spans)))
+    return bounds + [(len(spans), len(spans))] * (k - len(bounds))
+
+
 def device_column_counts(seq_arena, smp_arena, starts, spans, seq_off, smp_off, revs,
-                         fpsm, rpsm, n, device=None):
+                         fpsm, rpsm, n, device=None, devices=None):
     """``device_hook`` for ``consensus_assembly_string``: the record arrays
     of ``columns._record_arrays`` go to ``device`` (default:
     torchcfg.select_device()), are counted there, and come back as
     (counts, cov, scores) int64 ndarrays, bit-equal to
-    ``ColumnCounts.add_bases`` over the same observations."""
+    ``ColumnCounts.add_bases`` over the same observations.
+
+    With ``devices`` (a list, ``core.torch_engine.make_dp_devices``) the
+    records are split into one contiguous group per device by observation
+    count, each group is counted on its device into accumulators of its own
+    (the arenas go to every device: the offsets are global), and the
+    accumulators are added on the first device: the JAX package's
+    ``shard_map`` + ``psum`` form."""
     from ..utils.torchcfg import select_device
 
-    dev = select_device() if device is None else torch.device(device)
-
-    def on(a, dtype):
+    def on(a, dtype, dev):
         t = torch.from_numpy(np.require(a, dtype, ["C", "W"]))
         return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
 
-    out = column_counts(
-        on(seq_arena, np.uint8), on(smp_arena, np.uint8), on(starts, np.int32),
-        on(spans, np.int32), on(seq_off, np.int32), on(smp_off, np.int32),
-        on(revs, np.bool_), on(fpsm, np.int32), on(rpsm, np.int32), int(n),
-    )
+    def count_on(dev, lo, hi):
+        per_record = [on(a[lo:hi], t, dev) for a, t in (
+            (starts, np.int32), (spans, np.int32), (seq_off, np.int32),
+            (smp_off, np.int32), (revs, np.bool_))]
+        return column_counts(
+            on(seq_arena, np.uint8, dev), on(smp_arena, np.uint8, dev), *per_record,
+            on(fpsm, np.int32, dev), on(rpsm, np.int32, dev), int(n),
+        )
+
+    if devices is None:
+        dev = select_device() if device is None else torch.device(device)
+        out = count_on(dev, 0, len(spans))
+    else:
+        devs = [torch.device(d) for d in devices]
+        spans = np.asarray(spans)
+        # a shard without records is skipped (the first never is)
+        parts = [count_on(dev, lo, hi)
+                 for k, (dev, (lo, hi)) in enumerate(zip(devs, _split_records(spans, len(devs))))
+                 if hi > lo or k == 0]
+        out = [torch.stack([p[i].to(devs[0]) for p in parts]).sum(0) for i in range(3)]
     return tuple(t.cpu().numpy() for t in out)

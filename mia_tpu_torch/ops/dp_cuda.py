@@ -19,8 +19,12 @@ Tensors on the CPU go to the plain versions,
 :func:`mia_tpu_torch.ops.dp_torch.entries_core_plain` and
 :func:`~mia_tpu_torch.ops.dp_torch.entries_core_hp_plain`.  CUDA tensors go
 to the kernel, or the call raises: there is no fallback.
+The general form of the same recurrence, any width and the whole last row
+out, is ``dp_last_row`` (``csrc/dp_last_row.cu``, at the end of this module).
 ``kernel_launches`` / ``plain_calls`` and ``hp_kernel_launches`` /
-``hp_plain_calls`` count the two routes of each.  Both kernels share one
+``hp_plain_calls`` count the two routes of each; ``shards`` is the largest
+number of device shards one dispatch of the scorer was dealt over
+(``core.torch_engine.Pass1Scorer``, 1 on a single device).  Both kernels share one
 library (``torchcfg.kernel_library``) with the consensus column counts
 (``csrc/column_counts.cu``) and ccheck's Myers wavefront
 (``csrc/myers_waves.cu``), whose wrappers use :func:`check_tensor` too.
@@ -29,22 +33,29 @@ from __future__ import annotations
 
 import torch
 
-from mia_tpu.core.jax_engine import L_MAX, MAX_INTERVALS
+from ..core.entries import L_MAX, MAX_INTERVALS
 
-from .dp_torch import entries_core_hp_plain, entries_core_plain
+from .dp_torch import batch_last_row, entries_core_hp_plain, entries_core_plain
 
 kernel_launches = 0
 plain_calls = 0
 hp_kernel_launches = 0
 hp_plain_calls = 0
+shards = 0
+last_row_launches = 0
+last_row_plain_calls = 0
 
 
 def reset_counts() -> None:
-    global kernel_launches, plain_calls, hp_kernel_launches, hp_plain_calls
+    global kernel_launches, plain_calls, hp_kernel_launches, hp_plain_calls, shards
+    global last_row_launches, last_row_plain_calls
     kernel_launches = 0
     plain_calls = 0
     hp_kernel_launches = 0
     hp_plain_calls = 0
+    shards = 0
+    last_row_launches = 0
+    last_row_plain_calls = 0
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -147,3 +158,78 @@ def dp_entries_hp(refs, refchr, hpcs, sms, pengop, b2i, ref_sel, starts, ivl, s2
     ))
     hp_kernel_launches += 1
     return out
+
+
+# ---- the general-width last-row scorer (csrc/dp_last_row.cu) ----
+
+# dynamic shared memory one block of the kernel may ask for, and the most
+# blocks that run on rows kept in global memory (the scratch buffer's size)
+LAST_ROW_SMEM = 227 * 1024 - 1024
+LAST_ROW_SCRATCH_BLOCKS = 264
+LAST_ROW_MAX_BLOCKS = 132 * 8
+
+
+def _last_row(s1c, mask, s2c, lengths, depths, submat, sg5: bool) -> torch.Tensor:
+    """Check the tensors and launch ``dp_last_row`` on a CUDA device."""
+    global last_row_launches
+    dev = mask.device
+    B, W = mask.shape
+    L = s2c.shape[1]
+    if s1c.dim() == 1:
+        check_tensor("s1c", s1c, torch.int32, (W,), dev)
+    else:
+        check_tensor("s1c", s1c, torch.int32, (B, W), dev)
+    check_tensor("mask", mask, torch.bool, (B, W), dev)
+    check_tensor("lengths", lengths, torch.int32, (B,), dev)
+    check_tensor("s2c", s2c, torch.int32, (B, L), dev)
+    check_tensor("depths", depths, torch.int32, (B, L), dev)
+    check_tensor("submat", submat, torch.int32, (31, 5, 5), dev)
+    if not 1 <= L <= L_MAX:
+        raise ValueError(f"reads: {L} rows, want 1..{L_MAX}")
+    if dev.type != "cuda":
+        raise ValueError(f"dp_last_row: no kernel for device {dev}")
+    from ..utils.torchcfg import kernel_library
+
+    lib = kernel_library()
+    out = torch.empty((B, W), dtype=torch.int32, device=dev)
+    if B == 0 or W == 0:
+        return out
+    # a thread takes at least 4 consecutive columns; 1,024 threads at most
+    threads = min(1024, max(32, -(-W // 128) * 32))
+    block_ints = 3 * W + (W + 3) // 4
+    with torch.cuda.device(dev):
+        scratch = None
+        blocks = min(B, LAST_ROW_MAX_BLOCKS)
+        if 4 * block_ints > LAST_ROW_SMEM:
+            # rows too wide for shared memory: the kernel keeps them here
+            blocks = min(B, LAST_ROW_SCRATCH_BLOCKS)
+            scratch = torch.empty((blocks, block_ints), dtype=torch.int32, device=dev)
+        rc = lib.mia_dp_last_row(
+            s1c.data_ptr(), int(s1c.dim() == 2), mask.data_ptr(), s2c.data_ptr(),
+            depths.data_ptr(), submat.data_ptr(), lengths.data_ptr(), B, W, L,
+            int(bool(sg5)), threads, blocks,
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"dp_last_row kernel launch failed: CUDA error {rc}")
+    last_row_launches += 1
+    return out
+
+
+def dp_last_row(s1c, mask, s2c, lengths, depths, submat, sg5: bool = True) -> torch.Tensor:
+    """The DP row at each read's last row, [B, W] int32: what
+    ``dp_pallas.pallas_last_row`` and ``dp_jax.batch_last_row`` compute.
+
+    s1c [W] (shared by the batch) or [B, W] int32 codes 0..4, mask [B, W]
+    bool, s2c [B, L] int32 codes (pad 4), lengths [B] int32, depths [B, L]
+    int32 PSSM depth per row, submat [31, 5, 5] int32; any W, L <= 256; all
+    on one device, contiguous.  CPU tensors go to the plain version
+    (:func:`.dp_torch.batch_last_row`), CUDA tensors to the kernel, or the
+    call raises.  ``last_row_launches`` / ``last_row_plain_calls`` count the
+    two routes."""
+    global last_row_plain_calls
+    if mask.device.type == "cpu":
+        last_row_plain_calls += 1
+        return batch_last_row(s1c, mask, s2c, lengths, depths, submat, sg5=sg5)
+    return _last_row(s1c, mask, s2c, lengths, depths, submat, sg5)

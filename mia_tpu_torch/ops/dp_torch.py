@@ -1,7 +1,8 @@
 """Plain PyTorch version of the batched banded DP scorer.
 
-Port of :mod:`mia_tpu.ops.dp_jax` (``batch_last_row_rowsm``,
-``batch_last_row_hp``, ``depths_for``, ``batch_best_and_aec``) and of the XLA
+Port of :mod:`mia_tpu.ops.dp_jax` (``batch_last_row``,
+``batch_last_row_rowsm``, ``batch_last_row_hp``, ``depths_for``,
+``batch_best_and_aec``) and of the XLA
 set-up around it in ``mia_tpu.core.jax_engine._entries_core`` /
 ``_entries_core_hp`` / ``device_depths``.  The row loop is a Python loop over
 [B, W] int32 tensors; every value, sentinel and tie-break is the JAX
@@ -18,9 +19,9 @@ from __future__ import annotations
 
 import torch
 
-from mia_tpu.constants import GEP, GOP, HIM, PSSM_DEPTH
-from mia_tpu.core.jax_engine import HPW_ROUTE as HPW
-from mia_tpu.core.jax_engine import WIN_W
+from ..constants import GEP, GOP, HIM, PSSM_DEPTH
+from ..core.entries import HPW_ROUTE as HPW
+from ..core.entries import WIN_W
 
 # below any reachable value, no int32 overflow (same constant as dp_jax)
 _LOW = -(2**30) - 2**29
@@ -48,11 +49,12 @@ def batch_last_row_rowsm(
     mask: torch.Tensor,     # [B, W] bool open columns per read
     row_sm: torch.Tensor,   # [B, L, 5] int32 per-row substitution scores
     lengths: torch.Tensor,  # [B] int32 read lengths
+    sg5: bool = True,
 ) -> torch.Tensor:
     """The DP row at each read's last row (length - 1): [B, W] int32; masked
     columns hold HIM.  Reads whose last row lies outside [1, L) keep row 0,
     as in the JAX scan.  Rows past the longest read are skipped: they never
-    reach a snapshot."""
+    reach a snapshot.  Without ``sg5`` a restart and column 0 cost nothing."""
     B, W = mask.shape
     L = row_sm.shape[1]
     dev = mask.device
@@ -78,7 +80,7 @@ def batch_last_row_rowsm(
     n_rows = min(int(lengths.max()) if B else 0, L)
     for row in range(1, n_rows):
         cell_sub = torch.gather(row_sm[:, row, :].to(i32), 1, s1c)
-        sg5_pen = GOP + GEP * (row + 1)
+        sg5_pen = GOP + GEP * (row + 1) if sg5 else 0
 
         run_max = torch.cummax(torch.where(cand_ok, prev + gep_cols, low), 1).values
         gap_col = torch.full_like(prev, HIM)
@@ -102,6 +104,33 @@ def batch_last_row_rowsm(
         snap = torch.where((last == row)[:, None], new_row, snap)
         prev2, prev = prev, new_row
     return snap
+
+
+def make_row_sm(submat: torch.Tensor, s2c: torch.Tensor,
+                depths: torch.Tensor) -> torch.Tensor:
+    """row_sm[b, r, i] = submat[depths[b, r], i, s2c[b, r]]: [B, L, 5] int32
+    (dp_pallas.make_row_sm)."""
+    sm_t = submat.to(torch.int32).permute(0, 2, 1)  # [31, read base, ref base]
+    return sm_t[depths.to(torch.int64), s2c.to(torch.int64)]
+
+
+def batch_last_row(
+    s1c: torch.Tensor,      # [W] shared or [B, W] per-read reference codes 0..4
+    mask: torch.Tensor,     # [B, W] bool open columns per read
+    s2c: torch.Tensor,      # [B, L] read codes (padded with 4)
+    lengths: torch.Tensor,  # [B] int32 read lengths (>= 1)
+    depths: torch.Tensor,   # [B, L] PSSM depth per row (clipped)
+    submat: torch.Tensor,   # [31, 5, 5] int32
+    sg5: bool = True,
+) -> torch.Tensor:
+    """``dp_jax.batch_last_row``: :func:`batch_last_row_rowsm` with one PSSM
+    for the batch and a reference row that may be shared by it.  The plain
+    version of the general-width kernel (:func:`.dp_cuda.dp_last_row`)."""
+    B, W = mask.shape
+    if s1c.dim() == 1:
+        s1c = s1c[None, :].expand(B, W)
+    return batch_last_row_rowsm(s1c, mask, make_row_sm(submat, s2c, depths), lengths,
+                                sg5=sg5)
 
 
 def read_runs(s2chr: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -14,16 +14,16 @@ over 1 GB on the CPU.
 waves run on the device (``ops.myers_cuda.waves``: the plain version for a
 CPU tensor, the hand-written kernel ``csrc/myers_waves.cu`` for a CUDA
 tensor), and the host walks the history back with
-``mia_tpu.ops.myers._backtrace``, so (distance, bt_a, bt_b) are
-string-identical to :func:`mia_tpu.ops.myers.myers_diff`.
+``mia_tpu_torch.ops.myers._backtrace``, so (distance, bt_a, bt_b) are
+string-identical to :func:`mia_tpu_torch.ops.myers.myers_diff`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from mia_tpu.ops.myers import UINT_MAX, Mode, _backtrace
-from mia_tpu.utils.encoding import bitmap_seq
+from .myers import UINT_MAX, Mode, _backtrace
+from ..utils.encoding import bitmap_seq
 
 _NEG = -(2**30)
 R_CHUNK = 256  # diagonals of R built at once
@@ -74,7 +74,7 @@ def waves_plain(bm_a: torch.Tensor, bm_b: torch.Tensor, len_a: int, len_b: int, 
         return torch.where(ok, x + run, x)
 
     def accept(x, d):
-        # reference accept rule + the y <= len_a guard (mia_tpu.ops.myers)
+        # reference accept rule + the y <= len_a guard (mia_tpu_torch.ops.myers)
         y = x - ks
         valid = (ks >= max(-d, -len_a)) & (ks <= min(d, len_b))
         ok_a = (y == len_a) | mode_is_prefix
@@ -127,7 +127,7 @@ def bitmaps(seq_a: str, seq_b: str) -> tuple[np.ndarray, np.ndarray]:
 
 
 def myers_diff_torch(seq_a: str, mode: Mode, seq_b: str, maxd: int, device=None):
-    """Drop-in replacement for :func:`mia_tpu.ops.myers.myers_diff` with the
+    """Drop-in replacement for :func:`mia_tpu_torch.ops.myers.myers_diff` with the
     waves on ``device`` (default :func:`~mia_tpu_torch.utils.torchcfg.select_device`);
     identical return values."""
     from ..utils.torchcfg import select_device

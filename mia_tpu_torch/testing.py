@@ -14,9 +14,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from mia_tpu.core.jax_engine import MAX_INTERVALS, WIN_W
-from mia_tpu.ops.pssm import init_flatsubmat
-from mia_tpu.utils.encoding import BASE2INX, encode_seq, revcom
+from .core.entries import MAX_INTERVALS, WIN_W
+from .ops.pssm import init_flatsubmat
+from .utils.encoding import BASE2INX, encode_seq, revcom
 
 from .core.torch_engine import hp_state_numpy, padded_state_numpy
 
@@ -186,7 +186,7 @@ def oracle_hp_entries(n: int, L: int, seed: int = 0, len1: int = 2400) -> dict:
     """``-h`` entries the exact host DP can score (bands and windows as in
     :func:`oracle_entries`): reads cut from the reference with runs grown and
     shrunk, every run shorter than 32 (the TPU ring's reach)."""
-    from mia_tpu.core.jax_engine import hp_routes_to_host
+    from .core.entries import hp_routes_to_host
 
     d = random_hp_entries(n, L, seed, len1)
     o = oracle_entries(n, L, seed, len1)
@@ -209,9 +209,9 @@ def solve_sg_entry(d: dict, e: int) -> tuple[int, int]:
     """(best, aec) of entry ``e`` by the exact host DP, aec window-local;
     with ``-h`` (a dict of :func:`random_hp_entries`) the homopolymer
     candidates included."""
-    from mia_tpu.core.driver import (init_alignment, set_hp_cols, set_hp_rows, set_seq1,
+    from .core.driver import (init_alignment, set_hp_cols, set_hp_rows, set_seq1,
                                      set_seq2)
-    from mia_tpu.ops import dp_numpy
+    from .ops import dp_numpy
 
     chars = np.array(list("ACGTN"))
     len1 = d["len1"]
@@ -249,8 +249,8 @@ def random_records(n: int, R: int, seed: int = 0, mean_len: int = 60):
     the consensus column counts: chars A, C, G, T, '-' and N, depths 0..30,
     both strands, some records running off either end of the reference and
     some dropped.  Built like the JAX package's device-consensus test."""
-    from mia_tpu.core.types import AlnSeq, MapAlignment
-    from mia_tpu.ops.pssm import init_flatsubmat, revcom_submat
+    from .core.types import AlnSeq, MapAlignment
+    from .ops.pssm import init_flatsubmat, revcom_submat
 
     rng = np.random.default_rng(seed)
     maln = MapAlignment()
@@ -285,7 +285,7 @@ def resolve_iupac(seq: str, rng) -> str:
     """``seq`` upper-cased with every IUPAC code replaced by a compatible
     base drawn by ``rng``: a concrete sequence that matches ``seq``
     everywhere."""
-    from mia_tpu.utils.encoding import IUPAC_BITMAP
+    from .utils.encoding import IUPAC_BITMAP
 
     bm = IUPAC_BITMAP[np.frombuffer(seq.upper().encode(), np.uint8)]
     base_bm = IUPAC_BITMAP[np.frombuffer(b"ACGT", np.uint8)]
@@ -322,7 +322,7 @@ def myers_pairs(seed: int = 0) -> list[tuple]:
     cut for the two prefix modes, identical and empty sequences, maxd too
     small (no alignment), pairs whose distance exceeds a length, and a
     pair that differs completely."""
-    from mia_tpu.ops.myers import Mode
+    from .ops.myers import Mode
 
     rng = np.random.default_rng(seed)
     out: list[tuple] = []
@@ -353,12 +353,141 @@ def ccheck_sample(seed: int = 0) -> tuple[str, str, str]:
     with ~1% substitutions and a few short indels (so mt311 and an assembly
     of it differ at well over 40 strongly diagnostic positions), and
     ``contaminant`` is another resolution of mt311 (the builtin panel,
-    ``mia_tpu/data/mt311.fa``: 16,619 columns, IUPAC codes and lower case
+    ``mia_tpu_torch/data/mt311.fa``: 16,619 columns, IUPAC codes and lower case
     included)."""
-    from mia_tpu.cli.ccheck import load_mt311
+    from .cli.ccheck import load_mt311
 
     rng = np.random.default_rng(seed)
     panel = load_mt311()
     reference = resolve_iupac(panel, rng)
     sample = mutate(reference, rng, 0.01, 0.0005)
     return reference, sample, resolve_iupac(panel, rng)
+
+
+# ---- the general-width last-row scorer and the assembly step ----
+
+LAST_ROW_KEYS = ("s1c", "mask", "s2c", "lengths", "depths", "submat")
+PILEUP_KEYS = ("s2c", "lengths", "starts", "depths", "strands", "fpsm", "rpsm")
+
+
+def depths_numpy(lengths: np.ndarray, L: int) -> np.ndarray:
+    """PSSM depth slot per (read, row) as [B, L] int32 (find_sm_depth,
+    src/pssm.c:36-46; ``dp_torch.depths_for`` in numpy)."""
+    from .constants import PSSM_DEPTH
+
+    rows = np.arange(L)[None, :]
+    from_back = np.asarray(lengths)[:, None] - (rows + 1)
+    d = np.where(rows < PSSM_DEPTH, rows,
+                 np.where(from_back < PSSM_DEPTH, 2 * PSSM_DEPTH - from_back, PSSM_DEPTH))
+    return np.clip(d, 0, 2 * PSSM_DEPTH).astype(np.int32)
+
+
+def drawn_reads(rng, ref: str, B: int, lo: int, hi: int, sub: float):
+    """B reads of lo..hi-1 bases drawn from ``ref`` with a share ``sub`` of
+    their bases redrawn: (reads, start of each in ref)."""
+    reads, at = [], []
+    for _ in range(B):
+        n = int(rng.integers(lo, hi))
+        s = int(rng.integers(0, len(ref) - n))
+        reads.append("".join(c if rng.random() > sub else str(rng.choice(list("ACGT")))
+                             for c in ref[s : s + n]))
+        at.append(s)
+    return reads, at
+
+
+def last_row_inputs(B: int, W: int, L: int, seed: int = 0, shared: bool = True) -> dict:
+    """Inputs of ``dp_last_row`` / ``batch_last_row`` (:data:`LAST_ROW_KEYS`),
+    as the JAX package's Pallas test draws them: a random reference of W
+    columns (a few N), reads cut from it with 10% of their bases redrawn,
+    masks alternately open and banded around the read's origin, a noisy
+    PSSM.  Also a read of one base, one of L bases, a row with every column
+    masked and one with only its last two columns open.  ``shared`` gives
+    one reference row for the batch, else one per read."""
+    rng = np.random.default_rng(seed)
+    ref = "".join(rng.choice(list("ACGT"), W))
+    sm = (init_flatsubmat() + rng.integers(-40, 40, (31, 5, 5))).astype(np.int32)
+    reads, at = drawn_reads(rng, ref, B, min(3, L - 1), L, 0.1)
+    if B > 2:
+        reads[1] = reads[1][:1]
+        reads[2] = (reads[2] * L)[:L]
+    mask = np.ones((B, W), bool)
+    for b in range(1, B, 2):
+        mask[b] = False
+        mask[b, max(at[b] - 10, 0) : at[b] + len(reads[b]) + 10] = True
+    if B > 4:
+        mask[3] = False
+        mask[4] = False
+        mask[4, W - 2 :] = True
+    lengths = np.array([len(r) for r in reads], np.int32)
+    s2c = np.full((B, L), 4, np.int32)
+    for b, r in enumerate(reads):
+        s2c[b, : len(r)] = encode_seq(r)
+    s1c = encode_seq(ref).astype(np.int32)
+    s1c[rng.integers(0, W, max(1, W // 50))] = 4
+    if not shared:
+        s1c = np.stack([np.roll(s1c, int(rng.integers(0, W))) for _ in range(B)])
+    return dict(s1c=np.ascontiguousarray(s1c), mask=mask, s2c=s2c, lengths=lengths,
+                depths=depths_numpy(lengths, L), submat=sm)
+
+
+def fullwidth_inputs(B: int = 512, W: int = 17024, L: int = 256, seed: int = 21,
+                     shared: bool = True) -> dict:
+    """The full-width shape the JAX package's bench times its Pallas kernel
+    at: B reads of 30..119 random bases against W open columns."""
+    rng = np.random.default_rng(seed)
+    s1c = rng.integers(0, 4, W if shared else (B, W)).astype(np.int32)
+    lengths = rng.integers(30, 120, B).astype(np.int32)
+    s2c = rng.integers(0, 4, (B, L)).astype(np.int32)
+    sm = (init_flatsubmat() + rng.integers(-40, 40, (31, 5, 5))).astype(np.int32)
+    return dict(s1c=s1c, mask=np.ones((B, W), bool), s2c=s2c, lengths=lengths,
+                depths=depths_numpy(lengths, L), submat=sm)
+
+
+def pileup_inputs(B: int, W: int, L: int, seed: int = 0) -> dict:
+    """Inputs of ``pileup_counts`` (:data:`PILEUP_KEYS`): codes 0..4, both
+    strands, starts that run off either end of the W columns."""
+    from .ops.pssm import revcom_submat
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, L + 1, B).astype(np.int32)
+    fpsm = (init_flatsubmat() + rng.integers(-40, 40, (31, 5, 5))).astype(np.int32)
+    return dict(
+        s2c=rng.integers(0, 5, (B, L)).astype(np.int32), lengths=lengths,
+        starts=rng.integers(-L, W + L // 2, B).astype(np.int32),
+        depths=depths_numpy(lengths, L), strands=rng.integers(0, 2, B).astype(bool),
+        fpsm=fpsm, rpsm=revcom_submat(fpsm).astype(np.int32),
+    )
+
+
+def tie_counts(W: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """(counts [W, 5], scores [W, 4]) int32 for the consensus call: empty
+    columns, gap shares on both sides of the threshold and exactly on it,
+    score ties between bases, and scores around MIN_SCORE_CONS."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 6, (W, 5)).astype(np.int32)
+    scores = rng.integers(-3, 3, (W, 4)).astype(np.int32) * 200 - 399
+    counts[::7] = 0
+    counts[1::7] = (1, 0, 1, 0, 2)            # gaps exactly half
+    counts[2::7] = (1, 1, 1, 0, 2)            # gaps just under half
+    scores[3::7] = 500                        # a four-way tie
+    scores[4::7] = (-399, -400, -399, -400)   # on and below the score floor
+    return counts, scores
+
+
+def step_inputs(B: int, W: int, L: int, seed: int = 0, sub: float = 0.05) -> tuple:
+    """(s1c, mask, s2c, lengths, depths, fpsm, rpsm) for one assembly step:
+    a random reference of W columns, all open, and B reads of 8..L-1 bases
+    drawn from it with a share ``sub`` redrawn (the JAX package's sharded
+    step test draws the same)."""
+    from .ops.pssm import revcom_submat
+
+    rng = np.random.default_rng(seed)
+    ref = "".join(rng.choice(list("ACGT"), W))
+    reads, _ = drawn_reads(rng, ref, B, 8, L, sub)
+    lengths = np.array([len(r) for r in reads], np.int32)
+    s2c = np.full((B, L), 4, np.int32)
+    for b, r in enumerate(reads):
+        s2c[b, : len(r)] = encode_seq(r)
+    fpsm = init_flatsubmat().astype(np.int32)
+    return (encode_seq(ref).astype(np.int32), np.ones((B, W), bool), s2c, lengths,
+            depths_numpy(lengths, L), fpsm, revcom_submat(fpsm).astype(np.int32))

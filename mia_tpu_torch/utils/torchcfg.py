@@ -1,6 +1,7 @@
 """Process-wide PyTorch set-up for the port: device selection and the
-build of the hand-written CUDA kernels (the entry scorers, the consensus
-column counts and ccheck's Myers wavefront).
+build of the hand-written CUDA kernels (the entry scorers, the general-width
+last-row scorer, the consensus column counts, ccheck's Myers wavefront, and
+the assembly step's pileup counts and consensus call).
 
 Port of :mod:`mia_tpu.utils.jaxcfg`.  JAX's "compile once" was its
 persistent compilation cache; here it is one shared library built by
@@ -80,8 +81,8 @@ def expected_constants() -> list[int]:
     window width, intervals per entry, read rows, PSSM depth slots, PSSM
     depth, GOP, GEP, HIM, LOW, the ``-h`` row reach (HPW) and the length of
     the ``-h`` discount table."""
-    from mia_tpu.constants import GEP, GOP, HIM, PSSM_DEPTH
-    from mia_tpu.core.jax_engine import HPW_ROUTE, L_MAX, MAX_INTERVALS, WIN_W, hp_pengop_table
+    from ..constants import GEP, GOP, HIM, PSSM_DEPTH
+    from ..core.entries import HPW_ROUTE, L_MAX, MAX_INTERVALS, WIN_W, hp_pengop_table
 
     from ..ops.dp_torch import _LOW
 
@@ -97,13 +98,35 @@ def expected_myers_constants() -> list[int]:
     return [_NEG]
 
 
+def expected_last_row_constants() -> list[int]:
+    """The values ``mia_dp_last_row_constants`` must report: GOP, GEP, HIM,
+    LOW, PSSM depth slots and the shared-memory limit the wrapper plans
+    with (``dp_cuda.LAST_ROW_SMEM``)."""
+    from ..constants import GEP, GOP, HIM, PSSM_DEPTH
+    from ..ops.dp_cuda import LAST_ROW_SMEM
+    from ..ops.dp_torch import _LOW
+
+    return [GOP, GEP, HIM, _LOW, 2 * PSSM_DEPTH + 1, LAST_ROW_SMEM]
+
+
+def expected_consensus_call_constants() -> list[int]:
+    """The values ``mia_consensus_call_constants`` must report."""
+    from ..constants import MIN_SCORE_CONS, PERC4GAP
+
+    return [PERC4GAP, MIN_SCORE_CONS]
+
+
 def check_constants(lib) -> None:
     """Raise unless the kernel library was built with the constants the
     Python side uses (a kernel built for other bounds or penalties would
     read too few intervals, overrun its row buffer or score differently; a
     Myers kernel with another sentinel would write another history)."""
-    for entry, expected in (("mia_dp_entries_constants", expected_constants),
-                            ("mia_myers_constants", expected_myers_constants)):
+    for entry, expected in (
+        ("mia_dp_entries_constants", expected_constants),
+        ("mia_myers_constants", expected_myers_constants),
+        ("mia_dp_last_row_constants", expected_last_row_constants),
+        ("mia_consensus_call_constants", expected_consensus_call_constants),
+    ):
         want = expected()
         buf = (ctypes.c_int32 * len(want))()
         n = getattr(lib, entry)(buf, len(want))
@@ -190,6 +213,18 @@ def kernel_library() -> ctypes.CDLL:
         lib.mia_myers_waves.argtypes = [vp, ci, vp, ci, ci, ci, ci, vp, vp, vp]
         lib.mia_myers_constants.restype = ci
         lib.mia_myers_constants.argtypes = [vp, ci]
+        lib.mia_dp_last_row.restype = ci
+        lib.mia_dp_last_row.argtypes = [
+            vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp,
+        ]
+        lib.mia_dp_last_row_constants.restype = ci
+        lib.mia_dp_last_row_constants.argtypes = [vp, ci]
+        lib.mia_pileup_counts.restype = ci
+        lib.mia_pileup_counts.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp]
+        lib.mia_consensus_call.restype = ci
+        lib.mia_consensus_call.argtypes = [vp, vp, ci, vp, vp]
+        lib.mia_consensus_call_constants.restype = ci
+        lib.mia_consensus_call_constants.argtypes = [vp, ci]
         check_constants(lib)
         _LIB = lib
     return _LIB

@@ -10,6 +10,7 @@ against ``mia_tpu.cli.ccheck --engine numpy`` (the exact per-read path).
 Tolerance: exact equality (bytes of stdout, CachedPwaln fields).
 """
 import contextlib
+import dataclasses
 import io
 import os
 import shutil
@@ -70,6 +71,8 @@ def test_port_ccheck_golden(args, golden):
 
 @pytest.mark.parametrize("engine", ["native", "numpy"])
 def test_port_cli_hands_host_engines_to_mia_tpu(engine):
+    """The host engines run from the port's own copy of the host code, with
+    jax blocked: the golden's bytes, and no device stage is called."""
     r = run_port_cli(["--engine", engine, "-T", "-a", "cc.maln.1"])
     assert r.returncode == 0, r.stderr.decode()
     assert r.stdout == _golden("table_a.txt")
@@ -103,9 +106,10 @@ def test_realign_all_matches_mia_tpu(monkeypatch):
     got = port_cc._realign_all(maln, aln_con, aln_ass, maln.fpsm, device="cpu")
     assert port_cc.device_entries > 0
     assert len(got) == len(maln.aln_seqs) == 361
+    got = [dataclasses.astuple(c) for c in got]
     for engine in ("jax", "numpy"):
         want = tpu_cc._realign_all(maln, aln_con, aln_ass, maln.fpsm, engine)
-        assert got == want, engine
+        assert got == [dataclasses.astuple(c) for c in want], engine
 
 
 def _run_in_process(main, argv):

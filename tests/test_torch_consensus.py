@@ -13,10 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from mia_tpu.cli.mia import parse_args
+from mia_tpu_torch.cli.mia import parse_args
 from mia_tpu.core.columns import _record_arrays, consensus_assembly_string, main_column_counts
 from mia_tpu.ops import consensus_device
-from mia_tpu.utils import profiling
+from mia_tpu_torch.utils import profiling
 from mia_tpu_torch import testing as T
 from mia_tpu_torch.core import assembler
 from mia_tpu_torch.ops import consensus_torch as ct

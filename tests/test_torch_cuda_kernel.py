@@ -1,9 +1,13 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
 entry scorer and its -h instantiation (mia_tpu_torch/csrc/dp_entries.cu,
 also against the exact host DP), the consensus column counts
-(mia_tpu_torch/csrc/column_counts.cu, also against the host accumulator)
-and ccheck's Myers wavefront (mia_tpu_torch/csrc/myers_waves.cu, also
-against the host aligner).
+(mia_tpu_torch/csrc/column_counts.cu, also against the host accumulator),
+ccheck's Myers wavefront (mia_tpu_torch/csrc/myers_waves.cu, also against
+the host aligner), the general-width last-row scorer
+(mia_tpu_torch/csrc/dp_last_row.cu, shared-memory and global-memory rows),
+the pileup counts and the consensus call of the assembly step
+(csrc/pileup_counts.cu, csrc/consensus_call.cu), and the sharded scorer,
+consensus counts and step with every shard on the one card.
 
 Needs an NVIDIA card: without one every test skips (a CUDA kernel has no
 CPU mode).  The repository's conftest imports jax, which the machine with
@@ -20,6 +24,7 @@ import torch
 from mia_tpu_torch import testing as T
 from mia_tpu_torch.core.torch_engine import Pass1Scorer, state_from_numpy
 from mia_tpu_torch.ops import consensus_torch, dp_cuda, dp_torch, myers_cuda, myers_torch
+from mia_tpu_torch.parallel import sharded
 
 pytestmark = pytest.mark.cuda
 
@@ -104,7 +109,7 @@ def test_hp_kernel_rejects_mixed_devices(cuda):
 
 
 def _records_on(maln, dev):
-    from mia_tpu.core.columns import _record_arrays
+    from mia_tpu_torch.core.columns import _record_arrays
 
     _, spans, starts, revs, seq, smp, seq_off, smp_off = _record_arrays(maln, True)
     arrs = [(seq, np.uint8), (smp, np.uint8), (starts, np.int32), (spans, np.int32),
@@ -115,7 +120,7 @@ def _records_on(maln, dev):
 
 @pytest.mark.parametrize("n,R,seed", [(300, 400, 0), (16569, 20000, 1)])
 def test_column_counts_kernel_matches_plain_and_host(cuda, n, R, seed):
-    from mia_tpu.core.columns import main_column_counts
+    from mia_tpu_torch.core.columns import main_column_counts
 
     maln = T.random_records(n, R, seed=seed)
     args = _records_on(maln, cuda)
@@ -139,9 +144,9 @@ def test_column_counts_kernel_rejects_mixed_devices(cuda):
 
 def _myers_case(kind, seed):
     """(seq_a, mode, seq_b, maxd) of one kernel test case."""
-    from mia_tpu.cli.ccheck import load_mt311
-    from mia_tpu.models.simulate import random_reference
-    from mia_tpu.ops.myers import Mode
+    from mia_tpu_torch.cli.ccheck import load_mt311
+    from mia_tpu_torch.models.simulate import random_reference
+    from mia_tpu_torch.ops.myers import Mode
 
     rng = np.random.default_rng(seed)
     if kind == "pairs":
@@ -167,7 +172,7 @@ def _myers_case(kind, seed):
                                        ("mt311", 3), ("mt311_5pct", 4),
                                        ("unrelated", 5), ("long", 6)])
 def test_myers_kernel_matches_plain_and_host(cuda, kind, seed):
-    from mia_tpu.ops.myers import Mode, UINT_MAX, myers_diff
+    from mia_tpu_torch.ops.myers import Mode, UINT_MAX, myers_diff
 
     for a, mode, b, maxd in _myers_case(kind, seed):
         maxd = min(maxd, len(a) + len(b))
@@ -196,3 +201,76 @@ def test_myers_kernel_rejects_mixed_devices(cuda):
     with pytest.raises(ValueError):
         myers_cuda.waves(bm_a.to(cuda), bm_b, 5, 4, maxd=3, mode_is_prefix=False,
                          mode_has_prefix=False)
+
+
+@pytest.mark.parametrize("B,W,L,seed", [(8, 64, 8, 0), (16, 384, 32, 1), (5, 1000, 64, 2),
+                                        (40, 17024, 256, 3), (3, 20000, 48, 4)])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("sg5", [True, False])
+def test_last_row_kernel_matches_plain(cuda, B, W, L, seed, shared, sg5):
+    """Any width: rows in shared memory up to 17.8k columns, in global
+    memory above (W = 20,000); shared and per-read reference; both sg5."""
+    d = T.last_row_inputs(B, W, L, seed=seed, shared=shared)
+    args = [torch.from_numpy(d[k]).to(cuda) for k in T.LAST_ROW_KEYS]
+    dp_cuda.reset_counts()
+    got = dp_cuda.dp_last_row(*args, sg5=sg5)
+    torch.cuda.synchronize()
+    assert (dp_cuda.last_row_launches, dp_cuda.last_row_plain_calls) == (1, 0)
+    want = dp_torch.batch_last_row(*args, sg5=sg5)
+    assert torch.equal(got, want)
+
+
+def test_last_row_kernel_rejects_mixed_devices(cuda):
+    d = T.last_row_inputs(4, 64, 8, seed=5)
+    args = [torch.from_numpy(d[k]).to(cuda) for k in T.LAST_ROW_KEYS]
+    args[3] = args[3].cpu()
+    with pytest.raises(ValueError):
+        dp_cuda.dp_last_row(*args)
+
+
+@pytest.mark.parametrize("B,W,L,seed", [(16, 300, 32, 0), (2048, 17024, 256, 1)])
+def test_pileup_and_consensus_kernels_match_plain(cuda, B, W, L, seed):
+    d = T.pileup_inputs(B, W, L, seed=seed)
+    args = [torch.from_numpy(d[k]).to(cuda) for k in T.PILEUP_KEYS]
+    sharded.reset_counts()
+    counts, scores = sharded.pileup_counts(*args, W)
+    pc, ps = sharded._pileup_counts(*args, W)
+    assert torch.equal(counts, pc) and torch.equal(scores, ps)
+    assert torch.equal(sharded.consensus_call(counts, scores),
+                       sharded.consensus_from_counts(counts, scores))
+    tc, ts = (torch.from_numpy(a).to(cuda) for a in T.tie_counts(W, seed=seed))
+    assert torch.equal(sharded.consensus_call(tc, ts), sharded.consensus_from_counts(tc, ts))
+    assert (sharded.pileup_launches, sharded.pileup_plain_calls) == (1, 0)
+    assert (sharded.consensus_launches, sharded.consensus_plain_calls) == (2, 0)
+
+
+def test_sharded_paths_on_one_card(cuda):
+    """Four shards on the one card: the scorer, the consensus counts and
+    the step equal their single-device forms."""
+    d = T.random_entries(1000, 64, seed=8)
+    entries = [d[k] for k in T.ENTRY_KEYS[2:]]
+    res = []
+    for devs in (None, [cuda] * 4):
+        states = [state_from_numpy(d["refs"], d["sms"], dev) for dev in devs or [cuda]]
+        sc = Pass1Scorer.from_state(states, d["len1"], batch=500)
+        dp_cuda.reset_counts()
+        res.append(sc.collect_entries(sc.dispatch_entries(*entries)))
+        assert dp_cuda.kernel_launches == len(states) == dp_cuda.shards
+    np.testing.assert_array_equal(res[0][0], res[1][0])
+    np.testing.assert_array_equal(res[0][1], res[1][1])
+
+    from mia_tpu_torch.core.columns import _record_arrays
+
+    maln = T.random_records(3000, 4000, seed=9)
+    _, spans, starts, revs, seq, smp, seq_off, smp_off = _record_arrays(maln, True)
+    hook = (seq, smp, starts, spans, seq_off, smp_off, revs, maln.fpsm, maln.rpsm, 3000)
+    one = consensus_torch.device_column_counts(*hook, device=cuda)
+    four = consensus_torch.device_column_counts(*hook, devices=[cuda] * 4)
+    for a, b in zip(one, four):
+        np.testing.assert_array_equal(a, b)
+
+    s = T.step_inputs(64, 2000, 48, seed=10)
+    got = sharded.make_assembly_step(sharded.make_mesh(4, 2, [cuda] * 8))(*s)
+    want = sharded.make_assembly_step(sharded.make_mesh(1, 1, [cuda]))(*s)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -159,3 +159,50 @@ def test_dp_entries_rejects_bad_inputs(bad):
     with pytest.raises(err):
         dp_cuda.dp_entries(*(torch.from_numpy(np.ascontiguousarray(d[k]))
                              for k in T.ENTRY_KEYS))
+
+
+@pytest.mark.parametrize("W", [64, 384])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("sg5", [True, False])
+def test_batch_last_row_matches_jax(W, shared, sg5):
+    """The general form (any width, shared or per-read reference, one PSSM):
+    dp_jax.batch_last_row on the inputs of the JAX package's Pallas test
+    (banded and open masks), the whole [B, W] row, sentinels included."""
+    from mia_tpu.ops.dp_pallas import make_row_sm
+
+    d = T.last_row_inputs(B, W, L, seed=W + shared, shared=shared)
+    np.testing.assert_array_equal(d["depths"], dp_jax.depths_for(d["lengths"], L))
+    want = np.asarray(dp_jax.batch_last_row(
+        *(jnp.asarray(d[k]) for k in T.LAST_ROW_KEYS), sg5=sg5))
+    args = [torch.from_numpy(d[k]) for k in T.LAST_ROW_KEYS]
+    got = dp_torch.batch_last_row(*args, sg5=sg5)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want == HIM).any() and (want[0] != HIM).all()
+    # the same rows from precomputed per-row scores, as the Pallas kernel takes them
+    row_sm = dp_torch.make_row_sm(args[5], args[2], args[4])
+    np.testing.assert_array_equal(
+        row_sm.numpy(), make_row_sm(d["submat"], d["s2c"], d["depths"]))
+    s1c2d = args[0] if not shared else args[0][None, :].expand(B, W)
+    np.testing.assert_array_equal(
+        dp_torch.batch_last_row_rowsm(s1c2d, args[1], row_sm, args[3], sg5=sg5).numpy(),
+        want)
+    # the wrapper on the CPU takes the plain version, and counts it
+    dp_cuda.reset_counts()
+    assert torch.equal(dp_cuda.dp_last_row(*args, sg5=sg5), got)
+    assert (dp_cuda.last_row_plain_calls, dp_cuda.last_row_launches) == (1, 0)
+
+
+def test_dp_last_row_rejects_what_the_kernel_does_not_take():
+    d = T.last_row_inputs(4, 64, 8, seed=3)
+    args = [torch.from_numpy(d[k]) for k in T.LAST_ROW_KEYS]
+    dp_cuda.reset_counts()
+    with pytest.raises(ValueError, match="no kernel"):
+        dp_cuda.dp_last_row(*(a.to("meta") for a in args))
+    with pytest.raises(TypeError, match="s2c"):
+        dp_cuda._last_row(args[0], args[1], args[2].to(torch.int64), args[3], args[4],
+                          args[5], True)
+    with pytest.raises(ValueError, match="s1c"):
+        dp_cuda._last_row(args[0], args[1][:, :32], args[2], args[3], args[4], args[5],
+                          True)
+    assert (dp_cuda.last_row_plain_calls, dp_cuda.last_row_launches) == (0, 0)

@@ -130,9 +130,12 @@ def test_kernel_library_path_keys_on_sources(tmp_path, monkeypatch):
 class _FakeKernelLibrary:
     """Stands in for the ctypes library: reports the given constants."""
 
-    def __init__(self, values, myers=None):
+    def __init__(self, values, myers=None, last_row=None, cons=None):
         self.values = values
         self.myers = torchcfg.expected_myers_constants() if myers is None else myers
+        self.last_row = (torchcfg.expected_last_row_constants() if last_row is None
+                         else last_row)
+        self.cons = torchcfg.expected_consensus_call_constants() if cons is None else cons
 
     @staticmethod
     def _fill(values, buf, n):
@@ -145,6 +148,12 @@ class _FakeKernelLibrary:
 
     def mia_myers_constants(self, buf, n):
         return self._fill(self.myers, buf, n)
+
+    def mia_dp_last_row_constants(self, buf, n):
+        return self._fill(self.last_row, buf, n)
+
+    def mia_consensus_call_constants(self, buf, n):
+        return self._fill(self.cons, buf, n)
 
 
 def _constants_with(index, delta):
@@ -179,6 +188,29 @@ def test_kernel_library_myers_constants_checked(myers):
     assert torchcfg.expected_myers_constants() == [-(2**30)]
     with pytest.raises(RuntimeError, match="mia_myers_constants"):
         torchcfg.check_constants(_FakeKernelLibrary(torchcfg.expected_constants(), myers))
+
+
+@pytest.mark.parametrize("which,values", [
+    ("last_row", [1000, 200, -(2**30), -(2**30) - 2**29, 31, 227 * 1024]),  # smem limit
+    ("last_row", [1000, 200, -(2**30), -(2**30) - 2**29, 31]),              # count
+    ("cons", [50, -400]),                                                    # MIN_SCORE_CONS
+])
+def test_kernel_library_step_constants_checked(which, values):
+    """The last-row scorer's and the consensus call's constants are held
+    against the Python side's too."""
+    assert torchcfg.expected_last_row_constants() == [
+        1000, 200, -(2**30), -(2**30) - 2**29, 31, 227 * 1024 - 1024]
+    assert torchcfg.expected_consensus_call_constants() == [50, -399]
+    lib = _FakeKernelLibrary(torchcfg.expected_constants(), **{which: values})
+    with pytest.raises(RuntimeError, match=f"mia_{'dp_last_row' if which == 'last_row' else 'consensus_call'}_constants"):
+        torchcfg.check_constants(lib)
+    src = open(os.path.join(torchcfg.CSRC_DIR, "dp_last_row.cu")).read()
+    for decl in ("GOP = 1000;", "GEP = 200;", "kDepth = 31;",
+                 "kSmemLimit = 227 * 1024 - 1024;"):
+        assert f"constexpr int {decl}" in src, decl
+    src = open(os.path.join(torchcfg.CSRC_DIR, "consensus_call.cu")).read()
+    assert "constexpr int kPerc4Gap = 50;" in src
+    assert "constexpr int kMinScoreCons = -399;" in src
 
 
 def test_kernel_constants_match_python_side():
@@ -233,3 +265,23 @@ def test_port_runs_without_jax(tmp_path):
     for fn in sorted(os.listdir(golden)):
         with open(tmp_path / fn, "rb") as a, open(os.path.join(golden, fn), "rb") as b:
             assert a.read().split(b"\n")[1:] == b.read().split(b"\n")[1:], fn
+
+
+def test_device_trace_writes_a_torch_profiler_trace(tmp_path, monkeypatch):
+    """utils/profiling.device_trace: a no-op without MIA_TORCH_TRACE_DIR, a
+    Chrome trace of the region with it."""
+    import json
+
+    from mia_tpu_torch.utils import profiling
+
+    monkeypatch.delenv("MIA_TORCH_TRACE_DIR", raising=False)
+    with profiling.device_trace():
+        pass
+    assert os.listdir(tmp_path) == []
+    monkeypatch.setenv("MIA_TORCH_TRACE_DIR", str(tmp_path / "trace"))
+    with profiling.device_trace():
+        torch.arange(1000).sum()
+    (name,) = os.listdir(tmp_path / "trace")
+    assert name == f"mia_trace_{os.getpid()}.json"
+    with open(tmp_path / "trace" / name) as f:
+        assert json.load(f)["traceEvents"]

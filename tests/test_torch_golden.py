@@ -94,17 +94,23 @@ def test_torch_maln_byte_identical(name, tmp_path):
     assert "consensus.device_fallbacks" not in c, c
 
 
-def test_torch_engine_refuses_dp(tmp_path):
-    r = run_torch_mia([*fixture_args("kmer"), "--dp", "2"], tmp_path, check=False)
-    assert r.returncode != 0
-    assert b"--dp (multi-device scoring) is not ported yet" in r.stderr
-    assert not any(p.startswith("out.maln.") for p in os.listdir(tmp_path))
+def test_torch_engine_runs_dp_devices(tmp_path):
+    """``--dp-devices`` is no longer refused.  With fewer than two cards the
+    command line gives the single-device path, as in the JAX package (the
+    sharded path with an explicit device list: tests/test_torch_parallel.py)."""
+    r = run_torch_mia([*fixture_args("kmer"), "--dp-devices", "4"], tmp_path)
+    golden = os.path.join(GOLDEN, "kmer")
+    for fn in sorted(os.listdir(golden)):
+        assert _norm(tmp_path / fn) == _norm(os.path.join(golden, fn)), fn
+    c = profile_counters(r.stderr)
+    assert c["dp.shards"] == 1 and c["dp.plain_calls"] > 0, c
 
 
 @pytest.mark.parametrize("engine", ["native", "numpy"])
 def test_port_cli_hands_host_engines_to_mia_tpu(engine, tmp_path):
-    """The host engines are mia_tpu's own run_assembly, run without jax:
-    same golden bytes, and the port's scorer is never called."""
+    """The host engines run from the port's own copy of the host pipeline,
+    with jax blocked: same golden bytes, and the port's scorer is never
+    called."""
     r = run_torch_mia(fixture_args("kmer"), tmp_path, engine=engine)
     golden = os.path.join(GOLDEN, "kmer")
     for fn in sorted(os.listdir(golden)):

@@ -1,0 +1,109 @@
+"""The port's copies of the JAX package's host modules.
+
+The port keeps its own copy of every host module it needs.  Each module
+listed here was copied unchanged: its case fails when the port's file
+differs from ``mia_tpu``'s after the package name is put back (and the
+reference sources' path prefix that ``core/hostbatch.py`` cites is dropped).
+A change made to a copy on purpose takes its case out of this list, with the
+reason in CHANGES.md.  Not listed, because they differ on purpose:
+``utils/profiling.py`` (``device_trace`` on torch.profiler), ``core/driver.py``,
+``core/contamination.py``, ``core/assembler.py`` and the CLIs (the port's
+device engine in place of the JAX one).
+
+The numpy entry helpers that moved from ``mia_tpu/core/jax_engine.py`` into
+``core/entries.py`` are held to their originals function by function.
+
+Beside it, the port's host engines (``--engine native`` and ``--engine
+numpy``), which run from those copies, write ``mia_tpu``'s bytes.
+"""
+import contextlib
+import io
+import os
+import re
+
+import pytest
+
+from mia_tpu.cli import mia as tpu_mia
+from mia_tpu_torch.cli import mia as port_mia
+
+from .test_torch_golden import _norm, fixture_args
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+COPIED = [
+    "__init__.py", "config.py", "constants.py", "core/types.py", "core/fsdb.py",
+    "core/merge.py", "core/columns.py", "core/hostbatch.py", "io/fasta.py", "io/ids.py",
+    "io/maln.py", "io/native.py", "io/pssm_io.py", "ops/kmer.py", "ops/pssm.py",
+    "ops/dp_numpy.py", "ops/myers.py", "ops/consensus.py", "utils/encoding.py",
+    "utils/hostmem.py", "models/simulate.py", "models/damage.py", "data/mt311.fa",
+    "data/matrices/ancient.submat.txt", "data/matrices/ancient.submat.solexa.pe.txt",
+    "data/matrices/ancient.submat.solexa.onepass.txt",
+]
+
+
+def _normalised(text: str) -> str:
+    text = text.replace("mia_tpu_torch", "mia_tpu")
+    # the reference sources are cited as src/...: drop an absolute prefix
+    text = re.sub(r"/\w+/reference/src/", "src/", text)
+    # the one comment of the package's __init__ may name another reason
+    return re.sub(r"(_tune_malloc\(\))  #.*", r"\1", text)
+
+
+@pytest.mark.parametrize("path", COPIED)
+def test_copy_equals_mia_tpu(path):
+    with open(os.path.join(REPO, "mia_tpu_torch", path)) as f:
+        port = f.read()
+    with open(os.path.join(REPO, "mia_tpu", path)) as f:
+        tpu = f.read()
+    assert _normalised(port) == _normalised(tpu)
+
+
+def _run(main, argv):
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        assert main(argv) == 0
+    return err.getvalue()
+
+
+@pytest.mark.parametrize("engine", ["native", "numpy"])
+@pytest.mark.parametrize("name", ["fastq_UC", "distant", "hp_k"])
+def test_host_engines_equal_mia_tpu(engine, name, tmp_path, monkeypatch):
+    """The port's own host engines against mia_tpu's, iteration file by
+    iteration file (-U -C2 on fastq, -D and -h -k 12)."""
+    monkeypatch.delenv("MIA_JAX_PLATFORM", raising=False)
+    outs = {}
+    for tag, main in (("tpu", tpu_mia.main), ("port", port_mia.main)):
+        d = tmp_path / tag
+        d.mkdir()
+        monkeypatch.chdir(d)
+        _run(main, [*fixture_args(name), "-m", "out.maln", "--engine", engine])
+        outs[tag] = {fn: _norm(d / fn) for fn in sorted(os.listdir(d))}
+    assert outs["port"] and outs["port"] == outs["tpu"]
+
+
+def _code_of(module, name):
+    """The function's code as an AST dump, without its docstring, comments
+    and line numbers."""
+    import ast
+    import inspect
+    import textwrap
+
+    fn = ast.parse(textwrap.dedent(inspect.getsource(getattr(module, name)))).body[0]
+    if isinstance(fn.body[0], ast.Expr) and isinstance(fn.body[0].value, ast.Constant):
+        fn.body = fn.body[1:]
+    return ast.dump(fn)
+
+
+@pytest.mark.parametrize("name", [
+    "hp_routes_to_host", "build_pass1_entries", "split_pass1_results", "mask_intervals",
+    "pack_s2c", "pack_chars", "diag_gapfree", "hp_pengop_table", "windowed_exact_dp",
+])
+def test_entry_helpers_equal_jax_engine(name):
+    """core/entries.py holds the numpy helpers of mia_tpu/core/jax_engine.py:
+    the same code, docstrings and comments aside, and the same constants."""
+    from mia_tpu.core import jax_engine
+    from mia_tpu_torch.core import entries
+
+    assert _code_of(entries, name) == _code_of(jax_engine, name)
+    for const in ("HPW_ROUTE", "SCORE_BATCH", "MAX_INTERVALS", "WIN_W", "L_MAX",
+                  "REF_BUCKET"):
+        assert getattr(entries, const) == getattr(jax_engine, const), const

@@ -19,6 +19,7 @@ from mia_tpu.ops.myers import UINT_MAX, Mode, myers_diff
 from mia_tpu.ops.myers_jax import _waves, myers_diff_jax
 from mia_tpu_torch import testing as T
 from mia_tpu_torch.ops import myers_cuda
+from mia_tpu_torch.ops.myers import Mode as PortMode
 from mia_tpu_torch.ops.myers_torch import _NEG, bitmaps, myers_diff_torch, waves_plain
 
 CPU = torch.device("cpu")
@@ -40,7 +41,7 @@ def _both_waves(a, mode, b, maxd):
 def _pairs(mode):
     # one seed for both tests below, so the second reuses the JAX programs
     # the first compiled (one per shape and maxd)
-    return [p for p in T.myers_pairs(seed=1) if p[1] == mode]
+    return [p for p in T.myers_pairs(seed=1) if p[1].name == mode.name]
 
 
 @pytest.mark.parametrize("mode", list(Mode))
@@ -62,7 +63,7 @@ def test_myers_diff_torch_matches_jax_and_host(mode):
     outcomes = set()
     for a, _, b, maxd in _pairs(mode):
         want = myers_diff(a, mode, b, maxd)
-        assert myers_diff_torch(a, mode, b, maxd, device=CPU) == want, (a, b, maxd)
+        assert myers_diff_torch(a, PortMode[mode.name], b, maxd, device=CPU) == want, (a, b, maxd)
         assert myers_diff_jax(a, mode, b, maxd) == want, (a, b, maxd)
         outcomes.add(want[0] == UINT_MAX)
     assert outcomes == {True, False}
@@ -76,7 +77,7 @@ def test_myers_diff_torch_matches_jax_and_host(mode):
 def test_myers_diff_torch_edge_cases(a, b, maxd):
     for mode in Mode:
         want = myers_diff(a, mode, b, maxd)
-        assert myers_diff_torch(a, mode, b, maxd, device=CPU) == want
+        assert myers_diff_torch(a, PortMode[mode.name], b, maxd, device=CPU) == want
         assert myers_diff_jax(a, mode, b, maxd) == want
 
 
@@ -91,17 +92,17 @@ def test_full_size_mt311_pair():
     assert 100 < pd < maxd
     np.testing.assert_array_equal(phist[: pd + 1], hist[: fd + 1])
     assert (phist[pd + 1 :] == _NEG).all()
-    assert myers_diff_torch(panel, Mode.GLOBAL, sample, maxd, device=CPU) == \
+    assert myers_diff_torch(panel, PortMode.GLOBAL, sample, maxd, device=CPU) == \
         myers_diff(panel, Mode.GLOBAL, sample, maxd)
 
 
 def test_cpu_route_counts_plain_calls():
     myers_cuda.reset_counts()
-    d, _, _ = myers_diff_torch("ACGTTGCA", Mode.GLOBAL, "ACGTGCA", 4, device=CPU)
+    d, _, _ = myers_diff_torch("ACGTTGCA", PortMode.GLOBAL, "ACGTGCA", 4, device=CPU)
     assert d == 1
     assert (myers_cuda.plain_calls, myers_cuda.kernel_launches) == (1, 0)
     # maxd <= 0 answers before any wave runs
-    myers_diff_torch("ACGT", Mode.GLOBAL, "ACGT", 0, device=CPU)
+    myers_diff_torch("ACGT", PortMode.GLOBAL, "ACGT", 0, device=CPU)
     assert (myers_cuda.plain_calls, myers_cuda.kernel_launches) == (1, 0)
 
 
@@ -129,4 +130,4 @@ def test_myers_diff_torch_needs_a_device(monkeypatch):
     monkeypatch.delenv("MIA_TORCH_DEVICE", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device"):
-        myers_diff_torch("ACGT", Mode.GLOBAL, "ACGA", 3)
+        myers_diff_torch("ACGT", PortMode.GLOBAL, "ACGA", 3)
