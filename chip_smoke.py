@@ -5,6 +5,9 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+(``--kernels`` stops after phases 1-5 and 6a, for work on those kernels, and
+prints their numbers but no result line.)
+
 Phases, each printing its own lines; any failure exits non-zero before the
 result line.  Every reference is the port's own: its plain PyTorch versions,
 its host code (``--engine native``, the host aligner, the host consensus
@@ -28,6 +31,13 @@ counts) and the committed goldens.
 6. golden: the ``kmer``, ``hp`` and ``hp_k`` golden configs under
    ``--engine torch`` must match ``tests/golden/`` byte for byte (header line
    excluded).
+6a. edges: the entry scorers and the consensus counts against their plain
+   versions on the adversarial inputs of ``mia_tpu_torch.testing``
+   (``edge_entries``, ``edge_hp_entries``, ``edge_records``: closed windows,
+   one-column bands, lane-sized intervals, the shortest and longest reads,
+   ties, the ``-h`` run lengths around the row reach, records across every
+   tile border, a column whose sums pass 2^32), exact; the counts also
+   against the host accumulator.
 7. end to end: 20,000 simulated reads on a 16,569-column circular reference
    with ``-c -u -k 12 -s ancient.submat.solexa.pe.txt``: the port under
    ``--engine torch`` (in this process, launch counts reset just before)
@@ -39,6 +49,11 @@ counts) and the committed goldens.
 8. -h end to end: the same workload with ``-h``, in this process only,
    against ``--engine native -h``, the ``-h`` scorer's launches in place of
    the scorer's.
+8a. workload shapes: the largest scorer batch of phase 7, the largest of
+   phase 8 and the largest consensus record set of the two, kept as the runs
+   went through the wrappers: each kernel against its plain version on them
+   (exact), then its time through the wrapper and alone
+   (``workload_ms``, ``workload_kernel_only_ms``).
 9. Myers kernel: ccheck's wavefront at full size, mt311 (16,619 columns)
    against three ~16.6 kb sequences (an mt311-derived sample with ~1%
    divergence, one with ~5%, an unrelated random one that runs every wave
@@ -87,8 +102,8 @@ The last lines are a JSON line of per-kernel numbers (``ms``, the time of a
 call of the kernel's wrapper, for every kernel; the plain version's time; the
 bound, with padded per-read arrays counted up to each read's own length, and
 what bounds it; a library call's time where one computes the same scatter;
-``kernel_only_ms``, the bare launch, for the two kernels small enough that
-the wrapper's host work is most of ``ms``), the card's name and power limit, and
+``kernel_only_ms``, the bare launch, for the entry scorers, the consensus
+counts and the step's two small kernels), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -230,6 +245,42 @@ def time_pair(kernel, plain, cells: int, what: str) -> dict:
     return {"ms": ms, "plain_ms": plain_ms}
 
 
+def raw_dp_entries(args, hp: bool):
+    """``call(library, stream)`` launching the entry scorer (its ``-h``
+    instantiation under ``hp``) on a wrapper's arguments into a result
+    buffer made here."""
+    import torch
+
+    E, L = args[9 if hp else 5].shape
+    out = torch.empty((2, E), dtype=torch.int32, device=args[0].device)
+    p = [a.data_ptr() for a in args]
+    if hp:  # HP_ENTRY_KEYS: refs refchr hpcs sms pengop b2i ref_sel starts ivl s2chr lengths smidx
+        return lambda lib, stream: lib.mia_dp_entries_hp(
+            p[0], p[1], p[2], args[0].shape[1], p[3], p[4], p[5], p[6], p[7], p[8], p[9], L,
+            p[10], p[11], out.data_ptr(), E, stream)
+    return lambda lib, stream: lib.mia_dp_entries(
+        p[0], args[0].shape[1], p[1], p[2], p[3], p[4], p[5], L, p[6], p[7],
+        out.data_ptr(), E, stream)
+
+
+def raw_column_counts(args, n: int):
+    """``call(library, stream)`` launching the consensus counts on a
+    wrapper's arguments into accumulators made here (never zeroed again:
+    the sums are not read)."""
+    import torch
+
+    from mia_tpu_torch.ops.consensus_torch import _char_tables
+
+    dev = args[0].device
+    acc = torch.zeros(10 * n, dtype=torch.int64, device=dev)
+    tables = _char_tables(dev)
+    p = [a.data_ptr() for a in args]
+    return lambda lib, stream: lib.mia_column_counts(
+        p[0], args[0].numel(), p[1], args[1].numel(), p[2], p[3], p[4], p[5], p[6],
+        args[3].shape[0], p[7], p[8], tables[0].data_ptr(), tables[1].data_ptr(), n,
+        acc.data_ptr(), acc[5 * n :].data_ptr(), acc[6 * n :].data_ptr(), stream)
+
+
 def phase_kernel(dev) -> dict:
     import numpy as np
     import torch
@@ -259,6 +310,7 @@ def phase_kernel(dev) -> dict:
     t = time_pair(lambda: dp_cuda.dp_entries(*args), lambda: entries_core_plain(*args),
                   T.dp_cells(d["lengths"]), "kernel")
     say(f"kernel: mean read length {float(np.mean(d['lengths'])):.1f}")
+    t["kernel_only_ms"] = time_raw_launch(raw_dp_entries(args, hp=False), "kernel", t["ms"], 50)
     moved = nbytes(*args[:5], *args[6:], got) + read_bytes(d["lengths"], args[5])
     return {"max_abs_err": err, **t, "library_ms": None,
             **bound(moved, DP_OPS_PER_CELL * T.dp_cells(d["lengths"]))}
@@ -296,6 +348,7 @@ def phase_hp_kernel(dev) -> dict:
     t = time_pair(lambda: dp_cuda.dp_entries_hp(*args), lambda: entries_core_hp_plain(*args),
                   T.dp_cells(d["lengths"]), "hp kernel")
     say(f"hp kernel: mean read length {float(np.mean(d['lengths'])):.1f}")
+    t["kernel_only_ms"] = time_raw_launch(raw_dp_entries(args, hp=True), "hp kernel", t["ms"], 50)
     # the same 14 operations a cell as the plain scorer: the bound reads the
     # DP's work, not the -h candidates on top of it
     moved = nbytes(*args[:9], *args[10:], got) + read_bytes(d["lengths"], args[9])
@@ -337,7 +390,9 @@ def phase_consensus_kernel(dev) -> dict:
         f"main_column_counts on {n_obs} observations, {len(spans)} records "
         f"({out_of_range} running off the reference), {N_COLS} columns (exact)")
     cuda_ms(lambda: consensus_torch.column_counts(*args, N_COLS), 3)
-    ms = cuda_ms(lambda: consensus_torch.column_counts(*args, N_COLS), 20)
+    # a call is host work of a few tens of microseconds: enough of them that
+    # one pause of the interpreter does not decide the mean
+    ms = cuda_ms(lambda: consensus_torch.column_counts(*args, N_COLS), 200)
     plain_ms = cuda_ms(lambda: consensus_torch.column_counts_plain(*args, N_COLS), 3)
     hook_args = (seq, smp, starts, spans, seq_off, smp_off, revs, maln.fpsm, maln.rpsm,
                  N_COLS)
@@ -355,12 +410,152 @@ def phase_consensus_kernel(dev) -> dict:
     cols = torch.randint(0, N_COLS, (n_obs,), device=dev)
     terms = torch.randint(-600, 200, (n_obs, 4), device=dev)
     acc = torch.zeros((N_COLS, 4), dtype=torch.int64, device=dev)
-    library_ms = cuda_ms(lambda: acc.index_add_(0, cols, terms), 20)
+    library_ms = cuda_ms(lambda: acc.index_add_(0, cols, terms), 200)
     say(f"consensus kernel: index_add_ of {n_obs} x 4 score terms alone "
         f"{library_ms:.4f} ms (the scatter without the lookups)")
-    # an observation is up to 6 int64 atomic adds
+    kernel_only_ms = time_raw_launch(raw_column_counts(args, N_COLS), "consensus kernel", ms)
+    # a maln's records come sorted by start, so the ones that hit a tile sit
+    # together: the same records in that order (the arenas stay, the offsets
+    # are global)
+    order = torch.argsort(args[2], stable=True)
+    by_start = [*args[:2], *(a[order].contiguous() for a in args[2:7]), *args[7:]]
+    for g, w in zip(consensus_torch.column_counts(*by_start, N_COLS), got):
+        check_equal("column_counts on records sorted by start != in the given order", g, w)
+    by_start_ms = cuda_ms(lambda: consensus_torch.column_counts(*by_start, N_COLS), 200)
+    time_raw_launch(raw_column_counts(by_start, N_COLS),
+                    "consensus kernel, records sorted by start", by_start_ms)
+    # an observation is up to 6 integer adds
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "kernel_only_ms": kernel_only_ms,
             **bound(nbytes(*args, *got), 6 * n_obs)}
+
+
+def phase_edges(dev) -> None:
+    """The three redesigned kernels against their plain versions on the
+    adversarial inputs of ``mia_tpu_torch.testing``, exact."""
+    import numpy as np
+    import torch
+
+    from mia_tpu_torch import testing as T
+    from mia_tpu_torch.core.columns import _record_arrays, main_column_counts
+    from mia_tpu_torch.ops import consensus_torch, dp_cuda
+    from mia_tpu_torch.ops.dp_torch import entries_core_hp_plain, entries_core_plain
+
+    for seed in (0, 1):
+        d = T.edge_entries(seed)
+        args = [torch.from_numpy(d[k]).to(dev) for k in T.ENTRY_KEYS]
+        check_equal(f"dp_entries != plain on edge entries (seed {seed})",
+                    dp_cuda.dp_entries(*args), entries_core_plain(*args))
+        h = T.edge_hp_entries(seed)
+        hargs = [torch.from_numpy(np.ascontiguousarray(h[k])).to(dev) for k in T.HP_ENTRY_KEYS]
+        check_equal(f"dp_entries_hp != plain on edge entries (seed {seed})",
+                    dp_cuda.dp_entries_hp(*hargs), entries_core_hp_plain(*hargs))
+    say(f"edges: dp_entries and dp_entries_hp == their plain versions on 2 x "
+        f"{len(d['lengths'])} adversarial entries each (closed windows, one-column bands, "
+        f"lane-sized and 16 intervals, column 0, reads of 0..257 rows, ties; -h runs of "
+        f"1, 2, 31, 32, 33 rows, windows that start inside a reference run; exact)")
+    for seed, big, bits in ((0, False, 20), (1, True, 30), (2, True, 20)):
+        maln = T.edge_records(seed, big=big, bits=bits)
+        n = maln.ref.seq_len
+        _, spans, starts, revs, seq, smp, seq_off, smp_off = _record_arrays(maln, True)
+        args = [torch.from_numpy(np.require(a, t, ["C", "W"])).to(dev) for a, t in (
+            (seq, np.uint8), (smp, np.uint8), (starts, np.int32), (spans, np.int32),
+            (seq_off, np.int32), (smp_off, np.int32), (revs, np.bool_),
+            (maln.fpsm, np.int32), (maln.rpsm, np.int32))]
+        got = consensus_torch.column_counts(*args, n)
+        host = main_column_counts(maln, exclude_dropped=True)
+        for name, g, w, hst in zip(("counts", "cov", "scores"), got,
+                                   consensus_torch.column_counts_plain(*args, n),
+                                   (host.counts, host.cov, host.scores)):
+            check_equal(f"column_counts != plain on edge records ({name}, big={big})", g, w)
+            if not np.array_equal(g.cpu().numpy(), hst):
+                raise AssertionError(f"column_counts != host on edge records ({name})")
+        if big and int(got[2].abs().max()) <= 2**32:
+            raise AssertionError("edge records: no sum past 2^32")
+    say(f"edges: column_counts == plain == host main_column_counts on {len(spans)} "
+        f"adversarial records (every tile border, both ends, span 0, all gaps, all N; one "
+        f"column's sums past 2^32, largest |score| {int(got[2].abs().max())}; exact)")
+
+
+class Capture:
+    """Keeps the arguments of the largest call of each of the three
+    wrappers while a run goes through them (the calls themselves, and
+    their launch counts, are the wrappers' own)."""
+
+    NAMES = ("dp_entries", "dp_entries_hp", "column_counts")
+
+    def __init__(self):
+        self.args: dict = {}
+        self._saved: dict = {}
+
+    def __enter__(self):
+        from mia_tpu_torch.ops import consensus_torch, dp_cuda
+
+        for name in self.NAMES:
+            mod = consensus_torch if name == "column_counts" else dp_cuda
+            fn = getattr(mod, name)
+            self._saved[name] = (mod, fn)
+            setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        import torch
+
+        def size(args):  # entries, or records' observations
+            return int(args[3].sum()) if name == "column_counts" else args[-1].shape[0]
+
+        def wrapped(*args):
+            if name not in self.args or size(args) > size(self.args[name]):
+                self.args[name] = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                        for a in args)
+            return fn(*args)
+
+        return wrapped
+
+    def __exit__(self, *exc):
+        for name, (mod, fn) in self._saved.items():
+            setattr(mod, name, fn)
+
+
+def phase_workload_shapes(captured: dict) -> dict:
+    """The three kernels' times at the 20k-read run's own shapes: the
+    largest scorer batch of the run (and of the -h run) and its largest
+    consensus; each held against its plain version first."""
+    import numpy as np
+
+    from mia_tpu_torch import testing as T
+    from mia_tpu_torch.ops import consensus_torch, dp_cuda
+    from mia_tpu_torch.ops.dp_torch import entries_core_hp_plain, entries_core_plain
+
+    out = {}
+    for name, fn, plain, hp in (("dp_entries", dp_cuda.dp_entries, entries_core_plain, False),
+                                ("dp_entries_hp", dp_cuda.dp_entries_hp,
+                                 entries_core_hp_plain, True)):
+        args = captured[name]
+        lengths = args[-2].cpu().numpy()
+        check_equal(f"{name} != plain at the workload's batch", fn(*args), plain(*args))
+        cuda_ms(lambda: fn(*args), 3)
+        ms = cuda_ms(lambda: fn(*args), 20)
+        cells = T.dp_cells(lengths)
+        say(f"workload shapes: {name} on the 20k run's largest batch, E={len(lengths)} "
+            f"L={args[-3].shape[1]}, mean read length {float(np.mean(lengths)):.1f}, "
+            f"{cells} cells: {ms:.4f} ms ({cells / ms / 1e6:.3f} Gcells/s), == plain (exact); "
+            f"bound {bound(0, DP_OPS_PER_CELL * cells)['bound_ms']:.4f} ms (operations)")
+        raw = time_raw_launch(raw_dp_entries(args, hp), f"workload shapes: {name}", ms, 50)
+        out[name] = {"workload_ms": ms, "workload_kernel_only_ms": raw}
+    args = captured["column_counts"]
+    n, n_obs = args[-1], int(args[3].sum())
+    for g, w in zip(consensus_torch.column_counts(*args),
+                    consensus_torch.column_counts_plain(*args)):
+        check_equal("column_counts != plain at the workload's consensus", g, w)
+    cuda_ms(lambda: consensus_torch.column_counts(*args), 3)
+    ms = cuda_ms(lambda: consensus_torch.column_counts(*args), 200)
+    say(f"workload shapes: column_counts on the 20k run's largest consensus, "
+        f"{args[3].shape[0]} records, {n_obs} observations, {n} columns: {ms:.4f} ms, "
+        f"== plain (exact)")
+    raw = time_raw_launch(raw_column_counts(args[:-1], n), "workload shapes: column_counts", ms)
+    out["column_counts"] = {"workload_ms": ms, "workload_kernel_only_ms": raw}
+    return out
 
 
 def run_mia(args: list[str], maln_root: str, engine: str, profile: bool = False) -> dict:
@@ -416,7 +611,7 @@ def e2e_workload() -> list[str]:
             "-s", os.path.join(REPO, SUBMAT)]
 
 
-def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool) -> dict:
+def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool, captured: dict) -> dict:
     """One e2e path: the port in this process with every count set to 0 just
     before it and read just after, checked byte for byte against the port's
     own --engine native.  Returns the launch counts of the run."""
@@ -429,8 +624,10 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool) -> dict:
 
     reset_counts()
     t0 = time.time()
-    prof = run_port(args, os.path.join(d, "torch_inproc", "out.maln"), profile=True)
+    with Capture() as cap:
+        prof = run_port(args, os.path.join(d, "torch_inproc", "out.maln"), profile=True)
     t_torch_warm = time.time() - t0
+    captured.update({k: v for k, v in cap.args.items() if k not in captured})
     counters = prof["counters"]
     counts = {
         "dp.kernel_launches": dp_cuda.kernel_launches,
@@ -750,7 +947,7 @@ def phase_last_row_kernel(dev) -> dict:
     return res[True]
 
 
-def time_raw_launch(call, what: str, wrapper_ms: float) -> float:
+def time_raw_launch(call, what: str, wrapper_ms: float, iters: int = 200) -> float:
     """Mean device ms of a small kernel alone: ``call(library, stream)``
     launched back to back into buffers made beforehand (CUDA events).  The
     ``kernels`` line carries it as ``kernel_only_ms`` beside ``ms``, which is
@@ -768,9 +965,9 @@ def time_raw_launch(call, what: str, wrapper_ms: float) -> float:
             raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
 
     cuda_ms(launch, 5)
-    ms = cuda_ms(launch, 200)
-    say(f"{what}: the kernel alone {ms:.4f} ms ({wrapper_ms:.4f} ms through its wrapper, "
-        f"which is host work: checks, allocations, the launch)")
+    ms = cuda_ms(launch, iters)
+    say(f"{what}: the kernel alone {ms:.4f} ms ({wrapper_ms:.4f} ms through its wrapper: "
+        f"checks, allocations, the launch)")
     return ms
 
 
@@ -1016,10 +1213,22 @@ def main() -> int:
     kern = phase_kernel(dev)
     hp_kern = phase_hp_kernel(dev)
     cons_kern = phase_consensus_kernel(dev)
+    if sys.argv[1:] == ["--kernels"]:
+        # the quick form for work on the three kernels: no result line
+        phase_edges(dev)
+        say(json.dumps({"dp_entries": kern, "dp_entries_hp": hp_kern,
+                        "column_counts": cons_kern}))
+        say(nvidia_smi())
+        say(f"total: {time.time() - t_start:.1f} s (kernels only)")
+        return 0
     phase_golden()
+    phase_edges(dev)
     args = e2e_workload()
-    main_counts = run_e2e("e2e", args, hp=False, new_process=True)
-    hp_counts = run_e2e("e2e_hp", [*args, "-h"], hp=True, new_process=False)
+    captured: dict = {}
+    main_counts = run_e2e("e2e", args, hp=False, new_process=True, captured=captured)
+    hp_counts = run_e2e("e2e_hp", [*args, "-h"], hp=True, new_process=False,
+                        captured=captured)
+    shapes = phase_workload_shapes(captured)
     myers_kern = phase_myers_kernel(dev)
     phase_ccheck_golden()
     cc_counts = phase_ccheck_e2e()
@@ -1038,14 +1247,14 @@ def main() -> int:
         "source": "mia_tpu_torch/csrc/dp_entries.cu",
         "replaces": "mia_tpu/ops/dp_pallas.py:46",
         "launches": main_counts["dp.kernel_launches"],
-        **kern,
+        **kern, **shapes["dp_entries"],
     }, {
         "name": "dp_entries_hp",
         "route": "cuda",
         "source": "mia_tpu_torch/csrc/dp_entries.cu",
         "replaces": "mia_tpu/ops/dp_jax.py:219",
         "launches": hp_counts["dp.hp_kernel_launches"],
-        **hp_kern,
+        **hp_kern, **shapes["dp_entries_hp"],
     }, {
         "name": "column_counts",
         "route": "cuda",
@@ -1053,7 +1262,7 @@ def main() -> int:
         "replaces": "mia_tpu/ops/consensus_device.py:65",
         # both e2e paths run it: their launches together
         "launches": main_counts["cons.kernel_launches"] + hp_counts["cons.kernel_launches"],
-        **cons_kern,
+        **cons_kern, **shapes["column_counts"],
     }, {
         "name": "myers_waves",
         "route": "cuda",

@@ -7,44 +7,77 @@
 // jax_engine._entries_core_hp.  One launch scores a batch of entries: window
 // gather from the two padded reference strands, interval -> band mask,
 // per-row PSSM lookup, the DP rows 1..len-1, and the earliest argmax of the
-// last row.  Integer semantics are those of
+// last row.  Only (best, aec) leaves the kernel, and they equal those of
 // mia_tpu_torch/ops/dp_torch.py::entries_core_plain / entries_core_hp_plain
-// (int32, HIM / LOW sentinels, restart only on a strict >), so results agree
-// bit for bit.
+// bit for bit (int32, restart only on a strict >).
 //
-// What bounds it: integer ALU work, not bytes.  A cell costs ~20 int32
-// operations (adds, maxes, selects) and an entry reads a few hundred bytes
-// (384 window codes, 16 intervals, 256 read codes) and writes 8, so the
-// kernel sits far to the compute side of the card's roofline.  The design
-// keeps every row in registers and spends no memory traffic per cell:
+// What bounds it: the integer pipe's instruction count per DP cell, not
+// bytes.  An entry reads a few hundred bytes (384 window codes, 16
+// intervals, 256 read codes) and writes 8; a cell of the recurrence is
+// three gap candidates, a 3-way max, a restart test and a score lookup.
+// The design spends as few integer instructions per cell as the card allows
+// and moves the lookup to the load/store pipe: the row loop is 366 SASS
+// instructions for two rows of 12 cells, 15.25 a cell (cuobjdump through
+// mia_tpu_torch/utils/sass.py; 35.2 with selects for the masks, compares for
+// the score and a max beside every add), and one E = 16,384 batch of
+// 256-row entries takes 0.78 ms on an H100 80GB HBM3 at 700 W (1.76 ms
+// before), 128 registers, no spills, two blocks an SM:
 //   * one warp per entry; lane l owns columns [12 l, 12 l + 12) and keeps
-//     prev, prev2, the running row-gap max and the window codes for them in
-//     registers, with the band mask as a 12-bit word;
-//   * the column-gap prefix max is a serial max inside each lane plus a
-//     5-step __shfl_up_sync scan over the lane totals;
-//   * the shifts by one and two columns (diagonal, row gap, column gap) take
-//     the previous lane's last values by shuffle;
-//   * the 5 substitution scores of a row are the same for the whole warp:
-//     both PSSMs (6.2 KB) and each warp's read codes sit in shared memory;
+//     the last two rows and the running row-gap max for them in registers;
+//     the row loop is unrolled by two so the two rows swap roles in place;
+//   * Hopper's DPX instructions (__viaddmax_s32: max(a + b, c)) do each
+//     running max with its add in one instruction: the column-gap prefix,
+//     the row-gap update and both gap costs of the 3-way max;
+//   * the column-gap prefix runs in lane-local coordinates (GEP * j, an
+//     immediate), a 5-step __shfl_up_sync scan joins the lane totals, and
+//     the gap costs become immediates too;
+//   * the substitution score of a cell is one shared-memory load: both
+//     PSSMs are laid out [matrix][depth][read code][window code], a row's
+//     base address is the same for the whole warp (a broadcast of at most
+//     5 words), and a column's byte offset stays in a register;
+//   * the masks are folded into data.  A closed column carries a per-column
+//     addend of HIM into its cell (one 3-input add), so closed cells stay
+//     near HIM without a select; a column-gap origin that may not count
+//     carries an addend of -2^29 in place of GEP * j; the row-gap max needs
+//     no mask at all, because only the closed column to its right reads it.
+//     Sentinel-derived values stay below every live value (a restart,
+//     >= -(GOP + GEP * 257), beats them) and above INT_MIN (HIM = -2^30 and
+//     LOW = -1.5 * 2^30 leave 2^29 of room), and the exact HIM of a closed
+//     column is restored on the last row, before the argmax;
+//   * column 0 (always cell + restart) is lane 0's diagonal input set to the
+//     restart value, row 1 (no row gap yet) a gap cost of 2^29: no per-cell
+//     special cases;
 //   * each warp stops at its own last row (len - 1), so there is no length
 //     sort or per-block row bound as on the TPU's sequential grid.
 //
 // The -h candidates (src/mia.c:883-905) add per row:
 //   * hp_col, on the first row of each read homopolymer run: the previous
-//     row at the column before the reference run's start, an index fixed
-//     per column that may point into another lane.  That row is staged in a
+//     row at the column before the reference run's start, minus a distance
+//     cost.  Source offset and cost are fixed per column: the prologue puts
+//     them into per-warp shared arrays, the previous row is staged in a
 //     per-warp shared-memory row (1.5 KB) and gathered from there;
+//   * under -h the shared-memory pipe, not the integer pipe, would set the
+//     pace if a lane read its 12 columns at a stride of 12 words (4-way bank
+//     conflicts on every access: 2.07 ms a batch).  The staged row and the
+//     per-column arrays are lane-major instead (column 12 l + j at word
+//     j * 32 + l): a warp's access to its columns j is 32 consecutive words,
+//     and the gather, a few columns to the left, lands in the bank of its
+//     own lane or the one before: 1.22 ms a batch (2.86 ms before the
+//     redesign), 128 registers, no spills;
 //   * hp_row, on the later rows of a run: the row before the run started.
 //     The TPU kept a ring of the last 32 rows for it; here it is the same
 //     staged row, which no row writes again until the next run starts.  The
 //     ring's reach stays as a guard (row - run start < 32), so reads with
 //     longer runs score as on the TPU;
-//   * both apply to whole rows (run start or not), so the branch is per row
-//     and warp-uniform.  The read's run starts and lengths come from its
-//     chars in the prologue (ballot scans over 32-row chunks); the window
-//     chars stay packed four to a register, the columns' run starts and
-//     the read's run arrays in shared memory.
+//   * the row is staged only when something can read it: the run goes on,
+//     or some column of the warp takes an hp_col candidate on this row;
+//   * a row's candidates are whole-row (run start or not), so the branch is
+//     warp-uniform.  Which columns take one is a bit test: the window chars
+//     stay packed four to a register, one xor and a zero-byte test per word
+//     compare them with the row's char, and the columns that can take a
+//     candidate at all sit in the same byte layout.
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -66,6 +99,7 @@ constexpr int GOP = 1000;
 constexpr int GEP = 200;
 constexpr int HIM = -1073741824;                 // INT_MIN / 2
 constexpr int LOW = -(1 << 30) - (1 << 29);      // below any live value
+constexpr int kGate = -(1 << 29);    // addend that sinks a value below every live one
 constexpr unsigned FULL = 0xffffffffu;
 
 // -h inputs: reference chars and run starts [2, WTOT], the discount table,
@@ -83,28 +117,29 @@ struct HpShared {
   uint8_t chr[kWarps][kLMax];     // read chars
   uint8_t hprs[kWarps][kLMax];    // start row of the read run holding each row
   uint8_t pidx[kWarps][kLMax];    // min(run length - 1, 10): pengop slot
-  int32_t hcs[kWarps][kW];        // window columns' reference run starts
-  int32_t row[kWarps][kW];        // prev, staged on each run's first row
+  // The per-column arrays are lane-major: column c = 12 l + j sits at
+  // j * 32 + l, so the 32 lanes of a warp, each on its own column j, touch
+  // 32 consecutive words (no bank conflict), and a gather from a column a
+  // little to the left lands in the bank of its own lane or the one before.
+  uint16_t hsrc[kWarps][kW];      // hp_col: byte offset of the source column in row[]
+  int32_t hneg[kWarps][kW];       // hp_col: minus the distance cost to that column
+  int32_t row[kWarps][kW];        // the row before the current run, staged
   int32_t pengop[kPengop];
   int8_t b2i[256];
 };
 template <>
 struct HpShared<false> {};
 
-__device__ __forceinline__ int sub_for(int code, int s0, int s1, int s2, int s3, int s4) {
-  int v = s4;
-  v = code == 0 ? s0 : v;
-  v = code == 1 ? s1 : v;
-  v = code == 2 ? s2 : v;
-  v = code == 3 ? s3 : v;
-  return v;
+// Bit 7 of every byte of x says whether the byte is zero (exact: no carry
+// crosses a byte); the other bits are left for the caller's mask to clear.
+__device__ __forceinline__ unsigned zero_bytes(unsigned x) {
+  return ~(((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x);
 }
 
-// Two blocks per SM: the plain instantiation fits in 126 registers anyway;
-// the -h one would take 163 and leave one block per SM, and capped at 128
-// (a few spilled bytes) it runs 1.6x faster on an H100 (PERF.md).
+// Two blocks per SM (16 warps): both instantiations are held to 128
+// registers; ptxas's report (build.log) says what that costs in spills.
 template <bool kHp>
-__global__ void __launch_bounds__(kWarps * 32, kHp ? 2 : 1)
+__global__ void __launch_bounds__(kWarps * 32, 2)
 dp_entries_kernel(const int8_t* __restrict__ refs, int wtot,
                   const int32_t* __restrict__ sms, HpArgs hp,
                   const int8_t* __restrict__ ref_sel,
@@ -114,11 +149,16 @@ dp_entries_kernel(const int8_t* __restrict__ refs, int wtot,
                   const int32_t* __restrict__ lengths,
                   const int8_t* __restrict__ smidx,
                   int32_t* __restrict__ out, int E) {
-  __shared__ int32_t sh_sms[kSms];
+  // score table [matrix][depth][read code][window code]: sms transposed in
+  // its last two axes, so that a row's five scores are consecutive words
+  __shared__ int32_t sh_tab[kSms];
   __shared__ int8_t sh_s2c[kWarps][kLMax];
   __shared__ HpShared<kHp> sh;
 
-  for (int i = threadIdx.x; i < kSms; i += blockDim.x) sh_sms[i] = sms[i];
+  for (int i = threadIdx.x; i < kSms; i += blockDim.x) {
+    const int code = i % 5, w = (i / 5) % 5, md = i / 25;
+    sh_tab[(md * 5 + code) * 5 + w] = sms[i];
+  }
   if constexpr (kHp) {
     for (int i = threadIdx.x; i < 256; i += blockDim.x) sh.b2i[i] = hp.b2i[i];
     for (int i = threadIdx.x; i < kPengop; i += blockDim.x) sh.pengop[i] = hp.pengop[i];
@@ -148,31 +188,37 @@ dp_entries_kernel(const int8_t* __restrict__ refs, int wtot,
   // reaches its snapshot row)
   int last = len - 1;
   if (last < 0 || last >= L) last = 0;
-  const int32_t* sm = sh_sms + (smidx[e] ? kDepth * 25 : 0);
+  const int32_t* tab = sh_tab + (smidx[e] ? kDepth * 25 : 0);
   const int c0 = lane * kCPL;
+  const int goff = GEP * c0;  // lane-local column-gap coordinates to the window's
   const int ws = starts[e];
   const int64_t wbase = (int64_t)ref_sel[e] * wtot + ws;
   const int64_t wmax = 2 * (int64_t)wtot - 1;
 
-  int win[kCPL];
-  // -h: window chars (4 per word), columns that start a reference run
-  // (hp_row), columns whose run start is an hp_col origin inside the window
-  uint32_t wchr[kCPL / 4];
-  unsigned hr_bits = 0, hc_bits = 0;
+  int woff[kCPL];  // byte offset of the column's window code in a table row
+  // -h: window chars (4 per word); as 0x80 flags in the same byte layout,
+  // the columns that start a reference run (hp_row) and those whose run
+  // start is an hp_col origin inside the window
+  uint32_t wchr[kCPL / 4], hrb[kCPL / 4], hcb[kCPL / 4];
 #pragma unroll
   for (int j = 0; j < kCPL; ++j) {
     int64_t g = wbase + c0 + j;
     g = g < 0 ? 0 : (g > wmax ? wmax : g);
-    win[j] = refs[g];
+    woff[j] = 4 * refs[g];
     if constexpr (kHp) {
       const uint32_t ch = hp.refchr[g];
-      if ((j & 3) == 0) wchr[j >> 2] = 0;
+      if ((j & 3) == 0) wchr[j >> 2] = hrb[j >> 2] = hcb[j >> 2] = 0;
       wchr[j >> 2] |= ch << (8 * (j & 3));
       const int hc = hp.hpcs[g];
       const int gcol = ws + c0 + j;
-      sh.hcs[warp][c0 + j] = hc;
-      if (hc == gcol && c0 + j >= 1) hr_bits |= 1u << j;
-      if (hc != gcol && hc > 0 && hc - 1 >= ws) hc_bits |= 1u << j;
+      const uint32_t flag = 0x80u << (8 * (j & 3));
+      if (hc == gcol && c0 + j >= 1) hrb[j >> 2] |= flag;
+      // column 0 is always cell + restart: it takes no candidate
+      if (hc != gcol && hc > 0 && hc - 1 >= ws && c0 + j >= 1) hcb[j >> 2] |= flag;
+      int idx = hc - 1 - ws;
+      idx = idx < 0 ? 0 : (idx > kW - 1 ? kW - 1 : idx);
+      sh.hsrc[warp][j * 32 + lane] = (uint16_t)(4 * ((idx % kCPL) * 32 + idx / kCPL));
+      sh.hneg[warp][j * 32 + lane] = -GEP * (gcol - hc);
     }
   }
   unsigned mbits = 0;
@@ -183,14 +229,19 @@ dp_entries_kernel(const int8_t* __restrict__ refs, int wtot,
     for (int j = 0; j < kCPL; ++j)
       if (c0 + j >= lo && c0 + j < hi) mbits |= 1u << j;
   }
-  // mask bits of the next lane's first columns: a column-gap origin at c
-  // counts only if c + 2 is open; the row-gap max at c updates only if c + 1
-  // is open.  Past the window's end both are closed.
+  // A column-gap origin at c counts only if c + 2 is open (past the window's
+  // end: closed; column 0 always counts).  gadd is what the origin adds to
+  // its value for the running max: GEP * j, or kGate where it may not count.
+  // kadd is what a column adds to its cell: 0, or HIM where it is closed.
   unsigned nbits = __shfl_down_sync(FULL, mbits, 1);
   if (lane == 31) nbits = 0;
-  const unsigned ext = mbits | (nbits << kCPL);
-  const unsigned cand_ok = (ext >> 2) | (lane == 0 ? 1u : 0u);
-  const unsigned upd_ok = ext >> 1;
+  const unsigned cand_ok = ((mbits | (nbits << kCPL)) >> 2) | (lane == 0 ? 1u : 0u);
+  int gadd[kCPL], kadd[kCPL];
+#pragma unroll
+  for (int j = 0; j < kCPL; ++j) {
+    gadd[j] = (cand_ok >> j) & 1u ? GEP * j : kGate;
+    kadd[j] = (mbits >> j) & 1u ? 0 : HIM;
+  }
 
   if constexpr (kHp) {
     // read runs (dp_jax.batch_last_row_hp's hprs / hprl) over all L rows:
@@ -225,124 +276,147 @@ dp_entries_kernel(const int8_t* __restrict__ refs, int wtot,
   // ---- row 0 -------------------------------------------------------------
   int prev[kCPL], prev2[kCPL], rbest[kCPL];
   {
-    const int code = sh_s2c[warp][0];
-    const int s0 = sm[0 * 5 + code], s1 = sm[1 * 5 + code], s2 = sm[2 * 5 + code],
-              s3 = sm[3 * 5 + code], s4 = sm[4 * 5 + code];
+    const char* trow = (const char*)(tab + sh_s2c[warp][0] * 5);
 #pragma unroll
     for (int j = 0; j < kCPL; ++j) {
-      prev[j] = (mbits >> j) & 1u ? sub_for(win[j], s0, s1, s2, s3, s4) : HIM;
+      prev[j] = (mbits >> j) & 1u ? *(const int32_t*)(trow + woff[j]) : HIM;
       prev2[j] = LOW;
       rbest[j] = prev[j];
     }
   }
 
   // ---- rows 1 .. last ----------------------------------------------------
-  for (int row = 1; row <= last; ++row) {
+  // One row: P holds row - 1, Q row - 2; the new row replaces Q.
+  auto do_row = [&](const int row, int (&P)[kCPL], int (&Q)[kCPL]) {
     const int code = sh_s2c[warp][row];
     const int from_back = len - (row + 1);
     int d = row < kPssmDepth ? row
                              : (from_back < kPssmDepth ? 2 * kPssmDepth - from_back : kPssmDepth);
     d = d < 0 ? 0 : (d > 2 * kPssmDepth ? 2 * kPssmDepth : d);
-    const int32_t* smd = sm + d * 25;
-    const int s0 = smd[0 * 5 + code], s1 = smd[1 * 5 + code], s2 = smd[2 * 5 + code],
-              s3 = smd[3 * 5 + code], s4 = smd[4 * 5 + code];
+    const char* trow = (const char*)(tab + (d * 5 + code) * 5);
     const int start_new = -(GOP + GEP * (row + 1));
+    // no row gap ends on row 1: its cost there sinks the candidate
+    const int neg_grow = row >= 2 ? -(GOP + GEP * (row - 1)) : kGate;
 
-    // -h: which candidate this row may take (warp-uniform)
+    // -h: which candidate this row may take (warp-uniform), and the columns
+    // that take it as 0x80 flags
     bool hp_col_row = false, hp_row_row = false;
-    int pen0 = 0;
-    uint32_t ch2x4 = 0;
+    int neg_pen = 0;
+    uint32_t hit[kCPL / 4];
     if constexpr (kHp) {
       const int hs = sh.hprs[warp][row];
+      const int slot = sh.pidx[warp][row];
       hp_col_row = hs == row;
       hp_row_row = hs != row && hs > 0 && row - hs < kHpw;
-      pen0 = sh.pengop[sh.pidx[warp][row]];
-      ch2x4 = sh.chr[warp][row] * 0x01010101u;
-      if (hp_col_row) {
-        // the row before this run: hp_col's source now, hp_row's later
+      neg_pen = -sh.pengop[slot];
+      const uint32_t ch4 = sh.chr[warp][row] * 0x01010101u;
+      uint32_t any = 0;
+#pragma unroll
+      for (int k = 0; k < kCPL / 4; ++k) {
+        hit[k] = zero_bytes(wchr[k] ^ ch4) & (hp_col_row ? hcb[k] : hrb[k]);
+        any |= hit[k];
+      }
+      // the row before this run: hp_col's source now, hp_row's on the run's
+      // later rows
+      if (hp_col_row && (slot > 0 || __any_sync(FULL, any != 0))) {
         __syncwarp();
 #pragma unroll
-        for (int j = 0; j < kCPL; ++j) sh.row[warp][c0 + j] = prev[j];
+        for (int j = 0; j < kCPL; ++j) sh.row[warp][j * 32 + lane] = P[j];
         __syncwarp();
       }
     }
 
-    // column gaps: inclusive prefix max of prev[c] + GEP*c over open origins
-    int rm[kCPL];
+    // column gaps: inclusive prefix max of prev[c] + GEP * c over the origins
+    // that count, in lane-local coordinates (less GEP * c0)
+    int rl[kCPL];
     int run = LOW;
 #pragma unroll
     for (int j = 0; j < kCPL; ++j) {
-      const int cand = (cand_ok >> j) & 1u ? prev[j] + GEP * (c0 + j) : LOW;
-      run = max(run, cand);
-      rm[j] = run;
+      run = __viaddmax_s32(P[j], gadd[j], run);
+      rl[j] = run;
     }
-    int tot = run;
+    int tot = run + goff;
 #pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int t = __shfl_up_sync(FULL, tot, off);
-      if (lane >= off) tot = max(tot, t);
-    }
-    int excl = __shfl_up_sync(FULL, tot, 1);
+    for (int off = 1; off < 32; off <<= 1)
+      tot = max(tot, __shfl_up_sync(FULL, tot, off));  // a lane below off reads itself
+    int excl = __shfl_up_sync(FULL, tot, 1) - goff;
     if (lane == 0) excl = LOW;
-#pragma unroll
-    for (int j = 0; j < kCPL; ++j) rm[j] = max(rm[j], excl);
+    // the prefix two columns back of this lane's first column, in the
+    // previous lane's coordinates
+    int pre_m2 = __shfl_up_sync(FULL, max(rl[kCPL - 2], excl), 1);
 
     // row gaps: running per-column max over rows <= row - 2
-    if (row >= 2) {
-      const int add = GEP * (row - 2);
+    const int add = GEP * (row - 2);
+#pragma unroll
+    for (int j = 0; j < kCPL; ++j) rbest[j] = __viaddmax_s32(Q[j], add, rbest[j]);
+
+    // previous lane's last column for the shifted reads; column 0 has no
+    // neighbours: its base is the restart value itself
+    int rb_m1 = __shfl_up_sync(FULL, rbest[kCPL - 1], 1);
+    int pv_m1 = __shfl_up_sync(FULL, P[kCPL - 1], 1);
+    if (lane == 0) {
+      pre_m2 = LOW;
+      rb_m1 = HIM;
+      pv_m1 = start_new;
+    }
+
+    // The cells, in one straight-line variant per kind of row (0: no -h
+    // candidate, 1: hp_col, 2: hp_row), picked by a warp-uniform branch.
+    // The -h loads are unconditional (the source offset is always inside
+    // the staged row); whether the cell takes the candidate is a select.
+    // The -h arrays come in as a parameter, so that the plain instantiation,
+    // which has none, does not look their members up.
+    auto cells = [&](auto kind, auto& hs) {
+      constexpr int kKind = decltype(kind)::value;
 #pragma unroll
       for (int j = 0; j < kCPL; ++j) {
-        const int cr = prev2[j] + add;
-        if (((upd_ok >> j) & 1u) && cr > rbest[j]) rbest[j] = cr;
-      }
-    }
-
-    // previous lane's last columns for the shifted reads
-    const int rm_m2 = __shfl_up_sync(FULL, rm[kCPL - 2], 1);
-    const int rm_m1 = __shfl_up_sync(FULL, rm[kCPL - 1], 1);
-    const int rb_m1 = __shfl_up_sync(FULL, rbest[kCPL - 1], 1);
-    const int pv_m1 = __shfl_up_sync(FULL, prev[kCPL - 1], 1);
-    const int grow_cost = GOP + GEP * (row - 1);
-
-    int nw[kCPL];
-#pragma unroll
-    for (int j = 0; j < kCPL; ++j) {
-      const int c = c0 + j;
-      const int rmc = j >= 2 ? rm[j - 2] : (j == 1 ? rm_m1 : rm_m2);
-      const int gap_col = c >= 2 ? rmc - (GOP + GEP * (c - 1)) : HIM;
-      const int rbc = j >= 1 ? rbest[j - 1] : rb_m1;
-      const int gap_row = (row >= 2 && c >= 1) ? rbc - grow_cost : HIM;
-      const int diag = j >= 1 ? prev[j - 1] : (c >= 1 ? pv_m1 : LOW);
-      int base = max(max(diag, gap_col), gap_row);
-      if constexpr (kHp) {
-        // char equality of this column's reference char with the read's
-        const bool same = ((wchr[j >> 2] ^ ch2x4) & (0xffu << (8 * (j & 3)))) == 0;
-        int hpv = HIM;
-        if (hp_col_row) {
-          if (same && ((hc_bits >> j) & 1u)) {
-            const int hc = sh.hcs[warp][c];
-            int idx = hc - 1 - ws;
-            idx = idx < 0 ? 0 : (idx > kW - 1 ? kW - 1 : idx);
-            hpv = sh.row[warp][idx] - (GEP * (ws + c - hc) + pen0);
+        // gap_col = prefix[c - 2] - (GOP + GEP * (c - 1)), lane-local
+        const int pre = j >= 2 ? max(rl[j - 2], excl) : (j == 1 ? excl : pre_m2);
+        const int col_cost = j >= 1 ? -(GOP + GEP * (j - 1)) : -(GOP + GEP * (kCPL - 1));
+        const int diag = j >= 1 ? P[j - 1] : pv_m1;
+        int base = __viaddmax_s32(pre, col_cost, diag);
+        base = __viaddmax_s32(j >= 1 ? rbest[j - 1] : rb_m1, neg_grow, base);
+        if constexpr (kHp && kKind != 0) {
+          const bool takes = hit[j >> 2] & (0x80u << (8 * (j & 3)));
+          int cand;
+          if constexpr (kKind == 1) {
+            const int src = *(const int32_t*)((const char*)hs.row[warp] +
+                                              hs.hsrc[warp][j * 32 + lane]);
+            cand = src + hs.hneg[warp][j * 32 + lane] + neg_pen;
+          } else {
+            // the column to the left; column 0 takes none: lane 0 reads
+            // some column of its own instead
+            cand = hs.row[warp][j >= 1 ? (j - 1) * 32 + lane
+                                       : (kCPL - 1) * 32 + lane - (lane != 0)] + neg_pen;
           }
-        } else if (hp_row_row) {
-          if (same && ((hr_bits >> j) & 1u)) hpv = sh.row[warp][c - 1] - pen0;
+          base = max(base, takes ? cand : HIM);
         }
-        base = max(base, hpv);
+        const int cell = *(const int32_t*)(trow + woff[j]);
+        bool keeps;  // base >= start_new: no restart
+        const int m = __vibmax_s32(base, start_new, &keeps);
+        Q[j] = m + (keeps ? cell : 0) + kadd[j];
       }
-      const int cell = sub_for(win[j], s0, s1, s2, s3, s4);
-      int v = start_new > base ? start_new : cell + base;
-      if (c == 0) v = cell + start_new;
-      nw[j] = (mbits >> j) & 1u ? v : HIM;
-    }
+    };
+    if (hp_col_row) cells(std::integral_constant<int, 1>{}, sh);
+    else if (hp_row_row) cells(std::integral_constant<int, 2>{}, sh);
+    else cells(std::integral_constant<int, 0>{}, sh);
+  };
+
+  int row = 1;
+  for (; row + 1 <= last; row += 2) {
+    do_row(row, prev, prev2);
+    do_row(row + 1, prev2, prev);
+  }
+  if (row <= last) {
+    do_row(row, prev, prev2);
 #pragma unroll
-    for (int j = 0; j < kCPL; ++j) {
-      prev2[j] = prev[j];
-      prev[j] = nw[j];
-    }
+    for (int j = 0; j < kCPL; ++j) prev[j] = prev2[j];
   }
 
   // ---- epilogue: best value, earliest column ------------------------------
+#pragma unroll
+  for (int j = 0; j < kCPL; ++j)
+    if (!((mbits >> j) & 1u)) prev[j] = HIM;
   int bv = prev[0], bc = c0;
 #pragma unroll
   for (int j = 1; j < kCPL; ++j)

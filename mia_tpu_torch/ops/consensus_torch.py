@@ -11,7 +11,9 @@ counts [n, 5], coverage [n] and PSSM-weighted candidate scores [n, 4]
                             depth smp[smp_off[r] + k] - 'A', strand revs[r]
 
 :func:`column_counts_plain` is the plain PyTorch version; the CUDA kernel
-(``csrc/column_counts.cu``) accumulates with 64-bit integer atomics.  Both
+(``csrc/column_counts.cu``) accumulates a tile of columns per block with
+int32 atomics in shared memory and adds the tile to the int64 results with
+one global atomic per accumulator.  Both
 are integer-exact and order-independent, so they equal the host
 accumulator (``ColumnCounts.add_bases``) bit for bit.  Unlike the TPU path
 there are no static shapes, observation buckets or int32 bound: sums are
@@ -30,7 +32,7 @@ import torch
 
 from .consensus import _BASE_IDX, _SUB_IDX
 
-from .dp_cuda import check_tensor
+from .dp_cuda import check_tensor, current_device
 
 kernel_launches = 0
 plain_calls = 0
@@ -92,9 +94,27 @@ def _char_tables(dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     return _TABLES[dev]
 
 
+def _check_inputs(dev, R, seq, smp, starts, spans, seq_off, smp_off, revs, fpsm,
+                  rpsm) -> None:
+    """One pass over the inputs: each must have the dtype, shape and device
+    the kernel takes and be contiguous (:func:`check_tensor` names the first
+    that does not), and the arenas must not be empty."""
+    i32, u8 = torch.int32, torch.uint8
+    for name, t, dtype, shape in (
+            ("seq", seq, u8, (seq.shape[0],)), ("smp", smp, u8, (smp.shape[0],)),
+            ("starts", starts, i32, (R,)), ("spans", spans, i32, (R,)),
+            ("seq_off", seq_off, i32, (R,)), ("smp_off", smp_off, i32, (R,)),
+            ("revs", revs, torch.bool, (R,)), ("fpsm", fpsm, i32, (31, 5, 5)),
+            ("rpsm", rpsm, i32, (31, 5, 5))):
+        check_tensor(name, t, dtype, shape, dev)
+    if seq.shape[0] == 0 or smp.shape[0] == 0:
+        raise ValueError("column_counts: empty arena")
+
+
 def column_counts(seq, smp, starts, spans, seq_off, smp_off, revs, fpsm, rpsm, n: int):
     """(counts [n, 5], cov [n], scores [n, 4]) int64 tensors on the inputs'
-    device.
+    device.  From the kernel the three are contiguous views of one
+    allocation of 10 n values (zeroed by one fill): they share storage.
 
     seq [S] and smp [M] uint8 arenas (non-empty), starts, spans, seq_off,
     smp_off [R] int32, revs [R] bool, fpsm and rpsm [31, 5, 5] int32; all
@@ -102,16 +122,7 @@ def column_counts(seq, smp, starts, spans, seq_off, smp_off, revs, fpsm, rpsm, n
     global kernel_launches, plain_calls
     dev = seq.device
     R = spans.shape[0]
-    check_tensor("seq", seq, torch.uint8, (seq.shape[0],), dev)
-    check_tensor("smp", smp, torch.uint8, (smp.shape[0],), dev)
-    for name, t in (("starts", starts), ("spans", spans), ("seq_off", seq_off),
-                    ("smp_off", smp_off)):
-        check_tensor(name, t, torch.int32, (R,), dev)
-    check_tensor("revs", revs, torch.bool, (R,), dev)
-    check_tensor("fpsm", fpsm, torch.int32, (31, 5, 5), dev)
-    check_tensor("rpsm", rpsm, torch.int32, (31, 5, 5), dev)
-    if seq.numel() == 0 or smp.numel() == 0:
-        raise ValueError("column_counts: empty arena")
+    _check_inputs(dev, R, seq, smp, starts, spans, seq_off, smp_off, revs, fpsm, rpsm)
     if dev.type == "cpu":
         plain_calls += 1
         return column_counts_plain(seq, smp, starts, spans, seq_off, smp_off, revs,
@@ -121,18 +132,19 @@ def column_counts(seq, smp, starts, spans, seq_off, smp_off, revs, fpsm, rpsm, n
     from ..utils.torchcfg import kernel_library
 
     lib = kernel_library()
-    counts = torch.zeros((n, 5), dtype=torch.int64, device=dev)
-    cov = torch.zeros(n, dtype=torch.int64, device=dev)
-    scores = torch.zeros((n, 4), dtype=torch.int64, device=dev)
+    acc = torch.zeros(10 * n, dtype=torch.int64, device=dev)
+    counts, cov, scores = acc.split_with_sizes((5 * n, n, 4 * n))
+    counts, scores = counts.view(n, 5), scores.view(n, 4)
+    out = acc.data_ptr()
     base_idx, sub_idx = _char_tables(dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with current_device(dev):
         rc = lib.mia_column_counts(
-            seq.data_ptr(), seq.numel(), smp.data_ptr(), smp.numel(),
+            seq.data_ptr(), seq.shape[0], smp.data_ptr(), smp.shape[0],
             starts.data_ptr(), spans.data_ptr(), seq_off.data_ptr(),
             smp_off.data_ptr(), revs.data_ptr(), R, fpsm.data_ptr(),
             rpsm.data_ptr(), base_idx.data_ptr(), sub_idx.data_ptr(), n,
-            counts.data_ptr(), cov.data_ptr(), scores.data_ptr(), stream,
+            out, out + 40 * n, out + 48 * n,  # counts, cov, scores (8-byte values)
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"column_counts kernel launch failed: CUDA error {rc}")

@@ -7,13 +7,16 @@
 kernel's ``-h`` instantiation, replacing ``dp_jax.batch_last_row_hp`` with
 its set-up ``jax_engine._entries_core_hp``: reads come as raw chars, and the
 homopolymer-discounted gap candidates join each row's max.  On an H100 the
-kernel is bound by integer ALU work, not bytes: ~20 int32 operations per DP
-cell against a few hundred bytes read per entry.  So it keeps each entry's
-rows in the registers of one warp (12 columns per lane), does the
-column-gap prefix max and the one- and two-column shifts with warp
-shuffles, and touches memory only in its prologue and epilogue (under
-``-h`` also one staged row per warp in shared memory); see the source for
-the layout.
+kernel is bound by the integer pipe's instructions per DP cell, not bytes
+(an entry reads a few hundred bytes).  So it keeps each entry's rows in the
+registers of one warp (12 columns per lane), folds every add-then-max into
+one of Hopper's DPX instructions and every mask into the data, reads a
+cell's substitution score with one shared-memory load from a table laid out
+for it, and joins the lanes with warp shuffles: 15.25 machine instructions a
+cell in the row loop (35.2 before; ``python -m mia_tpu_torch.utils.sass``
+counts them).  Under ``-h`` one staged row and two per-column arrays per
+warp live in shared memory, lane-major so that no access conflicts; see the
+source for the layout.
 
 Tensors on the CPU go to the plain versions,
 :func:`mia_tpu_torch.ops.dp_torch.entries_core_plain` and
@@ -30,6 +33,8 @@ library (``torchcfg.kernel_library``) with the consensus column counts
 (``csrc/myers_waves.cu``), whose wrappers use :func:`check_tensor` too.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -72,6 +77,17 @@ def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name}: not contiguous")
 
 
+_NO_SWITCH = contextlib.nullcontext()
+
+
+def current_device(dev: torch.device):
+    """Context in which ``dev`` is the current CUDA device (a launch goes to
+    a stream of the current device): nothing to switch where it already is."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return _NO_SWITCH
+    return torch.cuda.device(dev)
+
+
 def _check_entries(refs, sms, ref_sel, starts, ivl, s2x, s2x_dtype, lengths, smidx):
     """Check one batch's state and per-entry tensors; returns (device, E, L)."""
     dev = refs.device
@@ -101,7 +117,7 @@ def _launch(name: str, dev: torch.device, E: int, call) -> torch.Tensor:
     out = torch.empty((2, E), dtype=torch.int32, device=dev)
     if E == 0:
         return out
-    with torch.cuda.device(dev):
+    with current_device(dev):
         rc = call(lib, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")

@@ -244,6 +244,173 @@ def dp_cells(lengths: np.ndarray) -> int:
 
 
 
+# ---- adversarial entries and records for the kernels' edge cases ----
+
+_EDGE_L = 256
+# read lengths: the shortest reads, the row bound and its neighbours, no
+# rows at all, and one more than the scorer takes (both keep row 0)
+_EDGE_LENGTHS = (1, 2, 3, 24, 97, 255, 256, 0, 257)
+# band shapes as window-local [lo, hi) intervals
+_EDGE_BANDS = (
+    (),                                               # closed window
+    ((0, 1),), ((1, 2),), ((11, 12),), ((12, 13),), ((383, 384),),   # one open column
+    ((5, 6), (7, 8), (9, 10), (200, 201), (202, 203)),    # bands one column wide
+    ((0, 12),), ((12, 24),), ((3, 36),), ((0, 384),), ((372, 384),), ((100, 384),),
+    ((24, 371),), ((0, 2),), ((0, 3),), ((2, 3),), ((1, 50),), ((0, 50),),
+    ((0, 5), (6, 10), (12, 20), (21, 23), (25, 60)),  # gaps of one and two columns
+    ((6, 18),), ((24, 36),), ((30, 42), (44, 47)),    # inside one lane, across two
+    tuple((2 * k, 2 * k + 1) for k in range(MAX_INTERVALS)),           # all 16, one wide
+    tuple((24 * k, 24 * k + 12) for k in range(MAX_INTERVALS)),        # all 16, lane-sized
+    tuple((23 * k + 3, 23 * k + 20) for k in range(MAX_INTERVALS)),    # all 16, ragged
+)
+
+
+def _edge_layout():
+    """(bands, lengths, kinds) of the edge batch: every band shape with every
+    read length, and per entry what the read is: 0 cut from the window (a
+    few substitutions and indels), 1 a homopolymer in the reference's
+    homopolymer stretch (ties of the best value), 2 random."""
+    bands, lengths, kinds = [], [], []
+    for b in _EDGE_BANDS:
+        for n in _EDGE_LENGTHS:
+            for kind in (0, 1, 2):
+                bands.append(b)
+                lengths.append(n)
+                kinds.append(kind)
+    return bands, np.array(lengths, np.int32), np.array(kinds)
+
+
+def edge_entries(seed: int = 0, len1: int = 2400) -> dict:
+    """Entries (the keys of :func:`random_entries`, 256 rows) on the edges of
+    the entry scorer: a closed window; one open column; bands one column
+    wide; intervals that end on a multiple of 12 (a lane of the kernel) and
+    on 384; column 0 open and closed; all 16 intervals; gaps of one and two
+    closed columns inside a band; reads of 1, 2, 255 and 256 rows, a length
+    of 0 and one above the row bound; equal best values within 12 columns
+    and across them (a homopolymer read on a homopolymer stretch).  A third
+    of the reads are cut from their window with substitutions and indels, so
+    that gaps on both axes win cells."""
+    rng = np.random.default_rng(seed)
+    bands, lengths, kinds = _edge_layout()
+    E, L = len(bands), _EDGE_L
+    d = random_entries(E, L, seed, len1)
+    d["lengths"] = lengths
+    d["ivl"][:] = 0
+    for e, b in enumerate(bands):
+        for k, iv in enumerate(b):
+            d["ivl"][e, k] = iv
+        n = int(np.clip(lengths[e], 1, L))
+        if kinds[e] == 1:
+            d["starts"][e] = int(rng.integers(_TIE_LO, _TIE_HI - WIN_W))
+            d["s2c"][e] = 0
+        elif kinds[e] == 0:
+            lo = b[0][0] if b else 0
+            src = d["refs"][d["ref_sel"][e], d["starts"][e] + lo:][: 2 * n + 8]
+            chars = "".join("ACGTN"[c] for c in src)
+            read = encode_seq(mutate(chars, rng, 0.03, 0.03, alpha="ACGT") + "A" * n)[:n]
+            d["s2c"][e, :n] = read
+    return d
+
+
+def edge_hp_entries(seed: int = 0, len1: int = 2400) -> dict:
+    """``-h`` entries (:data:`HP_ENTRY_KEYS`, 256 rows) on the edges of the
+    ``-h`` scorer: :func:`edge_entries`' bands and lengths over a
+    homopolymer-rich reference, reads with runs of 1, 2, 31, 32 and 33
+    rows (the row reach is 32), windows that start inside a reference run
+    (the run starts before the window) and on a run's first column, and
+    reads cut from their window with runs grown and shrunk."""
+    rng = np.random.default_rng(seed + 1000)
+    bands, lengths, kinds = _edge_layout()
+    E, L = len(bands), _EDGE_L
+    d = random_hp_entries(E, L, seed, len1)
+    d["lengths"] = lengths
+    d["ivl"][:] = 0
+    strands = [bytes(d["refchr"][s, :len1]).decode("latin-1") for s in (0, 1)]
+    d["s2chr"][:] = 0
+    run_lens = (1, 2, 31, 32, 33)
+    for e, b in enumerate(bands):
+        for k, iv in enumerate(b):
+            d["ivl"][e, k] = iv
+        strand = strands[int(d["ref_sel"][e])]
+        ws = int(d["starts"][e])
+        if e % 3 == 0:      # the window starts inside a reference run
+            while ws + 1 < len1 - WIN_W and strand[ws] != strand[ws - 1]:
+                ws += 1
+        elif e % 3 == 1:    # the window's first column starts a run
+            while ws + 1 < len1 - WIN_W and strand[ws] == strand[ws - 1]:
+                ws += 1
+        d["starts"][e] = ws
+        n = int(np.clip(lengths[e], 1, L))
+        lo = b[0][0] if b else 0
+        if kinds[e] == 1:   # runs of the edge lengths, one after the other
+            read, k = "", e
+            while len(read) < n:
+                read += "ACGT"[k % 4] * run_lens[k % 5]
+                k += 1
+        elif kinds[e] == 0:
+            read = _mutate_runs(rng, strand[ws + lo : ws + lo + 2 * n + 8])
+        else:
+            head = strand[ws + lo : ws + lo + n // 3]
+            read = head + "ACGT"[e % 4] * run_lens[e % 5] + _runs_string(rng, n)
+        read = (read + _runs_string(rng, n))[:n]
+        d["s2chr"][e, :n] = np.frombuffer(read.encode("latin-1"), np.uint8)
+    return d
+
+
+def edge_records(seed: int = 0, n: int = 1300, big: bool = True, bits: int = 20):
+    """A MapAlignment over ``n`` columns (three tiles of the counts kernel,
+    the last one ragged) on the edges of the consensus counts: records that
+    straddle every 512-column border, start below 0, run off the end, lie
+    wholly outside, have a span of 0, are all gaps or all ``N``; and column
+    ``n // 2`` hit by every one of 4,200 records under PSSM entries near
+    +-2^``bits``, so that the column's sums pass +-2^32 and a private int32
+    sum that is never flushed would overflow (at 2^30 after two records).
+    Without ``big`` the PSSM is a noisy flat one and every sum fits int32."""
+    from .core.types import AlnSeq, MapAlignment
+    from .ops.pssm import revcom_submat
+
+    rng = np.random.default_rng(seed)
+    maln = MapAlignment()
+    maln.ref.seq_len = n
+    if big:
+        top = 1 << bits
+        near = rng.integers(top - 64, top, (31, 5, 5))
+        maln.fpsm = (near * rng.choice([-1, 1], (31, 5, 5))).astype(np.int64)
+        maln.fpsm[:, 0, 0] = top - 1      # A read as A: every depth the same sign
+        maln.fpsm[:, 3, 3] = -top + 1     # T read as T
+    else:
+        maln.fpsm = (init_flatsubmat() + rng.integers(-40, 40, (31, 5, 5))).astype(np.int64)
+    maln.rpsm = revcom_submat(maln.fpsm)
+    recs = []
+
+    def add(start, seq, rev=False, smp=None):
+        smp = smp or "".join(chr(ord("A") + int(x)) for x in rng.integers(0, 31, len(seq)))
+        recs.append(AlnSeq(id=f"r{len(recs)}", seq=seq, smp=smp, start=start,
+                           end=start + len(seq) - 1, revcom=rev, dropped=False))
+
+    def bases(k):
+        return "".join(rng.choice(list("ACGT-N"), k, p=[.23, .23, .23, .23, .05, .03]))
+
+    for border in range(0, n + 512, 512):
+        for off in (-70, -1, 0, 1):
+            add(border + off, bases(71), rev=bool(off & 1))
+    add(-40, bases(30))            # wholly below 0
+    add(-40, bases(41))            # its last base on column 0
+    add(n - 1, bases(50))          # its first base on the last column
+    add(n, bases(20))              # wholly past the end
+    add(n + 900, bases(20))
+    add(700, "")                   # span 0
+    add(300, "-" * 60)
+    add(400, "N" * 60, rev=True)
+    add(-20, bases(n + 40))        # one record over every column and both ends
+    mid = n // 2
+    for i in range(4200):          # every one of them covers column mid
+        seq = ("A" if i % 8 else "T") * 3
+        add(mid - (i % 3), seq, rev=False, smp="AAA")
+    maln.set_aln_seqs(recs)
+    return maln
+
+
 def random_records(n: int, R: int, seed: int = 0, mean_len: int = 60):
     """A MapAlignment of R aligned records over an n-column reference, for
     the consensus column counts: chars A, C, G, T, '-' and N, depths 0..30,

@@ -1,0 +1,111 @@
+"""Count the machine instructions of a CUDA kernel's loops.
+
+    python -m mia_tpu_torch.utils.sass [--out DIR] [source.cu | kept.sass ...]
+
+Compiles each source (default: every ``mia_tpu_torch/csrc/*.cu``) to a cubin
+with the port's own ``nvcc`` flags, disassembles it with ``cuobjdump -sass``
+and prints, per kernel, its instruction count and every loop (a backward
+branch and its target) with the instructions between them and the most
+frequent opcodes of the largest one.  With ``--out`` the disassembly is kept
+there.  For the entry scorer the largest loop is the row loop: its count
+over the cells of one trip (12 columns a lane, times the rows a trip covers)
+is the instructions a DP cell costs; a loop that holds exclusive branches
+(the ``-h`` candidates) is counted whole, so its figure is an upper bound.
+Needs the CUDA toolkit; no card.
+"""
+from __future__ import annotations
+
+import collections
+import glob
+import os
+import re
+import subprocess
+import sys
+import tempfile
+
+from .torchcfg import CSRC_DIR, NVCC_FLAGS, _nvcc
+
+_INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?);")
+
+
+def disassemble(source: str) -> str:
+    """``cuobjdump -sass`` of ``source`` compiled alone with the port's flags."""
+    nvcc = _nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    with tempfile.TemporaryDirectory() as d:
+        cubin = os.path.join(d, "k.cubin")
+        flags = [f for f in NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+        subprocess.run([nvcc, *flags, "-cubin", "-o", cubin, source], check=True,
+                       capture_output=True, text=True)
+        return subprocess.run([cuobjdump, "-sass", cubin], check=True,
+                              capture_output=True, text=True).stdout
+
+
+def kernels(sass: str) -> dict[str, list[tuple[int, str]]]:
+    """Kernel name -> its (address, instruction text) list."""
+    out: dict[str, list[tuple[int, str]]] = {}
+    cur = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = out.setdefault(line.split("Function :")[1].strip(), [])
+            continue
+        m = _INSTR.match(line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2).strip()))
+    return out
+
+
+def opcode(text: str) -> str:
+    """The opcode of an instruction without predicate and modifiers."""
+    words = text.split()
+    if words and words[0].startswith("@"):
+        words = words[1:]
+    return words[0].split(".")[0] if words else ""
+
+
+def loops(instrs: list[tuple[int, str]]) -> list[tuple[int, int, int]]:
+    """(target, branch address, instructions between them inclusive) of each
+    predicated backward branch, largest first.  An unconditional branch
+    back is the return from an out-of-line block (the compiler's path for
+    a shuffle under divergence), not a loop."""
+    addrs = [a for a, _ in instrs]
+    found = []
+    for addr, text in instrs:
+        m = re.search(r"^@!?U?P\d+ BRA\b.*\b0x([0-9a-f]+)\s*$", text)
+        if m and int(m.group(1), 16) <= addr:
+            target = int(m.group(1), 16)
+            found.append((target, addr, sum(1 for a in addrs if target <= a <= addr)))
+    return sorted(found, key=lambda t: -t[2])
+
+
+def report(source: str, out_dir: str | None) -> None:
+    if source.endswith(".sass"):  # a disassembly kept by an earlier run
+        with open(source) as f:
+            sass, out_dir = f.read(), None
+    else:
+        sass = disassemble(source)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, os.path.basename(source) + ".sass"), "w") as f:
+            f.write(sass)
+    for name, instrs in kernels(sass).items():
+        real = [(a, t) for a, t in instrs if opcode(t) != "NOP"]
+        print(f"{os.path.basename(source)} {name}: {len(real)} instructions")
+        for k, (target, addr, n) in enumerate(loops(real)):
+            print(f"  loop {target:#06x}..{addr:#06x}: {n} instructions")
+            if k == 0:
+                hist = collections.Counter(opcode(t) for a, t in real if target <= a <= addr)
+                print("    " + ", ".join(f"{op} {c}" for op, c in hist.most_common(24)))
+
+
+def main(argv: list[str]) -> int:
+    out_dir = None
+    if argv[:1] == ["--out"]:
+        out_dir, argv = argv[1], argv[2:]
+    for source in argv or sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))):
+        report(source, out_dir)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -128,3 +128,36 @@ def test_failing_hook_makes_assembly_raise(monkeypatch, tmp_path):
         assembler.run_assembly(cfg)
     # iteration 1's maln is written before the first consensus; no later one
     assert sorted(os.listdir(tmp_path)) == ["out.maln.1"]
+
+
+@pytest.mark.parametrize("big", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_edge_records_plain_matches_host_and_jax(seed, big):
+    """The adversarial record set (records across every 512-column border,
+    below 0, off the end, span 0, all gaps, all N, one column hit by 4,200
+    records): the plain version against the host accumulator, exact; with
+    PSSM entries near +-2^20 the column's sums pass 2^32, past the JAX
+    accumulator's int32 bound, so that one is compared only without them."""
+    maln = T.edge_records(seed, big=big)
+    args = _arrays(maln)
+    host = main_column_counts(maln, exclude_dropped=True)
+    got = [t.numpy() for t in ct.column_counts(*_tensors(args))]
+    for g, h in zip(got, (host.counts, host.cov, host.scores)):
+        assert g.dtype == np.int64
+        np.testing.assert_array_equal(g, h)
+    if big:
+        assert np.abs(got[2]).max() > 2**32
+    else:
+        for g, j in zip(got, consensus_device.device_column_counts(*args)):
+            np.testing.assert_array_equal(g, j)
+
+
+def test_edge_records_plain_matches_host_at_the_largest_entries():
+    """PSSM entries near +-2^30, the largest an int32 table holds: two
+    records already pass int32 in the column they share."""
+    maln = T.edge_records(3, bits=30)
+    host = main_column_counts(maln, exclude_dropped=True)
+    got = [t.numpy() for t in ct.column_counts(*_tensors(_arrays(maln)))]
+    for g, h in zip(got, (host.counts, host.cov, host.scores)):
+        np.testing.assert_array_equal(g, h)
+    assert np.abs(got[2]).max() > 2**40

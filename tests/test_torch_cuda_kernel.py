@@ -142,6 +142,61 @@ def test_column_counts_kernel_rejects_mixed_devices(cuda):
         consensus_torch.column_counts(*args, 100)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_kernel_matches_plain_on_edge_entries(cuda, seed):
+    """Closed windows, one-column bands, lane-sized intervals, column 0, all
+    16 intervals, reads of 0..257 rows, ties: where a mask folded into the
+    kernel's data could differ from the plain version's selects."""
+    args = _on(T.edge_entries(seed), cuda)
+    got = dp_cuda.dp_entries(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dp_torch.entries_core_plain(*args))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_hp_kernel_matches_plain_on_edge_entries(cuda, seed):
+    args = _on_hp(T.edge_hp_entries(seed), cuda)
+    got = dp_cuda.dp_entries_hp(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dp_torch.entries_core_hp_plain(*args))
+
+
+@pytest.mark.parametrize("seed,big,bits", [(0, False, 20), (1, True, 20), (2, True, 20),
+                                           (3, True, 24), (4, True, 30)])
+def test_column_counts_kernel_matches_plain_and_host_on_edge_records(cuda, seed, big, bits):
+    """Records across every tile border and both ends of the reference, and
+    (big) sums past 2^32 in one column: a private int32 sum must not wrap.
+    At 2^24 a block may walk fewer records between two flushes than it has
+    threads, at 2^30 one."""
+    from mia_tpu_torch.core.columns import main_column_counts
+
+    maln = T.edge_records(seed, big=big, bits=bits)
+    n = maln.ref.seq_len
+    args = _records_on(maln, cuda)
+    got = consensus_torch.column_counts(*args, n)
+    torch.cuda.synchronize()
+    assert [tuple(g.shape) for g in got] == [(n, 5), (n,), (n, 4)]
+    assert all(g.is_contiguous() and g.dtype == torch.int64 for g in got)
+    for g, p in zip(got, consensus_torch.column_counts_plain(*args, n)):
+        assert torch.equal(g, p)
+    host = main_column_counts(maln, exclude_dropped=True)
+    for g, h in zip(got, (host.counts, host.cov, host.scores)):
+        np.testing.assert_array_equal(g.cpu().numpy(), h)
+    if big:
+        assert int(got[2].abs().max()) > 2**32
+
+
+@pytest.mark.parametrize("n,R", [(16569, 3), (16569, 300), (40, 5000), (70000, 2000)])
+def test_column_counts_kernel_grid_follows_columns_and_records(cuda, n, R):
+    """Few records over many columns (no empty slice), many records over
+    one tile, more tiles than the card has SMs."""
+    maln = T.random_records(n, R, seed=n + R)
+    args = _records_on(maln, cuda)
+    got = consensus_torch.column_counts(*args, n)
+    for g, p in zip(got, consensus_torch.column_counts_plain(*args, n)):
+        assert torch.equal(g, p)
+
+
 def _myers_case(kind, seed):
     """(seq_a, mode, seq_b, maxd) of one kernel test case."""
     from mia_tpu_torch.cli.ccheck import load_mt311
