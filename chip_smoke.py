@@ -5,8 +5,8 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-(``--kernels`` stops after phases 1-5 and 6a, for work on those kernels, and
-prints their numbers but no result line.)
+(``--kernels`` runs phases 1-5, 6a, 12 and 13 only, for work on the kernels,
+and prints their numbers but no result line.)
 
 Phases, each printing its own lines; any failure exits non-zero before the
 result line.  Every reference is the port's own: its plain PyTorch versions,
@@ -37,7 +37,12 @@ counts) and the committed goldens.
    one-column bands, lane-sized intervals, the shortest and longest reads,
    ties, the ``-h`` run lengths around the row reach, records across every
    tile border, a column whose sums pass 2^32), exact; the counts also
-   against the host accumulator.
+   against the host accumulator.  Also the general-width scorer and the
+   pileup counts on ``edge_last_row_inputs`` (rows of 1 to 2,300 columns,
+   lengths 0 to L + 1, closed rows, bands over every thread and warp border,
+   ties; shared and per-read reference, ``sg5`` on and off) and
+   ``edge_pileup_inputs`` (every tile border, starts off both ends, a batch
+   larger than a block's list, sums that wrap, codes outside 0..4), exact.
 7. end to end: 20,000 simulated reads on a 16,569-column circular reference
    with ``-c -u -k 12 -s ancient.submat.solexa.pe.txt``: the port under
    ``--engine torch`` (in this process, launch counts reset just before)
@@ -80,15 +85,20 @@ counts) and the committed goldens.
     plain version at the JAX bench's full-width shape (B=512 reads of 30-119
     bases, W=17,024 columns, L=256 rows), reference shared by the batch and
     one per read, the whole [B, W] row exact; 32 rows against
-    dp_numpy.solve_sg; prints both versions' times.
+    dp_numpy.solve_sg; prints both versions' times and the bare launch's.
 13. pileup and consensus-call kernels against their plain versions at
-    B=2,048, W=17,024, L=256, exact, with times.
+    B=2,048, W=17,024, L=256, exact, with times; beside the pileup kernel
+    the two ``index_add_`` calls of its plain version together (indices and
+    terms made beforehand: ``library_ms``) and, on an earlier line, the
+    ``index_add_`` of the score terms alone.
 14. assembly step: dp=4, sp=2 with every shard on cuda:0, B=2,048 reads drawn
     from a 17,024-column reference with 5% of their bases redrawn: (best, aec)
     equal to the single-device scorer's, whose rows for the first dp shard
     equal the plain version's on these inputs, the consensus equal to a numpy
     rebuild; the three kernels' launch counts set to 0 just before and read
-    just after.
+    just after.  Then the warm step's time and the device time of its four
+    ``dp_last_row`` launches, with the scorer's register form and with its
+    wide form (the kernel it had before).
 15. sharded scorer and consensus counts: E=16,384 entries over 4 shards equal
     to the single scorer; the record set of phase 5 over 4 shards equal to
     one shard and to the host counts.
@@ -103,8 +113,8 @@ call of the kernel's wrapper, for every kernel; the plain version's time; the
 bound, with padded per-read arrays counted up to each read's own length, and
 what bounds it; a library call's time where one computes the same scatter;
 ``kernel_only_ms``, the bare launch, for the entry scorers, the consensus
-counts and the step's two small kernels), the card's name and power limit, and
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
+counts, the general-width scorer and the step's two small kernels), the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
 the JAX package.
 """
 from __future__ import annotations
@@ -430,8 +440,47 @@ def phase_consensus_kernel(dev) -> dict:
             **bound(nbytes(*args, *got), 6 * n_obs)}
 
 
+def phase_step_edges(dev) -> None:
+    """The general-width scorer and the pileup counts against their plain
+    versions on their adversarial inputs, exact."""
+    import torch
+
+    from mia_tpu_torch import testing as T
+    from mia_tpu_torch.ops import dp_cuda
+    from mia_tpu_torch.ops.dp_torch import batch_last_row
+    from mia_tpu_torch.parallel import sharded
+
+    n = 0
+    for seed in (0, 1):
+        for shared in (True, False):
+            for name, d, sg5 in T.edge_last_row_inputs(seed, shared, wide=True):
+                args = [torch.from_numpy(d[k]).to(dev) for k in T.LAST_ROW_KEYS]
+                check_equal(f"dp_last_row != plain on edge rows ({name}, seed {seed}, "
+                            f"shared {shared}, sg5 {sg5})",
+                            dp_cuda.dp_last_row(*args, sg5=sg5),
+                            batch_last_row(*args, sg5=sg5))
+                n += 1
+    say(f"edges: dp_last_row == batch_last_row on {n} adversarial batches of 16 reads (rows "
+        f"of 1 to 2,300 columns, lengths 0 to L + 1, closed rows, one-column bands, bands "
+        f"over every thread and warp border, ties; shared and per read, sg5 on and off; "
+        f"exact)")
+    names = []
+    for seed in (0, 1):
+        for name, d, W, _ in T.edge_pileup_inputs(seed):
+            args = [torch.from_numpy(d[k]).to(dev) for k in T.PILEUP_KEYS]
+            for what, g, w in zip(("counts", "scores"), sharded.pileup_counts(*args, W),
+                                  sharded._pileup_counts(*args, W)):
+                check_equal(f"pileup_counts != plain on edge reads ({name}, {what}, "
+                            f"seed {seed})", g, w)
+            names.append(name)
+    say(f"edges: pileup_counts == _pileup_counts on {len(names)} adversarial batches "
+        f"({', '.join(names[: len(names) // 2])}; exact)")
+    if dp_cuda.last_row_plain_calls or sharded.pileup_plain_calls:
+        raise AssertionError("edges: a plain version was called through a wrapper on the card")
+
+
 def phase_edges(dev) -> None:
-    """The three redesigned kernels against their plain versions on the
+    """The redesigned kernels against their plain versions on the
     adversarial inputs of ``mia_tpu_torch.testing``, exact."""
     import numpy as np
     import torch
@@ -475,6 +524,7 @@ def phase_edges(dev) -> None:
     say(f"edges: column_counts == plain == host main_column_counts on {len(spans)} "
         f"adversarial records (every tile border, both ends, span 0, all gaps, all N; one "
         f"column's sums past 2^32, largest |score| {int(got[2].abs().max())}; exact)")
+    phase_step_edges(dev)
 
 
 class Capture:
@@ -921,6 +971,11 @@ def phase_last_row_kernel(dev) -> dict:
                             f"{float(np.mean(d['lengths'])):.1f}")
         say(f"last-row kernel, {what}: {cells / t['ms'] / 1e6:.3f} Gcells/s, plain "
             f"version {cells / t['plain_ms'] / 1e6:.3f} Gcells/s")
+        out = torch.empty_like(got)
+        p = [a.data_ptr() for a in args]  # LAST_ROW_KEYS: s1c mask s2c lengths depths submat
+        t["kernel_only_ms"] = time_raw_launch(lambda lib, stream: lib.mia_dp_last_row(
+            p[0], int(not shared), p[1], p[2], p[4], p[5], p[3], FW_B, FW_W, L_ROWS, 1,
+            out.data_ptr(), stream), f"last-row kernel, {what}", t["ms"], 20)
         # s2c and depths count up to each read's own length
         moved = (nbytes(args[0], args[1], args[3], args[5], got)
                  + read_bytes(d["lengths"], args[2], args[4]))
@@ -944,6 +999,8 @@ def phase_last_row_kernel(dev) -> dict:
             "on 32 reads")
     say(f"last-row kernel: per-read reference {res[False]['ms']:.4f} ms against shared "
         f"{res[True]['ms']:.4f} ms")
+    if dp_cuda.last_row_wide_launches or dp_cuda.last_row_plain_calls:
+        raise AssertionError("last-row kernel: the full-width shape left the register form")
     return res[True]
 
 
@@ -989,13 +1046,31 @@ def phase_step_kernels(dev) -> tuple[dict, dict]:
         f"L={L_ROWS}, {n_obs} bases in range (exact)")
     t = time_plain_pair(lambda: sharded.pileup_counts(*args, FW_W),
                         lambda: sharded._pileup_counts(*args, FW_W), "pileup kernel")
-    # the scatter alone, as one library call: index_add_ of the score terms
+    # a call is host work of a few tens of microseconds: enough of them that
+    # one pause of the interpreter does not decide the mean
+    t["ms"] = cuda_ms(lambda: sharded.pileup_counts(*args, FW_W), 200)
+    # the scatter alone, as library calls on indices and terms made
+    # beforehand (the lookups are not in it): the score terms alone, the
+    # yardstick of earlier runs, and both index_add_ calls of the plain
+    # version together, which is the whole of what the kernel adds
     cols = torch.randint(0, FW_W, (n_obs,), device=dev)
     terms = torch.randint(-600, 200, (n_obs, 4), dtype=torch.int32, device=dev)
     acc = torch.zeros((FW_W, 4), dtype=torch.int32, device=dev)
-    library_ms = cuda_ms(lambda: acc.index_add_(0, cols, terms), 20)
-    say(f"pileup kernel: index_add_ of {n_obs} x 4 score terms alone {library_ms:.4f} ms "
+    scores_only_ms = cuda_ms(lambda: acc.index_add_(0, cols, terms), 200)
+    say(f"pileup kernel: index_add_ of {n_obs} x 4 score terms alone {scores_only_ms:.4f} ms "
         f"(the scatter without the lookups)")
+    slots = cols * 5 + torch.randint(0, 5, (n_obs,), device=dev)
+    ones = torch.ones(n_obs, dtype=torch.int32, device=dev)
+    acc5 = torch.zeros(FW_W * 5, dtype=torch.int32, device=dev)
+
+    def both():
+        acc5.index_add_(0, slots, ones)
+        acc.index_add_(0, cols, terms)
+
+    cuda_ms(both, 5)
+    library_ms = cuda_ms(both, 200)
+    say(f"pileup kernel: index_add_ of the {n_obs} counts and of the {n_obs} x 4 score "
+        f"terms together {library_ms:.4f} ms (both scatters of the plain version)")
     acc_c, acc_s = torch.zeros_like(counts), torch.zeros_like(scores)
     t["kernel_only_ms"] = time_raw_launch(lambda lib, stream: lib.mia_pileup_counts(
         *(a.data_ptr() for a in (args[0], args[3], args[1], args[2], args[4], args[5],
@@ -1006,7 +1081,10 @@ def phase_step_kernels(dev) -> tuple[dict, dict]:
     # kernel skips the rows past it), everything else whole
     moved = (nbytes(args[1], args[2], args[4], args[5], args[6], counts, scores)
              + read_bytes(d["lengths"], args[0], args[3]))
-    pile = {"max_abs_err": err, **t, "library_ms": library_ms, **bound(moved, 5 * n_obs)}
+    pile = {"max_abs_err": err, **t, "library_ms": library_ms,
+            "library_scores_only_ms": scores_only_ms, **bound(moved, 5 * n_obs)}
+    if sharded.pileup_plain_calls:
+        raise AssertionError("pileup kernel: the plain version was called through the wrapper")
 
     err = 0
     for what, (c, s) in (("pileup", (counts, scores)),
@@ -1050,12 +1128,14 @@ def phase_step(dev) -> dict:
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = {"dp.last_row_launches": dp_cuda.last_row_launches,
+              "dp.last_row_wide_launches": dp_cuda.last_row_wide_launches,
               "dp.last_row_plain_calls": dp_cuda.last_row_plain_calls,
               "step.pileup_launches": sharded.pileup_launches,
               "step.pileup_plain_calls": sharded.pileup_plain_calls,
               "step.consensus_launches": sharded.consensus_launches,
               "step.consensus_plain_calls": sharded.consensus_plain_calls}
-    if counts != {"dp.last_row_launches": 4, "dp.last_row_plain_calls": 0,
+    if counts != {"dp.last_row_launches": 4, "dp.last_row_wide_launches": 0,
+                  "dp.last_row_plain_calls": 0,
                   "step.pileup_launches": 4, "step.pileup_plain_calls": 0,
                   "step.consensus_launches": 2, "step.consensus_plain_calls": 0}:
         # W = 17,024 divides by sp = 2: no tail to call
@@ -1089,6 +1169,43 @@ def phase_step(dev) -> dict:
         f"({sum(called.count(c) for c in b'ACGT')} columns called, "
         f"{called.count(b'N')} N); {wall:.3f} s with the host's copies; "
         f"{json.dumps(counts)}")
+
+    # the warm step, and what its four scorer launches take of it on the
+    # card: with the register form, and with every launch sent to the wide
+    # form, which is the kernel the scorer had before the register form
+    scorer = dp_cuda.dp_last_row
+    reach = dp_cuda.LAST_ROW_THREADS
+    for what, threads in (("register form", reach), ("wide form (the earlier kernel)", 0)):
+        spans = []
+
+        def timed_scorer(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = scorer(*a, **kw)
+            ev[1].record()
+            spans.append(ev)
+            return out
+
+        walls = []
+        dp_cuda.dp_last_row, dp_cuda.LAST_ROW_THREADS = timed_scorer, threads
+        try:
+            check_equal(f"assembly step: aec differs with the {what}", step(*args)[1], aec)
+            spans.clear()
+            for _ in range(5):
+                t0 = time.time()
+                step(*args)
+                torch.cuda.synchronize()
+                walls.append(time.time() - t0)
+        finally:
+            dp_cuda.dp_last_row, dp_cuda.LAST_ROW_THREADS = scorer, reach
+        device_ms = sorted(sum(a.elapsed_time(b) for a, b in spans[4 * k : 4 * k + 4])
+                           for k in range(5))
+        walls.sort()
+        say(f"assembly step, {what}: warm, 5 steps: {walls[2] * 1e3:.3f} ms a step (median; "
+            f"least {walls[0] * 1e3:.3f}, most {walls[-1] * 1e3:.3f}; host clock, copies "
+            f"included), of which its four dp_last_row launches {device_ms[2]:.4f} ms on the "
+            f"card (median; CUDA events around each call of the wrapper): "
+            f"{100 * device_ms[2] / (walls[2] * 1e3):.1f}% of the step")
     return counts
 
 
@@ -1214,10 +1331,13 @@ def main() -> int:
     hp_kern = phase_hp_kernel(dev)
     cons_kern = phase_consensus_kernel(dev)
     if sys.argv[1:] == ["--kernels"]:
-        # the quick form for work on the three kernels: no result line
+        # the quick form for work on the kernels: no result line
         phase_edges(dev)
+        last_row_kern = phase_last_row_kernel(dev)
+        pileup_kern, cons_call_kern = phase_step_kernels(dev)
         say(json.dumps({"dp_entries": kern, "dp_entries_hp": hp_kern,
-                        "column_counts": cons_kern}))
+                        "column_counts": cons_kern, "dp_last_row": last_row_kern,
+                        "pileup_counts": pileup_kern, "consensus_call": cons_call_kern}))
         say(nvidia_smi())
         say(f"total: {time.time() - t_start:.1f} s (kernels only)")
         return 0

@@ -84,12 +84,20 @@ class NotPortedError(NotImplementedError):
     """A run the port does not cover yet under ``--engine torch``."""
 
 
+# What asks for a multi-host run: the port's own variable (with
+# MIA_TORCH_NUM_PROCESSES and MIA_TORCH_PROCESS_ID reserved beside it for the
+# process count and this process's rank), and the JAX package's, which a
+# launcher written for it may still set.
+MULTI_HOST_VARIABLES = ("MIA_TORCH_COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS")
+
+
 def check_ported(cfg: MiaConfig) -> None:
     """Refuse what the port does not run: multi-host runs, under any engine
     (the JAX package would start jax.distributed for them), and the JAX
     package's own engine."""
-    if os.environ.get("JAX_COORDINATOR_ADDRESS") is not None:
-        raise NotPortedError("multi-host runs are not ported yet")
+    asked = [v for v in MULTI_HOST_VARIABLES if os.environ.get(v) is not None]
+    if asked:
+        raise NotPortedError(f"multi-host runs are not ported yet ({asked[0]} is set)")
     if cfg.engine not in ("torch", "native", "numpy"):
         raise NotPortedError(f"--engine {cfg.engine} is not an engine of this port")
 

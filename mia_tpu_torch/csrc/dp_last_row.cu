@@ -11,43 +11,306 @@
 // (int32, HIM in masked columns, LOW below every live value, restart only on
 // a strict >), so the rows agree bit for bit, sentinels included.
 //
-// What bounds it: integer ALU work, not bytes.  A cell costs about 14 int32
-// operations, while a read moves W mask bytes in and 4 W bytes out once.
-// But a row of W = 17,024 columns is too wide for the registers of one warp,
-// so the rows live in shared memory and the design is:
-//   * one thread block per read (a grid-stride loop over the batch); thread
-//     t owns the C = ceil(W / threads) consecutive columns from t * C, so a
-//     thread's column-gap prefix max is a serial max over its own columns;
-//   * prev, prev2 (rotating) and the running row-gap max in shared memory,
-//     3 x 4 x W bytes, beside one byte per column that packs the reference
-//     code and the three mask bits the recurrence needs (this column open,
-//     the next open, the next but one open): 13 W bytes, 221 KB at
-//     W = 17,024, asked for with cudaFuncSetAttribute.  Wider rows go to a
-//     scratch buffer in global memory that the wrapper allocates;
-//   * per row two passes over a thread's columns and two barriers: pass 1
-//     updates the row-gap max and takes the thread's prefix-max total, a
-//     block scan (warp shuffles, one carry per warp through shared memory)
-//     turns the totals into each thread's exclusive prefix, pass 2 writes
-//     the new row over prev2;
-//   * the row loop ends at the read's own last row;
-//   * the priority chain restart > diagonal > column gap > row gap reduces
-//     to one max (values only, no traceback here).
+// What bounds it: the integer pipe's instructions per DP cell, not bytes (a
+// read moves 5 W bytes in and 4 W bytes out once, a cell is three gap
+// candidates, a 3-way max, a restart test and a score lookup), and, because
+// a row of 17,024 columns is far wider than a warp, one block-wide exchange
+// per row.  Two forms, chosen by the wrapper from W alone:
+//
+// The register form (W <= 512 x 34 = 17,408), one block per read:
+//   * thread t owns the 34 consecutive columns from 34 t and keeps the
+//     current row and the running row-gap max for them in registers (68 of
+//     its 128; 512 threads fill an SM's register file, so it is one block an
+//     SM).  There is no row before last: the row-gap max takes a row in as
+//     soon as it is written, one row early, which only adds a candidate
+//     that the diagonal beats by GOP;
+//   * one pass and one barrier a row.  While a thread writes the new row
+//     over the old one it also takes the new row's column-gap prefix max
+//     over its own columns; a shuffle scan joins the warp's totals, lane 31
+//     leaves the warp's total and the three values the next warp's first
+//     thread needs in one of two 16-byte slots per warp (by row parity),
+//     and after the barrier every warp scans the 16 warp totals again: that
+//     is the whole exchange;
+//   * the column-gap prefix runs in thread-local coordinates (GEP * j is an
+//     immediate, and so is every gap cost); an origin c may count only where
+//     column c + 2 is open, which is the open bit of the cell that takes it
+//     in, a predicate from a 36-bit register mask;
+//   * Hopper's DPX instructions (__viaddmax_s32, __vibmax_s32) do every add
+//     with its max in one instruction;
+//   * the score of a cell is one 8-byte shared-memory load from a per-read
+//     table [row][6] of (score if the cell keeps its base, addend if it
+//     restarts), built in the prologue (12 KB at 256 rows); a column's code
+//     stays a byte offset, four to a register, and a closed column is a
+//     sixth code whose entry is (HIM, HIM).  So the band mask is folded into
+//     the data: a closed cell is HIM plus a value of live size, below every
+//     live value and above INT_MIN (HIM = -2^30 and LOW = -1.5 * 2^30 leave
+//     2^29 of room for GEP * W), a restart always beats it, and the exact
+//     HIM is restored in the row that is written out;
+//   * column 0 (always cell + restart) is thread 0's diagonal input set to
+//     the restart value, row 1 (no row gap yet) a gap cost of -2^29;
+//   * a read is a block's whole work and reads differ in rows, so a batch
+//     of a few reads an SM ends ragged (20% at 512 reads of 30-119 rows on
+//     132 SMs).  Blocks start in the order of their index: block i takes
+//     the read with the i-th most rows (a histogram of the row counts in
+//     shared memory, then a count of the reads of that length before it),
+//     which is the longest-first rule and leaves 3%.
+//
+// On an H100 80GB HBM3 at 700 W, B = 512 reads of 30-119 bases against
+// W = 17,024 columns (645M cells) take 0.78 ms with a shared reference and
+// 0.80 ms with one per read (chip_smoke.py; 0.85 in index order), 69% of the
+// bound of 14 integer operations a cell, against 2.65-2.73 ms for the wide
+// form.  The row loop is 751 machine instructions for 34 cells, 22.1 a cell,
+// about half of them on the integer pipe (59.75 a cell in the wide form's two
+// passes; python -m mia_tpu_torch.utils.sass); 128 registers, and 172 bytes
+// of stack for table offsets that the compiler unpacks ahead of the row loop
+// (unpacking them inside it, one PRMT a cell, was 4% slower).
+//
+// The wide form (any W past that), today only met in tests: rows in shared
+// memory while 13 W bytes fit (W <= 17.8k), else in a scratch buffer in
+// global memory; two passes and two barriers a row.  It is the kernel this
+// file held before the register form, unchanged.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 // Duplicates of the Python side's values (mia_tpu_torch.constants,
-// dp_torch._LOW, dp_cuda.LAST_ROW_SMEM); mia_dp_last_row_constants exports
+// dp_torch._LOW, dp_cuda.LAST_ROW_*); mia_dp_last_row_constants exports
 // them so that the loader refuses a library that disagrees.
 constexpr int GOP = 1000;
 constexpr int GEP = 200;
 constexpr int HIM = -1073741824;             // INT_MIN / 2
 constexpr int LOW = -(1 << 30) - (1 << 29);  // below any live value
+constexpr int kGate = -(1 << 29);            // addend that sinks a value below every live one
 constexpr int kDepth = 31;                   // PSSM depth slots
+constexpr int kLMax = 256;                   // read rows
 constexpr int kMaxThreads = 1024;
 constexpr int kSmemLimit = 227 * 1024 - 1024;  // dynamic bytes a block may ask for here
 constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ int warp_scan_max(int v, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t = __shfl_up_sync(FULL, v, off);
+    if (lane >= off) v = max(v, t);
+  }
+  return v;
+}
+
+// ---- the register form ------------------------------------------------------
+
+constexpr int kCols = 34;          // columns per thread
+constexpr int kRegThreads = 512;   // threads per block, at most
+constexpr int kCodes = 6;          // reference codes 0..4, and 5: a closed column
+constexpr int kRowBytes = kCodes * 8;
+constexpr int kCodeWords = (kCols + 3) / 4;
+
+__global__ void __launch_bounds__(kRegThreads, 1)
+dp_last_row_kernel(const int32_t* __restrict__ s1c, int s1c_per_read,
+                   const uint8_t* __restrict__ mask,
+                   const int32_t* __restrict__ s2c,
+                   const int32_t* __restrict__ depths,
+                   const int32_t* __restrict__ submat,
+                   const int32_t* __restrict__ lengths, int B, int W, int L, int sg5,
+                   int ranked, int32_t* __restrict__ out) {
+  // per row and code: (score where the cell keeps its base, addend where it
+  // restarts); code 5, a closed column: (HIM, HIM)
+  __shared__ int2 sh_tab[kLMax * kCodes];
+  // per row parity and warp: the warp's prefix-max total, the same without
+  // its last thread's last column, and that column's row value and row-gap max
+  __shared__ int4 sh_edge[2][32];
+  __shared__ int sh_hist[kLMax], sh_warp[32], sh_pick[2];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  // a read's last row; one outside [0, L) keeps row 0 (the plain version's
+  // loop never reaches its snapshot row)
+  auto last_of = [&](int r) {
+    const int l = lengths[r] - 1;
+    return l < 0 || l >= L ? 0 : l;
+  };
+  int b = blockIdx.x;
+  if (ranked) {
+    // block i takes the read with the i-th most rows (ties: the lower index)
+    for (int i = tid; i < kLMax; i += blockDim.x) sh_hist[i] = 0;
+    __syncthreads();
+    for (int r = tid; r < B; r += blockDim.x) atomicAdd(&sh_hist[last_of(r)], 1);
+    __syncthreads();
+    if (warp == 0) {
+      // lane i holds the 8 bins from kLMax - 1 - 8 i down; the lane whose
+      // running total passes the block's rank walks its bins
+      int mine = 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) mine += sh_hist[kLMax - 1 - 8 * lane - i];
+      int upto = mine;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int t = __shfl_up_sync(FULL, upto, off);
+        if (lane >= off) upto += t;
+      }
+      if (b >= upto - mine && b < upto) {
+        int k = b - (upto - mine), l = kLMax - 1 - 8 * lane;
+        while (k >= sh_hist[l]) k -= sh_hist[l--];
+        sh_pick[0] = l;
+        sh_pick[1] = k;
+      }
+    }
+    __syncthreads();
+    const int want = sh_pick[0];
+    int k = sh_pick[1];  // the read is the k-th of its row count, by index
+    for (int r0 = 0; r0 < B; r0 += blockDim.x) {
+      const int r = r0 + tid;
+      const bool hit = r < B && last_of(r) == want;
+      const unsigned hits = __ballot_sync(FULL, hit);
+      if (lane == 0) sh_warp[warp] = __popc(hits);
+      __syncthreads();
+      int before = 0, total = 0;
+      for (int w = 0; w < nwarps; ++w) {
+        before += w < warp ? sh_warp[w] : 0;
+        total += sh_warp[w];
+      }
+      if (hit && before + __popc(hits & ((1u << lane) - 1)) == k) sh_pick[0] = r;
+      __syncthreads();
+      if (k < total) break;
+      k -= total;
+    }
+    b = sh_pick[0];
+  }
+  const int c0 = tid * kCols;
+  const int goff = GEP * c0;  // thread-local column-gap coordinates to the row's
+  const int32_t* ref = s1c + (s1c_per_read ? (int64_t)b * W : 0);
+  const uint8_t* mk = mask + (int64_t)b * W;
+  const int last = last_of(b);
+
+  for (int r = tid; r <= last; r += blockDim.x) {
+    const int64_t at = (int64_t)b * L + r;
+    int d = depths[at], x = s2c[at];
+    d = d < 0 ? 0 : (d > kDepth - 1 ? kDepth - 1 : d);
+    x = x < 0 ? 0 : (x > 4 ? 4 : x);
+    const int32_t* p = submat + d * 25 + x;
+#pragma unroll
+    for (int code = 0; code < 5; ++code) sh_tab[r * kCodes + code] = make_int2(p[5 * code], 0);
+    sh_tab[r * kCodes + 5] = make_int2(HIM, HIM);
+  }
+
+  // A column's code as the byte offset of its entry in a table row, four to
+  // a word; bit j of `admit`: cell j takes origin j - 2 into the column-gap
+  // prefix (column c0 + j is open, or it is column 2: origin 0 always
+  // counts).  Bits 34 and 35 are the next thread's first two cells.
+  uint32_t cw[kCodeWords];
+  uint64_t admit = 0;
+#pragma unroll
+  for (int j = 0; j < kCols + 2; ++j) {
+    const int c = c0 + j;
+    const bool open = c < W && mk[c] != 0;
+    if (j < kCols) {
+      int code = c < W ? ref[c] : 0;
+      code = code < 0 ? 0 : (code > 4 ? 4 : code);
+      if ((j & 3) == 0) cw[j >> 2] = 0;
+      cw[j >> 2] |= (uint32_t)(8 * (open ? code : 5)) << (8 * (j & 3));
+    }
+    if (open || c == 2) admit |= 1ull << j;
+  }
+  auto entry_off = [&](int j) { return __byte_perm(cw[j >> 2], 0, 0x4440 | (j & 3)); };
+  __syncthreads();
+
+  // ---- row 0 -----------------------------------------------------------------
+  int R[kCols], rb[kCols];
+  int run_new = LOW;  // the new row's prefix max over this thread's origins 0 .. 31
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    R[j] = ((const int2*)((const char*)sh_tab + entry_off(j)))->x;
+    rb[j] = R[j];
+    if (j >= 2 && (admit >> j & 1)) run_new = __viaddmax_s32(R[j - 2], GEP * (j - 2), run_new);
+  }
+
+  // What the row just written leaves for the next row's column gaps: this
+  // thread's total over its origins (`x`: without its last column), joined
+  // over the warp; lane 31 leaves the warp's share in the parity's slot.
+  int excl = LOW, xw = LOW;
+  auto publish = [&](int parity) {
+    int x = run_new;
+    if (admit >> kCols & 1) x = __viaddmax_s32(R[kCols - 2], GEP * (kCols - 2), x);
+    int tot = x;
+    if (admit >> (kCols + 1) & 1) tot = __viaddmax_s32(R[kCols - 1], GEP * (kCols - 1), tot);
+    const int inc = warp_scan_max(tot + goff, lane);
+    excl = __shfl_up_sync(FULL, inc, 1);
+    if (lane == 0) excl = LOW;
+    xw = max(excl, x + goff);
+    if (lane == 31) sh_edge[parity][warp] = make_int4(inc, xw, R[kCols - 1], rb[kCols - 1]);
+  };
+  publish(0);
+
+  // ---- rows 1 .. last --------------------------------------------------------
+  int parity = 0;
+  for (int row = 1; row <= last; ++row) {
+    __syncthreads();
+    const int start_new = sg5 ? -(GOP + GEP * (row + 1)) : 0;
+    // no row gap ends on row 1: its cost there sinks the candidate
+    const int neg_grow = row >= 2 ? -(GOP + GEP * (row - 1)) : kGate;
+    const int fold = GEP * row;
+
+    // the exchange: prefix max over every column before this thread's first
+    // (`pre1`) and before its first but one (`pre2`), the previous column's
+    // row value and row-gap max
+    const int sc = warp_scan_max(lane < nwarps ? sh_edge[parity][lane].x : LOW, lane);
+    const int carry_a = __shfl_sync(FULL, sc, warp > 0 ? warp - 1 : 0);
+    const int carry_b = __shfl_sync(FULL, sc, warp > 1 ? warp - 2 : 0);
+    const int carry = warp > 0 ? carry_a : LOW;
+    int pre1 = max(carry, excl);
+    int pre2 = max(carry, __shfl_up_sync(FULL, xw, 1));
+    int pm1 = __shfl_up_sync(FULL, R[kCols - 1], 1);
+    int rbp = __shfl_up_sync(FULL, rb[kCols - 1], 1);
+    if (lane == 0) {
+      if (warp > 0) {
+        const int4 e = sh_edge[parity][warp - 1];
+        pre2 = max(warp > 1 ? carry_b : LOW, e.y);
+        pm1 = e.z;
+        rbp = e.w;
+      } else {
+        // column 0 has no neighbours: its base is the restart value itself
+        pre2 = LOW;
+        pm1 = start_new;
+        rbp = HIM;
+      }
+    }
+    pre1 -= goff;
+    pre2 -= goff;
+
+    const char* trow = (const char*)sh_tab + row * kRowBytes;
+    int run = pre2, pm2 = LOW;
+    run_new = LOW;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      if (j == 1) run = pre1;
+      if (j >= 2 && (admit >> j & 1)) {
+        run = __viaddmax_s32(pm2, GEP * (j - 2), run);
+        run_new = __viaddmax_s32(R[j - 2], GEP * (j - 2), run_new);
+      }
+      // gap_col = prefix[c - 2] - (GOP + GEP * (c - 1)), thread-local
+      int base = __viaddmax_s32(run, -(GOP + GEP * (j - 1)), pm1);
+      base = __viaddmax_s32(rbp, neg_grow, base);
+      const int2 cell = *(const int2*)(trow + entry_off(j));
+      bool keeps;  // base >= start_new: no restart
+      const int m = __vibmax_s32(base, start_new, &keeps);
+      const int q = m + (keeps ? cell.x : cell.y);
+      pm2 = pm1;
+      pm1 = R[j];
+      rbp = rb[j];
+      R[j] = q;
+      rb[j] = __viaddmax_s32(q, fold, rb[j]);
+    }
+    parity ^= 1;
+    if (row < last) publish(parity);
+  }
+
+  int32_t* o = out + (int64_t)b * W;
+#pragma unroll
+  for (int j = 0; j < kCols; ++j)
+    if (c0 + j < W) o[c0 + j] = entry_off(j) == 8 * 5 ? HIM : R[j];
+}
+
+// ---- the wide form ----------------------------------------------------------
 
 constexpr int F_CODE = 7;    // bits 0-2: reference code 0..4
 constexpr int F_OPEN = 8;    // this column is open
@@ -63,20 +326,11 @@ __device__ __forceinline__ int sub_for(int code, int s0, int s1, int s2, int s3,
   return v;
 }
 
-__device__ __forceinline__ int warp_scan_max(int v, int lane) {
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int t = __shfl_up_sync(FULL, v, off);
-    if (lane >= off) v = max(v, t);
-  }
-  return v;
-}
-
 // ints one block's rows and flags take: 3 rows of W and W flag bytes
 __host__ __device__ inline int64_t block_ints(int W) { return 3 * (int64_t)W + (W + 3) / 4; }
 
 __global__ void __launch_bounds__(kMaxThreads, 1)
-dp_last_row_kernel(const int32_t* __restrict__ s1c, int s1c_per_read,
+dp_last_row_wide_kernel(const int32_t* __restrict__ s1c, int s1c_per_read,
                    const uint8_t* __restrict__ mask,
                    const int32_t* __restrict__ s2c,
                    const int32_t* __restrict__ depths,
@@ -216,15 +470,34 @@ dp_last_row_kernel(const int32_t* __restrict__ s1c, int s1c_per_read,
 
 // s1c [W] (s1c_per_read 0) or [B, W] int32 codes; mask [B, W] bytes;
 // s2c [B, L], depths [B, L], submat [31, 5, 5] int32; lengths [B] int32;
-// out [B, W] int32.  `threads` is a
-// multiple of 32 up to 1024, `blocks` at most B.  `scratch` is null when
-// 4 * block_ints(W) fits the shared memory a block may ask for
-// (mia_dp_last_row_constants), else [blocks, block_ints(W)] int32.
+// out [B, W] int32.  The register form: W at most kRegThreads * kCols
+// columns, L at most kLMax rows; one block per read.
 extern "C" int mia_dp_last_row(const void* s1c, int s1c_per_read, const void* mask,
                                const void* s2c, const void* depths, const void* submat,
                                const void* lengths, int B, int W, int L, int sg5,
-                               int threads, int blocks, void* scratch, void* out,
-                               void* stream) {
+                               void* out, void* stream) {
+  if (B <= 0 || W <= 0) return 0;
+  if (L < 1 || L > kLMax || W > kRegThreads * kCols) return (int)cudaErrorInvalidValue;
+  const int threads = ((W + kCols - 1) / kCols + 31) / 32 * 32;
+  // the longest reads first while finding a read's rank is cheap beside
+  // scoring it: a block looks at every read's length, `threads` at a time
+  const int ranked = B <= 8 * threads;
+  dp_last_row_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)s1c, s1c_per_read, (const uint8_t*)mask, (const int32_t*)s2c,
+      (const int32_t*)depths, (const int32_t*)submat, (const int32_t*)lengths, B, W, L,
+      sg5, ranked, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// The wide form, any W: `threads` is a multiple of 32 up to 1024, `blocks`
+// at most B.  `scratch` is null when 4 * block_ints(W) fits the shared
+// memory a block may ask for (mia_dp_last_row_constants), else
+// [blocks, block_ints(W)] int32.
+extern "C" int mia_dp_last_row_wide(const void* s1c, int s1c_per_read, const void* mask,
+                                    const void* s2c, const void* depths,
+                                    const void* submat, const void* lengths, int B, int W,
+                                    int L, int sg5, int threads, int blocks, void* scratch,
+                                    void* out, void* stream) {
   if (B <= 0 || W <= 0) return 0;
   if (L < 1 || threads < 32 || threads > kMaxThreads || threads % 32 || blocks < 1 ||
       blocks > B)
@@ -237,20 +510,22 @@ extern "C" int mia_dp_last_row(const void* s1c, int s1c_per_read, const void* ma
     if (bytes > kSmemLimit) return (int)cudaErrorInvalidValue;
     dyn = (size_t)bytes;
     const cudaError_t e = cudaFuncSetAttribute(
-        dp_last_row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+        dp_last_row_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
     if (e != cudaSuccess) return (int)e;
   }
-  dp_last_row_kernel<<<blocks, threads, dyn, (cudaStream_t)stream>>>(
+  dp_last_row_wide_kernel<<<blocks, threads, dyn, (cudaStream_t)stream>>>(
       (const int32_t*)s1c, s1c_per_read, (const uint8_t*)mask, (const int32_t*)s2c,
-      (const int32_t*)depths, (const int32_t*)submat, (const int32_t*)lengths, B, W, L, sg5, C, (int32_t*)scratch, (int32_t*)out);
+      (const int32_t*)depths, (const int32_t*)submat, (const int32_t*)lengths, B, W, L, sg5,
+      C, (int32_t*)scratch, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 
-// The compile-time constants of this kernel, in this order: GOP, GEP, HIM,
-// LOW, PSSM depth slots, the dynamic shared memory limit in bytes.  Fills at
-// most n values of out; returns how many there are.
+// The compile-time constants of these kernels, in this order: GOP, GEP, HIM,
+// LOW, PSSM depth slots, the wide form's dynamic shared memory limit in
+// bytes, the register form's columns per thread, threads per block and read
+// rows.  Fills at most n values of out; returns how many there are.
 extern "C" int mia_dp_last_row_constants(int32_t* out, int n) {
-  const int32_t c[] = {GOP, GEP, HIM, LOW, kDepth, kSmemLimit};
+  const int32_t c[] = {GOP, GEP, HIM, LOW, kDepth, kSmemLimit, kCols, kRegThreads, kLMax};
   const int count = (int)(sizeof(c) / sizeof(c[0]));
   for (int i = 0; i < n && i < count; ++i) out[i] = c[i];
   return count;

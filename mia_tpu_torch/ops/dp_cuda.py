@@ -23,9 +23,13 @@ Tensors on the CPU go to the plain versions,
 :func:`~mia_tpu_torch.ops.dp_torch.entries_core_hp_plain`.  CUDA tensors go
 to the kernel, or the call raises: there is no fallback.
 The general form of the same recurrence, any width and the whole last row
-out, is ``dp_last_row`` (``csrc/dp_last_row.cu``, at the end of this module).
-``kernel_launches`` / ``plain_calls`` and ``hp_kernel_launches`` /
-``hp_plain_calls`` count the two routes of each; ``shards`` is the largest
+out, is ``dp_last_row`` (``csrc/dp_last_row.cu``, at the end of this module):
+one block per read, 34 columns a thread in registers, one barrier a row, for
+rows of up to 17,408 columns; wider rows take the same file's wide form.
+``kernel_launches`` / ``plain_calls``, ``hp_kernel_launches`` /
+``hp_plain_calls`` and ``last_row_launches`` / ``last_row_plain_calls`` count
+the two routes of each (``last_row_wide_launches``: the launches of the wide
+form among them); ``shards`` is the largest
 number of device shards one dispatch of the scorer was dealt over
 (``core.torch_engine.Pass1Scorer``, 1 on a single device).  Both kernels share one
 library (``torchcfg.kernel_library``) with the consensus column counts
@@ -48,18 +52,20 @@ hp_kernel_launches = 0
 hp_plain_calls = 0
 shards = 0
 last_row_launches = 0
+last_row_wide_launches = 0
 last_row_plain_calls = 0
 
 
 def reset_counts() -> None:
     global kernel_launches, plain_calls, hp_kernel_launches, hp_plain_calls, shards
-    global last_row_launches, last_row_plain_calls
+    global last_row_launches, last_row_wide_launches, last_row_plain_calls
     kernel_launches = 0
     plain_calls = 0
     hp_kernel_launches = 0
     hp_plain_calls = 0
     shards = 0
     last_row_launches = 0
+    last_row_wide_launches = 0
     last_row_plain_calls = 0
 
 
@@ -178,58 +184,74 @@ def dp_entries_hp(refs, refchr, hpcs, sms, pengop, b2i, ref_sel, starts, ivl, s2
 
 # ---- the general-width last-row scorer (csrc/dp_last_row.cu) ----
 
-# dynamic shared memory one block of the kernel may ask for, and the most
-# blocks that run on rows kept in global memory (the scratch buffer's size)
+# The register form holds LAST_ROW_COLS columns a thread and LAST_ROW_THREADS
+# threads a block; wider rows go to the wide form, which may ask for
+# LAST_ROW_SMEM bytes of dynamic shared memory a block and keeps still wider
+# rows in a scratch buffer in global memory, for at most
+# LAST_ROW_SCRATCH_BLOCKS blocks.  (Compile-time constants of
+# csrc/dp_last_row.cu, checked by the loader.)
+LAST_ROW_COLS = 34
+LAST_ROW_THREADS = 512
 LAST_ROW_SMEM = 227 * 1024 - 1024
 LAST_ROW_SCRATCH_BLOCKS = 264
 LAST_ROW_MAX_BLOCKS = 132 * 8
 
 
-def _last_row(s1c, mask, s2c, lengths, depths, submat, sg5: bool) -> torch.Tensor:
-    """Check the tensors and launch ``dp_last_row`` on a CUDA device."""
-    global last_row_launches
-    dev = mask.device
-    B, W = mask.shape
-    L = s2c.shape[1]
-    if s1c.dim() == 1:
-        check_tensor("s1c", s1c, torch.int32, (W,), dev)
-    else:
-        check_tensor("s1c", s1c, torch.int32, (B, W), dev)
-    check_tensor("mask", mask, torch.bool, (B, W), dev)
-    check_tensor("lengths", lengths, torch.int32, (B,), dev)
-    check_tensor("s2c", s2c, torch.int32, (B, L), dev)
-    check_tensor("depths", depths, torch.int32, (B, L), dev)
-    check_tensor("submat", submat, torch.int32, (31, 5, 5), dev)
+def _check_last_row(dev, B, W, L, s1c, mask, s2c, lengths, depths, submat) -> None:
+    """One pass over the inputs of ``dp_last_row``."""
+    i32 = torch.int32
+    for name, t, dtype, shape in (
+            ("s1c", s1c, i32, (W,) if s1c.dim() == 1 else (B, W)),
+            ("mask", mask, torch.bool, (B, W)), ("lengths", lengths, i32, (B,)),
+            ("s2c", s2c, i32, (B, L)), ("depths", depths, i32, (B, L)),
+            ("submat", submat, i32, (31, 5, 5))):
+        check_tensor(name, t, dtype, shape, dev)
     if not 1 <= L <= L_MAX:
         raise ValueError(f"reads: {L} rows, want 1..{L_MAX}")
     if dev.type != "cuda":
         raise ValueError(f"dp_last_row: no kernel for device {dev}")
+
+
+def _last_row(s1c, mask, s2c, lengths, depths, submat, sg5: bool) -> torch.Tensor:
+    """Check the tensors and launch ``dp_last_row`` on a CUDA device: the
+    register form where the row fits it, else the wide form (a choice by
+    shape alone)."""
+    global last_row_launches, last_row_wide_launches
+    dev = mask.device
+    B, W = mask.shape
+    L = s2c.shape[1]
+    _check_last_row(dev, B, W, L, s1c, mask, s2c, lengths, depths, submat)
     from ..utils.torchcfg import kernel_library
 
     lib = kernel_library()
     out = torch.empty((B, W), dtype=torch.int32, device=dev)
     if B == 0 or W == 0:
         return out
-    # a thread takes at least 4 consecutive columns; 1,024 threads at most
-    threads = min(1024, max(32, -(-W // 128) * 32))
-    block_ints = 3 * W + (W + 3) // 4
-    with torch.cuda.device(dev):
-        scratch = None
-        blocks = min(B, LAST_ROW_MAX_BLOCKS)
-        if 4 * block_ints > LAST_ROW_SMEM:
-            # rows too wide for shared memory: the kernel keeps them here
-            blocks = min(B, LAST_ROW_SCRATCH_BLOCKS)
-            scratch = torch.empty((blocks, block_ints), dtype=torch.int32, device=dev)
-        rc = lib.mia_dp_last_row(
-            s1c.data_ptr(), int(s1c.dim() == 2), mask.data_ptr(), s2c.data_ptr(),
+    wide = W > LAST_ROW_COLS * LAST_ROW_THREADS
+    args = (s1c.data_ptr(), int(s1c.dim() == 2), mask.data_ptr(), s2c.data_ptr(),
             depths.data_ptr(), submat.data_ptr(), lengths.data_ptr(), B, W, L,
-            int(bool(sg5)), threads, blocks,
-            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+            int(bool(sg5)))
+    with current_device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if not wide:
+            rc = lib.mia_dp_last_row(*args, out.data_ptr(), stream)
+        else:
+            # a thread takes at least 4 consecutive columns; 1,024 threads at most
+            threads = min(1024, max(32, -(-W // 128) * 32))
+            block_ints = 3 * W + (W + 3) // 4
+            scratch = None
+            blocks = min(B, LAST_ROW_MAX_BLOCKS)
+            if 4 * block_ints > LAST_ROW_SMEM:
+                # rows too wide for shared memory: the kernel keeps them here
+                blocks = min(B, LAST_ROW_SCRATCH_BLOCKS)
+                scratch = torch.empty((blocks, block_ints), dtype=torch.int32, device=dev)
+            rc = lib.mia_dp_last_row_wide(
+                *args, threads, blocks, None if scratch is None else scratch.data_ptr(),
+                out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"dp_last_row kernel launch failed: CUDA error {rc}")
     last_row_launches += 1
+    last_row_wide_launches += int(wide)
     return out
 
 
@@ -243,7 +265,8 @@ def dp_last_row(s1c, mask, s2c, lengths, depths, submat, sg5: bool = True) -> to
     on one device, contiguous.  CPU tensors go to the plain version
     (:func:`.dp_torch.batch_last_row`), CUDA tensors to the kernel, or the
     call raises.  ``last_row_launches`` / ``last_row_plain_calls`` count the
-    two routes."""
+    two routes; ``last_row_wide_launches`` those of the launches that took
+    the kernel's wide form (W past 17,408 columns)."""
     global last_row_plain_calls
     if mask.device.type == "cpu":
         last_row_plain_calls += 1

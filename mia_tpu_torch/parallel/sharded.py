@@ -18,8 +18,10 @@ devices); the copies are then same-device copies.
 
 Three hand-written kernels carry a step on a card: the general-width
 last-row scorer (``csrc/dp_last_row.cu``, :func:`..ops.dp_cuda.dp_last_row`),
-the pileup counts (``csrc/pileup_counts.cu``, :func:`pileup_counts`) and the
-consensus call (``csrc/consensus_call.cu``, :func:`consensus_call`).  Each
+the pileup counts (``csrc/pileup_counts.cu``, :func:`pileup_counts`: a block
+per tile of columns sums in shared memory and stores its tile, so a call is
+one launch into memory that nobody zeroed) and the consensus call
+(``csrc/consensus_call.cu``, :func:`consensus_call`).  Each
 has its plain PyTorch version here or in ``ops/dp_torch.py``; a wrapper
 takes it only for CPU tensors, launches the kernel for CUDA tensors, or
 raises.  ``pileup_launches`` / ``pileup_plain_calls`` and
@@ -143,20 +145,35 @@ def _pileup_counts(s2c, lengths, starts, depths, strands, fpsm, rpsm, W: int):
     return counts.reshape(W, 5), scores
 
 
+# compile-time constants of csrc/pileup_counts.cu (checked by the loader):
+# reads a block lists per round, and its widest tile of columns
+PILEUP_ROUND = 2048
+PILEUP_TILE = 128
+
+
+def _check_pileup(dev, B, L, s2c, depths, lengths, starts, strands, fpsm, rpsm) -> None:
+    """One pass over the inputs: each must have the dtype, shape and device
+    the kernel takes and be contiguous (:func:`check_tensor` names the first
+    that does not)."""
+    i32 = torch.int32
+    for name, t, dtype, shape in (
+            ("s2c", s2c, i32, (B, L)), ("depths", depths, i32, (B, L)),
+            ("lengths", lengths, i32, (B,)), ("starts", starts, i32, (B,)),
+            ("strands", strands, torch.bool, (B,)), ("fpsm", fpsm, i32, (31, 5, 5)),
+            ("rpsm", rpsm, i32, (31, 5, 5))):
+        check_tensor(name, t, dtype, shape, dev)
+
+
 def pileup_counts(s2c, lengths, starts, depths, strands, fpsm, rpsm, W: int):
     """:func:`_pileup_counts` on the tensors' device: s2c, depths [B, L]
     int32, lengths, starts [B] int32, strands [B] bool, fpsm, rpsm
-    [31, 5, 5] int32, contiguous -> (counts [W, 5], scores [W, 4]) int32."""
+    [31, 5, 5] int32, contiguous -> (counts [W, 5], scores [W, 4]) int32.
+    From the kernel the two are views of one allocation of 9 W values, every
+    one of them written by the launch (no fill): they share storage."""
     global pileup_launches, pileup_plain_calls
     dev = s2c.device
     B, L = s2c.shape
-    check_tensor("s2c", s2c, torch.int32, (B, L), dev)
-    check_tensor("depths", depths, torch.int32, (B, L), dev)
-    check_tensor("lengths", lengths, torch.int32, (B,), dev)
-    check_tensor("starts", starts, torch.int32, (B,), dev)
-    check_tensor("strands", strands, torch.bool, (B,), dev)
-    check_tensor("fpsm", fpsm, torch.int32, (31, 5, 5), dev)
-    check_tensor("rpsm", rpsm, torch.int32, (31, 5, 5), dev)
+    _check_pileup(dev, B, L, s2c, depths, lengths, starts, strands, fpsm, rpsm)
     if dev.type == "cpu":
         pileup_plain_calls += 1
         return _pileup_counts(s2c, lengths, starts, depths, strands, fpsm, rpsm, W)
@@ -165,15 +182,16 @@ def pileup_counts(s2c, lengths, starts, depths, strands, fpsm, rpsm, W: int):
     from ..utils.torchcfg import kernel_library
 
     lib = kernel_library()
-    counts = torch.zeros((W, 5), dtype=torch.int32, device=dev)
-    scores = torch.zeros((W, 4), dtype=torch.int32, device=dev)
-    if B == 0 or W == 0:
+    acc = torch.empty(9 * W, dtype=torch.int32, device=dev)
+    counts, scores = acc.as_strided((W, 5), (5, 1), 0), acc.as_strided((W, 4), (4, 1), 5 * W)
+    if W == 0:
         return counts, scores
-    with torch.cuda.device(dev):
+    out = acc.data_ptr()
+    with dp_cuda.current_device(dev):
         rc = lib.mia_pileup_counts(
             s2c.data_ptr(), depths.data_ptr(), lengths.data_ptr(), starts.data_ptr(),
             strands.data_ptr(), fpsm.data_ptr(), rpsm.data_ptr(), B, L, W,
-            counts.data_ptr(), scores.data_ptr(),
+            out, out + 20 * W,  # counts, scores (4-byte values)
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:

@@ -265,22 +265,35 @@ _EDGE_BANDS = (
 )
 
 
-def _edge_layout():
+def _edge_layout(per_class: int = 3, turn: int = 0):
     """(bands, lengths, kinds) of the edge batch: every band shape with every
-    read length, and per entry what the read is: 0 cut from the window (a
-    few substitutions and indels), 1 a homopolymer in the reference's
-    homopolymer stretch (ties of the best value), 2 random."""
+    read length (a class), and per entry what the read is: 0 cut from the
+    window (a few substitutions and indels), 1 a homopolymer in the
+    reference's homopolymer stretch (ties of the best value), 2 random.
+    ``per_class`` entries a class: all three kinds, or fewer, the kinds then
+    taking turns from class to class, starting ``turn`` further on."""
     bands, lengths, kinds = [], [], []
-    for b in _EDGE_BANDS:
-        for n in _EDGE_LENGTHS:
-            for kind in (0, 1, 2):
+    for ib, b in enumerate(_EDGE_BANDS):
+        for il, n in enumerate(_EDGE_LENGTHS):
+            for k in range(per_class):
                 bands.append(b)
                 lengths.append(n)
-                kinds.append(kind)
+                kinds.append((ib + il + k + turn) % 3 if per_class < 3 else k)
     return bands, np.array(lengths, np.int32), np.array(kinds)
 
 
-def edge_entries(seed: int = 0, len1: int = 2400) -> dict:
+_PER_ENTRY = ("ref_sel", "starts", "ivl", "s2c", "s2chr", "lengths", "smidx")
+
+
+def take_entries(d: dict, picked) -> dict:
+    """The entries ``picked`` of a batch of :func:`random_entries` or
+    :func:`random_hp_entries`: the per-entry arrays cut, the state kept."""
+    idx = np.asarray(picked, np.int64)
+    return {k: np.ascontiguousarray(v[idx]) if k in _PER_ENTRY else v
+            for k, v in d.items()}
+
+
+def edge_entries(seed: int = 0, len1: int = 2400, per_class: int = 3) -> dict:
     """Entries (the keys of :func:`random_entries`, 256 rows) on the edges of
     the entry scorer: a closed window; one open column; bands one column
     wide; intervals that end on a multiple of 12 (a lane of the kernel) and
@@ -289,9 +302,11 @@ def edge_entries(seed: int = 0, len1: int = 2400) -> dict:
     of 0 and one above the row bound; equal best values within 12 columns
     and across them (a homopolymer read on a homopolymer stretch).  A third
     of the reads are cut from their window with substitutions and indels, so
-    that gaps on both axes win cells."""
+    that gaps on both axes win cells.  ``per_class``: entries per (band,
+    length) class, 3 (702 entries) or fewer (:func:`_edge_layout`; the seed
+    then also turns the kinds)."""
     rng = np.random.default_rng(seed)
-    bands, lengths, kinds = _edge_layout()
+    bands, lengths, kinds = _edge_layout(per_class, seed)
     E, L = len(bands), _EDGE_L
     d = random_entries(E, L, seed, len1)
     d["lengths"] = lengths
@@ -312,15 +327,16 @@ def edge_entries(seed: int = 0, len1: int = 2400) -> dict:
     return d
 
 
-def edge_hp_entries(seed: int = 0, len1: int = 2400) -> dict:
+def edge_hp_entries(seed: int = 0, len1: int = 2400, per_class: int = 3) -> dict:
     """``-h`` entries (:data:`HP_ENTRY_KEYS`, 256 rows) on the edges of the
     ``-h`` scorer: :func:`edge_entries`' bands and lengths over a
     homopolymer-rich reference, reads with runs of 1, 2, 31, 32 and 33
     rows (the row reach is 32), windows that start inside a reference run
     (the run starts before the window) and on a run's first column, and
-    reads cut from their window with runs grown and shrunk."""
+    reads cut from their window with runs grown and shrunk.  ``per_class``
+    as in :func:`edge_entries`."""
     rng = np.random.default_rng(seed + 1000)
-    bands, lengths, kinds = _edge_layout()
+    bands, lengths, kinds = _edge_layout(per_class, seed)
     E, L = len(bands), _EDGE_L
     d = random_hp_entries(E, L, seed, len1)
     d["lengths"] = lengths
@@ -658,3 +674,120 @@ def step_inputs(B: int, W: int, L: int, seed: int = 0, sub: float = 0.05) -> tup
     fpsm = init_flatsubmat().astype(np.int32)
     return (encode_seq(ref).astype(np.int32), np.ones((B, W), bool), s2c, lengths,
             depths_numpy(lengths, L), fpsm, revcom_submat(fpsm).astype(np.int32))
+
+
+# ---- adversarial inputs for the last-row scorer and the pileup counts ----
+
+def _edge_last_row_case(rng, W: int, L: int, shared: bool) -> dict:
+    """16 reads against W columns on the edges of ``dp_last_row``
+    (:data:`LAST_ROW_KEYS`): per read one mask shape or one length."""
+    from .ops.dp_cuda import LAST_ROW_COLS as C
+
+    B = 16
+    s1c = rng.integers(0, 5, W).astype(np.int32)
+    lo, hi = W // 4, max(W // 4 + 1, 3 * W // 4)
+    s1c[lo:hi] = 0                       # a homopolymer stretch, for ties
+    lengths = rng.integers(3, L + 1, B).astype(np.int32)
+    lengths[6:10] = (0, 1, 2, L + 1)
+    lengths[0] = L
+    s2c = rng.integers(0, 5, (B, L)).astype(np.int32)
+    for b in range(0, B, 2):             # cut from the reference, a few bases redrawn
+        at = int(rng.integers(0, max(1, W - L)))
+        n = min(L, W - at)
+        s2c[b, :n] = np.where(rng.random(n) < 0.1, s2c[b, :n], s1c[at : at + n])
+    s2c[10] = 0                          # homopolymer read on the stretch
+    cols = np.arange(W)
+    mask = np.ones((B, W), bool)
+    mask[1] = False                      # every column closed
+    mask[2] = cols == 0                  # only column 0 open
+    mask[3] = cols >= W - 2              # only the last two open
+    mask[4] = cols % 5 == 2              # bands one column wide
+    mask[5] = ((cols + 1) % C) < 2       # two columns over every thread border
+    mask[11] = cols >= 2                 # columns 0 and 1 closed
+    mask[12] = cols < 2
+    mask[13] = False
+    for _ in range(3):
+        a = int(rng.integers(0, W))
+        mask[13, a : int(rng.integers(a, W + 1))] = True
+    mask[14] = cols % 2 == 0             # every other column
+    mask[15] = cols % C != C - 1         # each thread's last column closed
+    if not shared:
+        s1c = np.stack([np.roll(s1c, int(rng.integers(0, W))) for _ in range(B)])
+        s1c[10] = 0
+    sm = (init_flatsubmat() + rng.integers(-40, 40, (31, 5, 5))).astype(np.int32)
+    return dict(s1c=np.ascontiguousarray(s1c), mask=mask, s2c=s2c, lengths=lengths,
+                depths=depths_numpy(np.clip(lengths, 1, L), L), submat=sm)
+
+
+def edge_last_row_inputs(seed: int = 0, shared: bool = True, L: int = 32,
+                         wide: bool = False) -> list[tuple[str, dict, bool]]:
+    """(name, inputs, sg5) cases on the edges of the general-width scorer:
+    rows of 1, 2, 3, 31, 32, 33 columns, of 100 and 400 (neither a multiple
+    of the kernel's 34 columns a thread) and, with ``wide``, of 2,300 (two
+    warp borders of the register form, at 1,088 and 2,176).  Per case 16
+    reads: lengths 0, 1, 2, L and L + 1; rows all closed, only column 0
+    open, only the last two open, bands one column wide, a band over every
+    thread border (and so every warp border), each thread's last column
+    closed, columns 0 and 1 closed; a homopolymer read on a homopolymer
+    stretch of the reference (ties).  ``sg5`` alternates from case to case."""
+    rng = np.random.default_rng(seed)
+    widths = (1, 2, 3, 31, 32, 33, 100, 400) + ((2300,) if wide else ())
+    return [(f"W{W}", _edge_last_row_case(rng, W, L, shared), bool((i + seed) % 2 == 0))
+            for i, W in enumerate(widths)]
+
+
+def edge_pileup_inputs(seed: int = 0) -> list[tuple[str, dict, int, bool]]:
+    """(name, inputs, W, in_range) cases on the edges of the pileup counts
+    (:data:`PILEUP_KEYS`): reads across every border of the kernel's tiles
+    (32 columns where W is small, 128 from W = 12,673 on), ``starts`` of -L,
+    -1, 0, W - 1, W and far above, lengths 0 and above L, every read on one
+    column, B of 0, 1 and one more than a block lists in a round, PSSM
+    entries near 2^30 (the int32 sums wrap), and codes outside 0..4
+    (``in_range`` False: the plain version drops such a base, the JAX
+    package does not define it)."""
+    from .ops.pssm import revcom_submat
+    from .parallel.sharded import PILEUP_ROUND, PILEUP_TILE
+
+    rng = np.random.default_rng(seed)
+    L = 32
+
+    def case(B, W, starts=None, lengths=None, big=False, L=L):
+        if big:
+            fpsm = (rng.integers(2**30 - 64, 2**30, (31, 5, 5))
+                    * rng.choice([-1, 1], (31, 5, 5))).astype(np.int32)
+        else:
+            fpsm = (init_flatsubmat() + rng.integers(-40, 40, (31, 5, 5))).astype(np.int32)
+        if lengths is None:
+            lengths = rng.integers(1, L + 1, B)
+        if starts is None:
+            starts = rng.integers(-L, W + L // 2, B)
+        lengths = np.asarray(lengths, np.int32)
+        return dict(s2c=rng.integers(0, 5, (B, L)).astype(np.int32), lengths=lengths,
+                    starts=np.asarray(starts, np.int32),
+                    depths=depths_numpy(np.clip(lengths, 1, L), L),
+                    strands=rng.integers(0, 2, B).astype(bool), fpsm=fpsm,
+                    rpsm=revcom_submat(fpsm).astype(np.int32))
+
+    out = []
+    W = 400
+    borders = [t - k for t in range(0, W + 32, 32) for k in (L - 1, 1, 0)]
+    ends = [-L, -L + 1, -1, 0, W - 1, W, W + 5, 2**31 - 1, -2**31]
+    starts = borders + ends
+    lengths = np.full(len(starts), L)
+    lengths[::7] = 0
+    lengths[3::7] = L + 3
+    out.append(("borders", case(len(starts), W, starts, lengths), W, True))
+    W = 12673 + 128 * 2 + 77   # tiles of PILEUP_TILE columns, the last one ragged
+    starts = [t - k for t in range(0, W + PILEUP_TILE, PILEUP_TILE) for k in (L - 1, 1)]
+    out.append(("tile128", case(len(starts), W, starts, np.full(len(starts), L)), W, True))
+    out.append(("one_column", case(64, 200, np.full(64, 77), np.full(64, 1)), 200, True))
+    out.append(("B0", case(0, 300), 300, True))
+    out.append(("B1", case(1, 300, [290], [L]), 300, True))
+    B = PILEUP_ROUND + 37
+    out.append(("long_list", case(B, 64, rng.integers(20, 30, B),
+                                  rng.integers(1, 5, B), L=4), 64, True))
+    out.append(("wrap", case(64, 40, rng.integers(0, 8, 64), big=True), 40, True))
+    bad = case(48, 300)
+    bad["s2c"][::3] = rng.choice([-7, -1, 5, 6, 2**31 - 1], bad["s2c"][::3].shape)
+    out.append(("bad_codes", bad, 300, False))
+    return out

@@ -100,13 +100,26 @@ def expected_myers_constants() -> list[int]:
 
 def expected_last_row_constants() -> list[int]:
     """The values ``mia_dp_last_row_constants`` must report: GOP, GEP, HIM,
-    LOW, PSSM depth slots and the shared-memory limit the wrapper plans
-    with (``dp_cuda.LAST_ROW_SMEM``)."""
+    LOW, PSSM depth slots, the shared-memory limit the wrapper plans the
+    wide form with, the register form's columns per thread and threads per
+    block (``dp_cuda.LAST_ROW_*``) and the most read rows."""
     from ..constants import GEP, GOP, HIM, PSSM_DEPTH
-    from ..ops.dp_cuda import LAST_ROW_SMEM
+    from ..core.entries import L_MAX
+    from ..ops.dp_cuda import LAST_ROW_COLS, LAST_ROW_SMEM, LAST_ROW_THREADS
     from ..ops.dp_torch import _LOW
 
-    return [GOP, GEP, HIM, _LOW, 2 * PSSM_DEPTH + 1, LAST_ROW_SMEM]
+    return [GOP, GEP, HIM, _LOW, 2 * PSSM_DEPTH + 1, LAST_ROW_SMEM, LAST_ROW_COLS,
+            LAST_ROW_THREADS, L_MAX]
+
+
+def expected_pileup_constants() -> list[int]:
+    """The values ``mia_pileup_counts_constants`` must report: PSSM depth
+    slots, the reads a block lists per round and its widest tile
+    (``parallel.sharded.PILEUP_ROUND``, ``PILEUP_TILE``)."""
+    from ..constants import PSSM_DEPTH
+    from ..parallel.sharded import PILEUP_ROUND, PILEUP_TILE
+
+    return [2 * PSSM_DEPTH + 1, PILEUP_ROUND, PILEUP_TILE]
 
 
 def expected_consensus_call_constants() -> list[int]:
@@ -125,6 +138,7 @@ def check_constants(lib) -> None:
         ("mia_dp_entries_constants", expected_constants),
         ("mia_myers_constants", expected_myers_constants),
         ("mia_dp_last_row_constants", expected_last_row_constants),
+        ("mia_pileup_counts_constants", expected_pileup_constants),
         ("mia_consensus_call_constants", expected_consensus_call_constants),
     ):
         want = expected()
@@ -215,12 +229,18 @@ def kernel_library() -> ctypes.CDLL:
         lib.mia_myers_constants.argtypes = [vp, ci]
         lib.mia_dp_last_row.restype = ci
         lib.mia_dp_last_row.argtypes = [
+            vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp,
+        ]
+        lib.mia_dp_last_row_wide.restype = ci
+        lib.mia_dp_last_row_wide.argtypes = [
             vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp,
         ]
         lib.mia_dp_last_row_constants.restype = ci
         lib.mia_dp_last_row_constants.argtypes = [vp, ci]
         lib.mia_pileup_counts.restype = ci
         lib.mia_pileup_counts.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp]
+        lib.mia_pileup_counts_constants.restype = ci
+        lib.mia_pileup_counts_constants.argtypes = [vp, ci]
         lib.mia_consensus_call.restype = ci
         lib.mia_consensus_call.argtypes = [vp, vp, ci, vp, vp]
         lib.mia_consensus_call_constants.restype = ci

@@ -4,7 +4,8 @@ also against the exact host DP), the consensus column counts
 (mia_tpu_torch/csrc/column_counts.cu, also against the host accumulator),
 ccheck's Myers wavefront (mia_tpu_torch/csrc/myers_waves.cu, also against
 the host aligner), the general-width last-row scorer
-(mia_tpu_torch/csrc/dp_last_row.cu, shared-memory and global-memory rows),
+(mia_tpu_torch/csrc/dp_last_row.cu: the register form, and the wide form with
+shared-memory and global-memory rows),
 the pileup counts and the consensus call of the assembly step
 (csrc/pileup_counts.cu, csrc/consensus_call.cu), and the sharded scorer,
 consensus counts and step with every shard on the one card.
@@ -259,20 +260,52 @@ def test_myers_kernel_rejects_mixed_devices(cuda):
 
 
 @pytest.mark.parametrize("B,W,L,seed", [(8, 64, 8, 0), (16, 384, 32, 1), (5, 1000, 64, 2),
-                                        (40, 17024, 256, 3), (3, 20000, 48, 4)])
+                                        (40, 17024, 256, 3), (3, 20000, 48, 4),
+                                        (6, 17408, 40, 5), (6, 17409, 40, 6),
+                                        (4, 17700, 48, 7)])
 @pytest.mark.parametrize("shared", [True, False])
 @pytest.mark.parametrize("sg5", [True, False])
 def test_last_row_kernel_matches_plain(cuda, B, W, L, seed, shared, sg5):
-    """Any width: rows in shared memory up to 17.8k columns, in global
-    memory above (W = 20,000); shared and per-read reference; both sg5."""
+    """Any width: the register form up to 17,408 columns; past it the wide
+    form, rows in shared memory up to 17.8k columns (W = 17,409 and 17,700)
+    and in global memory above (W = 20,000); shared and per-read reference;
+    both sg5."""
     d = T.last_row_inputs(B, W, L, seed=seed, shared=shared)
     args = [torch.from_numpy(d[k]).to(cuda) for k in T.LAST_ROW_KEYS]
     dp_cuda.reset_counts()
     got = dp_cuda.dp_last_row(*args, sg5=sg5)
     torch.cuda.synchronize()
     assert (dp_cuda.last_row_launches, dp_cuda.last_row_plain_calls) == (1, 0)
+    assert dp_cuda.last_row_wide_launches == int(
+        W > dp_cuda.LAST_ROW_COLS * dp_cuda.LAST_ROW_THREADS)
     want = dp_torch.batch_last_row(*args, sg5=sg5)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_last_row_kernel_on_edge_inputs(cuda, seed, shared):
+    """Rows of 1 to 2,300 columns, lengths 0 to L + 1, closed rows, bands
+    over every thread and warp border, ties (edge_last_row_inputs)."""
+    dp_cuda.reset_counts()
+    cases = T.edge_last_row_inputs(seed, shared, wide=True)
+    for name, d, sg5 in cases:
+        args = [torch.from_numpy(d[k]).to(cuda) for k in T.LAST_ROW_KEYS]
+        got = dp_cuda.dp_last_row(*args, sg5=sg5)
+        assert torch.equal(got, dp_torch.batch_last_row(*args, sg5=sg5)), name
+    assert (dp_cuda.last_row_launches, dp_cuda.last_row_wide_launches,
+            dp_cuda.last_row_plain_calls) == (len(cases), 0, 0)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_last_row_kernel_at_full_width(cuda, shared):
+    """The shape the kernel is timed at: B = 512, W = 17,024, L = 256."""
+    d = T.fullwidth_inputs(512, 17024, 256, seed=21, shared=shared)
+    args = [torch.from_numpy(d[k]).to(cuda) for k in T.LAST_ROW_KEYS]
+    dp_cuda.reset_counts()
+    got = dp_cuda.dp_last_row(*args)
+    assert torch.equal(got, dp_torch.batch_last_row(*args))
+    assert (dp_cuda.last_row_launches, dp_cuda.last_row_wide_launches) == (1, 0)
 
 
 def test_last_row_kernel_rejects_mixed_devices(cuda):
@@ -297,6 +330,39 @@ def test_pileup_and_consensus_kernels_match_plain(cuda, B, W, L, seed):
     assert torch.equal(sharded.consensus_call(tc, ts), sharded.consensus_from_counts(tc, ts))
     assert (sharded.pileup_launches, sharded.pileup_plain_calls) == (1, 0)
     assert (sharded.consensus_launches, sharded.consensus_plain_calls) == (2, 0)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pileup_kernel_on_edge_inputs(cuda, seed):
+    """Every tile border, starts off both ends, lengths 0 and above L, a
+    batch larger than a block's list, B of 0 and 1, sums that wrap
+    (edge_pileup_inputs).  Codes outside 0..4 lie outside what the JAX
+    package defines: there the kernel is held to the plain version's rule
+    alone (such a base adds nothing)."""
+    sharded.reset_counts()
+    cases = T.edge_pileup_inputs(seed)
+    for name, d, W, _ in cases:
+        args = [torch.from_numpy(d[k]).to(cuda) for k in T.PILEUP_KEYS]
+        counts, scores = sharded.pileup_counts(*args, W)
+        pc, ps = sharded._pileup_counts(*args, W)
+        assert torch.equal(counts, pc) and torch.equal(scores, ps), name
+    assert (sharded.pileup_launches, sharded.pileup_plain_calls) == (len(cases), 0)
+
+
+def test_pileup_kernel_twice_gives_equal_tensors(cuda):
+    """Nothing is left over from a call: the kernel writes every sum, so a
+    second call on the same reads (into memory the allocator may hand back
+    dirty) and one after other reads give the same tensors."""
+    d = T.pileup_inputs(2048, 17024, 256, seed=1)
+    args = [torch.from_numpy(d[k]).to(cuda) for k in T.PILEUP_KEYS]
+    first = [t.clone() for t in sharded.pileup_counts(*args, 17024)]
+    torch.empty(9 * 17024, dtype=torch.int32, device=cuda).fill_(-1)
+    other = T.pileup_inputs(2048, 17024, 256, seed=2)
+    sharded.pileup_counts(*(torch.from_numpy(other[k]).to(cuda) for k in T.PILEUP_KEYS), 17024)
+    second = sharded.pileup_counts(*args, 17024)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    pc, ps = sharded._pileup_counts(*args, 17024)
+    assert torch.equal(second[0], pc) and torch.equal(second[1], ps)
 
 
 def test_sharded_paths_on_one_card(cuda):

@@ -206,37 +206,3 @@ def test_dp_last_row_rejects_what_the_kernel_does_not_take():
         dp_cuda._last_row(args[0], args[1][:, :32], args[2], args[3], args[4], args[5],
                           True)
     assert (dp_cuda.last_row_plain_calls, dp_cuda.last_row_launches) == (0, 0)
-
-
-def _oracle_can_score(d, e):
-    """The exact host DP scores over the whole strand: it sees what the
-    window sees only for bands from column 2 on, windows inside the
-    reference and reads of 2..L rows."""
-    iv = d["ivl"][e]
-    open_iv = iv[iv[:, 1] > iv[:, 0]]
-    return (len(open_iv) > 0 and open_iv[:, 0].min() >= 2
-            and d["starts"][e] + je.WIN_W <= d["len1"]
-            and 2 <= d["lengths"][e] <= je.L_MAX)
-
-
-@pytest.mark.parametrize("seed", [0, 1])
-def test_edge_entries_plain_matches_jax(seed):
-    """The adversarial batch (closed windows, one-column bands, lane-sized
-    intervals, column 0, 16 intervals, the shortest and longest reads, ties):
-    the plain version against jax_engine._entries_core, exact."""
-    d = T.edge_entries(seed)
-    got = _plain_entries(d)
-    np.testing.assert_array_equal(got, _jax_entries(d))
-    closed = (d["ivl"][:, :, 1] <= d["ivl"][:, :, 0]).all(axis=1)
-    assert closed.any() and (got[0, closed] == HIM).all() and (got[1, closed] == 0).all()
-    assert (got[0, ~closed] > HIM).all()
-
-
-@pytest.mark.parametrize("part", [0, 1, 2])
-def test_edge_entries_plain_matches_solve_sg(part):
-    d = T.edge_entries(2)
-    got = _plain_entries(d)
-    picked = [e for e in range(len(d["lengths"])) if _oracle_can_score(d, e)][part::3][:24]
-    assert len(picked) >= 16
-    for e in picked:
-        assert T.solve_sg_entry(d, e) == (got[0, e], got[1, e]), e

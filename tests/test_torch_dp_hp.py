@@ -210,38 +210,3 @@ def test_hp_scorer_packed_batch_matches_jax_scorer():
     got = tsc.collect_arrays(tsc.dispatch_packed(*args))
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g, w)
-
-
-@pytest.mark.parametrize("seed", [0, 1])
-def test_edge_hp_entries_plain_matches_jax(seed):
-    """The adversarial -h batch (runs of 1, 2, 31, 32 and 33 rows, windows
-    that start inside a reference run or on its first column, the band and
-    length edges of the plain scorer's batch): the plain version against
-    jax_engine._entries_core_hp, exact."""
-    d = T.edge_hp_entries(seed)
-    got = _plain_hp(d)
-    np.testing.assert_array_equal(got, _jax_entries_hp(d))
-    t = _tensors(d)
-    s2c = t["b2i"][t["s2chr"].long()].contiguous()
-    plain = dp_torch.entries_core_plain(t["refs"], t["sms"], t["ref_sel"], t["starts"],
-                                        t["ivl"], s2c, t["lengths"], t["smidx"]).numpy()
-    assert (got[0] != plain[0]).sum() >= 20  # the -h candidates win cells
-
-
-@pytest.mark.parametrize("part", [0, 1, 2])
-def test_edge_hp_entries_plain_matches_solve_sg(part):
-    d = T.edge_hp_entries(2)
-    got = _plain_hp(d)
-
-    def can_score(e):
-        iv = d["ivl"][e]
-        open_iv = iv[iv[:, 1] > iv[:, 0]]
-        read = bytes(d["s2chr"][e, : max(int(d["lengths"][e]), 0)]).decode("latin-1")
-        return (len(open_iv) > 0 and open_iv[:, 0].min() >= 2
-                and d["starts"][e] + je.WIN_W <= d["len1"]
-                and 2 <= d["lengths"][e] <= je.L_MAX and not je.hp_routes_to_host(read))
-
-    picked = [e for e in range(len(d["lengths"])) if can_score(e)][part::3][:24]
-    assert len(picked) >= 16
-    for e in picked:
-        assert T.solve_sg_entry(d, e) == (got[0, e], got[1, e]), e

@@ -130,12 +130,13 @@ def test_kernel_library_path_keys_on_sources(tmp_path, monkeypatch):
 class _FakeKernelLibrary:
     """Stands in for the ctypes library: reports the given constants."""
 
-    def __init__(self, values, myers=None, last_row=None, cons=None):
+    def __init__(self, values, myers=None, last_row=None, cons=None, pileup=None):
         self.values = values
         self.myers = torchcfg.expected_myers_constants() if myers is None else myers
         self.last_row = (torchcfg.expected_last_row_constants() if last_row is None
                          else last_row)
         self.cons = torchcfg.expected_consensus_call_constants() if cons is None else cons
+        self.pileup = torchcfg.expected_pileup_constants() if pileup is None else pileup
 
     @staticmethod
     def _fill(values, buf, n):
@@ -154,6 +155,9 @@ class _FakeKernelLibrary:
 
     def mia_consensus_call_constants(self, buf, n):
         return self._fill(self.cons, buf, n)
+
+    def mia_pileup_counts_constants(self, buf, n):
+        return self._fill(self.pileup, buf, n)
 
 
 def _constants_with(index, delta):
@@ -191,22 +195,34 @@ def test_kernel_library_myers_constants_checked(myers):
 
 
 @pytest.mark.parametrize("which,values", [
-    ("last_row", [1000, 200, -(2**30), -(2**30) - 2**29, 31, 227 * 1024]),  # smem limit
-    ("last_row", [1000, 200, -(2**30), -(2**30) - 2**29, 31]),              # count
+    ("last_row", [1000, 200, -(2**30), -(2**30) - 2**29, 31, 227 * 1024, 34, 512,
+                  256]),                                                     # smem limit
+    ("last_row", [1000, 200, -(2**30), -(2**30) - 2**29, 31, 227 * 1024 - 1024, 34,
+                  512]),                                                     # count
     ("cons", [50, -400]),                                                    # MIN_SCORE_CONS
+    ("last_row", [1000, 200, -(2**30), -(2**30) - 2**29, 31, 227 * 1024 - 1024, 17,
+                  1024, 256]),                                               # columns a thread
+    ("pileup", [31, 1024, 128]),                                             # a block's list
+    ("pileup", [31, 2048, 512]),                                             # tile width
 ])
 def test_kernel_library_step_constants_checked(which, values):
-    """The last-row scorer's and the consensus call's constants are held
-    against the Python side's too."""
+    """The last-row scorer's, the consensus call's and the pileup counts'
+    constants are held against the Python side's too."""
     assert torchcfg.expected_last_row_constants() == [
-        1000, 200, -(2**30), -(2**30) - 2**29, 31, 227 * 1024 - 1024]
+        1000, 200, -(2**30), -(2**30) - 2**29, 31, 227 * 1024 - 1024, 34, 512, 256]
     assert torchcfg.expected_consensus_call_constants() == [50, -399]
+    assert torchcfg.expected_pileup_constants() == [31, 2048, 128]
     lib = _FakeKernelLibrary(torchcfg.expected_constants(), **{which: values})
-    with pytest.raises(RuntimeError, match=f"mia_{'dp_last_row' if which == 'last_row' else 'consensus_call'}_constants"):
+    entry = {"last_row": "dp_last_row", "cons": "consensus_call", "pileup": "pileup_counts"}
+    with pytest.raises(RuntimeError, match=f"mia_{entry[which]}_constants"):
         torchcfg.check_constants(lib)
     src = open(os.path.join(torchcfg.CSRC_DIR, "dp_last_row.cu")).read()
     for decl in ("GOP = 1000;", "GEP = 200;", "kDepth = 31;",
-                 "kSmemLimit = 227 * 1024 - 1024;"):
+                 "kSmemLimit = 227 * 1024 - 1024;", "kCols = 34;", "kRegThreads = 512;",
+                 "kLMax = 256;"):
+        assert f"constexpr int {decl}" in src, decl
+    src = open(os.path.join(torchcfg.CSRC_DIR, "pileup_counts.cu")).read()
+    for decl in ("kThreads = 1024;", "kPer = 2;", "kMaxTile = 128;", "kDepth = 31;"):
         assert f"constexpr int {decl}" in src, decl
     src = open(os.path.join(torchcfg.CSRC_DIR, "consensus_call.cu")).read()
     assert "constexpr int kPerc4Gap = 50;" in src

@@ -121,10 +121,14 @@ def test_port_cli_hands_host_engines_to_mia_tpu(engine, tmp_path):
     assert "reiterate.device_entries" not in c, c
 
 
-@pytest.mark.parametrize("engine", ["torch", "native"])
-def test_port_refuses_multi_host(engine, tmp_path):
+@pytest.mark.parametrize("engine,variable", [
+    ("torch", "JAX_COORDINATOR_ADDRESS"), ("native", "JAX_COORDINATOR_ADDRESS"),
+    ("torch", "MIA_TORCH_COORDINATOR_ADDRESS"),
+], ids=["torch", "native", "torch-port_variable"])
+def test_port_refuses_multi_host(engine, variable, tmp_path):
     r = run_torch_mia(fixture_args("kmer"), tmp_path, check=False, engine=engine,
-                      extra_env={"JAX_COORDINATOR_ADDRESS": "localhost:1"})
+                      extra_env={variable: "localhost:1"})
     assert r.returncode != 0
     assert b"multi-host runs are not ported yet" in r.stderr
+    assert variable.encode() in r.stderr
     assert not any(p.startswith("out.maln.") for p in os.listdir(tmp_path))
