@@ -5,8 +5,13 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-(``--kernels`` runs phases 1-5, 6a, 12 and 13 only, for work on the kernels,
-and prints their numbers but no result line.)
+(``--kernels`` runs phases 1-5, 6a, 9, 12 and 13 only, for work on the
+kernels, and prints their numbers but no result line.  ``--myers-ab FILE``
+runs phases 1-2 and then times the Myers kernel of ``FILE``, an earlier
+``myers_waves.cu`` with the same C interface, beside this tree's, built
+also at 256 and 512 threads, on phase 9's pairs: each build held to the
+plain version (found and the whole history), then the bare launches in
+turns, earlier first and last; no result line.)
 
 Phases, each printing its own lines; any failure exits non-zero before the
 result line.  Every reference is the port's own: its plain PyTorch versions,
@@ -43,6 +48,12 @@ counts) and the committed goldens.
    ties; shared and per-read reference, ``sg5`` on and off) and
    ``edge_pileup_inputs`` (every tile border, starts off both ends, a batch
    larger than a block's list, sums that wrap, codes outside 0..4), exact.
+   And the Myers kernel on ``edge_myers_pairs`` (lengths 0 to 65 around its
+   8- and 16-base snake steps and padding, N runs, bitmap-0 characters, snakes
+   ending at either or both ends, maxd 1 and clipped, all three modes,
+   bitmaps past shared memory): found and the whole history against the
+   plain version, ``myers_diff_torch`` against the host aligner, one launch
+   a pair.
 7. end to end: 20,000 simulated reads on a 16,569-column circular reference
    with ``-c -u -k 12 -s ancient.submat.solexa.pe.txt``: the port under
    ``--engine torch`` (in this process, launch counts reset just before)
@@ -63,10 +74,11 @@ counts) and the committed goldens.
    against three ~16.6 kb sequences (an mt311-derived sample with ~1%
    divergence, one with ~5%, an unrelated random one that runs every wave
    and finds no alignment), maxd = max(len) / 10: the kernel's
-   (found_d, found_k, history) against the plain version's, exact, and
-   ``myers_diff_torch`` on the card against the host ``myers_diff``
-   (distance and both backtrace strings); prints the kernel's and the plain
-   version's ms and the host aligner's s.
+   (found_d, found_k, whole history) against the plain version's, exact,
+   and ``myers_diff_torch`` on the card against the host ``myers_diff``
+   (distance and both backtrace strings); prints per pair the waves run,
+   the kernel alone (ms and us a wave), through its wrapper, the plain
+   version's ms, the host aligner's s and the bound.
 10. ccheck golden: the port's ccheck (``--engine torch``, in this process)
     on ``tests/golden/ccheck`` must print ``prose.txt`` and, under
     ``-T -a``, ``table_a.txt`` byte for byte, each run with one Myers
@@ -90,13 +102,20 @@ counts) and the committed goldens.
     B=2,048, W=17,024, L=256, exact, with times; beside the pileup kernel
     the two ``index_add_`` calls of its plain version together (indices and
     terms made beforehand: ``library_ms``) and, on an earlier line, the
-    ``index_add_`` of the score terms alone.
+    ``index_add_`` of the score terms alone.  The consensus call sums dp
+    parts: four pileups (whole and from column 3), one part, ``tie_counts``
+    whole and cut into four parts whose running sums wrap, four parts whose
+    own sums wrap, each against ``consensus_from_parts``; timed with four
+    parts and one, through the wrapper and alone, and beside the step's
+    earlier tail (six adds, then one part).
 14. assembly step: dp=4, sp=2 with every shard on cuda:0, B=2,048 reads drawn
     from a 17,024-column reference with 5% of their bases redrawn: (best, aec)
     equal to the single-device scorer's, whose rows for the first dp shard
     equal the plain version's on these inputs, the consensus equal to a numpy
     rebuild; the three kernels' launch counts set to 0 just before and read
-    just after.  Then the warm step's time and the device time of its four
+    just after; a second step, its ATen operations logged, holds no add over
+    the dp shards' accumulators (the consensus kernel sums them).  Then the
+    warm step's time and the device time of its four
     ``dp_last_row`` launches, with the scorer's register form and with its
     wide form (the kernel it had before).
 15. sharded scorer and consensus counts: E=16,384 entries over 4 shards equal
@@ -112,13 +131,16 @@ The last lines are a JSON line of per-kernel numbers (``ms``, the time of a
 call of the kernel's wrapper, for every kernel; the plain version's time; the
 bound, with padded per-read arrays counted up to each read's own length, and
 what bounds it; a library call's time where one computes the same scatter;
-``kernel_only_ms``, the bare launch, for the entry scorers, the consensus
-counts, the general-width scorer and the step's two small kernels), the
+``kernel_only_ms``, the bare launch, for every kernel; for ``myers_waves``
+the 1% pair's numbers and, under ``pairs``, all three pairs' with their
+waves and us a wave; for ``consensus_call`` four parts', one part's
+beside them), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX and nothing of
 the JAX package.
 """
 from __future__ import annotations
 
+import ctypes
 import io
 import json
 import os
@@ -479,6 +501,47 @@ def phase_step_edges(dev) -> None:
         raise AssertionError("edges: a plain version was called through a wrapper on the card")
 
 
+def phase_myers_edges(dev) -> None:
+    """The Myers kernel against its plain version (found and the whole
+    history) and ``myers_diff_torch`` against the host aligner on
+    ``edge_myers_pairs``, one launch a pair through the wrapper."""
+    import torch
+
+    from mia_tpu_torch import testing as T
+    from mia_tpu_torch.ops import myers_cuda
+    from mia_tpu_torch.ops.myers import Mode, myers_diff
+    from mia_tpu_torch.ops.myers_torch import bitmaps, myers_diff_torch, waves_plain
+
+    myers_cuda.reset_counts()
+    n = 0
+    for seed in (0, 1):
+        for name, a, mode, b, maxd in T.edge_myers_pairs(seed):
+            maxd = min(maxd, len(a) + len(b))
+            if maxd <= 0:
+                continue
+            args = [torch.from_numpy(x).to(dev) for x in bitmaps(a, b)] + [len(a), len(b)]
+            flags = dict(maxd=maxd, mode_is_prefix=mode == Mode.IS_PREFIX,
+                         mode_has_prefix=mode == Mode.HAS_PREFIX)
+            kd, kk, khist = myers_cuda.waves(*args, **flags)
+            pd, pk, phist = waves_plain(*args, **flags)
+            if (kd, kk) != (pd, pk):
+                raise AssertionError(f"myers_waves != plain on edge pair {name} (seed {seed}): "
+                                     f"found {(kd, kk)} vs {(pd, pk)}")
+            check_equal(f"myers_waves history != plain on edge pair {name} (seed {seed})",
+                        khist, phist)
+            if myers_diff_torch(a, mode, b, maxd, device=dev) != myers_diff(a, mode, b, maxd):
+                raise AssertionError(f"myers_diff_torch != host myers_diff on edge pair {name}")
+            n += 1
+    if (myers_cuda.kernel_launches, myers_cuda.plain_calls) != (2 * n, 0):
+        raise AssertionError(f"edges: {myers_cuda.kernel_launches} Myers launches for {n} "
+                             f"pairs, {myers_cuda.plain_calls} plain calls")
+    say(f"edges: myers_waves == waves_plain (found, the whole history) and myers_diff_torch "
+        f"== host myers_diff on {n} adversarial pairs (lengths 0-65 around the 8- and 16-base "
+        f"steps, N runs, bitmap-0 characters, snakes ending at either or both ends, maxd 1 "
+        f"and clipped, all three modes, 120 kb bitmaps past shared memory; exact), "
+        f"{myers_cuda.kernel_launches} kernel launches")
+
+
 def phase_edges(dev) -> None:
     """The redesigned kernels against their plain versions on the
     adversarial inputs of ``mia_tpu_torch.testing``, exact."""
@@ -525,6 +588,7 @@ def phase_edges(dev) -> None:
         f"adversarial records (every tile border, both ends, span 0, all gaps, all N; one "
         f"column's sums past 2^32, largest |score| {int(got[2].abs().max())}; exact)")
     phase_step_edges(dev)
+    phase_myers_edges(dev)
 
 
 class Capture:
@@ -734,66 +798,112 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool, captured: di
     say(f"{tag}: phases s, native " + json.dumps(native_prof["phases_s"], sort_keys=True))
     return counts
 
-def myers_phase_pairs() -> list[tuple[str, str, str, int]]:
-    """Phase 9's pairs: (name, mt311, other sequence, ccheck's maxd)."""
-    import numpy as np
-
-    from mia_tpu_torch import testing as T
-    from mia_tpu_torch.cli.ccheck import load_mt311
-    from mia_tpu_torch.models.simulate import random_reference
-
-    panel = load_mt311()
-    reference, sample, _ = T.ccheck_sample(seed=31)
-    pairs = [("1%", sample),
-             ("5%", T.mutate(reference, np.random.default_rng(32), 0.05, 0.002)),
-             ("unrelated", random_reference(16569, seed=33))]
-    return [(name, panel, b, max(len(panel), len(b)) // 10) for name, b in pairs]
-
-
-def time_myers_kernel(bm_a, bm_b, len_a: int, len_b: int, maxd: int, iters: int) -> float:
-    """Mean device ms of the Myers kernel alone (CUDA events over ``iters``
-    launches into one history, no copy back)."""
+def raw_myers_waves(lib, bm_a, bm_b, len_a: int, len_b: int, maxd: int):
+    """``launch()`` of ``lib``'s Myers kernel into a history and a result
+    made here, on the padded bitmaps the wrapper would give it (no fill
+    between launches: the kernel writes the same lanes each time)."""
     import torch
 
+    from mia_tpu_torch.ops.myers_cuda import padded_bitmaps
     from mia_tpu_torch.ops.myers_torch import _NEG
-    from mia_tpu_torch.utils.torchcfg import kernel_library
 
-    lib = kernel_library()
+    pad_a, pad_b = padded_bitmaps(bm_a, bm_b, len_a, len_b)
     hist = torch.full((maxd + 1, 2 * maxd + 1), _NEG, dtype=torch.int32, device=bm_a.device)
     found = torch.empty(2, dtype=torch.int32, device=bm_a.device)
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
-        rc = lib.mia_myers_waves(bm_a.data_ptr(), len_a, bm_b.data_ptr(), len_b, maxd, 0, 0,
+        rc = lib.mia_myers_waves(pad_a.data_ptr(), len_a, pad_b.data_ptr(), len_b, maxd, 0, 0,
                                  hist.data_ptr(), found.data_ptr(), stream)
         if rc:
             raise RuntimeError(f"myers_waves kernel launch failed: CUDA error {rc}")
 
-    cuda_ms(launch, 2)
-    return cuda_ms(launch, iters)
+    return launch, hist, found
+
+
+def phase_myers_ab(dev, earlier: str) -> None:
+    """``--myers-ab``: the Myers kernel of the source ``earlier`` beside this
+    tree's at its own thread count (the library's) and at 256 and 512."""
+    import torch
+
+    from mia_tpu_torch import testing as T
+    from mia_tpu_torch.ops.myers_torch import bitmaps, waves_plain
+    from mia_tpu_torch.utils.torchcfg import CSRC_DIR, build_sources, kernel_library
+
+    lib = kernel_library()
+    with open(os.path.join(CSRC_DIR, "myers_waves.cu")) as f:
+        ours = f.read()
+    decl = "constexpr int kThreads = 1024;"
+    if ours.count(decl) != 1:
+        raise AssertionError(f"myers_waves.cu: no single '{decl}'")
+    with open(earlier) as f:
+        sources = {"earlier": f.read()}
+    sources.update({f"threads{n}": ours.replace(decl, f"constexpr int kThreads = {n};")
+                    for n in (256, 512)})
+    t0 = time.time()
+    libs = {name: ctypes.CDLL(path)
+            for name, path in build_sources(sources, os.path.join(WORK, "myers_ab")).items()}
+    say(f"myers a/b: built {', '.join(libs)} in {time.time() - t0:.1f} s")
+    for other in libs.values():
+        other.mia_myers_waves.restype = lib.mia_myers_waves.restype
+        other.mia_myers_waves.argtypes = lib.mia_myers_waves.argtypes
+    libs["threads1024"] = lib
+    order = list(libs) + list(libs)[::-1]
+    for name, a, b, maxd in T.myers_phase_pairs():
+        bm_a, bm_b = (torch.from_numpy(x).to(dev) for x in bitmaps(a, b))
+        pd, pk, phist = waves_plain(bm_a, bm_b, len(a), len(b), maxd=maxd,
+                                    mode_is_prefix=False, mode_has_prefix=False)
+        launches = {}
+        for build, other in libs.items():
+            launch, hist, found = raw_myers_waves(other, bm_a, bm_b, len(a), len(b), maxd)
+            launch()
+            torch.cuda.synchronize()
+            if tuple(found.tolist()) != (pd, pk):
+                raise AssertionError(f"myers a/b {name}: {build} found {found.tolist()}, "
+                                     f"plain {(pd, pk)}")
+            check_equal(f"myers a/b {name}: {build} history != plain", hist, phist)
+            launches[build] = launch
+        waves = maxd if pd == maxd else pd + 1
+        times: dict[str, list[float]] = {build: [] for build in libs}
+        for build in order:
+            cuda_ms(launches[build], 2)
+            times[build].append(cuda_ms(launches[build], 20))
+        say(f"myers a/b: {name} pair, {waves} waves, every build == plain (found, whole "
+            f"history); bare launch, 20 a turn, in turns {' '.join(order)}:")
+        for build, ts in times.items():
+            say(f"myers a/b:   {build}: " + ", ".join(
+                f"{t:.4f} ms ({t * 1e3 / waves:.4f} us a wave)" for t in ts))
+
+
+def myers_live_lanes(len_a: int, len_b: int, waves: int) -> int:
+    """Lanes the waves 0..waves-1 compute: each wave's band
+    [max(-d, -len_a), min(d, len_b)]."""
+    return sum(min(d, len_b) + min(d, len_a) + 1 for d in range(waves))
 
 
 def phase_myers_kernel(dev) -> dict:
     import torch
 
+    from mia_tpu_torch import testing as T
     from mia_tpu_torch.ops import myers_cuda
     from mia_tpu_torch.ops.myers import UINT_MAX, Mode, myers_diff
     from mia_tpu_torch.ops.myers_torch import bitmaps, myers_diff_torch, waves_plain
+    from mia_tpu_torch.utils.torchcfg import kernel_library
 
     out = {}
     err = 0
-    for name, a, b, maxd in myers_phase_pairs():
+    for name, a, b, maxd in T.myers_phase_pairs():
         bm_a, bm_b = (torch.from_numpy(x).to(dev) for x in bitmaps(a, b))
         args = (bm_a, bm_b, len(a), len(b))
         flags = dict(maxd=maxd, mode_is_prefix=False, mode_has_prefix=False)
+        myers_cuda.reset_counts()
         kd, kk, khist = myers_cuda.waves(*args, **flags)
         pd, pk, phist = waves_plain(*args, **flags)
         torch.cuda.synchronize()
         if (kd, kk) != (pd, pk):
             raise AssertionError(f"myers {name}: kernel found (d, k) = {(kd, kk)}, "
                                  f"plain {(pd, pk)}")
-        err = max(err, check_equal(f"myers {name}: history != plain",
-                                   khist[: kd + 1], phist[: pd + 1]))
+        err = max(err, check_equal(f"myers {name}: history != plain", khist, phist))
         t0 = time.time()
         want = myers_diff(a, Mode.GLOBAL, b, maxd)
         host_s = time.time() - t0
@@ -803,22 +913,34 @@ def phase_myers_kernel(dev) -> dict:
                                  f"d={got[0]}, host myers_diff d={want[0]}")
         if (name == "unrelated") != (want[0] == UINT_MAX):
             raise AssertionError(f"myers {name}: unexpected distance {want[0]}")
-        ms = time_myers_kernel(bm_a, bm_b, len(a), len(b), maxd, 10)
+        if (myers_cuda.kernel_launches, myers_cuda.plain_calls) != (2, 0):
+            raise AssertionError(f"myers {name}: {myers_cuda.kernel_launches} launches, "
+                                 f"{myers_cuda.plain_calls} plain calls")
+        launch, hist, found = raw_myers_waves(kernel_library(), *args, maxd)
+        cuda_ms(launch, 2)
+        kernel_only_ms = cuda_ms(launch, 20)
+        check_equal(f"myers {name}: history of the timed launches != plain", hist, phist)
+        cuda_ms(lambda: myers_cuda.waves(*args, **flags), 2)
+        ms = cuda_ms(lambda: myers_cuda.waves(*args, **flags), 20)
         plain_ms = cuda_ms(lambda: waves_plain(*args, **flags), 2)
+        waves = maxd if kd == maxd else kd + 1
+        # what this pair's data needs: the bitmaps read, a history word
+        # written for every lane the waves compute (about 10 operations
+        # each), and the snakes' steps over about one sequence's length
+        # (about 3 operations a base)
+        lanes = myers_live_lanes(len(a), len(b), waves)
+        bnd = bound(len(a) + len(b) + 4 * lanes + 8, 10 * lanes + 3 * max(len(a), len(b)))
         say(f"myers kernel: {name} pair {len(a)} x {len(b)}, maxd {maxd}: d="
-            f"{'none (UINT_MAX)' if kd == maxd else kd}, k={kk}, "
-            f"{maxd if kd == maxd else kd + 1} waves; "
-            f"kernel == plain (found and history rows 0..{kd}, exact) and "
-            f"myers_diff_torch == host myers_diff (d, bt_a, bt_b); kernel {ms:.4f} ms, "
-            f"plain version {plain_ms:.4f} ms, host myers_diff {host_s:.3f} s")
-        # what this pair's data needs: wave w has 2 w + 1 live lanes (about 10
-        # operations and one history word written each), and the snakes walk
-        # about one reference's length in all (about 3 operations a step)
-        lanes = (kd + 1) ** 2 if kd < maxd else maxd ** 2
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                     **bound(len(a) + len(b) + 4 * lanes + 8,
-                             10 * lanes + 3 * max(len(a), len(b)))}
-    return {"max_abs_err": err, **out["1%"]}
+            f"{'none (UINT_MAX)' if kd == maxd else kd}, k={kk}, {waves} waves, {lanes} "
+            f"lanes; kernel == plain (found and the whole history, exact) and "
+            f"myers_diff_torch == host myers_diff (d, bt_a, bt_b); kernel alone "
+            f"{kernel_only_ms:.4f} ms, {kernel_only_ms * 1e3 / waves:.4f} us a wave; through "
+            f"its wrapper {ms:.4f} ms; plain version {plain_ms:.4f} ms; host myers_diff "
+            f"{host_s:.3f} s; bound {bnd['bound_ms']:.6f} ms ({bnd['bound_by']})")
+        out[name] = {"ms": ms, "kernel_only_ms": kernel_only_ms, "waves": waves,
+                     "us_per_wave": kernel_only_ms * 1e3 / waves, "plain_ms": plain_ms,
+                     "library_ms": None, **bnd}
+    return {"max_abs_err": err, **out["1%"], "pairs": out}
 
 
 def run_ccheck(argv: list[str], profile: bool) -> tuple[bytes, dict, float]:
@@ -1086,25 +1208,64 @@ def phase_step_kernels(dev) -> tuple[dict, dict]:
     if sharded.pileup_plain_calls:
         raise AssertionError("pileup kernel: the plain version was called through the wrapper")
 
+    # the consensus call over dp parts: four pileups of reads of their own
+    # (the step's dp = 4) and the columns of each at an odd offset; one part
+    # (the pileup, tie_counts); tie_counts cut into four parts whose running
+    # sums wrap, and four parts whose own sums wrap
+    parts = [(counts, scores)] + [sharded.pileup_counts(
+        *(torch.from_numpy(a).to(dev) for a in (T.pileup_inputs(STEP_B, FW_W, L_ROWS,
+                                                                 seed=22 + p)[k]
+                                                for k in T.PILEUP_KEYS)), FW_W)
+        for p in range(1, 4)]
+    pc, ps = [c for c, _ in parts], [x for _, x in parts]
+
+    def on(arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    tie = T.tie_counts(FW_W, seed=23)
+    cases = [("four pileups", pc, ps),
+             ("four pileups from column 3", [c[3:-2] for c in pc], [x[3:-2] for x in ps]),
+             ("the pileup", [counts], [scores]), ("ties", on(tie[:1]), on(tie[1:])),
+             ("ties in four parts", *map(on, T.split_parts(*tie, 4, seed=23, big=True))),
+             ("four wrapping parts", *map(on, T.wrapping_parts(FW_W, 4, seed=23)))]
     err = 0
-    for what, (c, s) in (("pileup", (counts, scores)),
-                         ("ties", tuple(torch.from_numpy(a).to(dev)
-                                        for a in T.tie_counts(FW_W, seed=23)))):
-        got = sharded.consensus_call(c, s)
+    sharded.reset_counts()
+    for what, c, x in cases:
+        got = sharded.consensus_call(c, x)
         err = max(err, check_equal(f"consensus_call != plain ({what})", got,
-                                   sharded.consensus_from_counts(c, s)))
-    say(f"consensus-call kernel: consensus_call == consensus_from_counts on {FW_W} "
-        f"columns (the pileup's counts, and ties / empty columns / thresholds; exact)")
-    t = time_plain_pair(lambda: sharded.consensus_call(counts, scores),
-                        lambda: sharded.consensus_from_counts(counts, scores),
-                        "consensus-call kernel")
+                                   sharded.consensus_from_parts(c, x)))
+    # the step's form: a block's columns read in place from the whole parts
+    check_equal("consensus_call on columns 3 to W - 2 read in place != on their copies",
+                sharded.consensus_call(pc, ps, slice(3, FW_W - 2)),
+                sharded.consensus_call(*cases[1][1:]))
+    if (sharded.consensus_launches, sharded.consensus_plain_calls) != (len(cases) + 2, 0):
+        raise AssertionError(f"consensus-call kernel: {sharded.consensus_launches} launches for "
+                             f"{len(cases) + 2} calls")
+    say(f"consensus-call kernel: consensus_call == consensus_from_parts on {FW_W} columns "
+        f"({'; '.join(what for what, _, _ in cases)}; columns 3 to W - 2 also read in place; "
+        f"exact), one launch a call")
+    t = time_plain_pair(lambda: sharded.consensus_call(pc, ps),
+                        lambda: sharded.consensus_from_parts(pc, ps),
+                        "consensus-call kernel, four parts")
+    t["ms"] = cuda_ms(lambda: sharded.consensus_call(pc, ps), 200)
+    one_ms = cuda_ms(lambda: sharded.consensus_call(counts, scores), 200)
+    # the step's tail as it was: the sum over dp as separate adds, then one part
+    adds_ms = cuda_ms(lambda: sharded.consensus_call(pc[0] + pc[1] + pc[2] + pc[3],
+                                                     ps[0] + ps[1] + ps[2] + ps[3]), 200)
+    say(f"consensus-call kernel through its wrapper (200 calls a mean): four parts "
+        f"{t['ms']:.4f} ms, one part {one_ms:.4f} ms, the four parts summed by six adds and "
+        f"then one part {adds_ms:.4f} ms")
     out = torch.empty(FW_W, dtype=torch.uint8, device=dev)
+    ptrs = ctypes.c_void_p * 4
+    cp, sp = ptrs(*(c.data_ptr() for c in pc)), ptrs(*(x.data_ptr() for x in ps))
     t["kernel_only_ms"] = time_raw_launch(lambda lib, stream: lib.mia_consensus_call(
-        counts.data_ptr(), scores.data_ptr(), FW_W, out.data_ptr(), stream),
-        "consensus-call kernel", t["ms"])
-    # per column about 15 compares and adds
-    cons = {"max_abs_err": err, **t, "library_ms": None,
-            **bound(nbytes(counts, scores) + FW_W, 15 * FW_W)}
+        cp, sp, 4, FW_W, out.data_ptr(), stream), "consensus-call kernel, four parts", t["ms"])
+    one_raw = time_raw_launch(lambda lib, stream: lib.mia_consensus_call(
+        cp, sp, 1, FW_W, out.data_ptr(), stream), "consensus-call kernel, one part", one_ms)
+    # per column 9 adds a part and about 15 compares and adds
+    cons = {"max_abs_err": err, **t, "parts": 4, "ms_one_part": one_ms,
+            "kernel_only_ms_one_part": one_raw, "ms_six_adds_then_one_part": adds_ms,
+            "library_ms": None, **bound(nbytes(*pc, *ps) + FW_W, (9 * 4 + 15) * FW_W)}
     return pile, cons
 
 
@@ -1140,6 +1301,14 @@ def phase_step(dev) -> dict:
                   "step.consensus_launches": 2, "step.consensus_plain_calls": 0}:
         # W = 17,024 divides by sp = 2: no tail to call
         raise AssertionError(f"assembly step: kernels not launched as expected: {counts}")
+    # the sum over dp is the consensus kernel's: a second step, every ATen
+    # operation logged, has no add over any [*, 5] or [*, 4] accumulator
+    again, ops = T.aten_ops(step, *args)
+    sums = [(op, shapes) for op, shapes in ops if op.startswith("aten.add")
+            and any(len(sh) == 2 and sh[1] in (4, 5) for sh in shapes)]
+    if sums:
+        raise AssertionError(f"assembly step: the sum over dp left adds: {sums[:4]}")
+    check_equal("assembly step: a second step's consensus differs", again[2], cons)
 
     # the single-device scorer on the whole batch, and the first dp shard's
     # rows of it against the plain version on the step's own inputs
@@ -1168,7 +1337,8 @@ def phase_step(dev) -> dict:
         f"the whole row), consensus == numpy rebuild "
         f"({sum(called.count(c) for c in b'ACGT')} columns called, "
         f"{called.count(b'N')} N); {wall:.3f} s with the host's copies; "
-        f"{json.dumps(counts)}")
+        f"{json.dumps(counts)}; a second step's {len(ops)} ATen operations hold no add "
+        f"over the dp shards' accumulators (their sum is the consensus kernel's)")
 
     # the warm step, and what its four scorer launches take of it on the
     # card: with the register form, and with every launch sent to the wide
@@ -1327,17 +1497,24 @@ def main() -> int:
     torch.cuda.synchronize()
     say(f"set-up: import torch {t_import:.3f} s, CUDA context {time.time() - t0:.3f} s")
     phase_build()
+    if sys.argv[1:2] == ["--myers-ab"] and len(sys.argv) == 3:
+        phase_myers_ab(dev, sys.argv[2])
+        say(nvidia_smi())
+        say(f"total: {time.time() - t_start:.1f} s (myers a/b only)")
+        return 0
     kern = phase_kernel(dev)
     hp_kern = phase_hp_kernel(dev)
     cons_kern = phase_consensus_kernel(dev)
     if sys.argv[1:] == ["--kernels"]:
         # the quick form for work on the kernels: no result line
         phase_edges(dev)
+        myers_kern = phase_myers_kernel(dev)
         last_row_kern = phase_last_row_kernel(dev)
         pileup_kern, cons_call_kern = phase_step_kernels(dev)
         say(json.dumps({"dp_entries": kern, "dp_entries_hp": hp_kern,
-                        "column_counts": cons_kern, "dp_last_row": last_row_kern,
-                        "pileup_counts": pileup_kern, "consensus_call": cons_call_kern}))
+                        "column_counts": cons_kern, "myers_waves": myers_kern,
+                        "dp_last_row": last_row_kern, "pileup_counts": pileup_kern,
+                        "consensus_call": cons_call_kern}))
         say(nvidia_smi())
         say(f"total: {time.time() - t_start:.1f} s (kernels only)")
         return 0

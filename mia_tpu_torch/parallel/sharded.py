@@ -11,23 +11,28 @@ What changed from the TPU version, and why: there is no ``shard_map`` and
 no compiled program.  A mesh is a [n_dp, n_sp] grid of ``torch.device``\\ s,
 and the step is a single-controller loop over it (as ``mia_tpu`` is
 single-controller too): each dp shard launches its kernels on its own
-device, the ``psum`` is a copy of every shard's accumulators to the first
-device and an add there, the ``all_gather`` a concatenation there.  A grid
+device, the ``all_gather`` a concatenation on the first device.  A grid
 may name one device several times (the stand-in for XLA's virtual host
-devices); the copies are then same-device copies.
+devices); the copies are then same-device copies.  The ``psum`` is no
+separate step: each sp block's consensus call reads every dp shard's
+counts of its columns and sums them.
 
 Three hand-written kernels carry a step on a card: the general-width
 last-row scorer (``csrc/dp_last_row.cu``, :func:`..ops.dp_cuda.dp_last_row`),
 the pileup counts (``csrc/pileup_counts.cu``, :func:`pileup_counts`: a block
 per tile of columns sums in shared memory and stores its tile, so a call is
-one launch into memory that nobody zeroed) and the consensus call
-(``csrc/consensus_call.cu``, :func:`consensus_call`).  Each
-has its plain PyTorch version here or in ``ops/dp_torch.py``; a wrapper
-takes it only for CPU tensors, launches the kernel for CUDA tensors, or
-raises.  ``pileup_launches`` / ``pileup_plain_calls`` and
-``consensus_launches`` / ``consensus_plain_calls`` count the routes.
+one launch into memory that nobody zeroed) and the consensus call over
+the dp shards' partial counts (``csrc/consensus_call.cu``,
+:func:`consensus_call`: pointers to a block's columns of every part go to
+one launch by value, and the kernel sums them).  Each has its plain
+PyTorch version here or in ``ops/dp_torch.py``; a wrapper takes it only
+for CPU tensors, launches the kernel for CUDA tensors, or raises.
+``pileup_launches`` / ``pileup_plain_calls`` and ``consensus_launches`` /
+``consensus_plain_calls`` count the routes.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -71,9 +76,10 @@ def make_mesh(n_dp: int | None = None, n_sp: int = 1, devices=None) -> np.ndarra
 
 def consensus_from_counts(counts: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
     """find_consensus (cons_code 1) over columns: counts [W, 5] (A, C, G, T,
-    gap), scores [W, 4]; returns uint8 consensus chars (semantics of
-    src/map_align.c:294-391).  The plain version of :func:`consensus_call`."""
-    cov = counts.sum(dim=1)
+    gap), scores [W, 4] int32; returns uint8 consensus chars (semantics of
+    src/map_align.c:294-391).  The coverage and the gap test's products are
+    int32 and wrap, as the JAX package's are."""
+    cov = counts.sum(dim=1, dtype=torch.int32)
     gap_frac_ok = counts[:, 4] * 100 >= PERC4GAP * cov
     top0 = scores[:, 0]
     max_base = torch.full_like(cov, ord("A"))
@@ -88,17 +94,50 @@ def consensus_from_counts(counts: torch.Tensor, scores: torch.Tensor) -> torch.T
     return out.to(torch.uint8)
 
 
-def consensus_call(counts: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
-    """:func:`consensus_from_counts` on the tensors' device: counts [n, 5],
-    scores [n, 4] int32, contiguous -> [n] uint8."""
+def consensus_from_parts(counts, scores) -> torch.Tensor:
+    """The consensus of summed partial accumulators: the int32 sum of the
+    lists ``counts`` ([n, 5] each) and ``scores`` ([n, 4] each), wrapping
+    as the JAX package's ``psum`` over dp does, then
+    :func:`consensus_from_counts`.  The plain version of
+    :func:`consensus_call`."""
+    total_c, total_s = counts[0], scores[0]
+    for c, s in zip(counts[1:], scores[1:]):
+        total_c, total_s = total_c + c, total_s + s
+    return consensus_from_counts(total_c, total_s)
+
+
+# the most parts one call sums (csrc/consensus_call.cu kMaxParts, checked by
+# the loader): 32 pairs of pointers are 512 B of the launch's parameters
+CONSENSUS_MAX_PARTS = 32
+
+
+def consensus_call(counts, scores, cols: slice = slice(None)) -> torch.Tensor:
+    """:func:`consensus_from_parts` on the tensors' device, over the columns
+    ``cols`` (a slice with step 1, default all) of every part.  ``counts``
+    is one [W, 5] int32 tensor or a list of 1 to
+    :data:`CONSENSUS_MAX_PARTS` of them, ``scores`` the matching [W, 4]
+    tensor or list; every part contiguous, on one device -> [len(cols)]
+    uint8.  The kernel reads the columns in place (pointers into the parts,
+    no copy).  One part is :func:`consensus_from_counts` itself."""
     global consensus_launches, consensus_plain_calls
-    dev = counts.device
-    n = counts.shape[0]
-    check_tensor("counts", counts, torch.int32, (n, 5), dev)
-    check_tensor("scores", scores, torch.int32, (n, 4), dev)
+    if isinstance(counts, torch.Tensor):
+        counts, scores = [counts], [scores]
+    if not 1 <= len(counts) <= CONSENSUS_MAX_PARTS or len(scores) != len(counts):
+        raise ValueError(f"consensus_call: {len(counts)} counts and {len(scores)} scores, "
+                         f"want 1 to {CONSENSUS_MAX_PARTS} of each")
+    dev = counts[0].device
+    W = counts[0].shape[0]
+    for p, (c, s) in enumerate(zip(counts, scores)):
+        check_tensor(f"counts[{p}]", c, torch.int32, (W, 5), dev)
+        check_tensor(f"scores[{p}]", s, torch.int32, (W, 4), dev)
+    start, stop, step = cols.indices(W)
+    if step != 1:
+        raise ValueError(f"consensus_call: columns {cols}, want a step of 1")
+    n = max(stop - start, 0)
     if dev.type == "cpu":
         consensus_plain_calls += 1
-        return consensus_from_counts(counts, scores)
+        return consensus_from_parts([c[start:stop] for c in counts],
+                                    [s[start:stop] for s in scores])
     if dev.type != "cuda":
         raise ValueError(f"consensus_call: no kernel for device {dev}")
     from ..utils.torchcfg import kernel_library
@@ -107,13 +146,27 @@ def consensus_call(counts: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.uint8, device=dev)
     if n == 0:
         return out
-    with torch.cuda.device(dev):
-        rc = lib.mia_consensus_call(counts.data_ptr(), scores.data_ptr(), n, out.data_ptr(),
+    ptrs = ctypes.c_void_p * len(counts)
+    with dp_cuda.current_device(dev):
+        rc = lib.mia_consensus_call(ptrs(*(c.data_ptr() + 20 * start for c in counts)),
+                                    ptrs(*(s.data_ptr() + 16 * start for s in scores)),
+                                    len(counts), n, out.data_ptr(),
                                     torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"consensus_call kernel launch failed: CUDA error {rc}")
     consensus_launches += 1
     return out
+
+
+def block_parts(counts, scores, dev, cols: slice) -> tuple[list, list, slice]:
+    """The arguments of a :func:`consensus_call` on ``dev`` over the columns
+    ``cols`` of the parts: the parts and ``cols`` themselves when every part
+    is on ``dev`` (the kernel reads the block in place), else each part's
+    rows ``cols`` copied to ``dev`` and every column of those, so that only
+    the block's columns cross between devices."""
+    if all(t.device == dev for t in (*counts, *scores)):
+        return counts, scores, cols
+    return [c[cols].to(dev) for c in counts], [s[cols].to(dev) for s in scores], slice(None)
 
 
 def _pileup_counts(s2c, lengths, starts, depths, strands, fpsm, rpsm, W: int):
@@ -207,18 +260,22 @@ def make_assembly_step(mesh: np.ndarray, sg5: bool = True):
     Per step: (1) every dp shard scores its rows of the read batch against
     the replicated reference with the last-row kernel; (2) its reads pile
     into per-column counts and score sums, ungapped, ending at ``aec``, on
-    the forward strand; (3) counts and scores are added up over ``dp`` on
-    the first device; (4) the consensus call runs on ``sp`` column blocks of
-    ``W // sp`` columns, each on its shard's device, and on the tail past
-    them; (5) the blocks are concatenated on the first device.
+    the forward strand; (3) the consensus call runs on ``sp`` column blocks
+    of ``W // sp`` columns, each on its shard's device, and on the tail past
+    them on the first device, each call taking every dp shard's counts and
+    scores of its columns and adding them up over ``dp`` itself; (4) the
+    blocks are concatenated on the first device.
 
     Returns ``step(s1c [W], mask [B, W], s2c [B, L], lengths [B],
     depths [B, L], fpsm, rpsm) -> (best [B], aec [B], cons [W] uint8)`` over
     numpy arrays (or tensors), with the results as tensors on the first
     device.  The batch splits into ``n_dp`` contiguous runs of rows, as
-    ``shard_map`` splits a ``P("dp")`` axis."""
+    ``shard_map`` splits a ``P("dp")`` axis.  ``n_dp`` is at most
+    :data:`CONSENSUS_MAX_PARTS`."""
     n_dp, n_sp = mesh.shape
     first = mesh[0, 0]
+    if n_dp > CONSENSUS_MAX_PARTS:
+        raise ValueError(f"a step sums at most {CONSENSUS_MAX_PARTS} dp shards, got {n_dp}")
 
     def on(a, dtype, dev):
         t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
@@ -228,7 +285,7 @@ def make_assembly_step(mesh: np.ndarray, sg5: bool = True):
         B, W = mask.shape
         i32 = torch.int32
         bounds = [(B * k) // n_dp for k in range(n_dp + 1)]
-        bests, aecs, counts, scores = [], [], None, None
+        bests, aecs, counts, scores = [], [], [], []
         for k in range(n_dp):
             dev = mesh[k, 0]
             rows = slice(bounds[k], bounds[k + 1])
@@ -245,20 +302,17 @@ def make_assembly_step(mesh: np.ndarray, sg5: bool = True):
                                      on(rpsm, i32, dev), W)
             bests.append(best.to(first))
             aecs.append(aec.to(first))
-            # the sum over dp, on the first device
-            counts = c_k.to(first) if counts is None else counts + c_k.to(first)
-            scores = s_k.to(first) if scores is None else scores + s_k.to(first)
+            counts.append(c_k)
+            scores.append(s_k)
 
-        # sequence-parallel consensus: each sp shard calls one column block
+        # sequence-parallel consensus: each sp shard calls one column block,
+        # the first device the tail; each dp shard's columns of the block go
+        # to the call's device (read in place where they already are), and
+        # the kernel sums them as it reads them
         blk = W // n_sp
-        cons = []
-        for j in range(n_sp):
-            dev = mesh[0, j]
-            cols = slice(j * blk, (j + 1) * blk)
-            cons.append(consensus_call(counts[cols].to(dev).contiguous(),
-                                       scores[cols].to(dev).contiguous()).to(first))
-        cons.append(consensus_call(counts[n_sp * blk :].contiguous(),
-                                   scores[n_sp * blk :].contiguous()))
+        calls = [(mesh[0, j], slice(j * blk, (j + 1) * blk)) for j in range(n_sp)]
+        cons = [consensus_call(*block_parts(counts, scores, dev, cols)).to(first)
+                for dev, cols in calls + [(first, slice(n_sp * blk, W))]]
         return torch.cat(bests), torch.cat(aecs), torch.cat(cons)
 
     return step

@@ -530,6 +530,79 @@ def myers_pairs(seed: int = 0) -> list[tuple]:
     return out
 
 
+def edge_myers_pairs(seed: int = 0) -> list[tuple]:
+    """(name, seq_a, mode, seq_b, maxd) cases on the edges of the Myers
+    kernel (8 and then 16 bases a snake step, zero padding past both
+    lengths, only the live band of diagonals): lengths 0, 1, 7-9, 15-17,
+    31-33 and 63-65, each pair's wave-0 snake ending exactly at len_a and
+    len_b, at len_a only or at len_b only, the nine (ending, mode)
+    combinations all taken; runs of
+    ``N`` (bitmap 15, matching every base) on either side, so snakes run to
+    both ends; characters whose bitmap is 0 (matching nothing, themselves
+    included); maxd = 1; maxd above len_a + len_b (the caller clips it);
+    one side far longer than the other (the band's last lanes, where
+    y = x - k is smallest: it stays >= 0 on every computed lane, and the
+    kernel keeps the plain version's y < 0 return all the same); and a pair
+    of 120,000-base sequences a few edits apart, whose bitmaps pass the
+    kernel's shared memory, at maxd 8."""
+    from .ops.myers import Mode
+
+    rng = np.random.default_rng(seed)
+    modes = list(Mode)
+
+    def acgt(n: int) -> str:
+        return "".join(rng.choice(list("ACGT"), n))
+
+    out: list[tuple] = []
+    for i, n in enumerate((0, 1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65)):
+        a, tail = acgt(n), acgt(1 + i % 5)
+        ends, mode = (i + 1) % 3, modes[(i // 3) % 3]
+        if ends == 0:    # the snake ends at len_a and len_b together
+            out.append((f"both_{n}", a, mode, a, 12))
+        elif ends == 1:  # at len_a, with bases of b left
+            out.append((f"end_a_{n}", a, mode, a + tail, 12))
+        else:            # at len_b
+            out.append((f"end_b_{n}", a + tail, mode, a, 12))
+    for j, mode in enumerate(modes):
+        n = 30 + 3 * j
+        out.append((f"n_run_a_{n}", "N" * n, mode, acgt(n + j), 6))
+        out.append((f"n_run_b_{n}", acgt(n), mode, "N" * (n - j), 6))
+        mid = acgt(9) + "N" * 24 + acgt(10)
+        out.append((f"n_run_mid_{j}", mid, mode, mid[:9] + acgt(24) + mid[33:], 4))
+        x = acgt(10) + "X" + acgt(17)
+        out.append((f"zero_bitmap_{j}", x, mode, x.replace("X", "-"), 8))
+        s = acgt(20)
+        out.append((f"maxd1_same_{j}", s, mode, s, 1))
+        out.append((f"maxd1_sub_{j}", s, mode, s[:19] + ("A" if s[19] != "A" else "C"), 1))
+        out.append((f"maxd_clipped_{j}", acgt(5 + j), mode, acgt(7), 100))
+    out.append(("zero_bitmap_only", "-*.X" * 3, Mode.GLOBAL, "X.-*" * 2, 30))
+    out.append(("b_long", acgt(3), Mode.GLOBAL, acgt(40), 60))
+    out.append(("a_long", acgt(41), Mode.IS_PREFIX, acgt(2), 60))
+    big = acgt(120_000)
+    other = list(big)
+    for at in rng.choice(len(big), 3, replace=False):
+        other[at] = "ACGT"[("ACGT".index(other[at]) + 1) % 4]
+    out.append(("past_smem", big, Mode.GLOBAL, "".join(other), 8))
+    out.append(("past_smem_prefix", big[:-50], Mode.HAS_PREFIX, "".join(other), 8))
+    return out
+
+
+def myers_phase_pairs() -> list[tuple[str, str, str, int]]:
+    """The Myers kernel's timed pairs (smoke phase 9): (name, mt311, other
+    sequence, ccheck's maxd = max(len) / 10): an mt311-derived sample with
+    ~1% divergence, one with ~5%, and an unrelated random sequence that
+    runs every wave and finds no alignment."""
+    from .cli.ccheck import load_mt311
+    from .models.simulate import random_reference
+
+    panel = load_mt311()
+    reference, sample, _ = ccheck_sample(seed=31)
+    pairs = [("1%", sample),
+             ("5%", mutate(reference, np.random.default_rng(32), 0.05, 0.002)),
+             ("unrelated", random_reference(16569, seed=33))]
+    return [(name, panel, b, max(len(panel), len(b)) // 10) for name, b in pairs]
+
+
 def ccheck_sample(seed: int = 0) -> tuple[str, str, str]:
     """(reference, sample, contaminant) derived from mt311: ``reference``
     resolves mt311's IUPAC codes to compatible bases, ``sample`` is that
@@ -655,6 +728,59 @@ def tie_counts(W: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
     scores[3::7] = 500                        # a four-way tie
     scores[4::7] = (-399, -400, -399, -400)   # on and below the score floor
     return counts, scores
+
+
+def split_parts(counts: np.ndarray, scores: np.ndarray, n_parts: int, seed: int = 0,
+                big: bool = False) -> tuple[list, list]:
+    """``counts`` and ``scores`` cut into ``n_parts`` int32 arrays each whose
+    int32 sum, wrapping, gives them back: the partial accumulators of
+    ``n_parts`` dp shards.  The first parts are drawn in [0, 50), or with
+    ``big`` in [-2^30, 2^30), where the running sums wrap; the last part
+    makes up the rest."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for total in (counts, scores):
+        lo, hi = (-2**30, 2**30) if big else (0, 50)
+        parts = [rng.integers(lo, hi, total.shape, dtype=np.int64) for _ in range(n_parts - 1)]
+        last = (total.astype(np.int64) - sum(parts, np.zeros(total.shape, np.int64))
+                + 2**31) % 2**32 - 2**31
+        out.append([p.astype(np.int32) for p in [*parts, last]])
+    return out[0], out[1]
+
+
+def wrapping_parts(W: int, n_parts: int, seed: int = 0) -> tuple[list, list]:
+    """``n_parts`` (counts [W, 5], scores [W, 4]) int32 parts whose entries
+    lie in +-[2^30, 1.5 2^30), so that the sums of two or more parts, the
+    coverage and the gap test's products all wrap int32."""
+    rng = np.random.default_rng(seed)
+    counts = [rng.integers(2**30, 2**30 + 2**29, (W, 5)).astype(np.int32)
+              for _ in range(n_parts)]
+    scores = [(rng.integers(2**30, 2**30 + 2**29, (W, 4))
+               * rng.choice([-1, 1], (W, 4))).astype(np.int32) for _ in range(n_parts)]
+    return counts, scores
+
+
+def aten_ops(fn, *args, **kwargs) -> tuple:
+    """(``fn(*args, **kwargs)``, [(ATen operation, shapes of its tensor
+    arguments)] of every operation the call dispatched, on any device).
+    A hand-written kernel's launch is no ATen operation: only the tensors
+    around it show."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    log = []
+
+    class _Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            flat = tree_flatten((args, kwargs or {}))[0]
+            log.append((str(func.overloadpacket),
+                        [tuple(a.shape) for a in flat if isinstance(a, torch.Tensor)]))
+            return func(*args, **(kwargs or {}))
+
+    with _Log():
+        out = fn(*args, **kwargs)
+    return out, log
 
 
 def step_inputs(B: int, W: int, L: int, seed: int = 0, sub: float = 0.05) -> tuple:

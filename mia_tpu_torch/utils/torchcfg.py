@@ -92,10 +92,12 @@ def expected_constants() -> list[int]:
 
 def expected_myers_constants() -> list[int]:
     """The values ``mia_myers_constants`` must report: the sentinel of
-    out-of-range diagonals (``myers_torch._NEG``)."""
+    out-of-range diagonals (``myers_torch._NEG``) and the zero bytes a
+    bitmap carries past its length (``myers_cuda.SLACK``)."""
+    from ..ops.myers_cuda import SLACK
     from ..ops.myers_torch import _NEG
 
-    return [_NEG]
+    return [_NEG, SLACK]
 
 
 def expected_last_row_constants() -> list[int]:
@@ -123,10 +125,13 @@ def expected_pileup_constants() -> list[int]:
 
 
 def expected_consensus_call_constants() -> list[int]:
-    """The values ``mia_consensus_call_constants`` must report."""
+    """The values ``mia_consensus_call_constants`` must report: PERC4GAP,
+    MIN_SCORE_CONS and the most parts a call sums
+    (``parallel.sharded.CONSENSUS_MAX_PARTS``)."""
     from ..constants import MIN_SCORE_CONS, PERC4GAP
+    from ..parallel.sharded import CONSENSUS_MAX_PARTS
 
-    return [PERC4GAP, MIN_SCORE_CONS]
+    return [PERC4GAP, MIN_SCORE_CONS, CONSENSUS_MAX_PARTS]
 
 
 def check_constants(lib) -> None:
@@ -162,6 +167,23 @@ def _run_all(cmds: list[list[str]]) -> list[str]:
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{err}")
     return errs
+
+
+def build_sources(sources: dict[str, str], out_dir: str) -> dict[str, str]:
+    """Build each named source text into a shared library of its own under
+    ``out_dir`` with the library's flags, one ``nvcc`` each, all at once;
+    returns name -> library path.  For timing another form of a kernel
+    beside the library's (``chip_smoke.py --myers-ab``)."""
+    os.makedirs(out_dir, exist_ok=True)
+    cmds, libs = [], {}
+    for name, text in sources.items():
+        src = os.path.join(out_dir, f"{name}.cu")
+        with open(src, "w") as f:
+            f.write(text)
+        libs[name] = os.path.join(out_dir, f"lib{name}.so")
+        cmds.append([_nvcc(), *NVCC_FLAGS, "-shared", "-o", libs[name], src])
+    _run_all(cmds)
+    return libs
 
 
 def build_kernels() -> str:
@@ -242,7 +264,7 @@ def kernel_library() -> ctypes.CDLL:
         lib.mia_pileup_counts_constants.restype = ci
         lib.mia_pileup_counts_constants.argtypes = [vp, ci]
         lib.mia_consensus_call.restype = ci
-        lib.mia_consensus_call.argtypes = [vp, vp, ci, vp, vp]
+        lib.mia_consensus_call.argtypes = [vp, vp, ci, ci, vp, vp]
         lib.mia_consensus_call_constants.restype = ci
         lib.mia_consensus_call_constants.argtypes = [vp, ci]
         check_constants(lib)

@@ -3,12 +3,12 @@ entry scorer and its -h instantiation (mia_tpu_torch/csrc/dp_entries.cu,
 also against the exact host DP), the consensus column counts
 (mia_tpu_torch/csrc/column_counts.cu, also against the host accumulator),
 ccheck's Myers wavefront (mia_tpu_torch/csrc/myers_waves.cu, also against
-the host aligner), the general-width last-row scorer
-(mia_tpu_torch/csrc/dp_last_row.cu: the register form, and the wide form with
-shared-memory and global-memory rows),
-the pileup counts and the consensus call of the assembly step
-(csrc/pileup_counts.cu, csrc/consensus_call.cu), and the sharded scorer,
-consensus counts and step with every shard on the one card.
+the host aligner, on the adversarial pairs too), the general-width
+last-row scorer (mia_tpu_torch/csrc/dp_last_row.cu: the register form, and
+the wide form with shared-memory and global-memory rows), the pileup
+counts and the consensus call of the assembly step (csrc/pileup_counts.cu,
+csrc/consensus_call.cu, the latter over 1 to 32 parts), and the sharded
+scorer, consensus counts and step with every shard on the one card.
 
 Needs an NVIDIA card: without one every test skips (a CUDA kernel has no
 CPU mode).  The repository's conftest imports jax, which the machine with
@@ -252,6 +252,49 @@ def test_myers_kernel_matches_plain_and_host(cuda, kind, seed):
             assert want[0] == UINT_MAX and kd == maxd
 
 
+def _myers_on_card(cuda, a, mode, b, maxd):
+    """The kernel against the plain version (found and the whole history)
+    and myers_diff_torch on the card against the host aligner, one launch."""
+    from mia_tpu_torch.ops.myers import Mode, myers_diff
+
+    bm_a, bm_b = myers_torch.bitmaps(a, b)
+    flags = dict(maxd=maxd, mode_is_prefix=mode == Mode.IS_PREFIX,
+                 mode_has_prefix=mode == Mode.HAS_PREFIX)
+    args = (torch.from_numpy(bm_a).to(cuda), torch.from_numpy(bm_b).to(cuda), len(a), len(b))
+    myers_cuda.reset_counts()
+    kd, kk, khist = myers_cuda.waves(*args, **flags)
+    torch.cuda.synchronize()
+    assert (myers_cuda.kernel_launches, myers_cuda.plain_calls) == (1, 0)
+    pd, pk, phist = myers_torch.waves_plain(*args, **flags)
+    assert (kd, kk) == (pd, pk)
+    assert torch.equal(khist, phist)
+    assert myers_torch.myers_diff_torch(a, mode, b, maxd, device=cuda) == \
+        myers_diff(a, mode, b, maxd)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_myers_kernel_on_edge_pairs(cuda, seed):
+    """edge_myers_pairs: lengths around the 8- and 16-base snake steps and the
+    padding, N runs, bitmap-0 characters, snakes ending at either or both
+    ends, maxd 1 and clipped, all modes, bitmaps past shared memory."""
+    for name, a, mode, b, maxd in T.edge_myers_pairs(seed):
+        maxd = min(maxd, len(a) + len(b))
+        if maxd > 0:
+            _myers_on_card(cuda, a, mode, b, maxd)
+
+
+def test_myers_kernel_with_the_ring_in_global_memory(cuda):
+    """maxd 15,000: two rows of 30,001 lanes pass shared memory, so the
+    previous wave is read back from the history (an 8 kb pair 40 edits
+    apart: the alignment is found early, the history is 1.8 GB)."""
+    from mia_tpu_torch.ops.myers import Mode
+
+    rng = np.random.default_rng(7)
+    a = "".join(rng.choice(list("ACGT"), 8000))
+    b = T.mutate(a, rng, 0.004, 0.001)
+    _myers_on_card(cuda, a, Mode.GLOBAL, b, 15000)
+
+
 def test_myers_kernel_rejects_mixed_devices(cuda):
     bm_a, bm_b = (torch.from_numpy(x) for x in myers_torch.bitmaps("ACGTA", "ACGA"))
     with pytest.raises(ValueError):
@@ -330,6 +373,49 @@ def test_pileup_and_consensus_kernels_match_plain(cuda, B, W, L, seed):
     assert torch.equal(sharded.consensus_call(tc, ts), sharded.consensus_from_counts(tc, ts))
     assert (sharded.pileup_launches, sharded.pileup_plain_calls) == (1, 0)
     assert (sharded.consensus_launches, sharded.consensus_plain_calls) == (2, 0)
+
+
+@pytest.mark.parametrize("n_parts", [1, 2, 4, 8, 32])
+def test_consensus_kernel_sums_parts(cuda, n_parts):
+    """The consensus call over n_parts partial accumulators against the
+    plain version on the same parts: pileups, tie_counts cut into parts
+    whose running sums wrap, parts whose own sums wrap; whole columns and
+    slices at odd offsets."""
+    W = 17024
+    piles = [sharded._pileup_counts(*(torch.from_numpy(d[k]) for k in T.PILEUP_KEYS), W)
+             for d in (T.pileup_inputs(256, W, 64, seed=s) for s in range(n_parts))]
+    cases = [([c.numpy() for c, _ in piles], [s.numpy() for _, s in piles]),
+             T.split_parts(*T.tie_counts(W, seed=n_parts), n_parts, seed=n_parts, big=True),
+             T.wrapping_parts(W, n_parts, seed=n_parts)]
+    sharded.reset_counts()
+    calls = 0
+    for counts, scores in cases:
+        whole = ([torch.from_numpy(c).to(cuda) for c in counts],
+                 [torch.from_numpy(x).to(cuda) for x in scores])
+        for cols in (slice(0, W), slice(3, W - 2), slice(7, 8)):
+            pc = [torch.from_numpy(np.ascontiguousarray(c[cols])).to(cuda) for c in counts]
+            ps = [torch.from_numpy(np.ascontiguousarray(x[cols])).to(cuda) for x in scores]
+            got = sharded.consensus_call(pc, ps)
+            assert torch.equal(got, sharded.consensus_from_parts(pc, ps))
+            # the same columns read in place from the whole parts
+            assert torch.equal(sharded.consensus_call(*whole, cols), got)
+            calls += 2
+    assert (sharded.consensus_launches, sharded.consensus_plain_calls) == (calls, 0)
+
+
+def test_step_sums_dp_inside_the_consensus_kernel(cuda):
+    """dp = 4, sp = 2 on the card: no ATen add over any [*, 5] or [*, 4]
+    accumulator is left in the step, two consensus launches, equal to one
+    device."""
+    s = T.step_inputs(64, 2000, 48, seed=11)
+    sharded.reset_counts()
+    got, ops = T.aten_ops(sharded.make_assembly_step(sharded.make_mesh(4, 2, [cuda] * 8)), *s)
+    assert (sharded.consensus_launches, sharded.consensus_plain_calls) == (2, 0)
+    assert not [op for op, shapes in ops if op.startswith("aten.add")
+                and any(len(sh) == 2 and sh[1] in (4, 5) for sh in shapes)]
+    want = sharded.make_assembly_step(sharded.make_mesh(1, 1, [cuda]))(*s)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -187,11 +187,16 @@ def test_kernel_library_constants_checked(values, ok):
             torchcfg.check_constants(lib)
 
 
-@pytest.mark.parametrize("myers", [[-(2**30) + 1], [-(2**30), 0]])
+@pytest.mark.parametrize("myers", [[-(2**30) + 1], [-(2**30), 0], [-(2**30), 16],
+                                   [-(2**30) + 1, 24]])
 def test_kernel_library_myers_constants_checked(myers):
-    assert torchcfg.expected_myers_constants() == [-(2**30)]
+    """The sentinel and the bitmaps' zero padding past their lengths."""
+    assert torchcfg.expected_myers_constants() == [-(2**30), 24]
     with pytest.raises(RuntimeError, match="mia_myers_constants"):
         torchcfg.check_constants(_FakeKernelLibrary(torchcfg.expected_constants(), myers))
+    src = open(os.path.join(torchcfg.CSRC_DIR, "myers_waves.cu")).read()
+    for decl in ("kNeg = -(1 << 30);", "kSlack = 24;"):
+        assert f"constexpr int {decl}" in src, decl
 
 
 @pytest.mark.parametrize("which,values", [
@@ -199,7 +204,9 @@ def test_kernel_library_myers_constants_checked(myers):
                   256]),                                                     # smem limit
     ("last_row", [1000, 200, -(2**30), -(2**30) - 2**29, 31, 227 * 1024 - 1024, 34,
                   512]),                                                     # count
-    ("cons", [50, -400]),                                                    # MIN_SCORE_CONS
+    ("cons", [50, -400, 32]),                                                # MIN_SCORE_CONS
+    ("cons", [50, -399, 4]),                                                 # parts a call sums
+    ("cons", [50, -399]),                                                    # count
     ("last_row", [1000, 200, -(2**30), -(2**30) - 2**29, 31, 227 * 1024 - 1024, 17,
                   1024, 256]),                                               # columns a thread
     ("pileup", [31, 1024, 128]),                                             # a block's list
@@ -210,7 +217,7 @@ def test_kernel_library_step_constants_checked(which, values):
     constants are held against the Python side's too."""
     assert torchcfg.expected_last_row_constants() == [
         1000, 200, -(2**30), -(2**30) - 2**29, 31, 227 * 1024 - 1024, 34, 512, 256]
-    assert torchcfg.expected_consensus_call_constants() == [50, -399]
+    assert torchcfg.expected_consensus_call_constants() == [50, -399, 32]
     assert torchcfg.expected_pileup_constants() == [31, 2048, 128]
     lib = _FakeKernelLibrary(torchcfg.expected_constants(), **{which: values})
     entry = {"last_row": "dp_last_row", "cons": "consensus_call", "pileup": "pileup_counts"}
@@ -227,6 +234,7 @@ def test_kernel_library_step_constants_checked(which, values):
     src = open(os.path.join(torchcfg.CSRC_DIR, "consensus_call.cu")).read()
     assert "constexpr int kPerc4Gap = 50;" in src
     assert "constexpr int kMinScoreCons = -399;" in src
+    assert "constexpr int kMaxParts = 32;" in src
 
 
 def test_kernel_constants_match_python_side():
@@ -245,7 +253,7 @@ def test_kernel_constants_match_python_side():
             len(je.hp_pengop_table())) == (384, 16, 256, 15, 1000, 200, 32, 11)
     src = open(os.path.join(torchcfg.CSRC_DIR, "myers_waves.cu")).read()
     assert "constexpr int kNeg = -(1 << 30);" in src
-    assert torchcfg.expected_myers_constants() == [-(1 << 30)]
+    assert torchcfg.expected_myers_constants() == [-(1 << 30), 24]
 
 
 NO_JAX_RUN = r"""

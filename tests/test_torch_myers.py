@@ -4,9 +4,13 @@ found_k and every history row) on the same seeded bitmaps, and
 ``myers_diff_torch`` must equal ``myers_diff_jax`` and the host
 ``myers_diff`` (distance and both backtrace strings), across the three
 modes, IUPAC panels, maxd too small, identical, empty and completely
-different sequences, tiny pairs whose distance exceeds a length, and one
-full-size mt311 pair.  JAX runs on its CPU backend, as in
-tests/test_myers_jax.py.
+different sequences, tiny pairs whose distance exceeds a length, one
+full-size mt311 pair, and the adversarial pairs of
+``testing.edge_myers_pairs`` (the kernel's edges: lengths around its
+8- and 16-base snake steps and padding, N runs, bitmap-0 characters,
+snakes ending at either or both ends, maxd 1 and clipped, bitmaps past its
+shared memory).
+JAX runs on its CPU backend, as in tests/test_myers_jax.py.
 
 Tolerance: exact equality.
 """
@@ -79,6 +83,51 @@ def test_myers_diff_torch_edge_cases(a, b, maxd):
         want = myers_diff(a, mode, b, maxd)
         assert myers_diff_torch(a, PortMode[mode.name], b, maxd, device=CPU) == want
         assert myers_diff_jax(a, mode, b, maxd) == want
+
+
+@pytest.mark.parametrize("mode", list(Mode))
+def test_waves_plain_matches_jax_waves_on_edge_pairs(mode):
+    """Whole history, exact; ``myers_diff_torch`` also against the host
+    aligner on each pair."""
+    names = []
+    for name, a, pmode, b, maxd in T.edge_myers_pairs(seed=0):
+        if pmode.name != mode.name or min(maxd, len(a) + len(b)) <= 0:
+            continue
+        (fd, fk, hist), (pd, pk, phist) = _both_waves(a, mode, b, maxd)
+        assert (pd, pk) == (fd, fk), name
+        np.testing.assert_array_equal(phist, hist, err_msg=name)
+        assert myers_diff_torch(a, pmode, b, maxd, device=CPU) == myers_diff(a, mode, b, maxd), \
+            name
+        names.append(name)
+    assert len(names) >= 10
+    assert any(n.startswith("past_smem") for n in names) == (mode != Mode.IS_PREFIX)
+
+
+def test_edge_myers_pairs_cover_their_cases():
+    """Every (snake end, mode) combination, and bitmaps past the kernel's
+    shared memory (227 KB) with a small maxd."""
+    pairs = T.edge_myers_pairs(seed=0)
+    combos = {(n.rsplit("_", 1)[0], m.name) for n, _, m, _, _ in pairs
+              if n.startswith(("both", "end_"))}
+    assert len(combos) == 9
+    big = [(a, b, maxd) for n, a, _, b, maxd in pairs if n.startswith("past_smem")]
+    assert big and all(myers_cuda.padded_len(len(a)) + myers_cuda.padded_len(len(b))
+                       > 227 * 1024 and maxd <= 8 for a, b, maxd in big)
+    lengths = {len(s) for _, a, _, b, _ in pairs for s in (a, b)}
+    assert lengths >= {0, 1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65}
+
+
+def test_padded_bitmaps():
+    """The kernel's view of the bitmaps: each at a 16-byte boundary, at
+    least SLACK zero bytes past its length."""
+    for la, lb in ((0, 0), (1, 7), (8, 16), (17, 33), (40, 1)):
+        bm_a, bm_b = (torch.from_numpy(x) for x in bitmaps("ACGTN" * la, "RYK" * lb))
+        pa, pb = myers_cuda.padded_bitmaps(bm_a, bm_b, 5 * la, 3 * lb)
+        for p, bm, n in ((pa, bm_a, 5 * la), (pb, bm_b, 3 * lb)):
+            assert p.numel() == myers_cuda.padded_len(n) and p.numel() % 16 == 0
+            assert p.numel() >= n + myers_cuda.SLACK
+            assert torch.equal(p[:n], bm[:n]) and not p[n:].any()
+        assert (pb.data_ptr() - pa.data_ptr()) % 16 == 0
 
 
 def test_full_size_mt311_pair():

@@ -94,6 +94,117 @@ def test_consensus_from_counts_matches_jax(seed):
     assert (sharded.consensus_plain_calls, sharded.consensus_launches) == (1, 0)
 
 
+def _parts_cases(n_parts: int, W: int = 301):
+    """(name, counts parts, scores parts) as numpy int32: the pileups of
+    n_parts read sets, tie_counts cut into parts whose running sums wrap,
+    and parts whose own sums wrap."""
+    piles = [sharded._pileup_counts(*(torch.from_numpy(d[k]) for k in T.PILEUP_KEYS), W)
+             for d in (T.pileup_inputs(24, W, 32, seed=s) for s in range(n_parts))]
+    return [("pileups", [c.numpy() for c, _ in piles], [s.numpy() for _, s in piles]),
+            ("ties", *T.split_parts(*T.tie_counts(W, seed=n_parts), n_parts, seed=n_parts,
+                                    big=True)),
+            ("wrapping", *T.wrapping_parts(W, n_parts, seed=n_parts))]
+
+
+@pytest.mark.parametrize("n_parts", [1, 2, 4, 8, 32])
+def test_consensus_from_parts_matches_jax(n_parts):
+    """The sum over dp folded into the consensus call: ``consensus_from_parts``
+    equals jnp.sum of the parts followed by the JAX package's
+    consensus_from_counts, on whole columns and on column slices at odd
+    offsets, sums that wrap int32 included; the wrapper on the CPU is one
+    plain call."""
+    W = 301
+    for name, counts, scores in _parts_cases(n_parts, W):
+        wide = np.sum(np.stack(counts).astype(np.int64), axis=0)
+        if name == "wrapping":  # the coverage wraps, and with two parts or more each sum
+            assert (wide.sum(axis=1) > 2**31 - 1).all()
+            assert (wide > 2**31 - 1).all() == (n_parts > 1)
+        for cols in (slice(0, W), slice(3, W - 2), slice(7, 8)):
+            pc = [np.ascontiguousarray(c[cols]) for c in counts]
+            ps = [np.ascontiguousarray(s[cols]) for s in scores]
+            want = np.asarray(tpu_sharded.consensus_from_counts(
+                jnp.sum(jnp.stack(pc), axis=0), jnp.sum(jnp.stack(ps), axis=0)))
+            tc, ts = [torch.from_numpy(c) for c in pc], [torch.from_numpy(s) for s in ps]
+            got = sharded.consensus_from_parts(tc, ts)
+            np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{name} {cols}")
+            sharded.reset_counts()
+            assert torch.equal(sharded.consensus_call(tc, ts), got)
+            whole = ([torch.from_numpy(c) for c in counts], [torch.from_numpy(s) for s in scores])
+            assert torch.equal(sharded.consensus_call(*whole, cols), got)
+            assert (sharded.consensus_plain_calls, sharded.consensus_launches) == (2, 0)
+        if name == "ties":  # the parts add up to tie_counts again
+            tie = sharded.consensus_from_counts(*(torch.from_numpy(a)
+                                                  for a in T.tie_counts(W, seed=n_parts)))
+            assert torch.equal(sharded.consensus_from_parts(
+                [torch.from_numpy(c) for c in counts], [torch.from_numpy(s) for s in scores]), tie)
+
+
+def test_consensus_call_rejects_bad_parts():
+    c, s = (torch.from_numpy(a) for a in T.tie_counts(40))
+    sharded.reset_counts()
+    with pytest.raises(ValueError, match="want 1 to 32"):
+        sharded.consensus_call([], [])
+    with pytest.raises(ValueError, match="want 1 to 32"):
+        sharded.consensus_call([c] * 33, [s] * 33)
+    with pytest.raises(ValueError, match="want 1 to 32"):
+        sharded.consensus_call([c, c], [s])
+    with pytest.raises(ValueError, match=r"counts\[1\]: shape"):
+        sharded.consensus_call([c, c[1:]], [s, s])
+    with pytest.raises(TypeError, match=r"scores\[1\]"):
+        sharded.consensus_call([c, c], [s, s.to(torch.int64)])
+    with pytest.raises(ValueError, match=r"counts\[1\]: not contiguous"):
+        sharded.consensus_call([c, c.t().contiguous().t()], [s, s])
+    with pytest.raises(ValueError, match=r"scores\[0\]: on meta"):
+        sharded.consensus_call([c], [s.to("meta")])
+    with pytest.raises(ValueError, match="a step of 1"):
+        sharded.consensus_call([c], [s], slice(0, 40, 2))
+    with pytest.raises(ValueError, match="sums at most 32"):
+        sharded.make_assembly_step(np.array([["cpu"]] * 33))
+    assert (sharded.consensus_plain_calls, sharded.consensus_launches) == (0, 0)
+
+
+def test_assembly_step_sums_dp_inside_the_consensus_call(monkeypatch):
+    """dp = 4, sp = 2: every consensus call takes the four dp shards'
+    slices of its columns, and no add over the whole [W, 5] or [W, 4]
+    accumulators is left in the step (the CPU's plain version adds its
+    parts inside the call, over a block's columns)."""
+    W = 300
+    args = T.step_inputs(16, W, 24, seed=3)
+    calls = []
+    orig = sharded.consensus_call
+    monkeypatch.setattr(sharded, "consensus_call", lambda c, s, cols: calls.append(
+        ([tuple(x.shape) for x in c], cols)) or orig(c, s, cols))
+    got, ops = T.aten_ops(sharded.make_assembly_step(sharded.make_mesh(4, 2, ["cpu"] * 8)),
+                          *args)
+    assert calls == [([(W, 5)] * 4, slice(0, 150)), ([(W, 5)] * 4, slice(150, 300)),
+                     ([(W, 5)] * 4, slice(300, 300))]
+    assert not [op for op, shapes in ops if op.startswith("aten.add")
+                and any(sh in ((W, 5), (W, 4)) for sh in shapes)]
+    want = sharded.make_assembly_step(sharded.make_mesh(1, 1, ["cpu"]))(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_block_parts_sends_only_the_block_between_devices():
+    """A consensus call on the parts' own device reads them in place; on
+    another device it gets only the block's rows of each part (the meta
+    device stands in for a second card)."""
+    counts, scores = T.split_parts(*T.tie_counts(40, seed=2), 4, seed=2)
+    pc, ps = [torch.from_numpy(c) for c in counts], [torch.from_numpy(s) for s in scores]
+    cols = slice(10, 30)
+    c, s, got_cols = sharded.block_parts(pc, ps, torch.device("cpu"), cols)
+    assert (c, s, got_cols) == (pc, ps, cols)
+    c, s, got_cols = sharded.block_parts(pc, ps, torch.device("meta"), cols)
+    assert got_cols == slice(None)
+    assert [(t.device.type, tuple(t.shape)) for t in c] == [("meta", (20, 5))] * 4
+    assert [(t.device.type, tuple(t.shape)) for t in s] == [("meta", (20, 4))] * 4
+    # one part already there: every part's block is taken, so the call sees
+    # one shape
+    c, s, got_cols = sharded.block_parts([pc[0].to("meta"), *pc[1:]], ps,
+                                         torch.device("meta"), cols)
+    assert got_cols == slice(None) and {tuple(t.shape) for t in c} == {(20, 5)}
+
+
 @pytest.mark.parametrize("B,W,L,seed", [(16, 120, 24, 0), (40, 60, 32, 1)])
 def test_pileup_counts_matches_jax(B, W, L, seed):
     """Starts that run off both ends, code 4, both strands."""
