@@ -125,6 +125,15 @@ counts) and the committed goldens.
     devices (all cuda:0) byte-identical to the single-device run, with
     ``dp.shards`` = 4, four launches where the single run had one, and no
     plain call.
+16a. multi-host on one card: two processes of the port's mia CLI
+   (``MIA_TORCH_*`` variables on a free local port, ``--engine torch
+   --profile``, both on cuda:0) on phase 7's workload, started together on a
+   cold kernel-library build: rank 0's malns equal phase 7's single-process
+   run, rank 1 writes none, and each rank's profile shows device-scored
+   reads, scorer and consensus launches and no plain call.  Then the same
+   with ``-C2 -q out.fastq`` against one process of the port, maln and fastq
+   byte for byte.  Prints each rank's wall time, ``dist.collectives`` and
+   ``dist.collective_s`` beside the single-process time.
 17. dry run: ``mia_tpu_torch.entry.dryrun_multichip(4)``.
 
 The last lines are a JSON line of per-kernel numbers (``ms``, the time of a
@@ -725,10 +734,12 @@ def e2e_workload() -> list[str]:
             "-s", os.path.join(REPO, SUBMAT)]
 
 
-def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool, captured: dict) -> dict:
+def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool,
+            captured: dict) -> tuple[dict, dict]:
     """One e2e path: the port in this process with every count set to 0 just
     before it and read just after, checked byte for byte against the port's
-    own --engine native.  Returns the launch counts of the run."""
+    own --engine native.  Returns the launch counts of the run and its wall
+    seconds by engine and process (``torch_inproc``, ``torch`` ...)."""
     from mia_tpu_torch.ops import consensus_torch, dp_cuda
 
     d = os.path.join(WORK, tag)
@@ -755,7 +766,7 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool, captured: di
     native_prof = run_mia(args, os.path.join(d, "native_inproc", "out.maln"), "native",
                           profile=True)
     t_native_warm = time.time() - t0
-    times = f"wall s in this process (warm): torch {t_torch_warm:.3f}, native {t_native_warm:.3f}"
+    walls = {"torch_inproc": t_torch_warm, "native_inproc": t_native_warm}
     if new_process:
         env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
 
@@ -766,8 +777,12 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool, captured: di
                            env=env, check=True, capture_output=True, timeout=900)
             return time.time() - t0
 
-        times += (f"; as a new process: torch {cli('torch'):.3f}, "
-                  f"native {cli('native'):.3f}")
+        walls["torch"], walls["native"] = cli("torch"), cli("native")
+    times = (f"wall s in this process (warm): torch {walls['torch_inproc']:.3f}, "
+             f"native {walls['native_inproc']:.3f}")
+    if new_process:
+        times += (f"; as a new process: torch {walls['torch']:.3f}, "
+                  f"native {walls['native']:.3f}")
 
     want = maln_bytes(os.path.join(d, "native_inproc", "out.maln"))
     for e in engines:
@@ -796,7 +811,7 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool, captured: di
     say(f"{tag}: profile " + json.dumps(counters, sort_keys=True))
     say(f"{tag}: phases s, torch " + json.dumps(prof["phases_s"], sort_keys=True))
     say(f"{tag}: phases s, native " + json.dumps(native_prof["phases_s"], sort_keys=True))
-    return counts
+    return counts, walls
 
 def raw_myers_waves(lib, bm_a, bm_b, len_a: int, len_b: int, maxd: int):
     """``launch()`` of ``lib``'s Myers kernel into a history and a result
@@ -1466,6 +1481,150 @@ def phase_sharded_e2e(args: list[str], dev, single_counts: dict) -> None:
         f"{wall:.3f} s in this process")
 
 
+MULTIHOST_CHECKS = ("pass1.device_scored_reads", "reiterate.device_entries",
+                    "dp.kernel_launches", "dp.plain_calls", "cons.kernel_launches",
+                    "cons.plain_calls", "consensus.device_fallbacks", "dist.collectives")
+
+
+def run_ranks(tag: str, args: list[str], n: int = 2, timeout: float = 600) -> list[dict]:
+    """``n`` processes of the port's mia CLI under ``--engine torch
+    --profile``, one gloo group over localhost (the ``MIA_TORCH_*``
+    variables), every rank on cuda:0 of this one card, rank i writing into
+    WORK/tag/rank<i>.  All start at once; any rank that fails stops them
+    all.  Returns per rank its directory, process wall seconds and profile."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    ranks, procs = [], []
+    t0 = time.time()
+    for i in range(n):
+        d = os.path.join(WORK, tag, f"rank{i}")
+        os.makedirs(d)
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                   MIA_TORCH_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   MIA_TORCH_NUM_PROCESSES=str(n), MIA_TORCH_PROCESS_ID=str(i))
+        log = open(os.path.join(WORK, tag, f"rank{i}.log"), "w")
+        ranks.append({"dir": d, "log": log.name})
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "mia_tpu_torch.cli.mia", *args, "-m", "out.maln",
+             "--engine", "torch", "--profile"], cwd=d, env=env, stdout=log,
+            stderr=subprocess.STDOUT))
+        log.close()
+    try:
+        while any(p.returncode is None for p in procs):
+            for r, p in zip(ranks, procs):
+                if p.returncode is None and p.poll() is not None:
+                    r["wall_s"] = time.time() - t0
+                    if p.returncode != 0:
+                        with open(r["log"]) as f:
+                            raise RuntimeError(f"{tag}: a rank exited {p.returncode}:\n"
+                                               f"{f.read()[-3000:]}")
+            if time.time() - t0 > timeout:
+                raise RuntimeError(f"{tag}: the ranks did not finish in {timeout} s")
+            time.sleep(0.02)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r in ranks:
+        with open(r["log"]) as f:
+            line = [ln for ln in f if ln.startswith("MIA_PROFILE ")][-1]
+        r["profile"] = json.loads(line.split(" ", 1)[1])
+    return ranks
+
+
+def check_ranks(tag: str, ranks: list[dict], want: dict[str, bytes],
+                files: list[tuple[str, bytes]]) -> None:
+    """Rank 0 wrote ``want`` (maln files without their timestamp line, and
+    ``files`` byte for byte), rank 1 nothing; every rank went through the
+    kernels and none through a plain version."""
+    got = maln_bytes(os.path.join(ranks[0]["dir"], "out.maln"))
+    if not want or got != want:
+        diff = [k for k in sorted(set(got) | set(want)) if got.get(k) != want.get(k)]
+        raise AssertionError(f"{tag}: rank 0's malns differ from one process's: {diff}")
+    for fn, data in files:
+        with open(os.path.join(ranks[0]["dir"], fn), "rb") as f:
+            if f.read() != data:
+                raise AssertionError(f"{tag}: rank 0's {fn} differs from one process's")
+    for r in ranks[1:]:
+        if os.listdir(r["dir"]):
+            raise AssertionError(f"{tag}: a rank other than 0 wrote {os.listdir(r['dir'])}")
+    for i, r in enumerate(ranks):
+        c = r["profile"]["counters"]
+        checks = {k: c.get(k, 0) for k in MULTIHOST_CHECKS}
+        if not (checks["pass1.device_scored_reads"] > 0 and checks["dp.kernel_launches"] > 0
+                and checks["cons.kernel_launches"] > 0 and checks["dist.collectives"] > 0
+                and checks["reiterate.device_entries"] > 0
+                and checks["dp.plain_calls"] == checks["cons.plain_calls"] == 0
+                and checks["consensus.device_fallbacks"] == 0):
+            raise AssertionError(f"{tag}: rank {i} did not take the device path: {checks}")
+        r["checks"] = checks
+
+
+def say_ranks(tag: str, ranks: list[dict], single: str, smi: str) -> None:
+    for i, r in enumerate(ranks):
+        p = r["profile"]
+        say(f"{tag}: rank {i} on cuda:0, wall {r['wall_s']:.3f} s as a new process "
+            f"(run {p['total_s']:.3f} s), dist.collectives {p['counters']['dist.collectives']}"
+            f", dist.collective_s {p['phases_s'].get('dist.collective_s', 0.0):.3f}; "
+            f"{json.dumps(r['checks'])}; {smi}")
+        say(f"{tag}: rank {i} phases s " + json.dumps(p["phases_s"], sort_keys=True))
+    say(f"{tag}: one process: {single}; {smi}")
+
+
+def phase_multihost(args: list[str], walls: dict, smi: str) -> None:
+    """Two processes of the port on this one card as a multi-host run of
+    phase 7's 20k-read workload, started together on a cold kernel-library
+    build: rank 0's malns equal phase 7's single-process run, rank 1 writes
+    nothing, both ranks launch the kernels and call no plain version.  Then
+    the same with ``-C2 -q``, against one process of the port (maln and
+    fastq byte for byte)."""
+    from mia_tpu_torch.utils import torchcfg
+
+    # both ranks start with no library: one builds it under the lock, the
+    # other waits and loads the same file (this process keeps its own open)
+    lib_dir = os.path.dirname(torchcfg.library_path())
+    shutil.rmtree(lib_dir)
+    ranks = run_ranks("multihost", args)
+    left = sorted(os.listdir(lib_dir))
+    if (not os.path.exists(torchcfg.library_path()) or "build.log" not in left
+            or any(fn.endswith(".tmp") for fn in left)):
+        raise AssertionError(f"multi-host: the cold build left {left}")
+    want = maln_bytes(os.path.join(WORK, "e2e", "torch_inproc", "out.maln"))
+    check_ranks("multi-host", ranks, want, [])
+    say(f"multi-host: 2 ranks, 20k reads, {len(want)} maln files of rank 0 byte-identical "
+        f"to phase 7's one process; rank 1 wrote none; the kernel library built once "
+        f"from cold for both ({', '.join(left)})")
+    say_ranks("multi-host", ranks, f"wall {walls['torch']:.3f} s as a new process, "
+              f"{walls['torch_inproc']:.3f} s warm in this process (phase 7)", smi)
+
+    fq = ["-C2", "-q", "out.fastq"]
+    ranks = run_ranks("multihost_cq", [*args, *fq])
+    d = os.path.join(WORK, "multihost_cq", "single")
+    os.makedirs(d)
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", "mia_tpu_torch.cli.mia", *args, *fq, "-m",
+                        "out.maln", "--engine", "torch", "--profile"], cwd=d, check=True,
+                       capture_output=True, text=True, timeout=600,
+                       env=dict(os.environ, PYTHONPATH=REPO + os.pathsep
+                                + os.environ.get("PYTHONPATH", "")))
+    t_single = time.time() - t0
+    prof = json.loads([ln for ln in r.stderr.splitlines()
+                       if ln.startswith("MIA_PROFILE ")][-1].split(" ", 1)[1])
+    with open(os.path.join(d, "out.fastq"), "rb") as f:
+        fastq = f.read()
+    want = maln_bytes(os.path.join(d, "out.maln"))
+    check_ranks("multi-host -C2 -q", ranks, want, [("out.fastq", fastq)])
+    say(f"multi-host -C2 -q: 2 ranks, {len(want)} maln files and the fastq "
+        f"({len(fastq)} bytes) of rank 0 byte-identical to one process of the port")
+    say_ranks("multi-host -C2 -q", ranks, f"wall {t_single:.3f} s as a new process (run "
+              f"{prof['total_s']:.3f} s), phases s {json.dumps(prof['phases_s'], sort_keys=True)}",
+              smi)
+
+
 def phase_dryrun() -> None:
     from mia_tpu_torch.entry import dryrun_multichip
 
@@ -1522,9 +1681,10 @@ def main() -> int:
     phase_edges(dev)
     args = e2e_workload()
     captured: dict = {}
-    main_counts = run_e2e("e2e", args, hp=False, new_process=True, captured=captured)
-    hp_counts = run_e2e("e2e_hp", [*args, "-h"], hp=True, new_process=False,
-                        captured=captured)
+    main_counts, main_walls = run_e2e("e2e", args, hp=False, new_process=True,
+                                      captured=captured)
+    hp_counts, _ = run_e2e("e2e_hp", [*args, "-h"], hp=True, new_process=False,
+                           captured=captured)
     shapes = phase_workload_shapes(captured)
     myers_kern = phase_myers_kernel(dev)
     phase_ccheck_golden()
@@ -1534,6 +1694,7 @@ def main() -> int:
     step_counts = phase_step(dev)
     phase_sharded(dev)
     phase_sharded_e2e(args, dev, main_counts)
+    phase_multihost(args, main_walls, smi)
     phase_dryrun()
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "mia_tpu")]
     if bad:

@@ -4,8 +4,7 @@ src/mia_main.c:394-989).
 Pass 1 aligns every read fw+rc against the (wrapped) reference, then the
 engine iterates: consensus -> realign -> filter -> cull -> write maln, until
 the consensus string repeats or MAX_ITER is hit.  It is the JAX package's
-``mia_tpu/core/assembler.py`` in a single process, with the device engine
-replaced:
+``mia_tpu/core/assembler.py`` with the device engine replaced:
 
 * ``--engine torch``: pass 1 and every realignment score their entries with
   the port's scorer (:mod:`mia_tpu_torch.core.torch_engine`), over several
@@ -17,14 +16,24 @@ replaced:
   fw/rc DP and traceback in one threaded FFI call per batch).
 * ``--engine numpy``: the exact per-read host path.
 
-Left out of this port, with the reason each existed: multi-host sharding
-(not ported yet: such runs raise :class:`NotPortedError`), and the resident
-scoring server and work-stealing (they hid the TPU's backend start and
-compiles; here the kernel library builds once when the scorer is made).
+Multi-host (SPMD over read shards) under every engine: launched with
+``MIA_TORCH_COORDINATOR_ADDRESS`` / ``MIA_TORCH_NUM_PROCESSES`` /
+``MIA_TORCH_PROCESS_ID``, every process runs :func:`run_assembly` over its
+contiguous slice of the input stream and, under ``--engine torch``, scores it
+on its own card; repeat filtering and the dynamic score cutoff replay
+globally (:class:`~mia_tpu_torch.parallel.distributed.GlobalReadFilter`),
+per-iteration consensus counts and the shared max-insert array are summed
+over the processes, convergence is a global vote, and rank 0 writes the
+complete maln — byte-identical to a single-process run.
+
+Left out of this port, with the reason each existed: the resident scoring
+server and work-stealing (they hid the TPU's backend start and compiles; here
+the kernel library builds once when the scorer is made).
 """
 from __future__ import annotations
 
 import concurrent.futures as _cf
+import functools
 import os
 import sys
 import time
@@ -36,12 +45,15 @@ from ..constants import FIRST_ROUND_SCORE_CUTOFF, INIT_ALN_SEQ_LEN, MAX_ITER, PS
 from ..io.fasta import read_fasta_ref
 from ..io.ids import parse_ids
 from ..io.maln import write_ma
+from ..io.native import count_frag_seqs, iter_frag_seqs_range
 from ..io.native import iter_frag_seqs_fast as iter_frag_seqs
 from ..io.pssm_io import find_read_pssm
 from ..ops import consensus_torch
 from ..ops.kmer import KmerPosArray, new_kmer_filter
 from ..ops.pssm import init_flatsubmat, revcom_submat
+from ..parallel import distributed as dist
 from ..utils import profiling
+from ..utils.torchcfg import select_device
 from .columns import consensus_assembly_string, sort_aln_frags
 from .driver import (
     finish_alignment,
@@ -84,20 +96,20 @@ class NotPortedError(NotImplementedError):
     """A run the port does not cover yet under ``--engine torch``."""
 
 
-# What asks for a multi-host run: the port's own variable (with
-# MIA_TORCH_NUM_PROCESSES and MIA_TORCH_PROCESS_ID reserved beside it for the
-# process count and this process's rank), and the JAX package's, which a
-# launcher written for it may still set.
-MULTI_HOST_VARIABLES = ("MIA_TORCH_COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS")
+# The JAX package's multi-host variable, which a launcher written for it may
+# still set: the port's group is described by its own three variables.
+JAX_MULTI_HOST_VARIABLE = "JAX_COORDINATOR_ADDRESS"
 
 
 def check_ported(cfg: MiaConfig) -> None:
-    """Refuse what the port does not run: multi-host runs, under any engine
-    (the JAX package would start jax.distributed for them), and the JAX
-    package's own engine."""
-    asked = [v for v in MULTI_HOST_VARIABLES if os.environ.get(v) is not None]
-    if asked:
-        raise NotPortedError(f"multi-host runs are not ported yet ({asked[0]} is set)")
+    """Refuse what the port does not run: a multi-host launch meant for the
+    JAX package (jax.distributed), under any engine, and the JAX package's
+    own engine."""
+    if os.environ.get(JAX_MULTI_HOST_VARIABLE) is not None:
+        raise NotPortedError(
+            f"{JAX_MULTI_HOST_VARIABLE} is set, which starts the JAX package's "
+            f"jax.distributed: for a multi-host run of this port set "
+            f"{dist.COORDINATOR}, {dist.NUM_PROCESSES} and {dist.PROCESS_ID} instead")
     if cfg.engine not in ("torch", "native", "numpy"):
         raise NotPortedError(f"--engine {cfg.engine} is not an engine of this port")
 
@@ -128,9 +140,10 @@ class ConsensusHook:
             self.error = self.error or e
             raise
 
-    def consensus(self, maln: MapAlignment) -> str:
-        """The next iteration's reference, main columns counted here."""
-        cons = consensus_assembly_string(maln, device_hook=self)
+    def consensus(self, maln: MapAlignment, reduce_cc=None) -> str:
+        """The next iteration's reference, main columns counted here (and,
+        multi-host, summed over the processes by ``reduce_cc``)."""
+        cons = consensus_assembly_string(maln, reduce_cc=reduce_cc, device_hook=self)
         if self.error is not None:
             raise RuntimeError("device consensus failed") from self.error
         return cons
@@ -138,10 +151,27 @@ class ConsensusHook:
 
 def run_assembly(cfg: MiaConfig) -> MapAlignment:
     """Run the full mia pipeline; returns the final culled MapAlignment.
-    Under ``--engine torch`` entries are scored on torchcfg.select_device(),
-    or dealt over make_dp_devices(cfg.dp_devices) when that gives two or
-    more."""
+    Under ``--engine torch`` entries are scored on
+    torchcfg.select_device(rank), or dealt over make_dp_devices(cfg.dp_devices)
+    when that gives two or more.  A multi-host run joins its process group
+    here and leaves it when the run returns or raises."""
     check_ported(cfg)
+    with profiling.phase("dist.init"):
+        multi = dist.initialize_if_needed()
+    try:
+        return _assemble(cfg, multi)
+    finally:
+        if multi:
+            dist.shutdown()
+
+
+def _assemble(cfg: MiaConfig, multi: bool) -> MapAlignment:
+    t_setup = time.time()
+    # -C / -q need sequence content globally (duplicate groups span
+    # processes; the fastq export is one global file): full stubs mirror
+    # id/seq/qual
+    gf = dist.GlobalReadFilter(full=cfg.collapse or cfg.make_fastq) if multi else None
+    reduce_cc = dist.reduce_column_counts if multi else None
     if cfg.submat_fn:
         ancsubmat = find_read_pssm(cfg.submat_fn)
     else:
@@ -265,8 +295,8 @@ def run_assembly(cfg: MiaConfig) -> MapAlignment:
             devices = None
             hp_seqs = (fw_align.seq1[: fw_align.len1], rc_align.seq1[: rc_align.len1])
         scorer = Pass1Scorer(fw_align.s1c, rc_align.s1c, fw_align.len1, ancsubmat,
+                             device=select_device(dist.process_index()),
                              hp_seqs=hp_seqs, devices=devices)
-
 
     # asynchronous device pipeline: batches dispatch without blocking and
     # drain in read order as their results land (or when the inflight cap is
@@ -597,8 +627,22 @@ def run_assembly(cfg: MiaConfig) -> MapAlignment:
                 _merge_drained(finishing.pop(0))
 
     t_pass1 = time.time()
-    for frag_seq in iter_frag_seqs(cfg.frag_fn):
-        frag_seq.gid = seen
+    # matrices, reference, k-mer tables, the host engine and the scorer (its
+    # device, kernel library and state)
+    profiling.add_time("setup", t_pass1 - t_setup)
+    if multi:
+        # contiguous per-process slice of the stream; gids keep the global
+        # stream order observable for the global filter replay.  The count
+        # pass is native (no python objects) and each process materialises
+        # ONLY its slice
+        shard = dist.host_read_shard(count_frag_seqs(cfg.frag_fn))
+        stream = iter_frag_seqs_range(cfg.frag_fn, shard.start, shard.count)
+        gid0 = shard.start
+    else:
+        stream = iter_frag_seqs(cfg.frag_fn)
+        gid0 = 0
+    for frag_seq in stream:
+        frag_seq.gid = gid0 + seen
         seen += 1
         if good_ids is None or frag_seq.id in good_ids:
             if cfg.do_adapter_trimming:
@@ -655,29 +699,95 @@ def run_assembly(cfg: MiaConfig) -> MapAlignment:
     culled.ref = maln.ref
     culled.cons_code = maln.cons_code
     culled.distant_ref = maln.distant_ref
-    culled.size = maln.num_aln_seqs
+    if multi:
+        culled.size = int(
+            dist.allreduce_terms(np.array([maln.num_aln_seqs], np.int64))[0]
+        )
+    else:
+        culled.size = maln.num_aln_seqs
 
     def _filter_and_cull() -> None:
-        """Repeat filters + score cull."""
+        """Repeat filters + score cull — globally replayed when multi-host
+        (the stub FSDB reproduces the single-process sort/uniq/fit history,
+        including float summation order)."""
         _log("Repeat and score filtering")
+        if multi:
+            with profiling.phase("dist.replay"):
+                gf.refresh(fsdb)
+                gf.assign_slots()  # global maln slot layout BEFORE the sorts
         if cfg.repeat_filt:
             sort_fsdb(fsdb)
-            set_uniq_in_fsdb(fsdb, cfg.just_outer_coords, cfg.tolerance)
+            if multi:
+                with profiling.phase("dist.replay"):
+                    gf.sort_and_uniq(False, cfg.just_outer_coords, cfg.tolerance, fsdb)
+            else:
+                set_uniq_in_fsdb(fsdb, cfg.just_outer_coords, cfg.tolerance)
         if cfg.repeat_qual_filt:
             sort_fsdb_qscore(fsdb)
-            set_uniq_in_fsdb(fsdb, cfg.just_outer_coords, cfg.tolerance)
+            if multi:
+                with profiling.phase("dist.replay"):
+                    gf.sort_and_uniq(True, cfg.just_outer_coords, cfg.tolerance, fsdb)
+            else:
+                set_uniq_in_fsdb(fsdb, cfg.just_outer_coords, cfg.tolerance)
         with profiling.phase("filters.cull"):
-            cull_maln_from_fsdb(
-                culled, fsdb, cfg.hard_cut, cfg.score_cut_set, cfg.slope,
-                cfg.intercept,
-            )
+            if multi and cfg.hard_cut <= 0 and not cfg.score_cut_set:
+                slope, intercept = gf.score_cut()
+                cull_maln_from_fsdb(culled, fsdb, cfg.hard_cut, True, slope, intercept)
+            else:
+                cull_maln_from_fsdb(
+                    culled, fsdb, cfg.hard_cut, cfg.score_cut_set, cfg.slope,
+                    cfg.intercept,
+                )
+        if multi:
+            dist.allreduce_max(maln.ref.gaps)
         culled.fpsm = ancsubmat
         culled.rpsm = rcancsubmat
         sort_aln_frags(culled)
+        if multi:
+            with profiling.phase("dist.replay"):
+                # global slot-dropped replay: the reference's DR bit is sticky
+                # per REUSED maln slot; override the local (sharded) stale
+                # flags with the single-process bits so consensus and the
+                # writer see exactly what one process would
+                drops = gf.cull_drops(
+                    cfg.hard_cut, cfg.score_cut_set, cfg.slope, cfg.intercept,
+                    culled.distant_ref, maln.ref,
+                )
+                sp = gf.sort_pos()
+                for fs in fsdb.fss:
+                    if not fs.unique_best:
+                        continue
+                    p = sp[fs.gid]
+                    if (p, 0) in drops:
+                        fs.front_asp.dropped = drops[(p, 0)]
+                    if fs.back_asp is not None and (p, 1) in drops:
+                        fs.back_asp.dropped = drops[(p, 1)]
+                # records freshly merged under this layout enter the global
+                # slot->content map (collective; see write_ma_global)
+                gf.snapshot_fresh(fsdb)
 
     def _write_maln(fn: str) -> None:
         with profiling.phase("io.write_maln"):
-            write_ma(fn, culled)
+            if multi:
+                dist.write_ma_global(fn, culled, gf, fsdb, culled.size)
+            else:
+                write_ma(fn, culled)
+
+    def _write_fastq() -> None:
+        with profiling.phase("io.write_fastq"):
+            if multi:
+                gf.write_fastq_host0(cfg.fastq_out_fn)
+            else:
+                write_fastq(cfg.fastq_out_fn, fsdb)
+
+    def _collapse() -> None:
+        with profiling.phase("filters.collapse"):
+            if multi:
+                gf.collapse(fsdb, cfg.hard_cut, cfg.score_cut_set, cfg.slope,
+                            cfg.intercept)
+            else:
+                collapse_FSDB(fsdb, cfg.hard_cut, cfg.score_cut_set, cfg.slope,
+                              cfg.intercept)
 
     _filter_and_cull()
 
@@ -689,9 +799,10 @@ def run_assembly(cfg: MiaConfig) -> MapAlignment:
 
     fw_align.align_mask[: fw_align.len1] = 1
     clean_FSDB(fsdb)
+    if multi:
+        gf.clean()
     if cfg.collapse:
-        collapse_FSDB(fsdb, cfg.hard_cut, cfg.score_cut_set, cfg.slope,
-                      cfg.intercept)
+        _collapse()
 
     rei_device = scorer.device if use_torch else None
     with profiling.phase("reiterate"):
@@ -706,32 +817,35 @@ def run_assembly(cfg: MiaConfig) -> MapAlignment:
     if not cfg.iterate or not cfg.final_only:
         _write_maln(maln_fn)
         if cfg.make_fastq:
-            write_fastq(cfg.fastq_out_fn, fsdb)
+            _write_fastq()
 
-    if use_torch:
-        consensus = ConsensusHook(rei_device, devices).consensus
-    else:
-        consensus = consensus_assembly_string
+    consensus = functools.partial(
+        ConsensusHook(rei_device, devices).consensus if use_torch
+        else consensus_assembly_string, reduce_cc=reduce_cc)
+
+    def _unconverged() -> bool:
+        eq = assembly_cons == last_assembly_cons
+        if multi:
+            return not dist.converged_everywhere(eq)
+        return not eq
+
     if cfg.iterate:
         _log("Generating new assembly consensus")
         with profiling.phase("consensus"):
             assembly_cons = consensus(culled)
 
-        while assembly_cons != last_assembly_cons and iter_num < MAX_ITER:
+        while _unconverged() and iter_num < MAX_ITER:
             iter_num += 1
             last_assembly_cons = assembly_cons
             _log(f"Starting assembly iteration {iter_num}")
 
             if cfg.collapse:
-                collapse_FSDB(
-                    fsdb, cfg.hard_cut, cfg.score_cut_set, cfg.slope,
-                    cfg.intercept,
-                )
+                _collapse()
             with profiling.phase("reiterate"):
                 reiterate_assembly(
                     assembly_cons, iter_num, maln, fsdb, fw_align, ancsubmat,
                     rcancsubmat, engine=cfg.engine, torch_device=rei_device,
-            devices=devices,
+                    devices=devices,
                 )
             with profiling.phase("filters.pop_smp"):
                 pop_smp_from_FSDB(fsdb, PSSM_DEPTH)
@@ -751,6 +865,6 @@ def run_assembly(cfg: MiaConfig) -> MapAlignment:
         if cfg.final_only:
             _write_maln(maln_fn)
         if cfg.make_fastq:
-            write_fastq(cfg.fastq_out_fn, fsdb)
+            _write_fastq()
 
     return culled

@@ -33,11 +33,12 @@ NVCC_FLAGS = [
 ]
 
 
-def select_device() -> torch.device:
-    """The device the port scores on: ``cuda:0``, or the CPU only when
-    ``MIA_TORCH_DEVICE=cpu`` asks for it (the CPU tests do).  Without a card
-    and without that request this raises: the port never drops to the CPU
-    unasked."""
+def select_device(index: int = 0) -> torch.device:
+    """The device the port scores on: ``cuda:(index mod card count)`` (a
+    multi-host run passes its rank, so processes on one host share its cards
+    round robin), or the CPU only when ``MIA_TORCH_DEVICE=cpu`` asks for it
+    (the CPU tests do).  Without a card and without that request this raises:
+    the port never drops to the CPU unasked."""
     if os.environ.get("MIA_TORCH_DEVICE", "") == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
@@ -46,7 +47,7 @@ def select_device() -> torch.device:
             "(set MIA_TORCH_DEVICE=cpu to score with the plain PyTorch "
             "version on the CPU)"
         )
-    return torch.device("cuda", 0)
+    return torch.device("cuda", index % torch.cuda.device_count())
 
 
 def _nvcc() -> str:

@@ -126,9 +126,26 @@ def test_port_cli_hands_host_engines_to_mia_tpu(engine, tmp_path):
     ("torch", "MIA_TORCH_COORDINATOR_ADDRESS"),
 ], ids=["torch", "native", "torch-port_variable"])
 def test_port_refuses_multi_host(engine, variable, tmp_path):
+    """The JAX package's multi-host variable is refused under every engine,
+    with the port's three variables named in its place; the port's own
+    variable starts a group, here of one rank, which writes the golden."""
+    if variable == "MIA_TORCH_COORDINATOR_ADDRESS":
+        from .test_torch_distributed import free_port
+
+        r = run_torch_mia(fixture_args("kmer"), tmp_path, engine=engine, extra_env={
+            variable: f"127.0.0.1:{free_port()}", "MIA_TORCH_NUM_PROCESSES": "1",
+            "MIA_TORCH_PROCESS_ID": "0"})
+        golden = os.path.join(GOLDEN, "kmer")
+        for fn in sorted(os.listdir(golden)):
+            assert _norm(tmp_path / fn) == _norm(os.path.join(golden, fn)), fn
+        c = profile_counters(r.stderr)
+        assert c["dp.plain_calls"] > 0 and c["pass1.device_scored_reads"] > 0, c
+        return
     r = run_torch_mia(fixture_args("kmer"), tmp_path, check=False, engine=engine,
                       extra_env={variable: "localhost:1"})
     assert r.returncode != 0
-    assert b"multi-host runs are not ported yet" in r.stderr
     assert variable.encode() in r.stderr
+    for port_variable in (b"MIA_TORCH_COORDINATOR_ADDRESS", b"MIA_TORCH_NUM_PROCESSES",
+                          b"MIA_TORCH_PROCESS_ID"):
+        assert port_variable in r.stderr
     assert not any(p.startswith("out.maln.") for p in os.listdir(tmp_path))

@@ -7,8 +7,9 @@ reference sources' path prefix that ``core/hostbatch.py`` cites is dropped).
 A change made to a copy on purpose takes its case out of this list, with the
 reason in CHANGES.md.  Not listed, because they differ on purpose:
 ``utils/profiling.py`` (``device_trace`` on torch.profiler), ``core/driver.py``,
-``core/contamination.py``, ``core/assembler.py`` and the CLIs (the port's
-device engine in place of the JAX one).
+``core/contamination.py``, ``core/assembler.py`` and the CLIs but
+``easy_consensus`` (the port's device engine in place of the JAX one; ``ma``
+without the JAX platform override).
 
 The numpy entry helpers that moved from ``mia_tpu/core/jax_engine.py`` into
 ``core/entries.py`` are held to their originals function by function.
@@ -36,7 +37,8 @@ COPIED = [
     "ops/dp_numpy.py", "ops/myers.py", "ops/consensus.py", "utils/encoding.py",
     "utils/hostmem.py", "models/simulate.py", "models/damage.py", "data/mt311.fa",
     "data/matrices/ancient.submat.txt", "data/matrices/ancient.submat.solexa.pe.txt",
-    "data/matrices/ancient.submat.solexa.onepass.txt",
+    "data/matrices/ancient.submat.solexa.onepass.txt", "io/formats.py", "io/align_reader.py",
+    "cli/easy_consensus.py", "models/estimate.py",
 ]
 
 

@@ -46,7 +46,9 @@ def forbidden_imports(path: str) -> list[str]:
 def test_sources_listed():
     assert len(SOURCES) > 40
     for must in ("mia_tpu_torch/core/assembler.py", "mia_tpu_torch/parallel/sharded.py",
-                 "mia_tpu_torch/entry.py", "mia_tpu_torch/io/native.py", "chip_smoke.py"):
+                 "mia_tpu_torch/entry.py", "mia_tpu_torch/io/native.py", "chip_smoke.py",
+                 "mia_tpu_torch/parallel/distributed.py", "mia_tpu_torch/cli/ma.py",
+                 "mia_tpu_torch/cli/easy_consensus.py", "mia_tpu_torch/models/estimate.py"):
         assert must in SOURCES
 
 
@@ -109,3 +111,22 @@ def test_cli_runs_where_jax_and_mia_tpu_are_refused(tmp_path):
     assert r.returncode == 0, r.stderr.decode()[-3000:]
     with open(os.path.join(cc, "prose.txt"), "rb") as f:
         assert r.stdout == f.read()
+
+
+def test_host_tools_run_where_jax_and_mia_tpu_are_refused(tmp_path):
+    """ma and easy_consensus, as a user runs them, with the three packages
+    refused: the JAX package's ma prints the same bytes."""
+    import contextlib
+    import io
+
+    from mia_tpu.cli import ma as tpu_ma
+
+    maln = os.path.join(GOLDEN, "sim200", "out.maln.2")
+    r = _run_refusing("ma", ["-M", maln, "-f", "3"], tmp_path)
+    assert r.returncode == 0, r.stderr.decode()[-3000:]
+    want = io.StringIO()
+    with contextlib.redirect_stdout(want):
+        tpu_ma.main(["-M", maln, "-f", "3"])
+    assert r.stdout.decode() == want.getvalue()
+    r = _run_refusing("easy_consensus", [os.path.join(FIXTURES, "tf.fna")], tmp_path)
+    assert r.returncode == 0 and r.stdout.startswith(b">consensus\n"), r.stderr.decode()
