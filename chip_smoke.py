@@ -61,7 +61,9 @@ counts) and the committed goldens.
    scorer and consensus kernel launches, pass-1 device reads and realign
    device entries > 0, no call of a plain version and no host fallback of
    the consensus.  Both engines are timed in this process (warm) and as a
-   new process.
+   new process; the new ``--engine torch`` process must count
+   ``pass1.in_process`` (every phase but 16b runs with
+   ``MIA_TORCH_SERVER=0``).
 8. -h end to end: the same workload with ``-h``, in this process only,
    against ``--engine native -h``, the ``-h`` scorer's launches in place of
    the scorer's.
@@ -134,6 +136,19 @@ counts) and the committed goldens.
    with ``-C2 -q out.fastq`` against one process of the port, maln and fastq
    byte for byte.  Prints each rank's wall time, ``dist.collectives`` and
    ``dist.collective_s`` beside the single-process time.
+16b. resident server: ``python -m mia_tpu_torch.cli.serve`` as a new
+   process on ``.smoke/srv.sock`` (time from launch to its first
+   ``hello``, which must name the card, this checkout's ``build_id`` and a
+   kernel library); phase 7's workload three times, each as a new client process
+   of the port's mia (``--engine torch --profile``, ``MIA_TORCH_SERVER`` on
+   that socket) whose import system refuses torch, jax and ``mia_tpu``:
+   each writes phase 7's malns, shows ``pass1.using_server`` and
+   device-scored reads, and raises the server's ``hello`` counts of scorer
+   and consensus launches with no plain call.  Then once with ``-h``
+   (phase 8's malns, ``-h`` scorer launches), two clients at once (both
+   phase 7's bytes), and ``--engine native`` as a new process with torch
+   refused.  Prints every wall beside phase 7's new-process walls, stops
+   the server with SIGTERM and checks that its socket is gone.
 17. dry run: ``mia_tpu_torch.entry.dryrun_multichip(4)``.
 
 The last lines are a JSON line of per-kernel numbers (``ms``, the time of a
@@ -154,6 +169,7 @@ import io
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -772,10 +788,20 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool,
 
         def cli(engine: str) -> float:
             t0 = time.time()
-            subprocess.run([sys.executable, "-m", "mia_tpu_torch.cli.mia", *args, "-m",
-                            os.path.join(d, engine, "out.maln"), "--engine", engine],
-                           env=env, check=True, capture_output=True, timeout=900)
-            return time.time() - t0
+            r = subprocess.run([sys.executable, "-m", "mia_tpu_torch.cli.mia", *args, "-m",
+                                os.path.join(d, engine, "out.maln"), "--engine", engine,
+                                "--profile"],
+                               env=env, check=True, capture_output=True, timeout=900)
+            wall = time.time() - t0
+            counters = json.loads([ln for ln in r.stderr.decode().splitlines()
+                                   if ln.startswith("MIA_PROFILE ")][-1].split(" ", 1)[1])
+            counters = counters["counters"]
+            # the yardstick of phase 16b's clients: a run that scored in
+            # its own new process, through no server
+            if engine == "torch" and not (counters.get("pass1.in_process") == 1
+                                          and "pass1.using_server" not in counters):
+                raise AssertionError(f"{tag}: the new process did not score itself: {counters}")
+            return wall
 
         walls["torch"], walls["native"] = cli("torch"), cli("native")
     times = (f"wall s in this process (warm): torch {walls['torch_inproc']:.3f}, "
@@ -1625,6 +1651,182 @@ def phase_multihost(args: list[str], walls: dict, smi: str) -> None:
               smi)
 
 
+# a client of the port's mia whose import system refuses torch, jax and the
+# JAX package: what a short run through the resident server loads
+NO_TORCH_CLIENT = r"""
+import importlib.abc, sys
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("torch", "jax", "jaxlib", "mia_tpu"):
+            raise ImportError("refused: " + name)
+sys.meta_path.insert(0, Refuse())
+from mia_tpu_torch.cli.mia import main
+rc = main(sys.argv[1:])
+bad = [m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "jaxlib", "mia_tpu")]
+assert not bad, bad
+sys.exit(rc)
+"""
+SERVER_CHECKS = ("pass1.using_server", "pass1.device_scored_reads", "reiterate.device_entries",
+                 "consensus.device_calls", "consensus.device_fallbacks")
+
+
+def server_hello(sock: str) -> dict:
+    from mia_tpu_torch import serve
+
+    client = serve._Client(sock)
+    try:
+        return client.hello()
+    finally:
+        client.close()
+
+
+def start_client(tag: str, args: list[str], sock: str, engine: str = "torch"):
+    """A new process of the port's mia with torch refused, writing into
+    WORK/server/tag; returns (process, its directory, its log, start time)."""
+    d = os.path.join(WORK, "server", tag)
+    os.makedirs(d)
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               MIA_TORCH_SERVER=sock)
+    log = os.path.join(d, "log")
+    with open(log, "w") as lf:
+        proc = subprocess.Popen([sys.executable, "-c", NO_TORCH_CLIENT, *args, "-m", "out.maln",
+                                 "--engine", engine, "--profile"], cwd=d, env=env, stdout=lf,
+                                stderr=subprocess.STDOUT)
+    return proc, d, log, time.time()
+
+
+def finish_client(tag: str, run, want: dict[str, bytes]) -> tuple[float, dict]:
+    """Waits for a client of start_client; checks its malns against
+    ``want``; returns its wall seconds and profile (phases and counters)."""
+    proc, d, log, t0 = run
+    try:
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.time() - t0
+    with open(log) as f:
+        text = f.read()
+    if rc != 0:
+        raise RuntimeError(f"server {tag}: the client exited {rc}:\n{text[-3000:]}")
+    got = maln_bytes(os.path.join(d, "out.maln"))
+    if not want or got != want:
+        diff = [k for k in sorted(set(got) | set(want)) if got.get(k) != want.get(k)]
+        raise AssertionError(f"server {tag}: malns differ: {diff}")
+    prof = json.loads([ln for ln in text.splitlines()
+                       if ln.startswith("MIA_PROFILE ")][-1].split(" ", 1)[1])
+    return wall, prof
+
+
+def check_served(tag: str, counters: dict, before: dict, after: dict, scorer: str,
+                 runs: int = 1) -> dict:
+    """The client went through the server, and the server's counts rose by
+    at least one scorer (``scorer``) and one consensus launch a run, with
+    no plain call; returns the rise."""
+    from mia_tpu_torch import serve
+
+    rise = {k: after["counters"][k] - before["counters"][k] for k in serve.COUNTERS}
+    checks = {k: counters.get(k, 0) for k in SERVER_CHECKS}
+    if not (checks["pass1.using_server"] == 1 and checks["pass1.device_scored_reads"] > 0
+            and checks["reiterate.device_entries"] > 0 and checks["consensus.device_calls"] > 0
+            and checks["consensus.device_fallbacks"] == 0
+            and rise[scorer] >= runs and rise["cons.kernel_launches"] >= runs
+            and rise["dp.plain_calls"] == rise["dp.hp_plain_calls"] == 0
+            and rise["cons.plain_calls"] == 0):
+        raise AssertionError(f"server {tag}: not served by the card: {checks}, server {rise}")
+    return rise
+
+
+def phase_server(args: list[str], walls: dict, smi: str) -> dict:
+    """Phase 16b: the resident server and torch-free clients on phase 7's
+    and phase 8's workloads.  Returns the server's launches by kernel."""
+    sock = os.path.join(WORK, "srv.sock")
+    os.makedirs(os.path.join(WORK, "server"))
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.time()
+    with open(os.path.join(WORK, "server", "serve.log"), "w") as lf:
+        proc = subprocess.Popen([sys.executable, "-m", "mia_tpu_torch.cli.serve", "--sock", sock],
+                                env=env, stdout=lf, stderr=subprocess.STDOUT)
+    try:
+        while True:
+            if proc.poll() is not None:
+                with open(os.path.join(WORK, "server", "serve.log")) as f:
+                    raise RuntimeError(f"server: exited {proc.returncode}:\n{f.read()[-3000:]}")
+            try:
+                h = server_hello(sock)
+                break
+            except OSError:
+                if time.time() - t0 > 300:
+                    raise RuntimeError("server: no hello within 300 s")
+                time.sleep(0.02)
+        t_start = time.time() - t0
+        from mia_tpu_torch import serve
+
+        if h["platform"] != "cuda" or h["build"] != serve.build_id() or not h["library"]:
+            raise AssertionError(f"server: not on the card, or not of these sources: {h}")
+        say(f"server: ready on {sock} ({h['device']}, {h['name']}, build {h['build']}, kernel "
+            f"library {h['library']}), {t_start:.3f} s from launch to the first hello; {smi}")
+        want = maln_bytes(os.path.join(WORK, "e2e", "torch_inproc", "out.maln"))
+        want_hp = maln_bytes(os.path.join(WORK, "e2e_hp", "torch_inproc", "out.maln"))
+        launches = {"dp_entries": 0, "dp_entries_hp": 0, "column_counts": 0}
+
+        def served(tags, run_args, want_bytes, scorer):
+            before = server_hello(sock)
+            runs = [start_client(t, run_args, sock) for t in tags]
+            out = [finish_client(t, r, want_bytes) for t, r in zip(tags, runs)]
+            after = server_hello(sock)
+            rise = None
+            for t, (_, prof) in zip(tags, out):
+                rise = check_served(t, prof["counters"], before, after, scorer, len(tags))
+            launches["dp_entries"] += rise["dp.kernel_launches"]
+            launches["dp_entries_hp"] += rise["dp.hp_kernel_launches"]
+            launches["column_counts"] += rise["cons.kernel_launches"]
+            return [w for w, _ in out], out[-1][1], rise
+
+        client_walls = []
+        for i in range(3):
+            (wall,), prof, rise = served([f"client{i}"], args, want, "dp.kernel_launches")
+            client_walls.append(wall)
+            say(f"server: client {i}, 20k reads as a new process with torch refused: "
+                f"{wall:.3f} s (run {prof['total_s']:.3f} s), malns byte-identical to phase 7; "
+                f"server launches {json.dumps(rise)}")
+        say("server: client counters " + json.dumps(prof["counters"], sort_keys=True))
+        say("server: client phases s " + json.dumps(prof["phases_s"], sort_keys=True))
+        (hp_wall,), prof, rise = served(["client_hp"], [*args, "-h"], want_hp,
+                                        "dp.hp_kernel_launches")
+        say(f"server: -h client {hp_wall:.3f} s (run {prof['total_s']:.3f} s), malns "
+            f"byte-identical to phase 8; server launches {json.dumps(rise)}")
+        say("server: -h client phases s " + json.dumps(prof["phases_s"], sort_keys=True))
+        t0 = time.time()
+        pair, _, rise = served(["pair0", "pair1"], args, want, "dp.kernel_launches")
+        t_pair = time.time() - t0
+        say(f"server: two clients at once, {pair[0]:.3f} / {pair[1]:.3f} s ({t_pair:.3f} s for "
+            f"both), both byte-identical to phase 7; server launches {json.dumps(rise)}")
+        native = start_client("native", args, sock, engine="native")
+        t_native, prof = finish_client("native", native, want)
+        if prof["counters"].get("pass1.using_server") or prof["counters"].get("dp.kernel_launches"):
+            raise AssertionError(f"server: --engine native went to a device: {prof['counters']}")
+        median = sorted(client_walls)[1]
+        say(f"server: walls s as new processes: server start {t_start:.3f}; clients "
+            f"{', '.join(f'{w:.3f}' for w in client_walls)} (median {median:.3f}); -h "
+            f"{hp_wall:.3f}; two at once {pair[0]:.3f} / {pair[1]:.3f}; native with torch "
+            f"refused {t_native:.3f}; against phase 7's new processes torch {walls['torch']:.3f}, "
+            f"native {walls['native']:.3f}; {smi}")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    if proc.returncode != 0 or os.path.exists(sock):
+        raise AssertionError(f"server: exit {proc.returncode}, socket left: {os.path.exists(sock)}")
+    say(f"server: stopped by SIGTERM, socket removed; launches {json.dumps(launches)}")
+    return launches
+
+
 def phase_dryrun() -> None:
     from mia_tpu_torch.entry import dryrun_multichip
 
@@ -1648,6 +1850,8 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    # every phase scores in its own processes; phase 16b names its server
+    os.environ["MIA_TORCH_SERVER"] = "0"
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     dev = torch.device("cuda", 0)
@@ -1695,6 +1899,7 @@ def main() -> int:
     phase_sharded(dev)
     phase_sharded_e2e(args, dev, main_counts)
     phase_multihost(args, main_walls, smi)
+    server_launches = phase_server(args, main_walls, smi)
     phase_dryrun()
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "mia_tpu")]
     if bad:
@@ -1705,6 +1910,8 @@ def main() -> int:
         "source": "mia_tpu_torch/csrc/dp_entries.cu",
         "replaces": "mia_tpu/ops/dp_pallas.py:46",
         "launches": main_counts["dp.kernel_launches"],
+        # phase 16b: the resident server's launches for its clients
+        "server_launches": server_launches["dp_entries"],
         **kern, **shapes["dp_entries"],
     }, {
         "name": "dp_entries_hp",
@@ -1712,6 +1919,7 @@ def main() -> int:
         "source": "mia_tpu_torch/csrc/dp_entries.cu",
         "replaces": "mia_tpu/ops/dp_jax.py:219",
         "launches": hp_counts["dp.hp_kernel_launches"],
+        "server_launches": server_launches["dp_entries_hp"],
         **hp_kern, **shapes["dp_entries_hp"],
     }, {
         "name": "column_counts",
@@ -1720,6 +1928,7 @@ def main() -> int:
         "replaces": "mia_tpu/ops/consensus_device.py:65",
         # both e2e paths run it: their launches together
         "launches": main_counts["cons.kernel_launches"] + hp_counts["cons.kernel_launches"],
+        "server_launches": server_launches["column_counts"],
         **cons_kern, **shapes["column_counts"],
     }, {
         "name": "myers_waves",

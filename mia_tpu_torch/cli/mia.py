@@ -12,11 +12,23 @@ refused here.
 
     python -m mia_tpu_torch.cli.mia -r ref.fna -f reads.fastq [flags] [--profile]
 
+``MIA_TORCH_SERVER`` says whether ``--engine torch`` scores through the
+resident scoring server (``python -m mia_tpu_torch.cli.serve``; see
+:mod:`mia_tpu_torch.serve`): unset or ``auto``, the server on the default
+socket when one answers, else this process's card; ``spawn``, start one
+there when none answers and wait for it; a path, the server on that socket;
+``0``, never.  A named server that does not answer, or that fails, ends
+the run with a non-zero exit.  Through a server, and under ``--engine
+native`` or ``numpy``, a single-process run imports no torch.
+
 Under ``--profile`` the JSON profile on stderr carries the kernels' counters
 beside the pipeline's own: ``dp.kernel_launches`` / ``dp.plain_calls`` (the
 scorer), ``dp.hp_kernel_launches`` / ``dp.hp_plain_calls`` (the ``-h``
 scorer), ``dp.shards`` (device shards a dispatch was dealt over) and
-``cons.kernel_launches`` / ``cons.plain_calls`` (consensus column counts).
+``cons.kernel_launches`` / ``cons.plain_calls`` (consensus column counts),
+each 0 where this process never loaded the kernel's module (a run through
+the server: the server's ``hello`` has its counts), and
+``pass1.using_server`` or ``pass1.in_process``.
 With MIA_TORCH_TRACE_DIR set the run is traced by ``torch.profiler``.
 """
 from __future__ import annotations
@@ -27,10 +39,23 @@ import time
 from ..config import MiaConfig
 from ..constants import NEANDERTAL_ADAPTER, STANDARD_ADAPTER
 from ..core.assembler import NotPortedError, run_assembly
-from ..ops import consensus_torch, dp_cuda
+from ..serve import ServerUnavailable
 from ..utils import profiling
 
 ENGINES = ("torch", "native", "numpy")
+# the kernels' counters, by the module that keeps them
+KERNEL_COUNTERS = (
+    ("dp", "mia_tpu_torch.ops.dp_cuda",
+     ("kernel_launches", "plain_calls", "hp_kernel_launches", "hp_plain_calls", "shards")),
+    ("cons", "mia_tpu_torch.ops.consensus_torch", ("kernel_launches", "plain_calls")),
+)
+
+
+def _kernel_modules():
+    """The counters' modules that this process has loaded (the others
+    counted nothing)."""
+    for prefix, name, counters in KERNEL_COUNTERS:
+        yield prefix, sys.modules.get(name), counters
 
 
 def help_text() -> str:
@@ -246,8 +271,9 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     if cfg.profile:
         profiling.enable()
-    dp_cuda.reset_counts()
-    consensus_torch.reset_counts()
+    for _, module, _ in _kernel_modules():
+        if module is not None:
+            module.reset_counts()
     print(
         f"Starting assembly of {cfg.frag_fn}\nusing {cfg.ref_fn}\n"
         f"as reference at {time.asctime()}\n",
@@ -259,17 +285,13 @@ def main(argv: list[str] | None = None) -> int:
     except NotPortedError as e:
         print(f"mia: {e}", file=sys.stderr)
         return 2
+    except ServerUnavailable as e:
+        print(f"mia: {e}", file=sys.stderr)
+        return 1
     if cfg.profile:
-        for name, value in (
-            ("dp.kernel_launches", dp_cuda.kernel_launches),
-            ("dp.plain_calls", dp_cuda.plain_calls),
-            ("dp.hp_kernel_launches", dp_cuda.hp_kernel_launches),
-            ("dp.hp_plain_calls", dp_cuda.hp_plain_calls),
-            ("dp.shards", dp_cuda.shards),
-            ("cons.kernel_launches", consensus_torch.kernel_launches),
-            ("cons.plain_calls", consensus_torch.plain_calls),
-        ):
-            profiling.count(name, value)
+        for prefix, module, counters in _kernel_modules():
+            for name in counters:
+                profiling.count(f"{prefix}.{name}", getattr(module, name, 0))
         profiling.report()
     print(f"Assembly finished at {time.asctime()}\n", file=sys.stderr)
     return 0

@@ -26,9 +26,19 @@ per-iteration consensus counts and the shared max-insert array are summed
 over the processes, convergence is a global vote, and rank 0 writes the
 complete maln — byte-identical to a single-process run.
 
-Left out of this port, with the reason each existed: the resident scoring
-server and work-stealing (they hid the TPU's backend start and compiles; here
-the kernel library builds once when the scorer is made).
+Under ``--engine torch`` a run scores in its own process or, when the
+``MIA_TORCH_SERVER`` policy finds one, through the port's resident scoring
+server (:mod:`mia_tpu_torch.serve`): pass 1, each realignment and each
+consensus then go over one connection to the process that holds the card,
+and a single-process run imports no torch at all (neither do the host
+engines: the device modules are imported where an in-process engine is
+built).  ``--dp-devices`` with two or more devices always scores in
+process, as the JAX package's mesh runs do.  A multi-host rank takes the
+same policy, and imports torch for its gloo group.
+
+Left out of this port, with the reason it existed: work-stealing (it hid
+the TPU's backend start and compiles; here the kernel library builds once
+when the scorer or the server is made).
 """
 from __future__ import annotations
 
@@ -40,6 +50,7 @@ import time
 
 import numpy as np
 
+from .. import serve
 from ..config import MiaConfig
 from ..constants import FIRST_ROUND_SCORE_CUTOFF, INIT_ALN_SEQ_LEN, MAX_ITER, PSSM_DEPTH
 from ..io.fasta import read_fasta_ref
@@ -48,12 +59,10 @@ from ..io.maln import write_ma
 from ..io.native import count_frag_seqs, iter_frag_seqs_range
 from ..io.native import iter_frag_seqs_fast as iter_frag_seqs
 from ..io.pssm_io import find_read_pssm
-from ..ops import consensus_torch
 from ..ops.kmer import KmerPosArray, new_kmer_filter
 from ..ops.pssm import init_flatsubmat, revcom_submat
 from ..parallel import distributed as dist
 from ..utils import profiling
-from ..utils.torchcfg import select_device
 from .columns import consensus_assembly_string, sort_aln_frags
 from .driver import (
     finish_alignment,
@@ -88,7 +97,6 @@ from .hostbatch import (
     BatchHost,
 )
 from .merge import add_ref_wrap
-from .torch_engine import Pass1Scorer, make_dp_devices
 from .types import MapAlignment
 
 
@@ -118,24 +126,34 @@ def _log(msg: str) -> None:
     print(msg, file=sys.stderr)
 
 
+def make_dp_devices(n_dp: int, devices=None):
+    """``torch_engine.make_dp_devices``: the device list of ``--dp-devices``,
+    or None for the single-device path; torch is imported only when a list
+    or two or more devices are asked for."""
+    if devices is None and n_dp in (0, 1):
+        return None
+    from .torch_engine import make_dp_devices as devices_of
+
+    return devices_of(n_dp, devices)
+
+
 class ConsensusHook:
-    """``device_hook`` for ``consensus_assembly_string`` on ``device``, or
-    with ``devices`` the records split over that device list and summed.
+    """``device_hook`` for ``consensus_assembly_string`` that counts the
+    main columns with ``count`` (:meth:`Placement.counts`: on this process's
+    device or devices, or on the resident server).
 
     ``main_column_counts`` catches any exception of its hook and counts the
     columns on the host instead; this hook keeps the first failure, and
     :meth:`consensus` raises it once the consensus returns, so a failing
-    device is never hidden behind the host's equal answer."""
+    device (or server) is never hidden behind the host's equal answer."""
 
-    def __init__(self, device, devices=None):
-        self.device = device
-        self.devices = devices
+    def __init__(self, count):
+        self.count = count
         self.error: BaseException | None = None
 
     def __call__(self, *args):
         try:
-            return consensus_torch.device_column_counts(
-                *args, device=self.device, devices=self.devices)
+            return self.count(*args)
         except Exception as e:
             self.error = self.error or e
             raise
@@ -149,23 +167,76 @@ class ConsensusHook:
         return cons
 
 
+class Placement:
+    """Where ``--engine torch`` scores and counts, decided once by
+    :func:`run_assembly`: on the resident server behind ``client`` (a
+    connection of :func:`mia_tpu_torch.serve.connect`), or in this process
+    on ``device``, or dealt over ``devices``.  Pass 1, every realignment and
+    every consensus take their scorers and column counts from it."""
+
+    def __init__(self, device=None, devices=None, client=None):
+        self.device = device
+        self.devices = devices
+        self.client = client
+
+    def scorer(self, fw_s1c, rc_s1c, len1: int, submat, submat_b=None,
+               hp_seqs: tuple[str, str] | None = None):
+        """A scorer for one reference.  With ``hp_seqs`` (``-h``) it stays on
+        one device: the ``-h`` kernel has no sharded form, as in the JAX
+        package."""
+        if self.client is not None:
+            return serve.connect_scorer(self.client, fw_s1c, rc_s1c, len1, submat, submat_b,
+                                        hp_seqs=hp_seqs)
+        from .torch_engine import Pass1Scorer
+
+        return Pass1Scorer(fw_s1c, rc_s1c, len1, submat, submat_b, device=self.device,
+                           hp_seqs=hp_seqs, devices=None if hp_seqs else self.devices)
+
+    def counts(self):
+        """The consensus's column counts (``device_hook``'s signature)."""
+        if self.client is not None:
+            return serve.connect_consensus(self.client)
+        from ..ops.consensus_torch import device_column_counts
+
+        return functools.partial(device_column_counts, device=self.device,
+                                 devices=self.devices)
+
+
 def run_assembly(cfg: MiaConfig) -> MapAlignment:
     """Run the full mia pipeline; returns the final culled MapAlignment.
-    Under ``--engine torch`` entries are scored on
-    torchcfg.select_device(rank), or dealt over make_dp_devices(cfg.dp_devices)
-    when that gives two or more.  A multi-host run joins its process group
-    here and leaves it when the run returns or raises."""
+    Under ``--engine torch`` entries are dealt over
+    make_dp_devices(cfg.dp_devices) when that gives two or more (never under
+    ``-h``); otherwise they are scored by the resident server that
+    ``serve.connect()`` finds (the ``MIA_TORCH_SERVER`` policy, probed
+    before anything imports torch) or, without one, on
+    torchcfg.select_device(rank).  A multi-host run joins its process group
+    here and leaves it when the run returns or raises; the server's
+    connection is closed the same way."""
     check_ported(cfg)
     with profiling.phase("dist.init"):
         multi = dist.initialize_if_needed()
+    placement = None
     try:
-        return _assemble(cfg, multi)
+        if cfg.engine == "torch":
+            devices = None if cfg.hp_special else make_dp_devices(cfg.dp_devices)
+            client = None if devices else serve.connect()
+            if client is not None:
+                placement = Placement(client=client)
+            elif devices:
+                placement = Placement(devices[0], devices)
+            else:
+                from ..utils.torchcfg import select_device
+
+                placement = Placement(select_device(dist.process_index()))
+        return _assemble(cfg, multi, placement)
     finally:
+        if placement is not None and placement.client is not None:
+            placement.client.close()
         if multi:
             dist.shutdown()
 
 
-def _assemble(cfg: MiaConfig, multi: bool) -> MapAlignment:
+def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAlignment:
     t_setup = time.time()
     # -C / -q need sequence content globally (duplicate groups span
     # processes; the fastq export is one global file): full stubs mirror
@@ -284,19 +355,15 @@ def _assemble(cfg: MiaConfig, multi: bool) -> MapAlignment:
             # no native lib (and the auto-build failed): the exact per-read
             # numpy path serves instead
             use_native = False
-    devices = None
     if use_torch:
-        devices = make_dp_devices(cfg.dp_devices)
         # -h: the scorer needs the strands' chars for the homopolymer runs
-        # (src/mia.c:883-905); the -h kernel has no sharded form (as in the
-        # JAX package), so -h runs stay on one device
+        # (src/mia.c:883-905)
         hp_seqs = None
         if cfg.hp_special:
-            devices = None
             hp_seqs = (fw_align.seq1[: fw_align.len1], rc_align.seq1[: rc_align.len1])
-        scorer = Pass1Scorer(fw_align.s1c, rc_align.s1c, fw_align.len1, ancsubmat,
-                             device=select_device(dist.process_index()),
-                             hp_seqs=hp_seqs, devices=devices)
+        scorer = placement.scorer(fw_align.s1c, rc_align.s1c, fw_align.len1, ancsubmat,
+                                  hp_seqs=hp_seqs)
+        profiling.count("pass1.using_server" if placement.client else "pass1.in_process")
 
     # asynchronous device pipeline: batches dispatch without blocking and
     # drain in read order as their results land (or when the inflight cap is
@@ -605,7 +672,7 @@ def _assemble(cfg: MiaConfig, multi: bool) -> MapAlignment:
         return records, handle, (arena, off[:-1], lens, fw_ivg, rc_ivg, flags)
 
     def _inflight_ready(fut) -> bool:
-        return fut.done() and Pass1Scorer.ready(fut.result()[1])
+        return fut.done() and scorer.ready(fut.result()[1])
 
     def flush_pending(final: bool = False) -> None:
         if pending:
@@ -804,12 +871,10 @@ def _assemble(cfg: MiaConfig, multi: bool) -> MapAlignment:
     if cfg.collapse:
         _collapse()
 
-    rei_device = scorer.device if use_torch else None
     with profiling.phase("reiterate"):
         reiterate_assembly(
             last_assembly_cons, iter_num, maln, fsdb, fw_align, ancsubmat,
-            rcancsubmat, engine=cfg.engine, torch_device=rei_device,
-            devices=devices,
+            rcancsubmat, engine=cfg.engine, placement=placement,
         )
     pop_smp_from_FSDB(fsdb, PSSM_DEPTH)
     _filter_and_cull()
@@ -819,9 +884,10 @@ def _assemble(cfg: MiaConfig, multi: bool) -> MapAlignment:
         if cfg.make_fastq:
             _write_fastq()
 
-    consensus = functools.partial(
-        ConsensusHook(rei_device, devices).consensus if use_torch
-        else consensus_assembly_string, reduce_cc=reduce_cc)
+    consensus = functools.partial(consensus_assembly_string, reduce_cc=reduce_cc)
+    if use_torch:
+        consensus = functools.partial(ConsensusHook(placement.counts()).consensus,
+                                      reduce_cc=reduce_cc)
 
     def _unconverged() -> bool:
         eq = assembly_cons == last_assembly_cons
@@ -844,8 +910,7 @@ def _assemble(cfg: MiaConfig, multi: bool) -> MapAlignment:
             with profiling.phase("reiterate"):
                 reiterate_assembly(
                     assembly_cons, iter_num, maln, fsdb, fw_align, ancsubmat,
-                    rcancsubmat, engine=cfg.engine, torch_device=rei_device,
-                    devices=devices,
+                    rcancsubmat, engine=cfg.engine, placement=placement,
                 )
             with profiling.phase("filters.pop_smp"):
                 pop_smp_from_FSDB(fsdb, PSSM_DEPTH)

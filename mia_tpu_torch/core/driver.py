@@ -7,8 +7,9 @@ native batch engine, or under ``--engine torch`` the port's scorer
 (:class:`~mia_tpu_torch.core.torch_engine.Pass1Scorer`); this module owns
 the strand choice, coordinate fixups, circular splits and maln/FSDB
 bookkeeping.  It is the JAX package's ``mia_tpu/core/driver.py`` with the
-device group of ``reiterate_assembly`` on the port's scorer: no resident
-server, no work-stealing, and a device failure raises.
+device group of ``reiterate_assembly`` on the port's scorer, in process or
+through the resident scoring server (:mod:`mia_tpu_torch.serve`): no
+work-stealing, and a device or server failure raises.
 """
 from __future__ import annotations
 
@@ -216,8 +217,7 @@ def reiterate_assembly(
     ancsubmat: np.ndarray,
     rcancsubmat: np.ndarray,
     engine: str = "native",
-    torch_device=None,
-    devices=None,
+    placement=None,
 ) -> None:
     """Re-align every FSDB read against the new consensus
     (src/mia_main.c:24-280).
@@ -228,9 +228,11 @@ def reiterate_assembly(
     the right molecular end.
 
     With ``engine == "torch"`` the window DP scoring for every device-sized
-    window runs batched on ``torch_device`` (one entry per read against the
-    new consensus, the read's strand picking the fw/rc PSSM), or sharded over
-    ``devices`` (``--dp-devices``), and only the score-verified margin-window
+    window runs batched on the scorer that ``placement``
+    (:class:`~mia_tpu_torch.core.assembler.Placement`) makes for the new
+    consensus: on this process's device, sharded over ``--dp-devices``, or
+    on the resident server, where it is freed once drained (one entry per
+    read, the read's strand picking the fw/rc PSSM), and only the score-verified margin-window
     traceback stays on the native threads; windows wider than the device
     window, and under ``-h`` reads with a homopolymer run of HPW or more, go
     to the native solver (a work partition, counted as
@@ -447,8 +449,6 @@ def reiterate_assembly(
         device: list = []
         scorer = None
         if engine == "torch":
-            from .torch_engine import Pass1Scorer
-
             enc = encode_seq(ref.seq[: ref.wrap_seq_len])
             # -h: reads realign on the fw strand (smidx picks the PSSM), so
             # both strand slots carry the consensus's chars and runs
@@ -456,11 +456,8 @@ def reiterate_assembly(
             if a.hp:
                 s_fw = ref.seq[: ref.wrap_seq_len]
                 hp_seqs = (s_fw, s_fw)
-            scorer = Pass1Scorer(
-                enc, enc, ref.wrap_seq_len, ancsubmat, rcancsubmat,
-                device=torch_device, hp_seqs=hp_seqs,
-                devices=None if a.hp else devices,
-            )
+            scorer = placement.scorer(enc, enc, ref.wrap_seq_len, ancsubmat, rcancsubmat,
+                                      hp_seqs=hp_seqs)
         profiling.add_time(
             "reiterate.setup", __import__("time").time() - _t_setup
         )
@@ -646,6 +643,8 @@ def reiterate_assembly(
                     _store(futs.pop(0))
             while futs:
                 _store(futs.pop(0))
+        if scorer is not None:
+            scorer.free()
         profiling.add_time("reiterate.device_drain", __import__("time").time() - _t_dev)
         bh.close()
 

@@ -216,6 +216,10 @@ class Pass1Scorer:
             for st in states
         ]
 
+    def free(self) -> None:
+        """Nothing to give back: the device state goes with the scorer (the
+        resident server's scorer drops its copy there)."""
+
     # ------------------------------------------------------------- dispatch
     def dispatch_entries(self, ref_sel, starts, ivl, s2c, lengths, smidx) -> _Batch:
         """Enqueue up to E entries; asynchronous on a card.

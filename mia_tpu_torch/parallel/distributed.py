@@ -31,17 +31,22 @@ instead of hanging them.
 
 Under ``--profile`` each collective counts in ``dist.collectives`` and its
 wall time, waiting for the slowest rank included, in ``dist.collective_s``.
+
+``torch.distributed`` is imported only when a group is joined: a
+single-process run (no ``MIA_TORCH_COORDINATOR_ADDRESS``) answers
+:func:`process_count` and :func:`process_index` without torch, so the host
+engines and a client of the resident server (:mod:`mia_tpu_torch.serve`)
+never import it.
 """
 from __future__ import annotations
 
 import datetime
 import os
+import sys
 import time
 from dataclasses import dataclass
 
 import numpy as np
-import torch
-import torch.distributed as dist
 
 from ..utils import profiling
 
@@ -61,6 +66,8 @@ def initialize_if_needed() -> bool:
     address = os.environ.get(COORDINATOR)
     if address is None:
         return False
+    import torch.distributed as dist
+
     if not dist.is_initialized():
         n = int(os.environ.get(NUM_PROCESSES, "1"))
         rank = int(os.environ.get(PROCESS_ID, "0"))
@@ -74,27 +81,40 @@ def initialize_if_needed() -> bool:
     return True
 
 
+def _group():
+    """``torch.distributed`` when this process is in a group, else None: a
+    group exists only once the module was imported, so none is imported
+    here."""
+    dist = sys.modules.get("torch.distributed")
+    return dist if dist is not None and dist.is_initialized() else None
+
+
 def shutdown() -> None:
     """Leave the group (no-op when there is none)."""
-    if dist.is_initialized():
+    dist = _group()
+    if dist is not None:
         dist.destroy_process_group()
 
 
 def process_count() -> int:
-    return dist.get_world_size() if dist.is_initialized() else 1
+    dist = _group()
+    return dist.get_world_size() if dist is not None else 1
 
 
 def process_index() -> int:
-    return dist.get_rank() if dist.is_initialized() else 0
+    dist = _group()
+    return dist.get_rank() if dist is not None else 0
 
 
 def _allgather(arr: np.ndarray) -> np.ndarray:
     """Every process's ``arr`` (one shape and dtype on all), stacked in rank
     order: [process_count(), *arr.shape]."""
+    import torch
+
     t0 = time.time()
     t = torch.from_numpy(np.ascontiguousarray(arr))
     out = [torch.empty_like(t) for _ in range(process_count())]
-    dist.all_gather(out, t)
+    _group().all_gather(out, t)
     profiling.count("dist.collectives")
     profiling.add_time("dist.collective_s", time.time() - t0)
     return np.stack([o.numpy() for o in out])

@@ -93,7 +93,7 @@ def test_device_hook_matches_host_consensus(monkeypatch):
     monkeypatch.setattr(profiling, "_counts", counters)
     monkeypatch.setattr(profiling, "_phases", {})
     ct.reset_counts()
-    got = assembler.ConsensusHook(torch.device("cpu")).consensus(maln)
+    got = assembler.ConsensusHook(assembler.Placement(torch.device("cpu")).counts()).consensus(maln)
     assert got == host
     assert ct.plain_calls == 1
     assert counters.get("consensus.device_calls") == 1
@@ -108,7 +108,7 @@ def test_failing_hook_raises_after_consensus(monkeypatch):
     maln = T.random_records(300, 200, seed=6)
     maln.ref.gaps = np.zeros(301, np.int64)
     monkeypatch.setattr(ct, "column_counts_plain", _failing_plain)
-    hook = assembler.ConsensusHook(torch.device("cpu"))
+    hook = assembler.ConsensusHook(assembler.Placement(torch.device("cpu")).counts())
     with pytest.raises(RuntimeError, match="device consensus failed") as info:
         hook.consensus(maln)
     assert "device counts failed" in str(info.value.__cause__)
@@ -119,6 +119,7 @@ def test_failing_hook_makes_assembly_raise(monkeypatch, tmp_path):
     equal answer must not hide it."""
     monkeypatch.setenv("MIA_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("MIA_SCORE_BATCH", "64")
+    monkeypatch.setenv("MIA_TORCH_SERVER", "0")
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(ct, "column_counts_plain", _failing_plain)
     cfg = parse_args(["-r", os.path.join(FIXTURES, "tr1.fna"),

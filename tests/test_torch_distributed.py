@@ -95,20 +95,24 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def rank_env(port: int, n: int, rank: int) -> dict:
+def rank_env(port: int, n: int, rank: int, **extra) -> dict:
+    """A rank's environment: the CPU, and no resident server unless
+    ``extra`` names one."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env.update(MIA_TORCH_DEVICE="cpu", MIA_SCORE_BATCH="64", OMP_NUM_THREADS="1",
+               MIA_TORCH_SERVER="0",
                MIA_TORCH_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                MIA_TORCH_NUM_PROCESSES=str(n), MIA_TORCH_PROCESS_ID=str(rank))
+    env.update(extra)
     return env
 
 
-def run_group(argvs, cwds, n, timeout=300):
-    """Start one process per rank, all at once; returns each one's stderr.
-    Every rank must exit 0."""
+def run_group(argvs, cwds, n, timeout=300, **extra):
+    """Start one process per rank, all at once, ``extra`` added to each
+    one's environment; returns each one's stderr.  Every rank must exit 0."""
     port = free_port()
-    procs = [subprocess.Popen(argvs[i], cwd=cwds[i], env=rank_env(port, n, i),
+    procs = [subprocess.Popen(argvs[i], cwd=cwds[i], env=rank_env(port, n, i, **extra),
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE)
              for i in range(n)]
     try:

@@ -279,6 +279,7 @@ def test_port_runs_without_jax(tmp_path):
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["MIA_TORCH_DEVICE"] = "cpu"
     env["MIA_SCORE_BATCH"] = "64"
+    env["MIA_TORCH_SERVER"] = "0"
     r = subprocess.run(
         [sys.executable, "-c", NO_JAX_RUN, FIXTURES], cwd=tmp_path, env=env,
         capture_output=True, timeout=600,

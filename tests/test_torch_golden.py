@@ -33,6 +33,8 @@ def run_torch_mia(args, workdir, extra_env=None, check=True, engine="torch"):
     env["MIA_TORCH_DEVICE"] = "cpu"
     env["MIA_SCORE_BATCH"] = "64"
     env["OMP_NUM_THREADS"] = "1"
+    # never a developer's resident server (tests/test_torch_serve.py names its own)
+    env["MIA_TORCH_SERVER"] = "0"
     env.update(extra_env or {})
     return subprocess.run(
         [sys.executable, "-c", NO_JAX_MAIN, *args, "-m", "out.maln",

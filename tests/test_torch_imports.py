@@ -2,7 +2,9 @@
 ``chip_smoke.py`` imports jax, jaxlib or anything of ``mia_tpu``.  The
 sources are parsed, so an import inside a function or a branch that no test
 runs counts too; and the port's ``mia`` and ``ccheck`` run goldens in a
-process whose import system refuses all three.
+process whose import system refuses all three.  Under ``--engine native``
+and ``--engine numpy`` the port's ``mia`` runs with torch refused too (a
+client of the resident server likewise: tests/test_torch_serve.py).
 """
 import ast
 import glob
@@ -48,7 +50,8 @@ def test_sources_listed():
     for must in ("mia_tpu_torch/core/assembler.py", "mia_tpu_torch/parallel/sharded.py",
                  "mia_tpu_torch/entry.py", "mia_tpu_torch/io/native.py", "chip_smoke.py",
                  "mia_tpu_torch/parallel/distributed.py", "mia_tpu_torch/cli/ma.py",
-                 "mia_tpu_torch/cli/easy_consensus.py", "mia_tpu_torch/models/estimate.py"):
+                 "mia_tpu_torch/cli/easy_consensus.py", "mia_tpu_torch/models/estimate.py",
+                 "mia_tpu_torch/serve.py", "mia_tpu_torch/cli/serve.py"):
         assert must in SOURCES
 
 
@@ -74,26 +77,31 @@ def test_the_parser_sees_every_form(tmp_path):
         "1: jax.numpy", "2: mia_tpu.core", "6: jaxlib", "7: mia_tpu.ops", "8: jax"]
 
 
-# a finder that refuses the three packages, put before every other
+# a finder that refuses the packages, put before every other
 REFUSE = r"""
 import importlib.abc, sys
+PACKAGES = PACKAGE_LIST
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "mia_tpu"):
+        if name.split(".")[0] in PACKAGES:
             raise ImportError("refused: " + name)
 sys.meta_path.insert(0, Refuse())
 from mia_tpu_torch.cli.MODULE import main
 rc = main(sys.argv[1:])
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "mia_tpu")]
+bad = [m for m in sys.modules if m.split(".")[0] in PACKAGES]
 assert not bad, bad
 sys.exit(rc)
 """
+NO_TORCH = FORBIDDEN + ("torch",)
 
 
-def _run_refusing(module, argv, cwd):
-    env = dict(os.environ, MIA_TORCH_DEVICE="cpu", MIA_SCORE_BATCH="64",
-               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    return subprocess.run([sys.executable, "-c", REFUSE.replace("MODULE", module), *argv],
+def _run_refusing(module, argv, cwd, packages=FORBIDDEN, **env):
+    """The port's CLI ``module`` in a new process whose import system
+    refuses ``packages``; ``env`` is added to its environment."""
+    env = {**os.environ, "MIA_TORCH_DEVICE": "cpu", "MIA_SCORE_BATCH": "64",
+           "MIA_TORCH_SERVER": "0", "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", ""), **env}
+    code = REFUSE.replace("MODULE", module).replace("PACKAGE_LIST", repr(tuple(packages)))
+    return subprocess.run([sys.executable, "-c", code, *argv],
                           cwd=cwd, env=env, capture_output=True, timeout=600)
 
 
@@ -111,6 +119,26 @@ def test_cli_runs_where_jax_and_mia_tpu_are_refused(tmp_path):
     assert r.returncode == 0, r.stderr.decode()[-3000:]
     with open(os.path.join(cc, "prose.txt"), "rb") as f:
         assert r.stdout == f.read()
+
+
+@pytest.mark.parametrize("engine", ["native", "numpy"])
+def test_host_engines_run_where_torch_is_refused(engine, tmp_path):
+    """The host engines import no torch (nor does the CLI around them): the
+    ``fastq_UC`` golden's bytes with torch refused, and no kernel counted."""
+    from .test_torch_golden import fixture_args, profile_counters
+
+    r = _run_refusing("mia", [*fixture_args("fastq_UC"), "-m", "out.maln", "--engine",
+                              engine, "--profile"], tmp_path, NO_TORCH)
+    assert r.returncode == 0, r.stderr.decode()[-3000:]
+    golden = os.path.join(GOLDEN, "fastq_UC")
+    assert sorted(p for p in os.listdir(tmp_path) if p.startswith("out.maln.")) == sorted(
+        os.listdir(golden))
+    for fn in sorted(os.listdir(golden)):
+        with open(tmp_path / fn, "rb") as a, open(os.path.join(golden, fn), "rb") as b:
+            assert a.read().split(b"\n")[1:] == b.read().split(b"\n")[1:], fn
+    c = profile_counters(r.stderr)
+    assert c["dp.kernel_launches"] == c["dp.plain_calls"] == c["cons.plain_calls"] == 0, c
+    assert "pass1.using_server" not in c and "pass1.in_process" not in c, c
 
 
 def test_host_tools_run_where_jax_and_mia_tpu_are_refused(tmp_path):

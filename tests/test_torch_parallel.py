@@ -345,6 +345,7 @@ def test_dp_devices_under_hp_stay_on_one_device(tmp_path, monkeypatch):
     """-h has no sharded scorer (as in the JAX package): the device list is
     dropped and the run equals the golden."""
     monkeypatch.setenv("MIA_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("MIA_TORCH_SERVER", "0")
     monkeypatch.setenv("MIA_SCORE_BATCH", "64")
     monkeypatch.chdir(tmp_path)
     orig = torch_engine.make_dp_devices
