@@ -11,7 +11,12 @@ runs phases 1-2 and then times the Myers kernel of ``FILE``, an earlier
 ``myers_waves.cu`` with the same C interface, beside this tree's, built
 also at 256 and 512 threads, on phase 9's pairs: each build held to the
 plain version (found and the whole history), then the bare launches in
-turns, earlier first and last; no result line.)
+turns, earlier first and last; no result line.  ``--ccheck-ab FILE [PAIRS]``
+runs phases 1-2 and then ccheck (``-a``, ``--engine torch``) on phase 11's
+sample with ``FILE``, an earlier ``mia_tpu_torch/core/contamination.py``,
+in place of this tree's, and with this tree's, in turns: PAIRS pairs
+(default 10), each order in every other pair, every run held to
+``--engine native``'s stdout; no result line.)
 
 Phases, each printing its own lines; any failure exits non-zero before the
 result line.  Every reference is the port's own: its plain PyTorch versions,
@@ -170,6 +175,7 @@ import json
 import os
 import shutil
 import signal
+import statistics
 import subprocess
 import sys
 import time
@@ -1097,6 +1103,60 @@ def phase_ccheck_e2e(n_endo: int = 9000, n_cont: int = 1000) -> dict:
     return {"myers.kernel_launches": launches}
 
 
+def phase_ccheck_ab(earlier: str, pairs: int) -> None:
+    """``--ccheck-ab``: ccheck's host layer ``earlier`` (an earlier
+    ``core/contamination.py``, loaded beside this tree's and run with this
+    tree's other modules) against this tree's, whole ``ccheck.main`` calls
+    in turns on phase 11's sample."""
+    import importlib.util
+
+    from mia_tpu_torch.cli import ccheck
+    from mia_tpu_torch.cli.ccheck import find_maln
+
+    spec = importlib.util.spec_from_file_location(
+        "mia_tpu_torch.core.contamination_earlier", earlier)
+    layers = {"earlier": importlib.util.module_from_spec(spec), "this": ccheck.contamination}
+    sys.modules[spec.name] = layers["earlier"]  # its dataclasses look themselves up
+    spec.loader.exec_module(layers["earlier"])
+    n_endo, n_cont = 9000, 1000
+    args, root = ccheck_workload(n_endo, n_cont)
+    run_port(args, root)
+    argv = ["-a", find_maln(root + ".1")]
+    want, _, t_native = run_ccheck(["--engine", "native", *argv], profile=False)
+    order = [name for i in range(pairs)
+             for name in (("earlier", "this") if i % 2 == 0 else ("this", "earlier"))]
+    runs: dict[str, list[dict]] = {name: [] for name in layers}
+    for name in order:
+        ccheck.contamination = layers[name]
+        try:
+            out, prof, wall, counts = run_port_ccheck(argv, f"a/b {name}")
+        finally:
+            ccheck.contamination = layers["this"]
+        if out != want:
+            raise AssertionError(f"ccheck a/b: {name}'s stdout differs from --engine native")
+        ph = prof["phases_s"]
+        run = {"wall": wall, "realign": ph["ccheck.realign"], "myers": ph["ccheck.myers"],
+               "walks": wall - ph["ccheck.realign"] - ph["ccheck.myers"]}
+        runs[name].append(run)
+        say(f"ccheck a/b: {name}: {wall:.3f} s, {(n_endo + n_cont) / wall:.2f} reads/s; walks "
+            f"{run['walks']:.3f}, realign {run['realign']:.3f}, myers {run['myers']:.4f}; "
+            f"{json.dumps(counts)}")
+
+    def quartiles(xs: list[float]) -> str:
+        q1, q2, q3 = statistics.quantiles(xs, n=4, method="inclusive")
+        return f"median {q2:.3f} [{q1:.3f}-{q3:.3f}]"
+
+    wins = sum(b["wall"] < a["wall"] for a, b in zip(runs["earlier"], runs["this"]))
+    say(f"ccheck a/b: {pairs} pairs in turns on {n_endo} + {n_cont} reads, every run "
+        f"byte-identical to --engine native ({t_native:.3f} s); this tree faster in "
+        f"{wins} of {pairs} pairs")
+    for name, rs in runs.items():
+        rates = [(n_endo + n_cont) / r["wall"] for r in rs]
+        say(f"ccheck a/b:   {name}: reads/s {quartiles(rates)}; "
+            + "; ".join(f"{k} s {quartiles([r[k] for r in rs])}"
+                        for k in ("wall", "walks", "realign", "myers")))
+
+
 def time_plain_pair(kernel, plain, what: str, unit: str = "") -> dict:
     """Kernel and plain times per call (CUDA events, warmed up)."""
     cuda_ms(kernel, 3)
@@ -1864,6 +1924,11 @@ def main() -> int:
         phase_myers_ab(dev, sys.argv[2])
         say(nvidia_smi())
         say(f"total: {time.time() - t_start:.1f} s (myers a/b only)")
+        return 0
+    if sys.argv[1:2] == ["--ccheck-ab"] and len(sys.argv) in (3, 4):
+        phase_ccheck_ab(sys.argv[2], int(sys.argv[3]) if len(sys.argv) == 4 else 10)
+        say(nvidia_smi())
+        say(f"total: {time.time() - t_start:.1f} s (ccheck a/b only)")
         return 0
     kern = phase_kernel(dev)
     hp_kern = phase_hp_kernel(dev)

@@ -120,19 +120,56 @@ def consistent(adna: bool, x: str, y: str) -> bool:
     return x == "-" or y == "-" or compatible(x, y)
 
 
-def mk_dp_list(aln1: str, aln2: str, span_from: int, span_to: int) -> dict[int, Dp]:
+class AlnIndex:
+    """The global alignment ``(aln_con, aln_ass)`` indexed once, so that a
+    read's walk and lift start at its own span instead of at column 0, as
+    src/ccheck.cc:166-176 does for every read.
+
+    Over the ``n = min(len(aln_con), len(aln_ass))`` columns that both
+    strings have (the C walks' and ``zip``'s reach):
+
+    * ``first[k]``: the first column with ``k`` assembly bases (non-``-``
+      characters of ``aln_ass``) before it, for ``k`` up to ``total``;
+    * ``con_before[i]``: the contaminant bases in columns ``[0, i)``, which
+      index ``con_bases``, ``aln_con`` without its gaps;
+    * ``weak[i]``: ``is_weakly_diagnostic`` of column ``i``."""
+
+    def __init__(self, aln_con: str, aln_ass: str):
+        n = min(len(aln_con), len(aln_ass))
+        gap = ord("-")
+        ass = np.frombuffer(aln_ass[:n].encode("utf-32-le"), np.uint32) != gap
+        con = np.frombuffer(aln_con[:n].encode("utf-32-le"), np.uint32) != gap
+        self.n = n
+        self.first = [0, *(np.flatnonzero(ass) + 1).tolist()]
+        self.total = len(self.first) - 1
+        self.con_before = [0, *np.cumsum(con).tolist()]
+        self.con_bases = aln_con[:n].replace("-", "")
+        self.weak = [is_weakly_diagnostic(a, b) for a, b in zip(aln_con, aln_ass)]
+
+    def walk(self, k: int) -> tuple[int, int]:
+        """Where the walk from column 0 towards assembly position ``k``
+        stops: (column, assembly bases before it)."""
+        if 0 <= k <= self.total:
+            return self.first[k], k
+        return self.n, self.total
+
+    def lift(self, s: int, e: int) -> str:
+        """Contaminant bases covering assembly range [s, e)
+        (src/ccheck.cc:166-176): those of the columns whose assembly
+        position lies in [s, e)."""
+        lo = self.walk(max(s, 0))[0]
+        hi = self.walk(max(e, 0))[0]
+        return self.con_bases[self.con_before[lo] : self.con_before[hi]]
+
+
+def mk_dp_list(aln1: str, aln2: str, aln: AlnIndex, span_from: int,
+               span_to: int) -> dict[int, Dp]:
     """Diagnostic positions keyed by assembly coordinate
-    (src/ccheck.cc:132-154)."""
+    (src/ccheck.cc:132-154); ``aln`` indexes ``(aln1, aln2)``."""
     out: dict[int, Dp] = {}
-    index = 0
-    i = 0
-    n = min(len(aln1), len(aln2))
-    while index != span_from and i < n:
-        if aln2[i] != "-":
-            index += 1
-        i += 1
-    while index != span_to and i < n:
-        if is_weakly_diagnostic(aln1[i], aln2[i]):
+    i, index = aln.walk(span_from)
+    while index != span_to and i < aln.n:
+        if aln.weak[i]:
             d = out.setdefault(index, Dp())
             d.consensus = aln1[i]
             d.assembly = aln2[i]
@@ -146,21 +183,6 @@ def mk_dp_list(aln1: str, aln2: str, span_from: int, span_to: int) -> dict[int, 
 def overlapped_positions(keys: list[int], s: AlnSeq) -> tuple[int, int]:
     """lower_bound(start), lower_bound(end+1) over the sorted key list."""
     return bisect_left(keys, s.start), bisect_left(keys, s.end + 1)
-
-
-def lift_over(aln1: str, aln2: str, s: int, e: int) -> str:
-    """Contaminant bases covering assembly range [s, e)
-    (src/ccheck.cc:166-176)."""
-    out = []
-    p = 0
-    for c1, c2 in zip(aln1, aln2):
-        if p >= e:
-            break
-        if c1 != "-" and p >= s:
-            out.append(c1)
-        if c2 != "-":
-            p += 1
-    return "".join(out)
 
 
 def sanity_check_sequence(s: str) -> bool:
@@ -284,10 +306,11 @@ def _solve_device(bh, reads, wlo, whi, lens, submat, big_ref: str, device) -> di
     return solved
 
 
-def _realign_all(maln, aln_con: str, aln_ass: str, submat, engine: str = "torch",
-                 device=None) -> list[CachedPwaln]:
+def _realign_all(maln, index: AlnIndex, submat, engine: str = "torch",
+                 device=None) -> tuple[list[str], list[CachedPwaln]]:
     """Pass-1 read re-alignments to the lifted contaminant windows
-    (src/ccheck.cc:550-603), batched.
+    (src/ccheck.cc:550-603), batched; returns each read's window and its
+    re-alignment.
 
     "native": all windows concatenate into one pseudo-reference and solve in
     threaded FFI calls (mia_rei_solve fills exactly the sliced-window DP the
@@ -306,7 +329,7 @@ def _realign_all(maln, aln_con: str, aln_ass: str, submat, engine: str = "torch"
             if ins:
                 parts.append(ins)
         the_read = "".join(parts)
-        lifted = lift_over(aln_con, aln_ass, s.start, s.end + 2)
+        lifted = index.lift(s.start, s.end + 2)
         ref_for_mia = "".join(
             c.upper() if c.upper() in "ACGT" else "N" for c in lifted
         )
@@ -366,7 +389,7 @@ def _realign_all(maln, aln_con: str, aln_ass: str, submat, engine: str = "torch"
         if cached[i].ref_seq or not (ref_for_mia and the_read):
             continue
         cached[i] = _python_realign_one(submat, ref_for_mia, the_read, len(lifted))
-    return cached
+    return [lifted for _, lifted, _ in jobs], cached
 
 
 def print_results(summary: list[int], mktable: bool, out) -> None:
@@ -458,7 +481,8 @@ def check_contamination(
     else:
         out.write(f"  {d} alignment distance between reference and assembly.\n")
 
-    dps = mk_dp_list(aln_con, aln_ass, span_from, span_to)
+    index = AlnIndex(aln_con, aln_ass)
+    dps = mk_dp_list(aln_con, aln_ass, index, span_from, span_to)
     if mktable:
         out.write(f"{len(dps)}\t")
     else:
@@ -487,22 +511,14 @@ def check_contamination(
 
     # ---- pass 1: find actually diagnostic positions ----
     # all read-vs-lifted-window re-alignments run batched up front (native
-    # threads / device scoring per `engine`); the loop below only walks them
+    # threads / device scoring per `engine`); the loop below only walks them,
+    # each read from its own span of the indexed alignment
+    weak = index.weak
     with profiling.phase("ccheck.realign"):
-        cached = _realign_all(maln, aln_con, aln_ass, submat, engine, device)
-    for s, pwaln in zip(maln.aln_seqs, cached):
+        windows, cached = _realign_all(maln, index, submat, engine, device)
+    for s, pwaln, lifted in zip(maln.aln_seqs, cached, windows):
         fixup_name(s)
-        lifted = lift_over(aln_con, aln_ass, s.start, s.end + 2)
-
-        # walk the global alignment to this read's span
-        p = 0
-        ass_pos = 0
-        n_aln = min(len(aln_con), len(aln_ass))
-        while ass_pos != s.start and p < n_aln:
-            if aln_ass[p] != "-":
-                ass_pos += 1
-            p += 1
-
+        p, ass_pos = index.walk(s.start)  # the global alignment at this read's span
         in_ref = lifted[: pwaln.start] + pwaln.ref_seq
         ir = 0  # index into in_ref
         ifr = 0  # index into pwaln.frag_seq
@@ -518,7 +534,7 @@ def check_contamination(
             and _ch(s.seq, ifa) != "\0"
             and _ch(pwaln.frag_seq, ifr) != "\0"
         ):
-            if is_weakly_diagnostic(aln_con[p], aln_ass[p]):
+            if weak[p]:
                 dpv = dps.get(ass_pos)
                 if dpv is None:
                     err.write(f"diagnostic site not found: {ass_pos}\n")
@@ -576,15 +592,8 @@ def check_contamination(
 
         lo, hi = overlapped_positions(keys, s)
         if hi - lo >= min_diag_posns:
-            p = 0
-            ass_pos = 0
-            n_aln = min(len(aln_con), len(aln_ass))
-            while ass_pos != s.start and p < n_aln:
-                if aln_ass[p] != "-":
-                    ass_pos += 1
-                p += 1
-
-            lifted = lift_over(aln_con, aln_ass, s.start, s.end + 1)
+            p, ass_pos = index.walk(s.start)
+            lifted = index.lift(s.start, s.end + 1)
             in_ref = lifted[: cpw.start] + cpw.ref_seq
             ir = 0
             ifr = 0
@@ -600,7 +609,7 @@ def check_contamination(
                 and _ch(s.seq, ifa) != "\0"
                 and _ch(cpw.frag_seq, ifr) != "\0"
             ):
-                if is_weakly_diagnostic(aln_con[p], aln_ass[p]):
+                if weak[p]:
                     dpv = dps.get(ass_pos)
                     if dpv is not None and _ch(cpw.frag_seq, ifr) == _ch(s.seq, ifa):
                         maybe_clean = consistent(adna, dpv.assembly, _ch(s.seq, ifa))

@@ -103,7 +103,8 @@ def test_realign_all_matches_mia_tpu(monkeypatch):
     maln = read_ma(os.path.join(CC, "cc.maln.2"))
     aln_con, aln_ass = _alignment(maln)
     port_cc.reset_counts()
-    got = port_cc._realign_all(maln, aln_con, aln_ass, maln.fpsm, device="cpu")
+    _, got = port_cc._realign_all(maln, port_cc.AlnIndex(aln_con, aln_ass), maln.fpsm,
+                                  device="cpu")
     assert port_cc.device_entries > 0
     assert len(got) == len(maln.aln_seqs) == 361
     got = [dataclasses.astuple(c) for c in got]
