@@ -16,7 +16,13 @@ runs phases 1-2 and then ccheck (``-a``, ``--engine torch``) on phase 11's
 sample with ``FILE``, an earlier ``mia_tpu_torch/core/contamination.py``,
 in place of this tree's, and with this tree's, in turns: PAIRS pairs
 (default 10), each order in every other pair, every run held to
-``--engine native``'s stdout; no result line.)
+``--engine native``'s stdout; no result line.  ``--hp-ab ROOT [PAIRS]``
+runs phases 1-2 and then mia ``-h`` (``--engine torch``) on the ``-h``
+cell's traffic at seed 41 with the cull and consensus host layer of
+``ROOT``, a ``git archive`` of an earlier commit (its ``core/fsdb.py`` and
+``core/columns.py``), in place of this tree's, and with this tree's, in
+turns the same way, every run's maln held to the earlier layer's; no result
+line.)
 
 Phases, each printing its own lines; any failure exits non-zero before the
 result line.  Every reference is the port's own: its plain PyTorch versions,
@@ -169,6 +175,7 @@ the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import io
 import json
@@ -993,8 +1000,6 @@ def phase_myers_kernel(dev) -> dict:
 def run_ccheck(argv: list[str], profile: bool) -> tuple[bytes, dict, float]:
     """The port's ccheck CLI in this process: (stdout bytes, profile or {},
     wall s).  Raises unless it exits 0."""
-    import contextlib
-
     from mia_tpu_torch.cli.ccheck import main
 
     out, err = io.StringIO(), io.StringIO()
@@ -1103,6 +1108,17 @@ def phase_ccheck_e2e(n_endo: int = 9000, n_cont: int = 1000) -> dict:
     return {"myers.kernel_launches": launches}
 
 
+def quartiles(xs: list[float]) -> str:
+    q1, q2, q3 = statistics.quantiles(xs, n=4, method="inclusive")
+    return f"median {q2:.3f} [{q1:.3f}-{q3:.3f}]"
+
+
+def ab_order(pairs: int) -> list[str]:
+    """The runs of an a/b phase in turns, each order in every other pair."""
+    return [name for i in range(pairs)
+            for name in (("earlier", "this") if i % 2 == 0 else ("this", "earlier"))]
+
+
 def phase_ccheck_ab(earlier: str, pairs: int) -> None:
     """``--ccheck-ab``: ccheck's host layer ``earlier`` (an earlier
     ``core/contamination.py``, loaded beside this tree's and run with this
@@ -1123,10 +1139,8 @@ def phase_ccheck_ab(earlier: str, pairs: int) -> None:
     run_port(args, root)
     argv = ["-a", find_maln(root + ".1")]
     want, _, t_native = run_ccheck(["--engine", "native", *argv], profile=False)
-    order = [name for i in range(pairs)
-             for name in (("earlier", "this") if i % 2 == 0 else ("this", "earlier"))]
     runs: dict[str, list[dict]] = {name: [] for name in layers}
-    for name in order:
+    for name in ab_order(pairs):
         ccheck.contamination = layers[name]
         try:
             out, prof, wall, counts = run_port_ccheck(argv, f"a/b {name}")
@@ -1142,10 +1156,6 @@ def phase_ccheck_ab(earlier: str, pairs: int) -> None:
             f"{run['walks']:.3f}, realign {run['realign']:.3f}, myers {run['myers']:.4f}; "
             f"{json.dumps(counts)}")
 
-    def quartiles(xs: list[float]) -> str:
-        q1, q2, q3 = statistics.quantiles(xs, n=4, method="inclusive")
-        return f"median {q2:.3f} [{q1:.3f}-{q3:.3f}]"
-
     wins = sum(b["wall"] < a["wall"] for a, b in zip(runs["earlier"], runs["this"]))
     say(f"ccheck a/b: {pairs} pairs in turns on {n_endo} + {n_cont} reads, every run "
         f"byte-identical to --engine native ({t_native:.3f} s); this tree faster in "
@@ -1155,6 +1165,95 @@ def phase_ccheck_ab(earlier: str, pairs: int) -> None:
         say(f"ccheck a/b:   {name}: reads/s {quartiles(rates)}; "
             + "; ".join(f"{k} s {quartiles([r[k] for r in rs])}"
                         for k in ("wall", "walks", "realign", "myers")))
+
+
+HP_AB_PHASES = ("filters.cull", "consensus", "consensus.ins_cols", "consensus.main_counts")
+
+
+def phase_hp_ab(earlier_root: str, pairs: int) -> None:
+    """``--hp-ab``: the gap-column host layer of ``earlier_root`` (a checkout
+    of an earlier commit: its ``core/fsdb.py`` and ``core/columns.py``,
+    loaded beside this tree's and bound to this tree's other modules)
+    against this tree's, whole ``mia.main`` calls with ``-h --engine torch
+    --profile`` in turns on the ``-h`` cell's traffic at seed 41 (20,000
+    reads with homopolymer-length errors at the cell's rate).  Every run's
+    maln bytes must equal the earlier layer's first run's."""
+    import importlib.util
+    from types import SimpleNamespace
+
+    from benchmark import cells
+    from benchmark.run import load_benchmark, load_config
+    from mia_tpu_torch.core import assembler, columns, fsdb
+    from mia_tpu_torch.ops import consensus_torch, dp_cuda
+
+    swaps = {}
+    for this in (fsdb, columns):
+        name = this.__name__ + "_earlier"
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(earlier_root, "mia_tpu_torch", "core",
+                               this.__name__.rsplit(".", 1)[1] + ".py"))
+        earlier = importlib.util.module_from_spec(spec)
+        sys.modules[name] = earlier
+        spec.loader.exec_module(earlier)
+        # the names core/assembler.py imports from the module
+        for attr, obj in vars(assembler).items():
+            if getattr(obj, "__module__", None) == this.__name__:
+                swaps[attr] = (getattr(earlier, attr), obj)
+    cell = next(w for w in load_benchmark()["workloads"] if w["name"] == "mia-hsmt-100k-h")
+    d = os.path.join(WORK, "hp_ab")
+    os.makedirs(d)
+    ctx = SimpleNamespace(seed=41, scale=1.0, work=d)
+    inputs = cells.make_inputs(ctx, cell, load_config(cell))
+    say(f"hp a/b: {inputs['held']}; swapped for the earlier layer: {sorted(swaps)}")
+
+    def run(name: str, tag: str) -> tuple[dict, float, dict]:
+        root = os.path.join(d, tag, "out.maln")
+        os.makedirs(os.path.dirname(root))
+        for attr, (earlier, this) in swaps.items():
+            setattr(assembler, attr, earlier if name == "earlier" else this)
+        reset_counts()
+        t0 = time.time()
+        try:
+            # the run's own log would bury the phase's lines
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                prof = run_port(inputs["args"], root, profile=True)
+        finally:
+            for attr, (_, this) in swaps.items():
+                setattr(assembler, attr, this)
+        return maln_bytes(root), time.time() - t0, prof
+
+    want, wall, _ = run("earlier", "warm")
+    say(f"hp a/b: warm-up (earlier layer) {wall:.3f} s, {len(want)} maln files")
+    runs: dict[str, list[dict]] = {"earlier": [], "this": []}
+    for k, name in enumerate(ab_order(pairs)):
+        got, wall, prof = run(name, f"run{k}")
+        if got != want:
+            raise AssertionError(f"hp a/b: run {k} ({name}) maln differs from the earlier "
+                                 f"layer's")
+        counts = {"dp.hp_kernel_launches": dp_cuda.hp_kernel_launches,
+                  "dp.hp_plain_calls": dp_cuda.hp_plain_calls,
+                  "cons.kernel_launches": consensus_torch.kernel_launches,
+                  "cons.plain_calls": consensus_torch.plain_calls,
+                  "pass1.device_scored_reads":
+                      prof["counters"].get("pass1.device_scored_reads", 0)}
+        if (counts["dp.hp_plain_calls"] or counts["cons.plain_calls"]
+                or not counts["dp.hp_kernel_launches"] or not counts["cons.kernel_launches"]):
+            raise AssertionError(f"hp a/b: run {k} ({name}) did not score on the card: "
+                                 f"{counts}")
+        ph = prof["phases_s"]
+        r = {"wall": wall, **{p: ph.get(p, 0.0) for p in HP_AB_PHASES}}
+        runs[name].append(r)
+        say(f"hp a/b: {name}: {wall:.3f} s, {inputs['reads'] / wall:.2f} reads/s; "
+            + ", ".join(f"{p} {r[p]:.3f}" for p in HP_AB_PHASES) + f"; {json.dumps(counts)}")
+    wins = sum(b["wall"] < a["wall"] for a, b in zip(runs["earlier"], runs["this"]))
+    say(f"hp a/b: {pairs} pairs in turns, every run's maln byte-identical to the earlier "
+        f"layer's; this tree faster in {wins} of {pairs} pairs")
+    for name, rs in runs.items():
+        rates = [inputs["reads"] / r["wall"] for r in rs]
+        say(f"hp a/b:   {name}: reads/s {quartiles(rates)}; "
+            + "; ".join(f"{k} s {quartiles([r[k] for r in rs])}"
+                        for k in ("wall", *HP_AB_PHASES)))
 
 
 def time_plain_pair(kernel, plain, what: str, unit: str = "") -> dict:
@@ -1929,6 +2028,11 @@ def main() -> int:
         phase_ccheck_ab(sys.argv[2], int(sys.argv[3]) if len(sys.argv) == 4 else 10)
         say(nvidia_smi())
         say(f"total: {time.time() - t_start:.1f} s (ccheck a/b only)")
+        return 0
+    if sys.argv[1:2] == ["--hp-ab"] and len(sys.argv) in (3, 4):
+        phase_hp_ab(sys.argv[2], int(sys.argv[3]) if len(sys.argv) == 4 else 10)
+        say(nvidia_smi())
+        say(f"total: {time.time() - t_start:.1f} s (hp a/b only)")
         return 0
     kern = phase_kernel(dev)
     hp_kern = phase_hp_kernel(dev)

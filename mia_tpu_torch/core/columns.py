@@ -2,9 +2,9 @@
 
 Bridges the assembly state to the vectorised consensus ops: one scatter-add
 pass builds every main-column accumulator (vs the reference's O(ref_len *
-num_reads) rescans, src/mia.c:551-599 / src/map_alignment.c:134-183), while
-insertion columns (rare) are handled per gap position exactly like
-find_ins_cons (src/map_align.c:444-510).
+num_reads) rescans, src/mia.c:551-599 / src/map_alignment.c:134-183), and
+one more builds every insertion column's, laid end to end (find_ins_cons,
+src/map_align.c:444-510, for all gap positions at once).
 """
 from __future__ import annotations
 
@@ -118,69 +118,111 @@ def main_column_counts(
     return cc
 
 
-def _covering(maln: MapAlignment, pos: int) -> list:
-    """Records with a.start < pos <= a.end, in maln order — one vectorised
-    range test instead of a python scan of every record per insertion
-    column (the reference rescans all reads per column,
+def _record_spans(maln: MapAlignment):
+    """Every record's start, end, PSSM-code length and strand as arrays, in
+    maln order: one pass over the records instead of a python scan of them
+    per insertion column (the reference rescans all reads per column,
     src/map_align.c:463-467; at 100k reads x hundreds of insertion columns
     the python scan was minutes)."""
     seqs = maln.aln_seqs
     # cache keyed on (pool identity, live count): every record-set change in
     # the assembly flow goes through set_aln_seqs (fresh pool list), so the
-    # (start, end) arrays stay valid for the whole consensus pass; the pool
-    # reference in the cache also pins the list against id reuse
-    cache = getattr(maln, "_cov_cache", None)
+    # arrays stay valid for the whole consensus pass and for the ma writers'
+    # column-by-column calls; the pool reference in the cache also pins the
+    # list against id reuse
+    cache = getattr(maln, "_spans_cache", None)
     if (
         cache is None
         or cache[0] is not maln.pool
         or cache[1] != maln.num_aln_seqs
     ):
-        starts = np.fromiter((a.start for a in seqs), np.int64, len(seqs))
-        ends = np.fromiter((a.end for a in seqs), np.int64, len(seqs))
-        cache = (maln.pool, maln.num_aln_seqs, starts, ends)
-        maln._cov_cache = cache
-    _, _, starts, ends = cache
-    idx = np.flatnonzero((starts < pos) & (pos <= ends))
-    return [seqs[i] for i in idx]
-
-
-def find_ins_cons(maln: MapAlignment, pos: int, reduce_cc=None):
-    """Consensus of the insertion columns immediately upstream of ``pos``
-    (find_ins_cons, src/map_align.c:444-510).  Includes dropped reads, as the
-    reference does.  Returns (chars uint8 [L], ColumnCounts, frac [L])."""
-    L = int(maln.ref.gaps[pos])
-    cc = ColumnCounts(L)
-    covering = [
-        a for a in _covering(maln, pos) if pos - a.start < len(a.smp)
-    ]
-    m = len(covering)
-    if m:
-        chars = np.full((m, L), ord("-"), dtype=np.uint8)
-        for i, a in enumerate(covering):
-            ins = a.ins.get(pos - a.start)
-            if ins is not None:
-                k = min(len(ins), L)
-                chars[i, :k] = np.frombuffer(
-                    ins[:k].encode("latin-1"), dtype=np.uint8
-                )
-        depths = np.fromiter(
-            (ord(a.smp[pos - a.start]) - ord("A") for a in covering),
-            np.int64,
-            m,
+        n = len(seqs)
+        spans = (
+            np.fromiter((a.start for a in seqs), np.int64, n),
+            np.fromiter((a.end for a in seqs), np.int64, n),
+            np.fromiter((len(a.smp) for a in seqs), np.int64, n),
+            np.fromiter((a.revcom for a in seqs), bool, n),
         )
-        strands = np.fromiter((a.revcom for a in covering), bool, m)
-        cols = np.tile(np.arange(L, dtype=np.int64), m)
+        cache = (maln.pool, maln.num_aln_seqs, spans)
+        maln._spans_cache = cache
+    return cache[2]
+
+
+def insertion_consensus(maln: MapAlignment, positions: np.ndarray, reduce_cc=None):
+    """Consensus of the insertion columns immediately upstream of each of
+    ``positions`` (sorted, distinct) in one batch: find_ins_cons
+    (src/map_align.c:444-510) for every position at once.  Position j's
+    ``gaps[positions[j]]`` columns are laid end to end in one ColumnCounts,
+    so one ``add_bases``, one ``reduce_cc`` and one ``find_consensus_cols``
+    serve them all; a column's counts and decision are its own, so the
+    batch is exact.  A record counts at a position when ``start < pos <=
+    end`` and its PSSM codes reach ``pos``, dropped reads included, as in
+    the reference: each such pair fills its columns with gaps, then with the
+    record's insertion there, cut to the width.
+
+    Returns (chars uint8 [n], ColumnCounts, frac [n], first [len + 1]),
+    where position j's columns are ``first[j]:first[j + 1]``."""
+    positions = np.asarray(positions, dtype=np.int64)
+    widths = maln.ref.gaps[positions].astype(np.int64)
+    first = np.concatenate(([0], np.cumsum(widths)))
+    cc = ColumnCounts(int(first[-1]))
+    seqs = maln.aln_seqs
+    starts, ends, smp_lens, revs = _record_spans(maln)
+    # a record's positions are those in (start, end] below start +
+    # len(smp): one run [lo, hi) of ``positions``, one pair each
+    lo = np.searchsorted(positions, starts, side="right")
+    hi = np.minimum(
+        np.searchsorted(positions, ends, side="right"),
+        np.searchsorted(positions, starts + smp_lens, side="left"),
+    )
+    per = np.maximum(hi - lo, 0)
+    pair_first = np.cumsum(per) - per
+    rec = np.repeat(np.arange(len(seqs)), per)
+    j = lo[rec] + np.arange(len(rec)) - pair_first[rec]
+    w = widths[j]
+    char_first = np.cumsum(w) - w
+    n_chars = int(w.sum())
+    if n_chars:
+        chars = bytearray(b"-" * n_chars)
+        index = {p: k for k, p in enumerate(positions.tolist())}
+        has = np.flatnonzero(per)
+        for r, r_lo, r_hi, r_first in zip(
+            has.tolist(), lo[has].tolist(), hi[has].tolist(), pair_first[has].tolist()
+        ):
+            a = seqs[r]
+            for k, ins in a.ins.items():
+                jj = index.get(a.start + k, -1)
+                if r_lo <= jj < r_hi:
+                    p = r_first + jj - r_lo
+                    c0 = int(char_first[p])
+                    part = ins[: int(w[p])].encode("latin-1")
+                    chars[c0 : c0 + len(part)] = part
+        # each pair's PSSM depth, from the records' codes laid end to end
+        smp_arena = np.frombuffer(
+            "".join(seqs[r].smp for r in has.tolist()).encode("latin-1"), np.uint8
+        )
+        smp_off = np.zeros(len(seqs), dtype=np.int64)
+        smp_off[has] = np.cumsum(smp_lens[has]) - smp_lens[has]
+        depths = smp_arena[smp_off[rec] + positions[j] - starts[rec]].astype(np.int64)
         cc.add_bases(
-            cols,
-            chars.reshape(-1),
-            np.repeat(depths, L),
-            np.repeat(strands, L),
+            np.repeat(first[j] - char_first, w) + np.arange(n_chars),
+            np.frombuffer(chars, dtype=np.uint8),
+            np.repeat(depths - ord("A"), w),
+            np.repeat(revs[rec], w),
             maln.fpsm,
             maln.rpsm,
         )
     if reduce_cc is not None:
         cc = reduce_cc(cc)
     chars, frac = find_consensus_cols(cc, maln.cons_code)
+    return chars, cc, frac, first
+
+
+def find_ins_cons(maln: MapAlignment, pos: int, reduce_cc=None):
+    """Consensus of the insertion columns immediately upstream of ``pos``
+    (find_ins_cons, src/map_align.c:444-510).  Includes dropped reads, as the
+    reference does.  Returns (chars uint8 [L], ColumnCounts, frac [L])."""
+    chars, cc, frac, _ = insertion_consensus(maln, np.array([pos]), reduce_cc)
     return chars, cc, frac
 
 
@@ -195,7 +237,9 @@ def consensus_assembly_string(
     ``reduce_cc`` (multi-host): called on every ColumnCounts accumulator
     before the consensus decision — the production all-reduce of the
     reference's BaseCounts (src/map_align.c:229-263); counts are integer so
-    the merged decision is exact on every host."""
+    the merged decision is exact on every host.  Every host holds the same
+    ``gaps``, so the insertion columns' one accumulator has the same layout
+    on every host."""
     from ..utils import profiling
 
     with profiling.phase("consensus.main_counts"):
@@ -203,18 +247,17 @@ def consensus_assembly_string(
     if reduce_cc is not None:
         cc = reduce_cc(cc)
     cons_chars, _ = find_consensus_cols(cc, maln.cons_code)
-    out: list[str] = []
-    gaps = maln.ref.gaps
-    for pos in range(maln.ref.seq_len):
-        if gaps[pos] > 0 and pos > 0:
-            ins_chars, _, _ = find_ins_cons(maln, pos, reduce_cc=reduce_cc)
-            for ch in ins_chars:
-                if ch not in (ord("-"), ord(" ")):
-                    out.append(chr(ch))
-        c = cons_chars[pos]
-        if c not in (ord("-"), ord(" ")):
-            out.append(chr(c))
-    return "".join(out)
+    positions = np.flatnonzero(maln.ref.gaps[: maln.ref.seq_len] > 0)
+    positions = positions[positions > 0]
+    if len(positions):
+        with profiling.phase("consensus.ins_cols"):
+            ins_chars, _, _, first = insertion_consensus(maln, positions, reduce_cc)
+            # each position's insertion calls go just before its own column
+            cons_chars = np.insert(
+                cons_chars, np.repeat(positions, np.diff(first)), ins_chars
+            )
+    keep = (cons_chars != ord("-")) & (cons_chars != ord(" "))
+    return cons_chars[keep].tobytes().decode("latin-1")
 
 
 def sort_aln_frags(maln: MapAlignment) -> None:

@@ -241,17 +241,23 @@ def cull_maln_from_fsdb(
                     fs.back_asp.dropped = True
     culled.set_aln_seqs(picked)
 
-    # recompute the shared max-insert array from surviving reads
-    gaps = culled.ref.gaps
-    for i in range(culled.ref.seq_len):
-        if gaps[i] > 0:
-            new_g = 0
-            for a in culled.aln_seqs:
-                if a.start < i <= a.end:
-                    ins = a.ins.get(i - a.start)
-                    if ins is not None and len(ins) > new_g:
-                        new_g = len(ins)
-            gaps[i] = new_g
+    # recompute the shared max-insert array from surviving reads: one pass
+    # over the records' insertions, where the reference rescans every read
+    # for every gap column; dropped records count, and a column without a
+    # gap keeps its value
+    n = culled.ref.seq_len
+    longest: dict[int, int] = {}
+    for a in culled.aln_seqs:
+        for k, ins in a.ins.items():
+            i = a.start + k
+            if a.start < i <= a.end and 0 <= i < n and len(ins) > longest.get(i, 0):
+                longest[i] = len(ins)
+    gaps = culled.ref.gaps[:n]
+    live = gaps > 0
+    gaps[live] = 0
+    for i, g in longest.items():
+        if live[i]:
+            gaps[i] = g
 
 
 # --- read collapsing (src/mia.c:105-396) -----------------------------------

@@ -9,7 +9,10 @@ reason in CHANGES.md.  Not listed, because they differ on purpose:
 ``utils/profiling.py`` (``device_trace`` on torch.profiler), ``core/driver.py``,
 ``core/contamination.py``, ``core/assembler.py`` and the CLIs but
 ``easy_consensus`` (the port's device engine in place of the JAX one; ``ma``
-without the JAX platform override).
+without the JAX platform override); ``core/fsdb.py`` and ``core/columns.py``
+(the cull's recount and the insertion columns' consensus in one pass each;
+``tests/test_torch_gapcols.py`` holds them, and the rest of both files, to
+``mia_tpu``).
 
 The numpy entry helpers that moved from ``mia_tpu/core/jax_engine.py`` into
 ``core/entries.py`` are held to their originals function by function.
@@ -31,8 +34,8 @@ from .test_torch_golden import _norm, fixture_args
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIED = [
-    "__init__.py", "config.py", "constants.py", "core/types.py", "core/fsdb.py",
-    "core/merge.py", "core/columns.py", "core/hostbatch.py", "io/fasta.py", "io/ids.py",
+    "__init__.py", "config.py", "constants.py", "core/types.py",
+    "core/merge.py", "core/hostbatch.py", "io/fasta.py", "io/ids.py",
     "io/maln.py", "io/native.py", "io/pssm_io.py", "ops/kmer.py", "ops/pssm.py",
     "ops/dp_numpy.py", "ops/myers.py", "ops/consensus.py", "utils/encoding.py",
     "utils/hostmem.py", "models/simulate.py", "models/damage.py", "data/mt311.fa",
