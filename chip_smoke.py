@@ -22,7 +22,12 @@ cell's traffic at seed 41 with the cull and consensus host layer of
 ``ROOT``, a ``git archive`` of an earlier commit (its ``core/fsdb.py`` and
 ``core/columns.py``), in place of this tree's, and with this tree's, in
 turns the same way, every run's maln held to the earlier layer's; no result
-line.)
+line.  ``--merge-ab ROOT [PAIRS]`` does the same for mia (``--engine
+torch``) on the ``mia-hsmt-100k`` cell's traffic at seed 41 with the pass-1
+merge and realignment host layer of ``ROOT`` (its ``core/entries.py``,
+``core/driver.py`` and ``core/assembler.py``): pass 1, its merge, the
+realignment and the realignment's classify, drain and merge for both, every
+run's maln and counts held to the earlier layer's; no result line.)
 
 Phases, each printing its own lines; any failure exits non-zero before the
 result line.  Every reference is the port's own: its plain PyTorch versions,
@@ -177,6 +182,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import io
 import json
 import os
@@ -185,6 +191,7 @@ import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1256,6 +1263,186 @@ def phase_hp_ab(earlier_root: str, pairs: int) -> None:
                         for k in ("wall", *HP_AB_PHASES)))
 
 
+MERGE_AB_LAYER = ("entries", "driver", "assembler")  # core/ modules, in import order
+MERGE_AB_PHASES = ("pass1", "pass1.py_merge", "reiterate", "reiterate.classify",
+                   "reiterate.device_drain", "reiterate.merge", "gc")
+MERGE_AB_COUNTERS = ("pass1.device_scored_reads", "reiterate.device_entries")
+
+
+def load_earlier_layer(earlier_root: str, names: tuple[str, ...]) -> dict:
+    """The modules ``mia_tpu_torch/core/<name>.py`` of ``earlier_root``,
+    loaded beside this tree's in order, each bound to the earlier modules
+    loaded before it in place of this tree's (the names it imported from
+    them), and to this tree's for every other module."""
+    import importlib
+    import importlib.util
+
+    earlier: dict = {}
+    for name in names:
+        this = importlib.import_module(f"mia_tpu_torch.core.{name}")
+        spec = importlib.util.spec_from_file_location(
+            f"{this.__name__}_earlier",
+            os.path.join(earlier_root, "mia_tpu_torch", "core", name + ".py"))
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = module
+        spec.loader.exec_module(module)
+        for attr, obj in list(vars(module).items()):
+            for before, m in earlier.items():
+                if (getattr(obj, "__module__", None) == f"mia_tpu_torch.core.{before}"
+                        and hasattr(m, attr)):
+                    setattr(module, attr, getattr(m, attr))
+        earlier[name] = module
+    return earlier
+
+
+def phase_merge_ab(earlier_root: str, pairs: int) -> None:
+    """``--merge-ab``: mia's pass-1 merge and realignment host layer of
+    ``earlier_root`` (a checkout of an earlier commit: its ``core/entries.py``,
+    ``core/driver.py`` and ``core/assembler.py``, loaded beside this tree's
+    and bound to each other) against this tree's, whole ``mia.main`` calls
+    with ``--engine torch --profile`` in turns on the ``mia-hsmt-100k``
+    cell's traffic at seed 41 (100,000 reads).  Every run's maln bytes must
+    equal the earlier layer's first run's, and its scored reads, device
+    entries and kernel launches the first run's."""
+    from types import SimpleNamespace
+
+    from benchmark import cells
+    from benchmark.run import load_benchmark, load_config
+    from mia_tpu_torch.cli import mia as cli_mia
+    from mia_tpu_torch.ops import consensus_torch, dp_cuda
+
+    layers = {"earlier": load_earlier_layer(earlier_root, MERGE_AB_LAYER)["assembler"]
+              .run_assembly, "this": cli_mia.run_assembly}
+    cell = next(w for w in load_benchmark()["workloads"] if w["name"] == "mia-hsmt-100k")
+    d = os.path.join(WORK, "merge_ab")
+    os.makedirs(d)
+    inputs = cells.make_inputs(SimpleNamespace(seed=41, scale=1.0, work=d), cell,
+                               load_config(cell))
+    say(f"merge a/b: {inputs['held']}")
+
+    gc_s = [0.0]
+    gc_t0 = [0.0]
+
+    def gc_clock(phase: str, info: dict) -> None:
+        """The collector's time during a run (it runs on every thread's
+        allocations; no phase of the profile isolates it)."""
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            gc_s[0] += time.perf_counter() - gc_t0[0]
+
+    def run(name: str, tag: str) -> tuple[dict, float, dict, dict]:
+        root = os.path.join(d, tag, "out.maln")
+        os.makedirs(os.path.dirname(root))
+        cli_mia.run_assembly = layers[name]
+        reset_counts()
+        gc_s[0] = 0.0
+        gc.callbacks.append(gc_clock)
+        t0 = time.time()
+        try:
+            # the run's own log would bury the phase's lines
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                prof = run_port(inputs["args"], root, profile=True)
+        finally:
+            cli_mia.run_assembly = layers["this"]
+            gc.callbacks.remove(gc_clock)
+        wall = time.time() - t0
+        prof["phases_s"]["gc"] = gc_s[0]
+        counts = {"dp.kernel_launches": dp_cuda.kernel_launches,
+                  "dp.plain_calls": dp_cuda.plain_calls,
+                  "cons.kernel_launches": consensus_torch.kernel_launches,
+                  "cons.plain_calls": consensus_torch.plain_calls,
+                  **{c: prof["counters"].get(c, 0) for c in MERGE_AB_COUNTERS}}
+        if (counts["dp.plain_calls"] or counts["cons.plain_calls"]
+                or not counts["dp.kernel_launches"] or not counts["cons.kernel_launches"]):
+            raise AssertionError(f"merge a/b: {tag} ({name}) did not score on the card: "
+                                 f"{counts}")
+        return maln_bytes(root), wall, prof, counts
+
+    want, wall, _, want_counts = run("earlier", "warm")
+    say(f"merge a/b: warm-up (earlier layer) {wall:.3f} s, {len(want)} maln files; "
+        f"{json.dumps(want_counts)}")
+    runs: dict[str, list[dict]] = {"earlier": [], "this": []}
+    for k, name in enumerate(ab_order(pairs)):
+        got, wall, prof, counts = run(name, f"run{k}")
+        if got != want:
+            raise AssertionError(f"merge a/b: run {k} ({name}) maln differs from the earlier "
+                                 f"layer's")
+        if counts != want_counts:
+            raise AssertionError(f"merge a/b: run {k} ({name}) counts {counts} differ from "
+                                 f"the earlier layer's {want_counts}")
+        ph = prof["phases_s"]
+        r = {"wall": wall, **{p: ph.get(p, 0.0) for p in MERGE_AB_PHASES}}
+        runs[name].append(r)
+        say(f"merge a/b: {name}: {wall:.3f} s, {inputs['reads'] / wall:.2f} reads/s; "
+            + ", ".join(f"{p} {r[p]:.3f}" for p in MERGE_AB_PHASES))
+    wins = sum(b["wall"] < a["wall"] for a, b in zip(runs["earlier"], runs["this"]))
+    say(f"merge a/b: {pairs} pairs in turns, every run's maln byte-identical to the earlier "
+        f"layer's and its counts equal; this tree faster in {wins} of {pairs} pairs")
+    for name, rs in runs.items():
+        rates = [inputs["reads"] / r["wall"] for r in rs]
+        say(f"merge a/b:   {name}: reads/s {quartiles(rates)}; "
+            + "; ".join(f"{k} s {quartiles([r[k] for r in rs])}"
+                        for k in ("wall", *MERGE_AB_PHASES)))
+    # one more run of this tree, untimed, with every thread's stack sampled
+    samples: dict = {}
+    stop = threading.Event()
+    sampler = threading.Thread(target=sample_stacks, args=(stop, samples), daemon=True)
+    sampler.start()
+    try:
+        got, wall, _, _ = run("this", "sampled")
+    finally:
+        stop.set()
+        sampler.join(timeout=10)
+    if got != want:
+        raise AssertionError("merge a/b: the sampled run's maln differs from the earlier layer's")
+    say_samples("merge a/b: sampled run of this tree", samples, wall)
+
+
+def sample_stacks(stop: threading.Event, samples: dict, period_s: float = 0.002) -> None:
+    """Every ``period_s``, each other thread's innermost frame in the
+    package (the package's function that called whatever runs, native code
+    or a wait included) and its outermost one (the thread's task): a
+    sampling profile of wall time by thread, which the run's phases, each
+    measured on one thread, cannot give."""
+    me = threading.get_ident()
+    pkg = os.path.join(REPO, "mia_tpu_torch") + os.sep
+    while not stop.is_set():
+        names = {t.ident: t.name for t in threading.enumerate()}
+        for tid, frame in sys._current_frames().items():
+            if tid == me or tid not in names:
+                continue
+            inner = task = None
+            f = frame
+            while f is not None:
+                if f.f_code.co_filename.startswith(pkg):
+                    where = (f"{f.f_code.co_filename[len(pkg):]}:{f.f_code.co_name}")
+                    inner = inner or where
+                    task = where
+                f = f.f_back
+            if inner is not None:
+                key = (names[tid].split("_")[0], task, inner)
+                samples[key] = samples.get(key, 0) + 1
+        time.sleep(period_s)
+
+
+def say_samples(what: str, samples: dict, wall: float) -> None:
+    """The sampled threads' time by task and innermost package function."""
+    by_thread: dict = {}
+    for (thread, task, inner), n in samples.items():
+        by_thread.setdefault((thread, task), {})[inner] = n
+    total = max(sum(samples.values()), 1)
+    say(f"{what}: {wall:.3f} s wall, {total} samples")
+    for (thread, task), inners in sorted(by_thread.items(), key=lambda kv: -sum(kv[1].values())):
+        n = sum(inners.values())
+        if n < total / 200:
+            continue
+        top = sorted(inners.items(), key=lambda kv: -kv[1])[:8]
+        say(f"  {thread} {task}: {n} samples; "
+            + ", ".join(f"{k} {100 * v / n:.1f}%" for k, v in top))
+
+
 def time_plain_pair(kernel, plain, what: str, unit: str = "") -> dict:
     """Kernel and plain times per call (CUDA events, warmed up)."""
     cuda_ms(kernel, 3)
@@ -2033,6 +2220,11 @@ def main() -> int:
         phase_hp_ab(sys.argv[2], int(sys.argv[3]) if len(sys.argv) == 4 else 10)
         say(nvidia_smi())
         say(f"total: {time.time() - t_start:.1f} s (hp a/b only)")
+        return 0
+    if sys.argv[1:2] == ["--merge-ab"] and len(sys.argv) in (3, 4):
+        phase_merge_ab(sys.argv[2], int(sys.argv[3]) if len(sys.argv) == 4 else 10)
+        say(nvidia_smi())
+        say(f"total: {time.time() - t_start:.1f} s (merge a/b only)")
         return 0
     kern = phase_kernel(dev)
     hp_kern = phase_hp_kernel(dev)

@@ -66,6 +66,7 @@ from ..utils import profiling
 from .columns import consensus_assembly_string, sort_aln_frags
 from .driver import (
     finish_alignment,
+    finish_gapfree,
     init_alignment,
     reiterate_assembly,
     set_hp_cols,
@@ -75,7 +76,15 @@ from .driver import (
     sg_align,
     trim_frag,
 )
-from .entries import L_MAX, MAX_INTERVALS, WIN_W, diag_gapfree, hp_routes_to_host, pack_chars
+from .entries import (
+    HPW_ROUTE,
+    L_MAX,
+    MAX_INTERVALS,
+    WIN_W,
+    diag_gapfree,
+    longest_runs,
+    pack_chars,
+)
 from .fsdb import (
     FSDB,
     clean_FSDB,
@@ -124,6 +133,33 @@ def check_ported(cfg: MiaConfig) -> None:
 
 def _log(msg: str) -> None:
     print(msg, file=sys.stderr)
+
+
+# What the pass-1 merge does with a drained read: skip it, take the gate's
+# score, align it on the host, merge its native solve (band wider than the
+# device window), merge its gap-free diagonal, or merge its native traceback.
+SKIP, GATED, HOST, WIDE, GAPFREE, TRACED = range(6)
+
+
+def plan_batch(flags, fb, fa, rb, ra, distant_ref: bool):
+    """(kind, rc, best, aec) of a drained pass-1 batch, each [n]: the flags
+    decide first (FLAG_SKIP over FLAG_HOST_ONLY over FLAG_WIDE), then the
+    device's scores: the winning strand (rc on a tie), its best and end
+    column, and the gate (src/map_align.c:1614; none under -D).  Every
+    winner is TRACED until its diagonal proves gap-free."""
+    flags = np.asarray(flags)
+    fb = np.asarray(fb)
+    rb = np.asarray(rb)
+    rc = ~(fb > rb)
+    best = np.where(rc, rb, fb).astype(np.int64)
+    aec = np.where(rc, np.asarray(ra), np.asarray(fa)).astype(np.int64)
+    kind = np.full(len(flags), TRACED, np.int8)
+    if not distant_ref:
+        kind[best < FIRST_ROUND_SCORE_CUTOFF] = GATED
+    kind[(flags & FLAG_WIDE) != 0] = WIDE
+    kind[(flags & FLAG_HOST_ONLY) != 0] = HOST
+    kind[(flags & FLAG_SKIP) != 0] = SKIP
+    return kind, rc, best, aec
 
 
 def make_dp_devices(n_dp: int, devices=None):
@@ -396,42 +432,22 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
         )
         sg_align(maln, f, fsdb, fw_align, rc_align)
 
-    def _solve_native_subset(records_sub: list) -> list[tuple]:
-        """Threaded native full solve of a read subset (wide bands); returns
-        per-read (meta_row, ref_str_bytes, frag_str_bytes)."""
-        reads = [
-            (f.seq[: f.trim_point + 1] if f.trimmed else f.seq[: f.seq_len])
-            for f in records_sub
-        ]
-        arena, off, lens = bhost.pack_reads(reads)
-        cap = bhost.TRACE_CAP
-        meta, ra, fa = bhost.solve_pass1(arena, off[:-1], lens, maln.distant_ref)
-        out = []
-        retry = [
-            j for j in range(len(records_sub)) if meta[j, 0] == STATUS_HOST_FALLBACK
-        ]
-        wide: dict[int, tuple] = {}
-        if retry:
-            # second pass with a full-width traceback arena, still batched
-            a2, o2, l2 = bhost.pack_reads([reads[j] for j in retry])
+    def _solve_native_subset(arena: bytes, off: np.ndarray, lens: np.ndarray):
+        """Threaded native full solve of reads packed in ``arena`` (wide
+        bands): (meta, ref arena, frag arena) with read j's strings at j *
+        TRACE_CAP, and the reads whose traceback outgrew that arena,
+        solved again with a full-width one: {j: (meta_row, ref, frag)}."""
+        meta, ra, fa = bhost.solve_pass1(arena, off, lens, maln.distant_ref)
+        retry = np.flatnonzero(meta[:, 0] == STATUS_HOST_FALLBACK)
+        again = {}
+        if len(retry):
             wcap = bhost.wide_cap
             m2, r2, f2 = bhost.solve_pass1(
-                a2, o2[:-1], l2, maln.distant_ref, cap=wcap
+                arena, off[retry], lens[retry], maln.distant_ref, cap=wcap
             )
-            for t, j in enumerate(retry):
-                wide[j] = (
-                    m2[t],
-                    r2[t * wcap : (t + 1) * wcap],
-                    f2[t * wcap : (t + 1) * wcap],
-                )
-        for j in range(len(records_sub)):
-            if j in wide:
-                out.append(wide[j])
-            else:
-                out.append(
-                    (meta[j], ra[j * cap : (j + 1) * cap], fa[j * cap : (j + 1) * cap])
-                )
-        return out
+            for t, j in enumerate(retry.tolist()):
+                again[j] = (m2[t], r2[t * wcap : (t + 1) * wcap], f2[t * wcap : (t + 1) * wcap])
+        return meta, memoryview(ra), memoryview(fa), again
 
     def _merge_native_solved(f, m, ra, fa) -> None:
         """Merge one natively-solved read (meta from mia_p1_solve)."""
@@ -445,90 +461,70 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
             _host_align_one(f)
             return
         n = int(m[5])
-        pw = (ra[:n].decode("latin-1"), fa[:n].decode("latin-1"))
+        pw = (str(ra[:n], "latin-1"), str(fa[:n], "latin-1"))
         finish_alignment(
             maln, f, fsdb, bool(m[1]), int(m[2]), int(m[3]), int(m[4]), pw
         )
 
+    # gap-free winners merge without their traceback strings when neither
+    # reference strand holds a '-' (driver.finish_gapfree)
+    plain_ref = ("-" not in fw_align.seq1[: fw_align.len1]
+                 and "-" not in rc_align.seq1[: rc_align.len1])
+
     def _start_drain():
-        """Collect the oldest batch, pick winners, and SUBMIT the native
-        finish (window DP + traceback) to the worker thread; the python
-        merge of the previous batch overlaps it (the FFI call releases the
-        GIL).  Returns a token for :func:`_merge_drained`."""
+        """Collect the oldest batch, plan every read's merge from its flags
+        and scores (:func:`plan_batch`), and SUBMIT the native work to the
+        worker thread: the wide reads' solve, the winners' gap-free check
+        and the native finish (window DP + traceback) of the rest.  The
+        python merge of the previous batch overlaps it (the FFI calls
+        release the GIL).  Returns a token for :func:`_merge_drained`."""
         profiling.count("pass1.batches_drained")
         records, handle, prep = inflight.pop(0).result()
         arena, off, lens, fw_ivg, rc_ivg, flags = prep
         with profiling.phase("pass1.collect_wait"):
             fb, fa, rb, ra = scorer.collect_arrays(handle)
+        kind, rc, best, aec = plan_batch(flags, fb, fa, rb, ra, maln.distant_ref)
         # reads whose band exceeds the device window: threaded native solve
         # (a work partition: there is no second full-width device program)
-        wide_idx = [
-            i
-            for i in range(len(records))
-            if (flags[i] & FLAG_WIDE) and not (flags[i] & (FLAG_SKIP | FLAG_HOST_ONLY))
-        ]
-        # select windowed winners (strand, gate) -> one native finish call
-        flags_a = np.asarray(flags)
-        eligible = (flags_a & (FLAG_SKIP | FLAG_HOST_ONLY | FLAG_WIDE)) == 0
-        fb_a = np.asarray(fb)
-        rb_a = np.asarray(rb)
-        rcwin_a = ~(fb_a > rb_a)
-        best_a = np.where(rcwin_a, rb_a, fb_a)
-        gated = eligible & (best_a < FIRST_ROUND_SCORE_CUTOFF)
-        if maln.distant_ref:
-            gated &= False
-        for i in np.flatnonzero(gated):
-            # gate rejects: no traceback needed (src/map_align.c:1614)
-            records[i].score = int(best_a[i])
-            flags[i] |= FLAG_SKIP
-        widx_sel = np.flatnonzero(eligible & ~gated)
-        win = widx_sel.tolist()
-        strand_l = rcwin_a[widx_sel].astype(bool).tolist()
-        # strand by RECORD index (the merge no longer walks winners in
-        # ordinal lockstep once gap-free records split off)
-        strand = dict(zip(win, strand_l))
-        bests = best_a[widx_sel].astype(np.int64)
-        aecs = np.where(rcwin_a[widx_sel], np.asarray(ra)[widx_sel],
-                        np.asarray(fa)[widx_sel]).astype(np.int64)
+        wide_idx = np.flatnonzero(kind == WIDE)
+        win = np.flatnonzero(kind == TRACED)
+        # the row of a WIDE read's native solve, or of a TRACED read's
+        # native finish; abc of a GAPFREE read
+        row = np.full(len(records), -1, np.int64)
+        row[wide_idx] = np.arange(len(wide_idx))
+        abc = np.zeros(len(records), np.int64)
         profiling.count("pass1.device_scored_reads", len(win))
         profiling.count("pass1.native_solved_wide_reads", len(wide_idx))
 
         def work():
+            """Native work of the batch; marks the GAPFREE winners in
+            ``kind`` and the finish rows in ``row``, which the merge reads
+            once this returns."""
             wide_res = (
-                dict(
-                    zip(wide_idx, _solve_native_subset([records[i] for i in wide_idx]))
-                )
-                if wide_idx
-                else {}
+                _solve_native_subset(arena, off[wide_idx], lens[wide_idx])
+                if len(wide_idx) else None
             )
-            if not win:
-                return wide_res, {}, {}, None, None, None, bhost.TRACE_CAP
-            widx = np.asarray(win)
-            strand_a = np.asarray(strand_l, np.uint8)
-            ivg = np.where(
-                strand_a[:, None, None] == 1, rc_ivg[widx], fw_ivg[widx]
-            )
-            bests_a = np.asarray(bests, np.int64)
-            aecs_a = np.asarray(aecs, np.int64)
+            if not len(win):
+                return wide_res, None, None, None, 0
+            strand = rc[win].astype(np.uint8)
+            ivg = np.where(strand[:, None, None] == 1, rc_ivg[win], fw_ivg[win])
             # provably gap-free winners skip the native window refill
-            # entirely (jax_engine.diag_gapfree; the dominant aDNA case)
+            # entirely (entries.diag_gapfree; the dominant aDNA case)
             t0 = time.time()
             gf_ok, gf_abc = diag_gapfree(
-                arena, off[widx], lens[widx], bests_a, aecs_a, ivg,
+                arena, off[win], lens[win], best[win], aec[win], ivg,
                 fw_align.s1c[: fw_align.len1], rc_align.s1c[: rc_align.len1],
-                strand_a, ancsubmat,
+                strand, ancsubmat,
             )
-            diag = {}
-            for w in np.flatnonzero(gf_ok):
-                i = win[w]
-                diag[i] = (int(bests_a[w]), int(gf_abc[w]), int(aecs_a[w]),
-                           bool(strand_a[w]))
+            kind[win[gf_ok]] = GAPFREE
+            abc[win] = gf_abc
             fin = np.flatnonzero(~gf_ok)
-            profiling.count("pass1.gapfree_shortcut", len(diag))
+            profiling.count("pass1.gapfree_shortcut", len(win) - len(fin))
             if len(fin) == 0:
                 profiling.add_time("pass1.native_finish", time.time() - t0)
-                return wide_res, diag, {}, None, None, None, bhost.TRACE_CAP
-            fsel = widx[fin]
+                return wide_res, None, None, None, 0
+            fsel = win[fin]
+            row[fsel] = np.arange(len(fin))
             # tight output cap: a finish traceback spans at most the margin
             # window + the read length; overflow falls back per read
             fcap = min(
@@ -538,42 +534,56 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
                 arena,
                 off[fsel],
                 lens[fsel],
-                strand_a[fin],
+                strand[fin],
                 np.zeros(len(fin), np.uint8),
-                np.asarray(bests_a[fin], np.int32),
-                np.asarray(aecs_a[fin], np.int32),
+                best[fsel].astype(np.int32),
+                aec[fsel].astype(np.int32),
                 ivg[fin],
                 cap=fcap,
             )
             profiling.add_time("pass1.native_finish", time.time() - t0)
-            fmap = {int(win[w]): j for j, w in enumerate(fin)}
-            return wide_res, diag, fmap, meta, ref_arena, frag_arena, fcap
+            return wide_res, meta, ref_arena, frag_arena, fcap
 
-        return records, flags, strand, finish_pool.submit(work)
+        return records, kind, rc, best, abc, aec, row, finish_pool.submit(work)
 
     def _merge_drained(token) -> None:
-        records, flags, strand, fut = token
-        wide_res, diag, fmap, meta, ref_arena, frag_arena, cap = fut.result()
+        records, kind, rc, best, abc, aec, row, fut = token
+        wide_res, meta, ref_arena, frag_arena, cap = fut.result()
         t_merge = time.time()
+        wide_meta, wide_ref, wide_frag, wide_again = wide_res or (None, None, None, {})
+        wcap = bhost.TRACE_CAP
+        kinds, rows = kind.tolist(), row.tolist()
+        rcs, bests, abcs, aecs = rc.tolist(), best.tolist(), abc.tolist(), aec.tolist()
         for i, f in enumerate(records):
-            fl = flags[i]
-            if fl & FLAG_SKIP:
+            k = kinds[i]
+            if k == GAPFREE:
+                # provably gap-free: the traceback IS the diagonal
+                rc_i, best_i, abc_i, aec_i = rcs[i], bests[i], abcs[i], aecs[i]
+                if not (plain_ref
+                        and finish_gapfree(maln, f, fsdb, rc_i, best_i, abc_i, aec_i)):
+                    sref = rc_align.seq1 if rc_i else fw_align.seq1
+                    length = f.trim_point + 1 if f.trimmed else f.seq_len
+                    pw = (sref[abc_i : aec_i + 1], f.seq[:length])
+                    finish_alignment(maln, f, fsdb, rc_i, best_i, abc_i, aec_i, pw)
                 continue
-            if fl & FLAG_HOST_ONLY:
+            if k == SKIP:
+                continue
+            if k == GATED:
+                # gate rejects: no traceback needed (src/map_align.c:1614)
+                f.score = bests[i]
+                continue
+            if k == HOST:
                 _host_align_one(f)
                 continue
-            if fl & FLAG_WIDE:
-                _merge_native_solved(f, *wide_res[i])
+            if k == WIDE:
+                j = rows[i]
+                solved = wide_again.get(j)
+                if solved is None:
+                    solved = (wide_meta[j], wide_ref[j * wcap : (j + 1) * wcap],
+                              wide_frag[j * wcap : (j + 1) * wcap])
+                _merge_native_solved(f, *solved)
                 continue
-            if i in diag:
-                # provably gap-free: the traceback IS the diagonal
-                best, abc, aec, rc = diag[i]
-                sref = rc_align.seq1 if rc else fw_align.seq1
-                length = f.trim_point + 1 if f.trimmed else f.seq_len
-                pw = (sref[abc : aec + 1], f.seq[:length])
-                finish_alignment(maln, f, fsdb, rc, best, abc, aec, pw)
-                continue
-            j = fmap[i]
+            j = rows[i]
             n = int(meta[j, 3])
             if n < 0:  # native finish worker failed: per-read host path
                 _host_align_one(f)
@@ -586,7 +596,7 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
                 maln,
                 f,
                 fsdb,
-                strand[i],
+                rcs[i],
                 int(meta[j, 0]),
                 int(meta[j, 1]),
                 int(meta[j, 2]),
@@ -660,10 +670,9 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
             )
         if scorer.hp:
             # reads with a homopolymer run of HPW or more stay on the exact
-            # host path, as in mia_tpu; the kernel scores raw chars
-            for i, r in enumerate(reads):
-                if hp_routes_to_host(r):
-                    flags[i] |= FLAG_HOST_ONLY
+            # host path, as in mia_tpu (entries.hp_routes_to_host); the
+            # kernel scores raw chars
+            flags[longest_runs(arena, off, lens) >= HPW_ROUTE] |= FLAG_HOST_ONLY
             s2c = pack_chars(arena, off[:-1], lens)
         with profiling.phase("pass1.dispatch"):
             handle = scorer.dispatch_packed(

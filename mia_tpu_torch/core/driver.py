@@ -13,6 +13,10 @@ work-stealing, and a device or server failure raises.
 """
 from __future__ import annotations
 
+import time
+from concurrent.futures import ThreadPoolExecutor
+from operator import attrgetter
+
 import numpy as np
 
 from ..constants import (
@@ -36,11 +40,12 @@ from ..ops.dp_numpy import (
 from ..utils import profiling
 from ..utils.encoding import encode_seq, pop_hpl_and_hps, revcom
 from .entries import (
+    HPW_ROUTE,
     L_MAX,
     MAX_INTERVALS,
     WIN_W,
     diag_gapfree,
-    hp_routes_to_host,
+    longest_runs,
     pack_chars,
     pack_s2c,
 )
@@ -208,6 +213,155 @@ def finish_alignment(
         add_virgin_fs2fsdb(fs, fsdb)
 
 
+def _fill_slot(maln: MapAlignment, fs: FragSeq, score: int, start: int, end: int,
+               revcom_: bool, num_inputs: int, seq: str):
+    """``merge_pwaln_into_maln`` of an unsplit alignment with no '-' in its
+    reference string: the next slot's fields, ``dropped`` and ``smp`` left
+    as they were."""
+    asp = maln.next_slot()
+    asp.id = fs.id
+    asp.desc = fs.desc
+    asp.score = score
+    asp.start = start
+    asp.end = end
+    asp.revcom = revcom_
+    asp.trimmed = fs.trimmed
+    asp.segment = "a"
+    asp.num_inputs = num_inputs
+    asp.seq = seq
+    asp.ins = {}
+    return asp
+
+
+def finish_gapfree(
+    maln: MapAlignment,
+    fs: FragSeq,
+    fsdb: FSDB,
+    rc: bool,
+    best_score: int,
+    abc: int,
+    aec: int,
+) -> bool:
+    """:func:`finish_alignment` of a winner whose traceback is the gap-free
+    diagonal abc..aec (``entries.diag_gapfree``), for a caller whose
+    reference strand holds no '-': the same slot, fields and FSDB entry,
+    without the traceback strings or a PWAlnFrag, and an rc read
+    reverse-complemented once.  Returns False, having touched nothing, when
+    the span crosses the origin: ``finish_alignment`` splits it."""
+    seq_len = maln.ref.seq_len
+    if rc:
+        start = c2rcc(aec, seq_len)
+        end = c2rcc(abc, seq_len)
+    else:
+        start, end = abc, aec
+    # start <= end below, so finish_alignment's wrap rule for fs.ae is moot
+    as_, ae = start, end
+    if end > seq_len:
+        end -= seq_len
+    if start > end:
+        return False
+    fs.score = best_score
+    fs.rc = rc
+    fs.as_ = as_
+    fs.ae = ae
+    if best_score < FIRST_ROUND_SCORE_CUTOFF and not maln.distant_ref:
+        return True
+    length = fs.trim_point + 1 if fs.trimmed else fs.seq_len
+    seq = revcom(fs.seq[:length]) if rc else fs.seq[:length]
+    fs.front_asp = _fill_slot(maln, fs, best_score, start, end, rc, 0, seq)
+    fs.back_asp = None
+    fs.back_fresh = False
+    fs.unique_best = True
+    fs.num_inputs = 1
+    fs.strand_known = best_score > FIRST_ROUND_SCORE_CUTOFF
+    # add_virgin_fs2fsdb, with the read already reverse-complemented
+    if fs.trimmed:
+        fs.qual = fs.qual[:length]
+        fs.seq_len = length
+    if rc and fs.strand_known:
+        fs.seq = seq
+        fs.qual = fs.qual[: fs.seq_len][::-1]
+    elif fs.trimmed:
+        fs.seq = fs.seq[:length]
+    fs.qss = None
+    fsdb.add(fs)
+    return True
+
+
+def merge_realigned(
+    maln: MapAlignment, fs: FragSeq, best: int, abc: int, aec: int, pw: tuple[str, str]
+) -> None:
+    """Merge one realigned read (abc/aec in global reference coords; the
+    bookkeeping half of the loop body, src/mia_main.c:236-276)."""
+    ref = maln.ref
+    front = PWAlnFrag()
+    front.ref_seq, front.frag_seq = pw
+    front.ref_id = ref.id
+    front.ref_desc = ref.desc
+    front.frag_id = fs.id
+    front.frag_desc = fs.desc
+    front.trimmed = fs.trimmed
+    front.revcom = fs.rc
+    front.num_inputs = fs.num_inputs
+    front.segment = "a"
+    front.score = best
+    front.start = abc
+    front.end = aec
+
+    fs.as_ = abc
+    fs.ae = aec
+    fs.unique_best = True
+    fs.score = best
+
+    if front.end > ref.seq_len:
+        front.end = front.end - ref.seq_len
+
+    if front.start > front.end:
+        back = split_pwaln(front, ref.seq_len)
+        fs.front_asp = merge_pwaln_into_maln(front, maln)
+        fs.back_asp = merge_pwaln_into_maln(back, maln)
+        fs.back_fresh = True
+    else:
+        fs.back_fresh = False
+        fs.front_asp = merge_pwaln_into_maln(front, maln)
+        # reference quirk: reiterate does NOT clear back_asp here
+        # (src/mia_main.c:273-276, unlike sg_align's else branch), so
+        # a read split in pass 1 but not in this iteration keeps a
+        # stale back_asp aliasing another slot — and cull will emit
+        # that slot's record twice.  Preserved for byte parity.
+
+
+def merge_realigned_gapfree(
+    maln: MapAlignment, fs: FragSeq, best: int, abc: int, aec: int
+) -> bool:
+    """:func:`merge_realigned` of a realignment whose traceback is the
+    gap-free diagonal abc..aec, for a caller whose consensus holds no '-':
+    the same slot and fields without the traceback strings or a PWAlnFrag
+    (``back_asp`` stays as it was, the reference's quirk).  Returns False,
+    having touched nothing, when the span crosses the origin."""
+    end = aec - maln.ref.seq_len if aec > maln.ref.seq_len else aec
+    if abc > end:
+        return False
+    fs.as_ = abc
+    fs.ae = aec
+    fs.unique_best = True
+    fs.score = best
+    fs.back_fresh = False
+    fs.front_asp = _fill_slot(maln, fs, best, abc, end, fs.rc, fs.num_inputs, fs.seq)
+    return True
+
+
+def realign_windows(as_, ae, len2, wrap_seq_len: int):
+    """[lo, hi) realignment windows (src/mia_main.c:191-212) of reads with
+    spans ``as_``..``ae`` and lengths ``len2``: numpy arrays, or one read's
+    ints."""
+    lo = np.maximum(np.asarray(as_) - REALIGN_BUFFER, 0)
+    hi = np.where(np.asarray(ae) + REALIGN_BUFFER + 1 > wrap_seq_len, wrap_seq_len,
+                  np.asarray(ae) + REALIGN_BUFFER)
+    whole = lo + len2 > hi
+    return np.where(whole, 0, lo), np.where(whole, wrap_seq_len, hi)
+
+
 def reiterate_assembly(
     new_ref_seq: str,
     iter_num: int,
@@ -240,9 +394,7 @@ def reiterate_assembly(
     device: the ``-h`` kernel has no sharded form in the JAX package either
     (there a mesh sends ``-h`` realignment to the native engine; here the
     single-device ``-h`` kernel keeps it on the card, with equal bytes)."""
-    import time as _time0
-
-    _t_setup = _time0.time()
+    t_setup = time.time()
     ref = maln.ref
     ref_len = len(new_ref_seq)
     ref.seq = new_ref_seq
@@ -301,80 +453,35 @@ def reiterate_assembly(
             fs.score = max_score
             fs.seq = tmp_rc
 
-    def _window(fs: FragSeq, len2: int) -> tuple[int, int]:
-        """[ref_start, ref_end) realignment window (src/mia_main.c:191-212)."""
-        ref_start = max(fs.as_ - REALIGN_BUFFER, 0)
-        if (fs.ae + REALIGN_BUFFER + 1) > ref.wrap_seq_len:
-            ref_end = ref.wrap_seq_len
-        else:
-            ref_end = fs.ae + REALIGN_BUFFER
-        if (ref_start + len2) > ref_end:
-            ref_start = 0
-            ref_end = ref.wrap_seq_len
-        return ref_start, ref_end
-
-    def _merge_front(
-        fs: FragSeq, best: int, abc: int, aec: int, pw: tuple[str, str]
-    ) -> None:
-        """Merge one realigned read (abc/aec in global reference coords;
-        the bookkeeping half of the loop body, src/mia_main.c:236-276)."""
-        front = PWAlnFrag()
-        front.ref_seq, front.frag_seq = pw
-        front.ref_id = ref.id
-        front.ref_desc = ref.desc
-        front.frag_id = fs.id
-        front.frag_desc = fs.desc
-        front.trimmed = fs.trimmed
-        front.revcom = fs.rc
-        front.num_inputs = fs.num_inputs
-        front.segment = "a"
-        front.score = best
-        front.start = abc
-        front.end = aec
-
-        fs.as_ = abc
-        fs.ae = aec
-        fs.unique_best = True
-        fs.score = best
-
-        if front.end > ref.seq_len:
-            front.end = front.end - ref.seq_len
-
-        if front.start > front.end:
-            back = split_pwaln(front, ref.seq_len)
-            fs.front_asp = merge_pwaln_into_maln(front, maln)
-            fs.back_asp = merge_pwaln_into_maln(back, maln)
-            fs.back_fresh = True
-        else:
-            fs.back_fresh = False
-            fs.front_asp = merge_pwaln_into_maln(front, maln)
-            # reference quirk: reiterate does NOT clear back_asp here
-            # (src/mia_main.c:273-276, unlike sg_align's else branch), so
-            # a read split in pass 1 but not in this iteration keeps a
-            # stale back_asp aliasing another slot — and cull will emit
-            # that slot's record twice.  Preserved for byte parity.
-
     def _python_realign(fs: FragSeq) -> None:
         """Per-read window realignment on the exact host path."""
         a.submat = rcancsubmat if fs.rc else ancsubmat
         set_seq2(a, fs.seq)
-        ref_start, ref_end = _window(fs, a.len2)
-        set_seq1(a, ref.seq[ref_start:ref_end])
+        ref_start, ref_end = realign_windows(fs.as_, fs.ae, a.len2, ref.wrap_seq_len)
+        ref_start = int(ref_start)
+        set_seq1(a, ref.seq[ref_start : int(ref_end)])
         if a.hp:
             set_hp_rows(a)
             set_hp_cols(a)
         solve_sg(a)
         pw = a.pw if a.pw is not None else populate_pwaln_to_begin(a)
-        _merge_front(fs, a.best_score, a.abc + ref_start, a.aec + ref_start, pw)
+        merge_realigned(maln, fs, a.best_score, a.abc + ref_start, a.aec + ref_start, pw)
 
-    # batched native realignment: one threaded FFI call per chunk does the
-    # window DP + traceback for every strand-known read; the merge
-    # bookkeeping below then runs in FSDB order as before
-    native_results: dict[int, tuple] = {}
+    # every read's batched result by FSDB position: a gap-free diagonal
+    # (best, abc, aec) or a native traceback; the merge below then runs in
+    # FSDB order as before, and a read with neither takes the per-read path
+    fss = fsdb.fss
+    n_fss = len(fss)
+    gapfree = np.zeros(n_fss, bool)
+    g_best = np.zeros(n_fss, np.int64)
+    g_abc = np.zeros(n_fss, np.int64)
+    g_aec = np.zeros(n_fss, np.int64)
+    traced: dict[int, tuple] = {}
     reprobed = False
+    ref_str = ref.seq[: ref.wrap_seq_len]
     bh = BatchHost.create(
-        ref.seq[: ref.wrap_seq_len],
-        ref.seq[: ref.wrap_seq_len],
+        ref_str,
+        ref_str,
         ref.wrap_seq_len,
         ancsubmat,
         rcancsubmat,
@@ -395,7 +502,7 @@ def reiterate_assembly(
         # full-width window solver in chunks (the per-read python probe is
         # quadratic pain at distant-ref scale, src/mia_main.c:120-174)
         if maln.distant_ref and iter_num > 1:
-            todo = [fs for fs in fsdb.fss if not fs.strand_known]
+            todo = [fs for fs in fss if not fs.strand_known]
             if todo:
                 probe_reads: list[str] = []
                 for fs in todo:
@@ -441,113 +548,90 @@ def reiterate_assembly(
                         fs.score = best_r
                         fs.seq = revcom(fs.seq)
             reprobed = True
+        scorer = None
+        if engine == "torch":
+            enc = encode_seq(ref_str)
+            # -h: reads realign on the fw strand (smidx picks the PSSM), so
+            # both strand slots carry the consensus's chars and runs
+            hp_seqs = (ref_str, ref_str) if a.hp else None
+            scorer = placement.scorer(enc, enc, ref.wrap_seq_len, ancsubmat, rcancsubmat,
+                                      hp_seqs=hp_seqs)
+        profiling.add_time("reiterate.setup", time.time() - t_setup)
+        t_cls = time.time()
+        # the strand-known reads' spans, strands and packed sequences, once;
         # window sizes are known up front: group reads by whether their
         # window fits the device scorer, then by whether their traceback
         # fits the default arena; solve each group batched
-        narrow: list = []
-        wide: list = []
-        device: list = []
-        scorer = None
-        if engine == "torch":
-            enc = encode_seq(ref.seq[: ref.wrap_seq_len])
-            # -h: reads realign on the fw strand (smidx picks the PSSM), so
-            # both strand slots carry the consensus's chars and runs
-            hp_seqs = None
-            if a.hp:
-                s_fw = ref.seq[: ref.wrap_seq_len]
-                hp_seqs = (s_fw, s_fw)
-            scorer = placement.scorer(enc, enc, ref.wrap_seq_len, ancsubmat, rcancsubmat,
-                                      hp_seqs=hp_seqs)
-        profiling.add_time(
-            "reiterate.setup", __import__("time").time() - _t_setup
-        )
-        _t_cls = __import__("time").time()
-        for fs in fsdb.fss:
-            if not fs.strand_known:
-                continue
-            len2 = len(fs.seq)
-            lo, hi = _window(fs, len2)
-            job = (fs, lo, hi)
-            if (hi - lo) + len2 + 2 > bh.TRACE_CAP:
-                wide.append(job)
-            elif (
-                scorer is not None
-                and hi - max(lo - 2, 0) <= WIN_W
-                and len2 <= L_MAX
-                and not (a.hp and hp_routes_to_host(fs.seq))
-            ):
-                device.append(job)
-            else:
-                narrow.append(job)
-        profiling.add_time(
-            "reiterate.classify", __import__("time").time() - _t_cls
-        )
+        pos = np.flatnonzero(np.fromiter(map(attrgetter("strand_known"), fss), bool, n_fss))
+        known = fss if len(pos) == n_fss else [fss[k] for k in pos.tolist()]
+        m = len(known)
+        arena, off, lens = bh.pack_reads(list(map(attrgetter("seq"), known)))
+        off = off[:-1]
+        as_ = np.fromiter(map(attrgetter("as_"), known), np.int64, m)
+        ae = np.fromiter(map(attrgetter("ae"), known), np.int64, m)
+        smidx = np.fromiter(map(attrgetter("rc"), known), np.int8, m)
+        lo, hi = realign_windows(as_, ae, lens, ref.wrap_seq_len)
+        lo = lo.astype(np.int32)
+        hi = hi.astype(np.int32)
+        wide = (hi - lo) + lens + 2 > bh.TRACE_CAP
+        device = np.zeros(m, bool)
         if scorer is not None:
-            profiling.count("reiterate.device_entries", len(device))
-            profiling.count("reiterate.native_entries", len(narrow) + len(wide))
+            device = ~wide & (hi - np.maximum(lo - 2, 0) <= WIN_W) & (lens <= L_MAX)
+            if a.hp:
+                # reads with a homopolymer run of HPW or more stay on the
+                # native solver, as in mia_tpu (entries.hp_routes_to_host)
+                device &= longest_runs(arena, off, lens) < HPW_ROUTE
+        narrow = ~wide & ~device
+        profiling.add_time("reiterate.classify", time.time() - t_cls)
+        if scorer is not None:
+            profiling.count("reiterate.device_entries", int(device.sum()))
+            profiling.count("reiterate.native_entries", m - int(device.sum()))
         # device-sized windows: dispatch ALL chunks asynchronously, then
         # run the native groups (the device scores while the host solves)
-        _t_disp = __import__("time").time()
+        t_disp = time.time()
         dev_handles: list = []
-        if device:
-            E = scorer.E
-            for c0 in range(0, len(device), E):
-                chunk = device[c0 : c0 + E]
-                m = len(chunk)
-                arena, off, lens = bh.pack_reads([fs.seq for fs, _, _ in chunk])
-                los = np.fromiter((lo for _, lo, _ in chunk), np.int32, m)
-                his = np.fromiter((hi for _, _, hi in chunk), np.int32, m)
-                ws = np.maximum(los - 2, 0)
-                ivl = np.zeros((m, MAX_INTERVALS, 2), np.int32)
-                ivl[:, 0, 0] = los - ws
-                ivl[:, 0, 1] = his - ws
-                smidx = np.fromiter(
-                    (1 if fs.rc else 0 for fs, _, _ in chunk), np.int8, m
-                )
-                s2c = (pack_chars if scorer.hp else pack_s2c)(
-                    arena, off[:-1], lens
-                )
-                handle = scorer.dispatch_entries(
-                    np.zeros(m, np.int8), ws, ivl, s2c, lens, smidx
-                )
-                dev_handles.append(
-                    (chunk, handle, arena, off, lens, ws, los, his, smidx)
-                )
-        profiling.add_time(
-            "reiterate.dispatch", __import__("time").time() - _t_disp
-        )
-        _t_ns = _time2 = __import__("time").time()
+        dev_idx = np.flatnonzero(device)  # empty without a scorer
+        for c0 in range(0, len(dev_idx), scorer.E if scorer is not None else 1):
+            idx = dev_idx[c0 : c0 + scorer.E]
+            k = len(idx)
+            ws = np.maximum(lo[idx] - 2, 0)
+            ivl = np.zeros((k, MAX_INTERVALS, 2), np.int32)
+            ivl[:, 0, 0] = lo[idx] - ws
+            ivl[:, 0, 1] = hi[idx] - ws
+            s2c = (pack_chars if scorer.hp else pack_s2c)(arena, off[idx], lens[idx])
+            handle = scorer.dispatch_entries(
+                np.zeros(k, np.int8), ws, ivl, s2c, lens[idx], smidx[idx]
+            )
+            dev_handles.append((idx, handle, ws))
+        profiling.add_time("reiterate.dispatch", time.time() - t_disp)
+        t_ns = time.time()
         CHUNK = 8192
         # bound per-chunk output-arena allocation (2 arenas of n*cap
         # bytes): the wide group's cap is the full reference width, so
         # scale its chunk size down to ~TARGET_ARENA bytes per arena
         TARGET_ARENA = CHUNK * bh.TRACE_CAP
-        for jobs, cap in ((narrow, bh.TRACE_CAP), (wide, bh.wide_cap)):
+        for group, cap in ((narrow, bh.TRACE_CAP), (wide, bh.wide_cap)):
             chunk_n = max(1, min(CHUNK, TARGET_ARENA // max(cap, 1)))
-            for c0 in range(0, len(jobs), chunk_n):
-                chunk = jobs[c0 : c0 + chunk_n]
-                arena, off, lens = bh.pack_reads([fs.seq for fs, _, _ in chunk])
-                wlo = np.fromiter((lo for _, lo, _ in chunk), np.int32, len(chunk))
-                whi = np.fromiter((hi for _, _, hi in chunk), np.int32, len(chunk))
-                smidx = np.fromiter(
-                    (1 if fs.rc else 0 for fs, _, _ in chunk), np.uint8, len(chunk)
-                )
+            g_idx = np.flatnonzero(group)
+            for c0 in range(0, len(g_idx), chunk_n):
+                idx = g_idx[c0 : c0 + chunk_n]
                 meta, ref_a, frag_a = bh.solve_rei(
-                    arena, off[:-1], lens, smidx, wlo, whi, cap=cap
+                    arena, off[idx], lens[idx], smidx[idx].astype(np.uint8), lo[idx],
+                    hi[idx], cap=cap
                 )
-                for j, (fs, _, _) in enumerate(chunk):
+                for j, p in enumerate(pos[idx].tolist()):
                     if meta[j, 0] != STATUS_OK:
                         continue  # falls back to the per-read path below
                     n = int(meta[j, 4])
-                    native_results[id(fs)] = (
+                    traced[p] = (
                         int(meta[j, 1]),
                         int(meta[j, 2]),
                         int(meta[j, 3]),
                         ref_a[j * cap : j * cap + n],
                         frag_a[j * cap : j * cap + n],
                     )
-        profiling.add_time("reiterate.native_solve", __import__("time").time() - _t_ns)
-        _t_dev = __import__("time").time()
+        profiling.add_time("reiterate.native_solve", time.time() - t_ns)
+        t_dev = time.time()
         # drain the device chunks: verified margin-window traceback on
         # the native threads (mia_p1_finish), results in global coords.
         # The finish FFI call releases the GIL, so it runs on a worker
@@ -556,68 +640,56 @@ def reiterate_assembly(
         sms2 = np.stack(
             [np.asarray(ancsubmat, np.int64), np.asarray(rcancsubmat, np.int64)]
         )
-        from ..utils import encoding as _encoding
+        enc_codes = encode_seq(ref_str)
 
-        ref_str = ref.seq[: ref.wrap_seq_len]
-        enc_codes = _encoding.encode_seq(ref_str)
-
-        def _finish_chunk(args):
-            chunk, arena, off, lens, ws, los, his, smidx, best, aecl = args
+        def _finish_chunk(idx, ws, best, aecl):
             aec = (aecl + ws).astype(np.int32)
-            m = len(chunk)
-            ivg = np.zeros((m, 1, 2), np.int32)
-            ivg[:, 0, 0] = los
-            ivg[:, 0, 1] = his
+            k = len(idx)
+            ivg = np.zeros((k, 1, 2), np.int32)
+            ivg[:, 0, 0] = lo[idx]
+            ivg[:, 0, 1] = hi[idx]
+            c_off, c_lens, c_sm = off[idx], lens[idx], smidx[idx]
             # provably gap-free realignments skip the native window refill
             # (entries.diag_gapfree; PSSM selected per read by smidx)
             gf_ok, gf_abc = diag_gapfree(
-                arena, off[:-1], lens, best.astype(np.int64),
+                arena, c_off, c_lens, best.astype(np.int64),
                 aec.astype(np.int64), ivg.astype(np.int64),
-                enc_codes, enc_codes, np.zeros(m, np.int8), sms2,
-                sm_sel=smidx,
+                enc_codes, enc_codes, np.zeros(k, np.int8), sms2,
+                sm_sel=c_sm,
             )
-            diag = {}
-            for j in np.flatnonzero(gf_ok):
-                fs = chunk[j][0]
-                a0, a1 = int(gf_abc[j]), int(aec[j])
-                diag[id(fs)] = (
-                    int(best[j]), a0, a1,
-                    ref_str[a0 : a1 + 1], fs.seq,
-                )
-            profiling.count("reiterate.gapfree_shortcut", len(diag))
+            profiling.count("reiterate.gapfree_shortcut", int(gf_ok.sum()))
             fin = np.flatnonzero(~gf_ok)
             if len(fin) == 0:
-                return chunk, diag, None, None, None, None, 0
+                return idx, gf_ok, gf_abc, best, aec, fin, None, None, None, 0
             fcap = min(
                 bh.TRACE_CAP,
-                int((his - los).max(initial=1)) + int(lens.max(initial=1)) + 64,
+                int((hi[idx] - lo[idx]).max(initial=1)) + int(c_lens.max(initial=1)) + 64,
             )
             meta, ref_a, frag_a = bh.finish(
                 arena,
-                off[:-1][fin],
-                lens[fin],
+                c_off[fin],
+                c_lens[fin],
                 np.zeros(len(fin), np.uint8),
-                smidx[fin].astype(np.uint8),
+                c_sm[fin].astype(np.uint8),
                 best[fin].astype(np.int32),
                 aec[fin],
                 ivg[fin],
                 cap=fcap,
             )
-            return chunk, diag, fin, meta, ref_a, frag_a, fcap
-
-        from concurrent.futures import ThreadPoolExecutor
+            return idx, gf_ok, gf_abc, best, aec, fin, meta, ref_a, frag_a, fcap
 
         def _store(fut) -> None:
-            chunk, diag, fin, meta, ref_a, frag_a, cap = fut.result()
-            native_results.update(diag)
-            if fin is None:
-                return
-            for j, w in enumerate(fin):
-                fs = chunk[w][0]
+            idx, gf_ok, gf_abc, best, aec, fin, meta, ref_a, frag_a, cap = fut.result()
+            p = pos[idx[gf_ok]]
+            gapfree[p] = True
+            g_best[p] = best[gf_ok]
+            g_abc[p] = gf_abc[gf_ok]
+            g_aec[p] = aec[gf_ok]
+            for j, p in enumerate(pos[idx[fin]].tolist()):
                 n = int(meta[j, 3])
                 if n < 0:
                     continue  # native finish failed: per-read path below
-                native_results[id(fs)] = (
+                traced[p] = (
                     int(meta[j, 0]),
                     int(meta[j, 1]),
                     int(meta[j, 2]),
@@ -627,42 +699,40 @@ def reiterate_assembly(
 
         with ThreadPoolExecutor(1) as fin_pool:
             futs: list = []
-            for chunk, handle, arena, off, lens, ws, los, his, smidx in dev_handles:
-                _tc = __import__("time").time()
+            for idx, handle, ws in dev_handles:
+                t_col = time.time()
                 best, aecl = scorer.collect_entries(handle)
-                profiling.add_time(
-                    "reiterate.drain_collect", __import__("time").time() - _tc
-                )
-                futs.append(
-                    fin_pool.submit(
-                        _finish_chunk,
-                        (chunk, arena, off, lens, ws, los, his, smidx, best, aecl),
-                    )
-                )
+                profiling.add_time("reiterate.drain_collect", time.time() - t_col)
+                futs.append(fin_pool.submit(_finish_chunk, idx, ws, best, aecl))
                 while len(futs) > 1:
                     _store(futs.pop(0))
             while futs:
                 _store(futs.pop(0))
         if scorer is not None:
             scorer.free()
-        profiling.add_time("reiterate.device_drain", __import__("time").time() - _t_dev)
+        profiling.add_time("reiterate.device_drain", time.time() - t_dev)
         bh.close()
 
-    import time as _time
-
-    _t_merge = _time.time()
-    for fs in fsdb.fss:
+    t_merge = time.time()
+    # gap-free results merge without their traceback strings when the
+    # consensus holds no '-' (merge_realigned_gapfree)
+    plain_ref = "-" not in ref_str
+    gf, gb, ga, ge = gapfree.tolist(), g_best.tolist(), g_abc.tolist(), g_aec.tolist()
+    for k, fs in enumerate(fss):
         if maln.distant_ref and not fs.strand_known and iter_num > 1 and not reprobed:
             _reprobe(fs)
-
-        if fs.strand_known:
-            res = native_results.get(id(fs))
-            if res is not None:
-                best, abc, aec, rb, fb = res
-                if isinstance(rb, bytes):  # native-finish arenas
-                    rb = rb.decode("latin-1")
-                    fb = fb.decode("latin-1")
-                _merge_front(fs, best, abc, aec, (rb, fb))
-            else:
-                _python_realign(fs)
-    profiling.add_time("reiterate.merge", _time.time() - _t_merge)
+        if not fs.strand_known:
+            continue
+        if gf[k]:
+            best, abc, aec = gb[k], ga[k], ge[k]
+            if not (plain_ref and merge_realigned_gapfree(maln, fs, best, abc, aec)):
+                merge_realigned(maln, fs, best, abc, aec, (ref_str[abc : aec + 1], fs.seq))
+            continue
+        res = traced.get(k)
+        if res is not None:
+            best, abc, aec, rb, fb = res
+            merge_realigned(maln, fs, best, abc, aec,
+                            (rb.decode("latin-1"), fb.decode("latin-1")))
+        else:
+            _python_realign(fs)
+    profiling.add_time("reiterate.merge", time.time() - t_merge)

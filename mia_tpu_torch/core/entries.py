@@ -45,6 +45,31 @@ def hp_routes_to_host(seq: str) -> bool:
     return int(runs.max()) >= HPW_ROUTE
 
 
+def longest_runs(arena: bytes, off: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """[n] int64: each packed read's longest homopolymer run (0 for an empty
+    read), in one pass over the arena; ``longest_runs(...) >= HPW_ROUTE`` is
+    :func:`hp_routes_to_host` of every read at once.  ``off`` holds at least
+    n read offsets (``BatchHost.pack_reads``'s n + 1 will do)."""
+    lens = np.asarray(lens, np.int64)
+    n = len(lens)
+    out = np.zeros(n, np.int64)
+    total = int(lens.sum())
+    if total == 0:
+        return out
+    # the reads end to end, and where each starts in that concatenation
+    starts = np.cumsum(lens) - lens
+    pos = np.repeat(np.asarray(off[:n], np.int64) - starts, lens) + np.arange(total)
+    b = np.frombuffer(arena, np.uint8)[pos]
+    new_run = np.ones(total, bool)
+    new_run[1:] = b[1:] != b[:-1]
+    live = lens > 0
+    new_run[starts[live]] = True
+    run_at = np.flatnonzero(new_run)
+    run_len = np.diff(np.append(run_at, total))
+    out[live] = np.maximum.reduceat(run_len, np.searchsorted(run_at, starts[live]))
+    return out
+
+
 SCORE_BATCH = 8192           # reads per pass-1 batch (2 entries each)
 
 
@@ -165,7 +190,8 @@ def diag_gapfree(
     n = len(off)
     if n == 0:
         return np.zeros(0, bool), np.zeros(0, np.int32)
-    L = int(lens.max())
+    lens = np.asarray(lens, np.int64)
+    bests = np.asarray(bests)
     abcs = (aecs - lens + 1).astype(np.int64)
     # one interval must cover the whole diagonal's columns
     used = ivg[:, :, 1] > 0
@@ -174,35 +200,46 @@ def diag_gapfree(
         & (ivg[:, :, 0] <= abcs[:, None])
         & (aecs[:, None] < ivg[:, :, 1])
     ).any(axis=1) & (abcs >= 0)
-
-    buf = np.frombuffer(arena, np.uint8)
-    rows = np.arange(L, dtype=np.int64)[None, :]
-    valid = rows < lens[:, None]
-    ridx = np.minimum(off[:, None] + rows, max(len(buf) - 1, 0))
+    # an empty read's diagonal sums to 0
+    ok = cover & (lens == 0) & (bests == 0)
+    # only a covered read can qualify: sum its diagonal over its bases laid
+    # end to end (no padding), each term one gather from the flat PSSM
+    c = np.flatnonzero(cover & (lens > 0))
+    cl = lens[c]
+    total = int(cl.sum())
+    if total == 0:
+        return ok, abcs.astype(np.int32)
+    L = int(cl.max())
+    sm = np.asarray(submat)
+    starts = np.cumsum(cl) - cl
+    at = np.arange(total, dtype=np.int64)
     from ..utils.encoding import BASE2INX
 
-    s2 = np.where(valid, BASE2INX[buf[ridx]], 4).astype(np.int64)
-    cidx = np.clip(abcs[:, None] + rows, 0, len(ref_fw) - 1)
-    s1 = np.where(
-        np.asarray(sel)[:, None] == 1,
-        np.asarray(ref_rc, np.int64)[cidx],
-        np.asarray(ref_fw, np.int64)[cidx],
-    )
-    # find_sm_depth per (read, row), src/pssm.c:36-46
-    from_back = lens[:, None] - (rows + 1)
+    buf = np.frombuffer(arena, np.uint8)
+    s2 = BASE2INX[buf[np.repeat(np.asarray(off, np.int64)[c] - starts, cl) + at]]
+    len1 = len(ref_fw)
+    cidx = np.minimum(np.repeat(abcs[c] - starts, cl) + at, len1 - 1)
+    rc_rows = np.asarray(sel)[c] == 1
+    refs = np.asarray(ref_fw, np.int8)
+    if rc_rows.any():
+        cidx += np.repeat(len1 * rc_rows, cl)
+        refs = np.concatenate([refs, np.asarray(ref_rc, np.int8)])
+    # 25 * find_sm_depth per (read length, row), src/pssm.c:36-46
+    rows = np.arange(L)[None, :]
+    from_back = np.arange(L + 1)[:, None] - (rows + 1)
     d = np.where(
         rows < PSSM_DEPTH,
         rows,
         np.where(from_back < PSSM_DEPTH, 2 * PSSM_DEPTH - from_back, PSSM_DEPTH),
     )
-    d = np.clip(d, 0, 2 * PSSM_DEPTH)
-    sm = np.asarray(submat)
+    d25 = (np.clip(d, 0, 2 * PSSM_DEPTH) * 25).astype(np.int32).reshape(-1)
+    idx = d25[np.repeat(cl * L - starts, cl) + at]
+    idx += refs[cidx] * 5
+    idx += s2
     if sm.ndim == 4:
-        subs = np.where(valid, sm[np.asarray(sm_sel)[:, None], d, s1, s2], 0)
-    else:
-        subs = np.where(valid, sm[d, s1, s2], 0)
-    diag_sum = subs.sum(axis=1)
-    ok = cover & (diag_sum == bests)
+        idx += np.repeat(np.asarray(sm_sel, np.int32)[c] * (sm.shape[1] * 25), cl)
+    diag_sum = np.add.reduceat(sm.reshape(-1)[idx], starts, dtype=np.int64)
+    ok[c] = diag_sum == bests[c]
     return ok, abcs.astype(np.int32)
 
 

@@ -15,7 +15,10 @@ without the JAX platform override); ``core/fsdb.py`` and ``core/columns.py``
 ``mia_tpu``).
 
 The numpy entry helpers that moved from ``mia_tpu/core/jax_engine.py`` into
-``core/entries.py`` are held to their originals function by function.
+``core/entries.py`` are held to their originals function by function: by
+their code, or, for ``diag_gapfree`` (which sums each diagonal over the
+reads' bases end to end instead of over a padded rectangle), by the arrays
+it returns on seeded inputs.
 
 Beside it, the port's host engines (``--engine native`` and ``--engine
 numpy``), which run from those copies, write ``mia_tpu``'s bytes.
@@ -98,17 +101,30 @@ def _code_of(module, name):
     return ast.dump(fn)
 
 
+# rewritten on purpose, and held to the original by what it returns:
+# diag_gapfree sums each diagonal over the reads' bases laid end to end
+REWRITTEN = ("diag_gapfree",)
+
+
 @pytest.mark.parametrize("name", [
     "hp_routes_to_host", "build_pass1_entries", "split_pass1_results", "mask_intervals",
     "pack_s2c", "pack_chars", "diag_gapfree", "hp_pengop_table", "windowed_exact_dp",
 ])
 def test_entry_helpers_equal_jax_engine(name):
     """core/entries.py holds the numpy helpers of mia_tpu/core/jax_engine.py:
-    the same code, docstrings and comments aside, and the same constants."""
+    the same code, docstrings and comments aside, and the same constants; a
+    helper in REWRITTEN returns the original's arrays on seeded inputs."""
     from mia_tpu.core import jax_engine
     from mia_tpu_torch.core import entries
 
-    assert _code_of(entries, name) == _code_of(jax_engine, name)
+    from .test_torch_merge_batch import assert_diag_gapfree_equal
+
+    if name in REWRITTEN:
+        for seed in (4, 5, 6):
+            for ndim in (3, 4):
+                assert_diag_gapfree_equal(seed, ndim)
+    else:
+        assert _code_of(entries, name) == _code_of(jax_engine, name)
     for const in ("HPW_ROUTE", "SCORE_BATCH", "MAX_INTERVALS", "WIN_W", "L_MAX",
                   "REF_BUCKET"):
         assert getattr(entries, const) == getattr(jax_engine, const), const
