@@ -27,7 +27,14 @@ torch``) on the ``mia-hsmt-100k`` cell's traffic at seed 41 with the pass-1
 merge and realignment host layer of ``ROOT`` (its ``core/entries.py``,
 ``core/driver.py`` and ``core/assembler.py``): pass 1, its merge, the
 realignment and the realignment's classify, drain and merge for both, every
-run's maln and counts held to the earlier layer's; no result line.)
+run's maln and counts held to the earlier layer's; no result line.
+``--wide-ab ROOT [PAIRS]`` runs phases 1-2 and then whole mia runs
+(``--engine torch``) of phase 7b's workload in turns with the port of
+``ROOT``, a ``git archive`` of an earlier commit whose ``mia_tpu_torch``
+is imported beside this tree's under another name, its own kernel and
+native libraries built from its own sources: every run's maln held to this
+tree's first, the wide reads' counters, ``pass1`` and its parts, and one
+sampled run of each; no result line.)
 
 Phases, each printing its own lines; any failure exits non-zero before the
 result line.  Every reference is the port's own: its plain PyTorch versions,
@@ -36,8 +43,9 @@ counts) and the committed goldens.
 
 1. device: a CUDA card must be present; prints nvidia-smi's name and power
    limit.
-2. build: the native host library (``native/``, through
-   ``mia_tpu_torch.io.native``) and the CUDA kernel library
+2. build: the port's native host library (``mia_tpu_torch/native/``, built
+   into ``mia_tpu_torch/_build/`` by ``mia_tpu_torch.io.native``) and the
+   CUDA kernel library
    (``mia_tpu_torch/csrc``, one nvcc per source, all at once); prints ptxas's
    registers, spills and shared memory.
 3. kernel: the fused entry scorer against its plain PyTorch version at the
@@ -80,6 +88,15 @@ counts) and the committed goldens.
    new process; the new ``--engine torch`` process must count
    ``pass1.in_process`` (every phase but 16b runs with
    ``MIA_TORCH_SERVER=0``).
+7b. wide reads: the ``mia-hsmt-100k`` cell's traffic cut to 20,000 reads at
+   seed 1 (``benchmark.cells``), the port in this process with every count
+   set to 0 just before and read just after: maln bytes equal to its own
+   ``--engine native``, the general-width scorer launched for pass 1's WIDE
+   reads (``dp.last_row_launches`` > 0, no plain call of any kernel,
+   ``pass1.native_solved_wide_reads`` 0); prints the wide launches' rows,
+   widths and device time (CUDA events around each launch), and holds the
+   run's largest wide call against the plain version and times it; the
+   first maximum on the card (``batch_best_and_aec`` on tied rows).
 8. -h end to end: the same workload with ``-h``, in this process only,
    against ``--engine native -h``, the ``-h`` scorer's launches in place of
    the scorer's.
@@ -281,19 +298,18 @@ def reset_counts() -> None:
 
 
 def phase_build() -> None:
-    from mia_tpu_torch.io.native import native_available
+    from mia_tpu_torch.io import native
     from mia_tpu_torch.utils.torchcfg import build_kernels, kernel_library, ptxas_report
 
     t0 = time.time()
-    if not native_available():
-        r = subprocess.run(["make", "-C", os.path.join(REPO, "native")],
-                           capture_output=True, text=True)
-        raise RuntimeError(f"native library did not build:\n{r.stdout}\n{r.stderr}")
+    if not native.native_available():
+        raise RuntimeError(f"native library did not build: {native.build_error()}")
     t1 = time.time()
     path = build_kernels()
     kernel_library()
     t2 = time.time()
-    say(f"build: native library {t1 - t0:.3f} s, CUDA kernels {t2 - t1:.3f} s -> "
+    say(f"build: native library {t1 - t0:.3f} s -> "
+        f"{os.path.relpath(native.library_path(), REPO)}, CUDA kernels {t2 - t1:.3f} s -> "
         f"{os.path.relpath(path, REPO)}")
     for line in ptxas_report(path):
         say(f"build: {line}")
@@ -795,6 +811,8 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool,
         "dp.plain_calls": dp_cuda.plain_calls,
         "dp.hp_kernel_launches": dp_cuda.hp_kernel_launches,
         "dp.hp_plain_calls": dp_cuda.hp_plain_calls,
+        "dp.last_row_launches": dp_cuda.last_row_launches,
+        "dp.last_row_plain_calls": dp_cuda.last_row_plain_calls,
         "cons.kernel_launches": consensus_torch.kernel_launches,
         "cons.plain_calls": consensus_torch.plain_calls,
     }
@@ -844,8 +862,12 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool,
         "consensus.device_calls": counters.get("consensus.device_calls", 0),
         "consensus.device_fallbacks": counters.get("consensus.device_fallbacks", 0),
     }
+    if not hp:
+        checks["pass1.native_solved_wide_reads"] = counters.get("pass1.native_solved_wide_reads", 0)
     if not (counts[scorer] > 0 and counts["cons.kernel_launches"] > 0
+            and checks.get("pass1.native_solved_wide_reads", 0) == 0
             and counts["dp.plain_calls"] == counts["dp.hp_plain_calls"] == 0
+            and counts["dp.last_row_plain_calls"] == 0
             and counts["cons.plain_calls"] == 0
             and checks["pass1.device_scored_reads"] > 0
             and checks["reiterate.device_entries"] > 0
@@ -858,6 +880,280 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool,
     say(f"{tag}: phases s, torch " + json.dumps(prof["phases_s"], sort_keys=True))
     say(f"{tag}: phases s, native " + json.dumps(native_prof["phases_s"], sort_keys=True))
     return counts, walls
+
+class LastRowTimer:
+    """Wraps ``dp_cuda.dp_last_row`` while a run goes through it: CUDA events
+    on the current stream around each call (the wrapper's checks, its
+    allocation and the launch, which follow the batch's entries on that
+    stream), each call's rows, padded width, read rows and the DP cells its
+    rows need (each row up to its read's length and its own window), and
+    the arguments of the largest call.  The calls and their launch counts
+    are the wrapper's own."""
+
+    def __enter__(self):
+        import torch
+
+        from mia_tpu_torch.ops import dp_cuda
+
+        self._mod, self._fn = dp_cuda, dp_cuda.dp_last_row
+        self.events: list = []
+        self.calls: list = []
+        self.largest = None
+
+        def wrapped(s1c, mask, s2c, lengths, depths, submat, sg5=True):
+            start, stop = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            start.record()
+            out = self._fn(s1c, mask, s2c, lengths, depths, submat, sg5)
+            stop.record()
+            self.events.append((start, stop))
+            own_width = mask.shape[1] - torch.argmax(mask.flip(1).to(torch.int8), 1)
+            cells = int(((lengths.to(torch.int64) - 1).clamp(min=0) * own_width).sum())
+            self.calls.append({"rows": mask.shape[0], "width": mask.shape[1],
+                               "L": s2c.shape[1], "cells": cells})
+            if self.largest is None or mask.numel() > self.largest[1].numel():
+                self.largest = tuple(a.clone() for a in (s1c, mask, s2c, lengths, depths,
+                                                         submat))
+            return out
+
+        dp_cuda.dp_last_row = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.dp_last_row = self._fn
+
+    def device_ms(self) -> list[float]:
+        import torch
+
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def wide_workload(d: str, seed: int = 1, reads: int = 20000) -> dict:
+    """The ``mia-hsmt-100k`` cell's traffic (``benchmark.cells``) cut to
+    ``reads`` reads, written under ``d``: its inputs dict."""
+    from types import SimpleNamespace
+
+    from benchmark import cells
+    from benchmark.run import load_benchmark, load_config
+
+    cell = next(w for w in load_benchmark()["workloads"] if w["name"] == "mia-hsmt-100k")
+    os.makedirs(d)
+    scale = reads / cell["traffic"]["reads"]
+    return cells.make_inputs(SimpleNamespace(seed=seed, scale=scale, work=d), cell,
+                             load_config(cell))
+
+
+def phase_wide(dev) -> dict:
+    """Phase 7b: pass 1's WIDE reads on the card, on the 100k cell's traffic
+    cut to 20k reads at seed 1; returns the general-width scorer's launches,
+    their device time and its time at the run's largest call."""
+    import numpy as np
+    import torch
+
+    from mia_tpu_torch.ops import consensus_torch, dp_cuda
+    from mia_tpu_torch.ops.dp_torch import batch_best_and_aec, batch_last_row
+
+    d = os.path.join(WORK, "wide")
+    inputs = wide_workload(d)
+    say(f"wide reads: {inputs['held']}")
+    os.makedirs(os.path.join(d, "torch"))
+    os.makedirs(os.path.join(d, "native"))
+    reset_counts()
+    t0 = time.time()
+    with LastRowTimer() as timer, contextlib.redirect_stderr(io.StringIO()):
+        prof = run_port(inputs["args"], os.path.join(d, "torch", "out.maln"), profile=True)
+    wall = time.time() - t0
+    counts = {
+        "dp.kernel_launches": dp_cuda.kernel_launches,
+        "dp.plain_calls": dp_cuda.plain_calls,
+        "dp.last_row_launches": dp_cuda.last_row_launches,
+        "dp.last_row_wide_launches": dp_cuda.last_row_wide_launches,
+        "dp.last_row_plain_calls": dp_cuda.last_row_plain_calls,
+        "cons.kernel_launches": consensus_torch.kernel_launches,
+        "cons.plain_calls": consensus_torch.plain_calls,
+    }
+    c = prof["counters"]
+    for k in ("pass1.device_scored_reads", "pass1.device_scored_wide_reads",
+              "pass1.native_solved_wide_reads", "pass1.finish_host_reads"):
+        counts[k] = c.get(k, 0)
+    t0 = time.time()
+    with contextlib.redirect_stderr(io.StringIO()):
+        native_prof = run_mia(inputs["args"], os.path.join(d, "native", "out.maln"), "native",
+                              profile=True)
+    native_wall = time.time() - t0
+    got = maln_bytes(os.path.join(d, "torch", "out.maln"))
+    want = maln_bytes(os.path.join(d, "native", "out.maln"))
+    if not want or got != want:
+        raise AssertionError(f"wide reads: maln differs from --engine native: "
+                             f"{[k for k in sorted(set(got) | set(want)) if got.get(k) != want.get(k)]}")
+    if not (counts["dp.last_row_launches"] > 0 and counts["dp.kernel_launches"] > 0
+            and counts["cons.kernel_launches"] > 0
+            and counts["dp.plain_calls"] == counts["dp.last_row_plain_calls"] == 0
+            and counts["cons.plain_calls"] == 0
+            and counts["pass1.device_scored_wide_reads"] > 0
+            and counts["pass1.native_solved_wide_reads"] == 0):
+        raise AssertionError(f"wide reads: the card did not score them: {counts}")
+    ms = timer.device_ms()
+    rows = [k["rows"] for k in timer.calls]
+    widths = [k["width"] for k in timer.calls]
+    cells = sum(k["cells"] for k in timer.calls)
+    say(f"wide reads: {len(want)} maln files byte-identical to --engine native; "
+        + json.dumps(counts))
+    say(f"wide reads: wall s torch {wall:.3f}, native {native_wall:.3f}; pass1 torch "
+        f"{prof['phases_s'].get('pass1', 0):.3f}, native "
+        f"{native_prof['phases_s'].get('pass1', 0):.3f}")
+    say(f"wide reads: {len(ms)} dp_last_row launches, rows {rows}, widths {widths}; device "
+        f"ms (events around each call) {sum(ms):.4f} in all, "
+        + ", ".join(f"{x:.4f}" for x in ms) + f"; {cells} cells ({cells / max(sum(ms), 1e-9) / 1e6:.3f} Gcells/s)")
+    say("wide reads: phases s, torch " + json.dumps(prof["phases_s"], sort_keys=True))
+
+    # the run's largest wide call against the plain version, then timed
+    args = timer.largest
+    got_row = dp_cuda.dp_last_row(*args)
+    err = check_equal("dp_last_row != plain at the run's largest wide call", got_row,
+                      batch_last_row(*args))
+    call = max(timer.calls, key=lambda k: k["rows"] * k["width"])
+    t = time_plain_pair(lambda: dp_cuda.dp_last_row(*args), lambda: batch_last_row(*args),
+                        f"wide reads: dp_last_row at the run's largest call, R={call['rows']} "
+                        f"W={call['width']} L={call['L']}", f"; {call['cells']} cells")
+    lengths = args[3].cpu().numpy()
+    moved = (nbytes(args[0], args[1], args[3], args[5], got_row)
+             + read_bytes(lengths, args[2], args[4]))
+    b = bound(moved, DP_OPS_PER_CELL * call["cells"])
+    say(f"wide reads: largest call == plain (exact), bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}); {call['cells'] / t['ms'] / 1e6:.3f} Gcells/s")
+
+    # the first maximum on the card, as the native solve's strict '>' scan
+    tied = torch.full((4, 1000), 7, dtype=torch.int32, device=dev)
+    tied[1, 300:] = 9
+    tied[2, [10, 900]] = 11
+    tied[3] = -(2**30)
+    _, aec = batch_best_and_aec(tied)
+    if aec.cpu().tolist() != [0, 300, 10, 0]:
+        raise AssertionError(f"wide reads: argmax on the card is not the first maximum: "
+                             f"{aec.cpu().tolist()}")
+    say("wide reads: batch_best_and_aec on the card takes the first of tied maxima")
+    return {"launches": counts["dp.last_row_launches"], "device_ms": sum(ms),
+            "workload_ms": t["ms"], "workload_plain_ms": t["plain_ms"],
+            "workload_bound_ms": b["bound_ms"], "workload_max_abs_err": err,
+            "rows": int(np.sum(rows))}
+
+
+WIDE_AB_PHASES = ("pass1", "pass1.py_merge", "pass1.native_finish", "pass1.collect_wait",
+                  "pass1.dispatch", "pass1.pack_prepare", "reiterate", "gc")
+WIDE_AB_COUNTERS = ("pass1.device_scored_reads", "pass1.device_scored_wide_reads",
+                    "pass1.native_solved_wide_reads")
+
+
+def load_package_copy(root: str, name: str = "mia_tpu_torch_earlier"):
+    """``root``'s ``mia_tpu_torch`` imported beside this tree's as ``name``
+    (a symlink under the work directory), whose relative imports stay
+    inside it: its ``cli.mia``, ``utils.profiling`` and ``ops.dp_cuda``.
+    The earlier tree's shared ``native`` directory is linked beside it too:
+    a port from before it had a native library of its own loads that one."""
+    import importlib
+
+    d = os.path.join(WORK, "pkg")
+    os.makedirs(d, exist_ok=True)
+    earlier = os.path.abspath(root)
+    shared = os.path.join(earlier, "native")
+    if os.path.isdir(shared):
+        os.symlink(shared, os.path.join(d, os.path.basename(shared)))
+    os.symlink(os.path.join(earlier, "mia_tpu_torch"), os.path.join(d, name))
+    sys.path.append(d)
+    return tuple(importlib.import_module(f"{name}.{m}")
+                 for m in ("cli.mia", "utils.profiling", "ops.dp_cuda"))
+
+
+def phase_wide_ab(earlier_root: str, pairs: int) -> None:
+    """``--wide-ab``: whole ``mia.main --engine torch --profile`` runs of phase
+    7b's workload (the 100k cell's traffic cut to 20k reads at seed 1) with
+    the port of ``earlier_root`` and this tree's, in turns; every run's maln
+    held to this tree's first run, pass 1's phases and the wide reads'
+    counters printed, and one more run of each with every thread's stack
+    sampled."""
+    from mia_tpu_torch.cli import mia as cli_mia
+    from mia_tpu_torch.ops import dp_cuda
+    from mia_tpu_torch.utils import profiling
+
+    e_mia, e_prof, e_dp = load_package_copy(earlier_root)
+    sides = {"earlier": (e_mia, e_prof, e_dp), "this": (cli_mia, profiling, dp_cuda)}
+    d = os.path.join(WORK, "wide_ab")
+    inputs = wide_workload(d)
+    say(f"wide a/b: {inputs['held']}")
+
+    gc_s = [0.0]
+    gc_t0 = [0.0]
+
+    def gc_clock(phase: str, info: dict) -> None:
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            gc_s[0] += time.perf_counter() - gc_t0[0]
+
+    def run(name: str, tag: str):
+        mia, prof_mod, dp = sides[name]
+        root = os.path.join(d, tag, "out.maln")
+        os.makedirs(os.path.dirname(root))
+        dp.reset_counts()
+        gc_s[0] = 0.0
+        gc.callbacks.append(gc_clock)
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                if mia.main([*inputs["args"], "-m", root, "--engine", "torch",
+                             "--profile"]) != 0:
+                    raise RuntimeError(f"wide a/b: {tag} ({name}) failed")
+                prof = prof_mod.report(out=io.StringIO())
+        finally:
+            gc.callbacks.remove(gc_clock)
+        wall = time.time() - t0
+        prof["phases_s"]["gc"] = gc_s[0]
+        counts = {"dp.kernel_launches": dp.kernel_launches, "dp.plain_calls": dp.plain_calls,
+                  "dp.last_row_launches": getattr(dp, "last_row_launches", 0),
+                  **{k: prof["counters"].get(k, 0) for k in WIDE_AB_COUNTERS}}
+        if counts["dp.plain_calls"] or not counts["dp.kernel_launches"]:
+            raise AssertionError(f"wide a/b: {tag} ({name}) did not score on the card: "
+                                 f"{counts}")
+        return maln_bytes(root), wall, prof, counts
+
+    want, wall, _, this_counts = run("this", "warm_this")
+    _, wall_e, _, earlier_counts = run("earlier", "warm_earlier")
+    say(f"wide a/b: warm-up {wall:.3f} s (this) {wall_e:.3f} s (earlier); counts this "
+        f"{json.dumps(this_counts)}, earlier {json.dumps(earlier_counts)}")
+    runs: dict[str, list[dict]] = {"earlier": [], "this": []}
+    for k, name in enumerate(ab_order(pairs)):
+        got, wall, prof, counts = run(name, f"run{k}")
+        if got != want:
+            raise AssertionError(f"wide a/b: run {k} ({name}) maln differs from this tree's")
+        if counts != (this_counts if name == "this" else earlier_counts):
+            raise AssertionError(f"wide a/b: run {k} ({name}) counts {counts} changed")
+        ph = prof["phases_s"]
+        r = {"wall": wall, **{p: ph.get(p, 0.0) for p in WIDE_AB_PHASES}}
+        runs[name].append(r)
+        say(f"wide a/b: {name}: {wall:.3f} s, {inputs['reads'] / wall:.2f} reads/s; "
+            + ", ".join(f"{p} {r[p]:.3f}" for p in WIDE_AB_PHASES))
+    wins = sum(b["wall"] < a["wall"] for a, b in zip(runs["earlier"], runs["this"]))
+    say(f"wide a/b: {pairs} pairs in turns, every maln byte-identical; this tree faster in "
+        f"{wins} of {pairs} pairs")
+    for name, rs in runs.items():
+        say(f"wide a/b:   {name}: reads/s {quartiles([inputs['reads'] / r['wall'] for r in rs])}; "
+            + "; ".join(f"{k} s {quartiles([r[k] for r in rs])}"
+                        for k in ("wall", *WIDE_AB_PHASES)))
+    for name in ("earlier", "this"):
+        samples: dict = {}
+        stop = threading.Event()
+        sampler = threading.Thread(target=sample_stacks, args=(stop, samples), daemon=True)
+        sampler.start()
+        try:
+            _, wall, _, _ = run(name, f"sampled_{name}")
+        finally:
+            stop.set()
+            sampler.join(timeout=10)
+        say_samples(f"wide a/b: sampled run ({name})", samples, wall)
+
 
 def raw_myers_waves(lib, bm_a, bm_b, len_a: int, len_b: int, maxd: int):
     """``launch()`` of ``lib``'s Myers kernel into a history and a result
@@ -1407,7 +1703,7 @@ def sample_stacks(stop: threading.Event, samples: dict, period_s: float = 0.002)
     sampling profile of wall time by thread, which the run's phases, each
     measured on one thread, cannot give."""
     me = threading.get_ident()
-    pkg = os.path.join(REPO, "mia_tpu_torch") + os.sep
+    pkgs = [os.path.join(REPO, "mia_tpu_torch") + os.sep, os.path.join(WORK, "pkg") + os.sep]
     while not stop.is_set():
         names = {t.ident: t.name for t in threading.enumerate()}
         for tid, frame in sys._current_frames().items():
@@ -1416,7 +1712,8 @@ def sample_stacks(stop: threading.Event, samples: dict, period_s: float = 0.002)
             inner = task = None
             f = frame
             while f is not None:
-                if f.f_code.co_filename.startswith(pkg):
+                pkg = next((p for p in pkgs if f.f_code.co_filename.startswith(p)), None)
+                if pkg is not None:
                     where = (f"{f.f_code.co_filename[len(pkg):]}:{f.f_code.co_name}")
                     inner = inner or where
                     task = where
@@ -2226,6 +2523,11 @@ def main() -> int:
         say(nvidia_smi())
         say(f"total: {time.time() - t_start:.1f} s (merge a/b only)")
         return 0
+    if sys.argv[1:2] == ["--wide-ab"] and len(sys.argv) in (3, 4):
+        phase_wide_ab(sys.argv[2], int(sys.argv[3]) if len(sys.argv) == 4 else 10)
+        say(nvidia_smi())
+        say(f"total: {time.time() - t_start:.1f} s (wide a/b only)")
+        return 0
     kern = phase_kernel(dev)
     hp_kern = phase_hp_kernel(dev)
     cons_kern = phase_consensus_kernel(dev)
@@ -2248,6 +2550,7 @@ def main() -> int:
     captured: dict = {}
     main_counts, main_walls = run_e2e("e2e", args, hp=False, new_process=True,
                                       captured=captured)
+    wide = phase_wide(dev)
     hp_counts, _ = run_e2e("e2e_hp", [*args, "-h"], hp=True, new_process=False,
                            captured=captured)
     shapes = phase_workload_shapes(captured)
@@ -2304,8 +2607,15 @@ def main() -> int:
         "route": "cuda",
         "source": "mia_tpu_torch/csrc/dp_last_row.cu",
         "replaces": "mia_tpu/ops/dp_pallas.py:133",
-        # the assembly step: one launch per dp shard
-        "launches": step_counts["dp.last_row_launches"],
+        # pass 1's WIDE reads on the mia path (phase 7b); the assembly step's
+        # launches (one per dp shard) beside them
+        "launches": wide["launches"],
+        "step_launches": step_counts["dp.last_row_launches"],
+        "wide_device_ms": wide["device_ms"],
+        "wide_rows": wide["rows"],
+        "workload_ms": wide["workload_ms"],
+        "workload_plain_ms": wide["workload_plain_ms"],
+        "workload_bound_ms": wide["workload_bound_ms"],
         **last_row_kern,
     }, {
         "name": "pileup_counts",

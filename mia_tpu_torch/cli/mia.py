@@ -24,7 +24,9 @@ native`` or ``numpy``, a single-process run imports no torch.
 Under ``--profile`` the JSON profile on stderr carries the kernels' counters
 beside the pipeline's own: ``dp.kernel_launches`` / ``dp.plain_calls`` (the
 scorer), ``dp.hp_kernel_launches`` / ``dp.hp_plain_calls`` (the ``-h``
-scorer), ``dp.shards`` (device shards a dispatch was dealt over) and
+scorer), ``dp.last_row_launches`` / ``dp.last_row_plain_calls`` (the
+general-width scorer, which takes pass 1's WIDE reads without ``-h``),
+``dp.shards`` (device shards a dispatch was dealt over) and
 ``cons.kernel_launches`` / ``cons.plain_calls`` (consensus column counts),
 each 0 where this process never loaded the kernel's module (a run through
 the server: the server's ``hello`` has its counts), and
@@ -46,7 +48,8 @@ ENGINES = ("torch", "native", "numpy")
 # the kernels' counters, by the module that keeps them
 KERNEL_COUNTERS = (
     ("dp", "mia_tpu_torch.ops.dp_cuda",
-     ("kernel_launches", "plain_calls", "hp_kernel_launches", "hp_plain_calls", "shards")),
+     ("kernel_launches", "plain_calls", "hp_kernel_launches", "hp_plain_calls",
+      "last_row_launches", "last_row_plain_calls", "shards")),
     ("cons", "mia_tpu_torch.ops.consensus_torch", ("kernel_launches", "plain_calls")),
 )
 

@@ -58,6 +58,7 @@ from ..io.ids import parse_ids
 from ..io.maln import write_ma
 from ..io.native import count_frag_seqs, iter_frag_seqs_range
 from ..io.native import iter_frag_seqs_fast as iter_frag_seqs
+from ..io.native import unavailable as native_unavailable
 from ..io.pssm_io import find_read_pssm
 from ..ops.kmer import KmerPosArray, new_kmer_filter
 from ..ops.pssm import init_flatsubmat, revcom_submat
@@ -84,6 +85,7 @@ from .entries import (
     diag_gapfree,
     longest_runs,
     pack_chars,
+    wide_scored,
 )
 from .fsdb import (
     FSDB,
@@ -137,16 +139,20 @@ def _log(msg: str) -> None:
 
 # What the pass-1 merge does with a drained read: skip it, take the gate's
 # score, align it on the host, merge its native solve (band wider than the
-# device window), merge its gap-free diagonal, or merge its native traceback.
+# device window, not scored on the card), merge its gap-free diagonal, or
+# merge its native traceback.
 SKIP, GATED, HOST, WIDE, GAPFREE, TRACED = range(6)
 
 
-def plan_batch(flags, fb, fa, rb, ra, distant_ref: bool):
+def plan_batch(flags, fb, fa, rb, ra, distant_ref: bool, dev_wide=None):
     """(kind, rc, best, aec) of a drained pass-1 batch, each [n]: the flags
     decide first (FLAG_SKIP over FLAG_HOST_ONLY over FLAG_WIDE), then the
     device's scores: the winning strand (rc on a tie), its best and end
     column, and the gate (src/map_align.c:1614; none under -D).  Every
-    winner is TRACED until its diagonal proves gap-free."""
+    winner is TRACED until its diagonal proves gap-free.  A WIDE read that
+    the card scored full width (``dev_wide`` [n] bool,
+    ``entries.wide_scored``) is decided as a windowed one; the other WIDE
+    reads keep the native solve."""
     flags = np.asarray(flags)
     fb = np.asarray(fb)
     rb = np.asarray(rb)
@@ -156,7 +162,10 @@ def plan_batch(flags, fb, fa, rb, ra, distant_ref: bool):
     kind = np.full(len(flags), TRACED, np.int8)
     if not distant_ref:
         kind[best < FIRST_ROUND_SCORE_CUTOFF] = GATED
-    kind[(flags & FLAG_WIDE) != 0] = WIDE
+    native_wide = (flags & FLAG_WIDE) != 0
+    if dev_wide is not None:
+        native_wide &= ~np.asarray(dev_wide)
+    kind[native_wide] = WIDE
     kind[(flags & FLAG_HOST_ONLY) != 0] = HOST
     kind[(flags & FLAG_SKIP) != 0] = SKIP
     return kind, rc, best, aec
@@ -386,8 +395,7 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
         bhost = _batch_host()
         if bhost is None:
             if use_torch:
-                raise RuntimeError(
-                    "--engine torch needs the native host library (make -C native)")
+                raise native_unavailable()
             # no native lib (and the auto-build failed): the exact per-read
             # numpy path serves instead
             use_native = False
@@ -483,9 +491,10 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
         arena, off, lens, fw_ivg, rc_ivg, flags = prep
         with profiling.phase("pass1.collect_wait"):
             fb, fa, rb, ra = scorer.collect_arrays(handle)
-        kind, rc, best, aec = plan_batch(flags, fb, fa, rb, ra, maln.distant_ref)
-        # reads whose band exceeds the device window: threaded native solve
-        # (a work partition: there is no second full-width device program)
+        # without -h the card scored the WIDE reads full width too
+        dev_wide = None if scorer.hp else wide_scored(flags, lens)
+        kind, rc, best, aec = plan_batch(flags, fb, fa, rb, ra, maln.distant_ref, dev_wide)
+        # WIDE reads the card did not score (-h): threaded native solve
         wide_idx = np.flatnonzero(kind == WIDE)
         win = np.flatnonzero(kind == TRACED)
         # the row of a WIDE read's native solve, or of a TRACED read's
@@ -494,6 +503,8 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
         row[wide_idx] = np.arange(len(wide_idx))
         abc = np.zeros(len(records), np.int64)
         profiling.count("pass1.device_scored_reads", len(win))
+        if dev_wide is not None:
+            profiling.count("pass1.device_scored_wide_reads", int(dev_wide.sum()))
         profiling.count("pass1.native_solved_wide_reads", len(wide_idx))
 
         def work():
@@ -585,7 +596,8 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
                 continue
             j = rows[i]
             n = int(meta[j, 3])
-            if n < 0:  # native finish worker failed: per-read host path
+            if n < 0:  # native finish failed or outgrew its arena: per-read host path
+                profiling.count("pass1.finish_host_reads")
                 _host_align_one(f)
                 continue
             pw = (

@@ -48,6 +48,7 @@ from ..utils import profiling
 from ..utils.encoding import IUPAC_BITMAP, encode_seq
 from .driver import init_alignment, set_seq1, set_seq2
 from .entries import L_MAX, MAX_INTERVALS, WIN_W, pack_s2c
+from ..io.native import unavailable as native_unavailable
 from .hostbatch import STATUS_OK, BatchHost
 from .types import AlnSeq, MapAlignment
 
@@ -346,9 +347,7 @@ def _realign_all(maln, index: AlnIndex, submat, engine: str = "torch",
         )
         bh = BatchHost.create(big_ref, big_ref, len(big_ref), submat, None, -1, False, 0, 0)
         if bh is None and engine == "torch":
-            raise RuntimeError(
-                "--engine torch needs the native host library (make -C native)"
-            )
+            raise native_unavailable()
         if bh is not None:
             reads = [jobs[i][0] for i in live]
             _, _, lens = bh.pack_reads(reads)

@@ -50,6 +50,7 @@ from .entries import (
     pack_s2c,
 )
 from .fsdb import add_virgin_fs2fsdb
+from ..io.native import unavailable as native_unavailable
 from .hostbatch import STATUS_OK, BatchHost
 from .merge import add_ref_wrap, c2rcc, merge_pwaln_into_maln, revcom_PWAF, split_pwaln
 from .types import FSDB, FragSeq, MapAlignment, PWAlnFrag
@@ -493,9 +494,7 @@ def reiterate_assembly(
         hp=a.hp,
     )
     if bh is None and engine == "torch":
-        raise RuntimeError(
-            "--engine torch needs the native host library (make -C native)"
-        )
+        raise native_unavailable()
     if bh is not None:
         # re-probes first: they can set strand_known (and flip fs.seq).
         # Both strands of every unknown read go through the threaded native

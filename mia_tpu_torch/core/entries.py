@@ -17,7 +17,7 @@ to [aec - margin, aec] (margin from the score bound: a gated alignment of
 score >= s spans at most len2 + (len2*max_sub - s)/GEP extra columns) and
 checks that (best, aec) and the alignment start reproduce exactly; any
 disagreement falls back to the full-width exact computation
-(native/src/hostbatch.cc: mia_p1_finish).
+(mia_tpu_torch/native/src/hostbatch.cc: mia_p1_finish).
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..constants import GEP, INIT_ALN_SEQ_LEN, PSSM_DEPTH
+from ..constants import GEP, HIM, INIT_ALN_SEQ_LEN, PSSM_DEPTH
 from ..ops.dp_numpy import Alignment
 
 # route-to-host threshold of the -h kernel's row reach (HPW)
@@ -82,8 +82,9 @@ def default_batch() -> int:
 
 
 MAX_INTERVALS = 16
-# per-read reference window for the banded scorer; strands whose band spans
-# more than WIN_W columns are solved by the native engine instead
+# per-read reference window for the banded scorer; a read whose band spans
+# more than WIN_W columns on either strand is WIDE: scored full width by the
+# general-width scorer (wide_rows), or under -h solved by the native engine
 WIN_W = 384
 L_MAX = INIT_ALN_SEQ_LEN     # 256: the reference's hard read-length cap
 REF_BUCKET = 2048            # reference width pads to a multiple of this
@@ -127,6 +128,111 @@ def split_pass1_results(best, aec, fw_ws, rc_ws):
     rb = best[n:]
     ra = aec[n:] + rc_ws[:n]
     return fb, fa, rb, ra
+
+
+# the score of a strand with no band intervals: INT32_MIN / 2, as the
+# native solve's fill_strand leaves it (mia_tpu_torch/native/src/hostbatch.cc)
+NO_BAND_SCORE = HIM
+
+
+def wide_scored(flags, lens) -> np.ndarray:
+    """[n] bool: the WIDE reads the general-width scorer takes (the device
+    engine without ``-h``): not skipped or sent to the host, 1..L_MAX bases.
+    The rest of the WIDE reads keep the native solve."""
+    from .hostbatch import FLAG_HOST_ONLY, FLAG_SKIP, FLAG_WIDE
+
+    flags = np.asarray(flags)
+    lens = np.asarray(lens)
+    return (((flags & FLAG_WIDE) != 0) & ((flags & (FLAG_SKIP | FLAG_HOST_ONLY)) == 0)
+            & (lens >= 1) & (lens <= L_MAX))
+
+
+@dataclass
+class WideRows:
+    """A batch's WIDE reads as rows of the general-width scorer
+    (``dp_cuda.dp_last_row``): one row per (read, strand with intervals),
+    each over its own window of the strand, exactly the window the native
+    solve fills (``fill_strand``, hostbatch.cc: it starts two columns before
+    the first interval and ends with the last)."""
+
+    sel: np.ndarray     # [m] int64 the reads taken (wide_scored), batch index
+    read: np.ndarray    # [R] int64 each row's read, batch index
+    strand: np.ndarray  # [R] int8 0 forward, 1 reverse complement
+    win_lo: np.ndarray  # [R] int32 global column of the row's column 0
+    ivl: np.ndarray     # [R, K, 2] int32 window-local [lo, hi), (0, 0) unused
+    s2c: np.ndarray     # [R, L] int32 read codes (pad 4), L the longest read
+    lengths: np.ndarray  # [R] int32 read lengths
+    width: int          # W: the widest row's columns
+
+    @property
+    def n(self) -> int:
+        return len(self.read)
+
+
+def wide_rows(flags, lens, s2c, fw_ivg, rc_ivg) -> WideRows | None:
+    """The rows of a pass-1 batch's :func:`wide_scored` reads (None when it
+    has none) from ``BatchHost.prepare``'s read codes and GLOBAL band
+    intervals: a strand's window starts at ``max(first lo - 2, 0)`` and is
+    ``last hi - win_lo`` columns wide; a strand without intervals gets no
+    row (its score is :data:`NO_BAND_SCORE`)."""
+    sel = np.flatnonzero(wide_scored(flags, lens))
+    if not len(sel):
+        return None
+    ivg = np.concatenate([fw_ivg[sel], rc_ivg[sel]]).astype(np.int64)
+    read = np.concatenate([sel, sel])
+    strand = np.repeat(np.array([0, 1], np.int8), len(sel))
+    used = ivg[:, :, 1] > 0
+    has = used.any(axis=1)
+    ivg, read, strand, used = ivg[has], read[has], strand[has], used[has]
+    first = np.where(used, ivg[:, :, 0], np.iinfo(np.int64).max).min(axis=1)
+    win_lo = np.maximum(first - 2, 0)
+    hi = np.where(used, ivg[:, :, 1], 0).max(axis=1)
+    ivl = np.where(used[:, :, None], ivg - win_lo[:, None, None], 0)
+    lengths = np.asarray(lens, np.int32)[read]
+    L = int(lengths.max())
+    return WideRows(sel, read, strand, win_lo.astype(np.int32), ivl.astype(np.int32),
+                    np.ascontiguousarray(np.asarray(s2c)[read, :L], np.int32), lengths,
+                    int((hi - win_lo).max()))
+
+
+def wide_inputs(rows: WideRows, refs: np.ndarray):
+    """The general-width scorer's dense inputs for ``rows``, as numpy: (s1c
+    [R, W] int32 each row's window of its strand, mask [R, W] bool its
+    intervals, s2c [R, L] int32, lengths [R] int32, depths [R, L] int32 the
+    PSSM depth per row, src/pssm.c:36-46).  ``refs`` is the scorer's [2,
+    WTOT] padded strand codes; a window's columns past them read code 4
+    (they are masked).  The device builds the same arrays itself
+    (``torch_engine.wide_device_inputs``)."""
+    W = rows.width
+    cols = np.arange(W, dtype=np.int64)[None, :]
+    gcol = rows.win_lo.astype(np.int64)[:, None] + cols
+    WTOT = refs.shape[1]
+    s1c = np.where(gcol < WTOT, refs[rows.strand.astype(np.int64)[:, None],
+                                     np.minimum(gcol, WTOT - 1)], 4).astype(np.int32)
+    iv = rows.ivl.astype(np.int64)
+    mask = ((cols[:, None, :] >= iv[:, :, 0:1]) & (cols[:, None, :] < iv[:, :, 1:2])).any(1)
+    L = rows.s2c.shape[1]
+    r = np.arange(L)[None, :]
+    from_back = rows.lengths.astype(np.int64)[:, None] - (r + 1)
+    depths = np.where(r < PSSM_DEPTH, r,
+                      np.where(from_back < PSSM_DEPTH, 2 * PSSM_DEPTH - from_back, PSSM_DEPTH))
+    return (s1c, mask, rows.s2c, rows.lengths,
+            np.clip(depths, 0, 2 * PSSM_DEPTH).astype(np.int32))
+
+
+def merge_wide(fb, fa, rb, ra, rows: WideRows, best, aec) -> None:
+    """Write the wide rows' (best, window-local aec) into a batch's per-read
+    (fb, fa, rb, ra) in place, aec made GLOBAL; a taken read's strand
+    without a row gets (:data:`NO_BAND_SCORE`, 0)."""
+    for b, a in ((fb, fa), (rb, ra)):
+        b[rows.sel] = NO_BAND_SCORE
+        a[rows.sel] = 0
+    aec = np.asarray(aec, np.int64) + rows.win_lo
+    fw = rows.strand == 0
+    fb[rows.read[fw]] = best[fw]
+    fa[rows.read[fw]] = aec[fw]
+    rb[rows.read[~fw]] = best[~fw]
+    ra[rows.read[~fw]] = aec[~fw]
 
 
 def mask_intervals(mask: np.ndarray) -> np.ndarray | None:

@@ -123,7 +123,7 @@ def find_fsdb_score_cut(fsdb: FSDB) -> tuple[float, float]:
     Routed through the native library when available: the reference binary's
     gcc -O2 build contracts the fit's multiply-adds into FMAs, and reads
     sitting exactly on the cutoff line need the same rounding to reproduce
-    their dropped flags (see native/src/scorecut.cc)."""
+    their dropped flags (see mia_tpu_torch/native/src/scorecut.cc)."""
     sel = [
         fs
         for fs in fsdb.fss

@@ -1,4 +1,5 @@
-"""ctypes binding for the native batched host engine (native/src/hostbatch.cc).
+"""ctypes binding for the native batched host engine
+(mia_tpu_torch/native/src/hostbatch.cc, built by :mod:`mia_tpu_torch.io.native`).
 
 The device scores whole batches; this binding packs those batches (k-mer
 filter + band intervals + encoded reads) and finishes them (score-verified

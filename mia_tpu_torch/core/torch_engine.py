@@ -31,10 +31,19 @@ What changed from the TPU engine, and why:
   same mix of lengths, and each warp stops at its own row, so no length
   sort), launches the kernel once per shard on that shard's stream, and
   puts the results back in the caller's order.
+* A pass-1 read whose band is wider than the entry window (WIDE) is scored
+  on the card too, where the TPU engine sent it to the native solve to keep
+  its device program count at one: each of its strands with intervals is a
+  row of the general-width scorer (:func:`mia_tpu_torch.ops.dp_cuda.dp_last_row`)
+  over the strand's window (``entries.wide_rows``), launched after the
+  batch's entries on the same stream, and only each row's (best, aec) comes
+  back.  Under ``--dp-devices`` all of a batch's wide rows go to the first
+  shard.  Under ``-h`` WIDE reads stay native, as in the JAX package (the
+  general-width scorer has no ``-h`` form).
 
 The numpy helpers (``build_pass1_entries``, ``split_pass1_results``,
-``pack_s2c``, ``diag_gapfree``) and the shape constants live in
-:mod:`mia_tpu_torch.core.entries`.
+``wide_rows``, ``merge_wide``, ``pack_s2c``, ``diag_gapfree``) and the shape
+constants live in :mod:`mia_tpu_torch.core.entries`.
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ import numpy as np
 import torch
 
 from ..ops import dp_cuda
+from ..ops.dp_torch import batch_best_and_aec, depths_for
 from ..utils.encoding import BASE2INX, pop_hpl_and_hps
 from ..utils.torchcfg import kernel_library, select_device
 from .entries import (
@@ -52,10 +62,13 @@ from .entries import (
     MAX_INTERVALS,
     REF_BUCKET,
     WIN_W,
+    WideRows,
     build_pass1_entries,
     default_batch,
     hp_pengop_table,
+    merge_wide,
     split_pass1_results,
+    wide_rows,
 )
 
 
@@ -130,6 +143,45 @@ def state_from_numpy(refs_np: np.ndarray, sms_np: np.ndarray, device,
                          f"{refs.shape}, {refs.shape}, (11,)")
     return ScorerState(on(refs, np.int8), on(sms, np.int32), on(hp[0], np.uint8),
                        on(hp[1], np.int32), on(hp[2], np.int32), on(BASE2INX, np.int8))
+
+
+def wide_device_inputs(refs: torch.Tensor, width: int, strand: torch.Tensor,
+                       win_lo: torch.Tensor, ivl: torch.Tensor):
+    """(s1c [R, W] int32, mask [R, W] bool) of wide rows, made on ``refs``'
+    device from the rows' strands, window starts and window-local intervals
+    (``entries.wide_inputs`` in numpy): each strand is padded with ``width``
+    columns of code 4, so that every window is a slice of one flat array,
+    and the mask is the running sum of +1 at each interval's start and -1
+    at its end (an unused (0, 0) slot adds nothing), so no [R, K, W] array
+    is made."""
+    dev = refs.device
+    W = width
+    WTOT = refs.shape[1]
+    flat = torch.cat([refs, torch.full((2, W), 4, dtype=refs.dtype, device=dev)], 1)
+    starts = strand.to(torch.int64) * (WTOT + W) + win_lo.to(torch.int64)
+    s1c = flat.reshape(-1).unfold(0, W, 1)[starts].to(torch.int32)
+    iv = ivl.to(torch.int64)
+    ones = torch.ones(iv.shape[:2], dtype=torch.int32, device=dev)
+    edge = torch.zeros((len(starts), W + 1), dtype=torch.int32, device=dev)
+    edge.scatter_add_(1, iv[:, :, 0], ones)
+    edge.scatter_add_(1, iv[:, :, 1], -ones)
+    mask = torch.cumsum(edge[:, :W], 1, dtype=torch.int32) > 0
+    return s1c, mask
+
+
+def score_wide(state: ScorerState, width: int, strand, win_lo, ivl, s2c,
+               lengths) -> torch.Tensor:
+    """(best, window-local aec) of wide rows as [2, R] int32: the last DP
+    row by ``dp_cuda.dp_last_row`` (the kernel on a card, its plain version
+    on the CPU) and its first maximum (the native solve takes the earliest
+    column too, hostbatch.cc ``fill_strand``).  Every row scores with the
+    forward PSSM, as ``mia_p1_solve`` does for both strands
+    (``ctx->submat[0]``)."""
+    s1c, mask = wide_device_inputs(state.refs, width, strand, win_lo, ivl)
+    depths = depths_for(lengths, s2c.shape[1]).to(torch.int32)
+    last = dp_cuda.dp_last_row(s1c, mask, s2c, lengths, depths, state.sms[0])
+    best, aec = batch_best_and_aec(last)
+    return torch.stack([best, aec])
 
 
 def make_dp_devices(n_dp: int, devices=None) -> list[torch.device] | None:
@@ -256,17 +308,19 @@ class Pass1Scorer:
                          else (None, None))
         return _Batch(parts, n)
 
-    def _dispatch_shard(self, shard: _Shard, host: tuple):
-        """Score one shard's entries on its device: (result [2, m] in host
-        memory, event or None).  On a card the inputs are staged in pinned
-        memory of their own (never reused while a copy may still read it),
-        and copies in, kernel, copy out and event all go to the shard's
-        stream in that order (a single device: the current stream)."""
+    def _dispatch_shard(self, shard: _Shard, host: tuple, score=None):
+        """Score one shard's entries on its device (or, with ``score``, the
+        rows ``score(*tensors)`` takes): (result [2, m] in host memory, event
+        or None).  On a card the inputs are staged in pinned memory of their
+        own (never reused while a copy may still read it), and copies in,
+        kernel, copy out and event all go to the shard's stream in that
+        order (a single device: the current stream)."""
         st = shard.state
         dev = st.refs.device
-        score = (partial(dp_cuda.dp_entries_hp, st.refs, st.refchr, st.hpcs, st.sms,
-                         st.pengop, st.b2i)
-                 if self.hp else partial(dp_cuda.dp_entries, st.refs, st.sms))
+        if score is None:
+            score = (partial(dp_cuda.dp_entries_hp, st.refs, st.refchr, st.hpcs, st.sms,
+                             st.pengop, st.b2i)
+                     if self.hp else partial(dp_cuda.dp_entries, st.refs, st.sms))
         if dev.type == "cpu":
             return score(*(torch.from_numpy(a) for a in host)), None
         with torch.cuda.device(dev):
@@ -281,12 +335,28 @@ class Pass1Scorer:
                 event.record(stream)
         return out, event
 
+    def dispatch_wide(self, rows: WideRows | None) -> _Batch | None:
+        """Enqueue the general-width scorer on wide rows (``entries.wide_rows``;
+        None: nothing) on the first shard, behind what that shard's stream
+        holds already.  Results via :meth:`collect_entries`: (best, aec),
+        aec WINDOW-LOCAL (add the row's ``win_lo``)."""
+        if rows is None:
+            return None
+        host = (rows.strand, rows.win_lo, rows.ivl, rows.s2c, rows.lengths)
+        host = tuple(np.ascontiguousarray(a) for a in host)
+        shard = self.shards[0]
+        return _Batch([self._dispatch_shard(
+            shard, host, partial(score_wide, shard.state, rows.width))], rows.n)
+
     @staticmethod
     def ready(handle) -> bool:
         """True when every shard's results have landed (non-blocking); takes
-        an entries handle or a packed pass-1 handle."""
-        batch = handle[0] if isinstance(handle, tuple) else handle
-        return all(event is None or event.query() for _, event in batch.parts)
+        an entries handle or a packed pass-1 handle (its wide rows too)."""
+        batches = [handle]
+        if isinstance(handle, tuple):
+            batches = [handle[0]] + ([handle[3][1]] if handle[3] is not None else [])
+        return all(event is None or event.query()
+                   for batch in batches for _, event in batch.parts)
 
     def collect_entries(self, handle: _Batch):
         """Materialise a dispatched batch: (best, aec) int64 arrays [n] in
@@ -308,20 +378,29 @@ class Pass1Scorer:
     def dispatch_packed(self, s2c, lens, fw_ws, rc_ws, fw_ivg, rc_ivg, flags):
         """Enqueue one pass-1 read batch packed by the native host engine
         (core/hostbatch.py: BatchHost.prepare): each read becomes two
-        entries (fw then rc).  Flagged reads (FLAG_SKIP / HOST_ONLY / WIDE)
-        get empty intervals and garbage scores the caller ignores.  Results
-        via :meth:`collect_arrays`."""
+        entries (fw then rc), and without ``-h`` each WIDE read's strands
+        rows of the general-width scorer (:meth:`dispatch_wide`).  Other
+        flagged reads (FLAG_SKIP / HOST_ONLY, and WIDE under ``-h``) get
+        empty intervals and garbage scores the caller ignores.  Results via
+        :meth:`collect_arrays`."""
         n = len(lens)
         if n > self.batch:
             raise ValueError(f"{n} reads exceed the batch of {self.batch}")
         if n == 0:
-            return _Batch([], 0), fw_ws.copy(), rc_ws.copy()
+            return _Batch([], 0), fw_ws.copy(), rc_ws.copy(), None
         entries = build_pass1_entries(s2c, lens, fw_ws, rc_ws, fw_ivg, rc_ivg, flags)
-        return self.dispatch_entries(*entries), fw_ws.copy(), rc_ws.copy()
+        batch = self.dispatch_entries(*entries)
+        rows = None if self.hp else wide_rows(flags, lens, s2c, fw_ivg, rc_ivg)
+        wide = None if rows is None else (rows, self.dispatch_wide(rows))
+        return batch, fw_ws.copy(), rc_ws.copy(), wide
 
     def collect_arrays(self, handle):
         """Materialise a packed pass-1 batch: (fb, fa, rb, ra) int64 [n]
-        with aec in GLOBAL reference coordinates."""
-        batch, fw_ws, rc_ws = handle
+        with aec in GLOBAL reference coordinates, the wide reads' included."""
+        batch, fw_ws, rc_ws, wide = handle
         best, aec = self.collect_entries(batch)
-        return split_pass1_results(best, aec, fw_ws, rc_ws)
+        fb, fa, rb, ra = split_pass1_results(best, aec, fw_ws, rc_ws)
+        if wide is not None:
+            rows, wbatch = wide
+            merge_wide(fb, fa, rb, ra, rows, *self.collect_entries(wbatch))
+        return fb, fa, rb, ra

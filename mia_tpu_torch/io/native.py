@@ -1,81 +1,112 @@
-"""ctypes binding for the native C++ read parser (native/src/fastaio.cc).
+"""ctypes binding for the native C++ read parser (mia_tpu_torch/native/src/fastaio.cc).
 
-Loads ``native/libmiaio.so`` when present (``make -C native``); callers use
-:func:`iter_frag_seqs_fast`, which transparently falls back to the exact
-Python parser when the library is unavailable.  Both paths produce identical
-records (tests/test_native_io.py asserts it).
+The port's native host library, ``libmiaio.so``, is built from the port's
+own sources (``mia_tpu_torch/native/``: the read parser, the host DP, the
+batched pass-1 engine and the score cut) at first use, by their
+``Makefile``, into ``mia_tpu_torch/_build/native-<hash>/``, keyed by a hash of
+the sources (an edited ``.cc`` rebuilds), as ``utils/torchcfg.py`` keys the
+CUDA kernels.  Callers use :func:`iter_frag_seqs_fast`, which falls back to
+the exact Python parser when the library did not build; the device engine
+has no such fallback and raises with the build's output
+(:func:`build_error`).  Both parsers produce identical records
+(tests/test_native_io.py asserts it).
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import threading
 from typing import Iterator
 
 import numpy as np
 
 from ..core.types import FragSeq
 
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NATIVE_DIR = os.path.join(PKG_DIR, "native")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+
 _LIB = None
 _TRIED = False
+_ERROR = ""
+_LOAD_LOCK = threading.Lock()
 
 
-def _build(native_dir: str) -> None:
-    """Build libmiaio.so in-tree when sources are present but the library is
-    not (fresh checkout).  Serialised across processes with an exclusive
-    lock so concurrent engines don't race the compiler; any failure just
-    leaves the Python fallbacks in charge."""
+def _sources() -> list[str]:
+    src = os.path.join(NATIVE_DIR, "src")
+    return [os.path.join(NATIVE_DIR, "Makefile")] + sorted(
+        os.path.join(src, fn) for fn in os.listdir(src) if fn.endswith(".cc"))
+
+
+def library_path() -> str:
+    """Where the library for the current sources lives."""
+    h = hashlib.sha256()
+    for path in _sources():
+        with open(path, "rb") as f:
+            h.update(os.path.relpath(path, NATIVE_DIR).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"native-{h.hexdigest()[:16]}", "libmiaio.so")
+
+
+def build_library() -> str:
+    """Build the library for the current sources unless it exists; returns
+    its path.  A file lock beside it serialises concurrent builds (test
+    workers, ranks); the library is written under a temporary name and
+    renamed into place.  Raises RuntimeError with make's output when the
+    build fails."""
+    import fcntl
     import subprocess
 
-    lock = os.path.join(native_dir, ".build.lock")
-    try:
-        import fcntl
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    out_dir = os.path.dirname(path)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, ".lock"), "w") as lf:
+        fcntl.flock(lf, fcntl.LOCK_EX)
+        if os.path.exists(path):
+            return path
+        tmp = path + ".tmp"
+        if os.path.exists(tmp):
+            os.remove(tmp)  # an interrupted build's: make would call it current
+        r = subprocess.run(["make", "-C", NATIVE_DIR, f"LIB={tmp}"],
+                           capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            raise RuntimeError(f"make -C {NATIVE_DIR} failed ({r.returncode}):\n"
+                               f"{r.stdout}\n{r.stderr}")
+        os.replace(tmp, path)
+    return path
 
-        with open(lock, "w") as lf:
-            fcntl.flock(lf, fcntl.LOCK_EX)
-            if not os.path.exists(os.path.join(native_dir, "libmiaio.so")):
-                subprocess.run(
-                    ["make", "-C", native_dir],
-                    check=True,
-                    capture_output=True,
-                    timeout=300,
-                )
-    except Exception:
-        pass
+
+def build_error() -> str:
+    """Why the library is not loaded ("" when it is, or was never asked
+    for)."""
+    return _ERROR
+
+
+def unavailable() -> RuntimeError:
+    """The error the device engine raises when the library did not build:
+    it has no host fallback."""
+    return RuntimeError("--engine torch needs the port's native host library "
+                        f"(mia_tpu_torch/native), which did not build: {_ERROR}")
 
 
 def _load():
-    global _LIB, _TRIED
-    if _TRIED:
-        return _LIB
-    _TRIED = True
-    native_dir = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-        "native",
-    )
-    path = os.path.join(native_dir, "libmiaio.so")
-    stale = False
-    if os.path.exists(path):
-        try:
-            import glob
+    """The loaded library, built on first use; None when it did not build
+    (:func:`build_error` says why)."""
+    global _LIB, _TRIED, _ERROR
+    with _LOAD_LOCK:
+        if not _TRIED:
+            _TRIED = True
+            try:
+                _LIB = _declare(ctypes.CDLL(build_library()))
+            except Exception as e:  # no compiler, a failed build, a library that will not load
+                _ERROR = f"{type(e).__name__}: {e}"
+    return _LIB
 
-            so_mtime = os.path.getmtime(path)
-            stale = any(
-                os.path.getmtime(src) > so_mtime
-                for src in glob.glob(os.path.join(native_dir, "src", "*.cc"))
-            )
-        except OSError:
-            pass
-    if stale or not os.path.exists(path):
-        if os.path.exists(os.path.join(native_dir, "Makefile")):
-            if stale:
-                try:
-                    os.remove(path)
-                except OSError:
-                    pass
-            _build(native_dir)
-        if not os.path.exists(path):
-            return None
-    lib = ctypes.CDLL(path)
+
+def _declare(lib):
+    """``lib`` with the parser's argument and result types declared."""
     lib.mia_parse_reads.restype = ctypes.c_void_p
     lib.mia_parse_reads.argtypes = [ctypes.c_char_p, ctypes.c_int]
     lib.mia_reads_count.restype = ctypes.c_int64
@@ -89,7 +120,6 @@ def _load():
     lib.mia_reads_qual_sums.restype = ctypes.POINTER(ctypes.c_int64)
     lib.mia_reads_qual_sums.argtypes = [ctypes.c_void_p]
     lib.mia_reads_free.argtypes = [ctypes.c_void_p]
-    _LIB = lib
     return lib
 
 

@@ -58,7 +58,8 @@ _NATIVE_TRIED = False
 def _load_native():
     """The C++ fill bakes the reference's GOP/GEP; only use it while the
     runtime constants match (else fall back to the numpy path, which reads
-    them dynamically)."""
+    them dynamically).  The library is the port's own
+    (:func:`mia_tpu_torch.io.native._load`)."""
     global _NATIVE, _NATIVE_TRIED
     if _NATIVE_TRIED:
         return _NATIVE
@@ -68,20 +69,16 @@ def _load_native():
 
     if GOP != 1000 or GEP != 200 or os.environ.get("MIA_TPU_NO_NATIVE") == "1":
         return None
+    from ..io.native import _load
 
-    path = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-        "native",
-        "libmiaio.so",
-    )
-    if not os.path.exists(path):
+    lib = _load()
+    if lib is None:
         return None
     try:
-        lib = ctypes.CDLL(path)
         lib.mia_dp_fill.restype = None
         if hasattr(lib, "mia_sg_window"):
             lib.mia_sg_window.restype = ctypes.c_int32
-    except (OSError, AttributeError):
+    except AttributeError:
         return None
     _NATIVE = lib
     return lib

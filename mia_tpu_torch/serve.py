@@ -18,15 +18,20 @@ this user may connect).  A request is a dict with an ``op``; a reply is
                                                 pid, build, library, counters}
     scorer   {fw, rc, len1, sms, batch, hp_seqs} -> {sid, ready}
     ready    {sid}                          -> {ready}
-    dispatch {sid, ref_sel, starts, ivl, s2c, lengths, smidx} -> {hid}
+    dispatch {sid, ref_sel, starts, ivl, s2c, lengths, smidx, wide} -> {hid}
     hready   {hid}                          -> {ready}
-    collect  {hid}                          -> {best, aec}   (int32)
+    collect  {hid}                          -> {best, aec, wide_best, wide_aec}
+                                               (int32; wide_*: None without wide)
     consensus {seq, smp, starts, spans, seq_off, smp_off, revs, fpsm, rpsm, n}
                                             -> {counts, cov, scores}
     free     {sid}                          -> {}
 
+``wide`` is a pass-1 batch's ``entries.WideRows`` (or None), scored after
+the entries by the general-width scorer, as in process.
+
 ``counters`` are the server's launch counts (``dp.kernel_launches``,
 ``dp.plain_calls``, ``dp.hp_kernel_launches``, ``dp.hp_plain_calls``,
+``dp.last_row_launches``, ``dp.last_row_plain_calls``,
 ``cons.kernel_launches``, ``cons.plain_calls``): a caller reads them before
 and after a run to see that the card did its work.  ``build`` is
 :func:`build_id` of the server's sources when it started, and ``library``
@@ -98,7 +103,8 @@ SPAWN_WAIT_S = 300.0
 # iteration's consensus), the oldest dropped first
 MAX_STATES = 64
 COUNTERS = ("dp.kernel_launches", "dp.plain_calls", "dp.hp_kernel_launches",
-            "dp.hp_plain_calls", "cons.kernel_launches", "cons.plain_calls")
+            "dp.hp_plain_calls", "dp.last_row_launches", "dp.last_row_plain_calls",
+            "cons.kernel_launches", "cons.plain_calls")
 
 
 class ServerUnavailable(RuntimeError):
@@ -313,16 +319,23 @@ class Server:
             with self._launch:
                 h = sc.dispatch_entries(req["ref_sel"], req["starts"], req["ivl"],
                                         req["s2c"], req["lengths"], req["smidx"])
+                wh = sc.dispatch_wide(req.get("wide"))
             hid = next(session.ids)
-            session.handles[hid] = (sc, h)
+            session.handles[hid] = (sc, h, wh)
             return {"hid": hid}
         if op == "hready":
-            sc, h = session.handles[req["hid"]]
-            return {"ready": sc.ready(h)}
+            sc, h, wh = session.handles[req["hid"]]
+            return {"ready": sc.ready(h) and (wh is None or sc.ready(wh))}
         if op == "collect":
-            sc, h = session.handles.pop(req["hid"])
+            sc, h, wh = session.handles.pop(req["hid"])
             best, aec = sc.collect_entries(h)
-            return {"best": best.astype(np.int32), "aec": aec.astype(np.int32)}
+            out = {"best": best.astype(np.int32), "aec": aec.astype(np.int32),
+                   "wide_best": None, "wide_aec": None}
+            if wh is not None:
+                wide_best, wide_aec = sc.collect_entries(wh)
+                out["wide_best"], out["wide_aec"] = (wide_best.astype(np.int32),
+                                                     wide_aec.astype(np.int32))
+            return out
         if op == "consensus":
             from .ops.consensus_torch import device_column_counts
 
@@ -411,7 +424,10 @@ class ServerScorer:
             "rc": np.asarray(rc_s1c[:len1], np.int8), "len1": len1, "sms": sms,
             "batch": self.batch, "hp_seqs": hp_seqs})["sid"]
 
-    def dispatch_entries(self, ref_sel, starts, ivl, s2c, lengths, smidx) -> _Handle:
+    def dispatch_entries(self, ref_sel, starts, ivl, s2c, lengths, smidx,
+                         wide=None) -> _Handle:
+        """Send up to E entries, and with ``wide`` (``entries.WideRows``) a
+        pass-1 batch's wide rows, scored after them."""
         n = len(ref_sel)
         if n == 0:
             return _Handle(self, None)
@@ -424,33 +440,46 @@ class ServerScorer:
             "ivl": np.ascontiguousarray(ivl, np.int32),
             "s2c": np.ascontiguousarray(s2c, np.uint8 if self.hp else np.int8),
             "lengths": np.ascontiguousarray(lengths, np.int32),
-            "smidx": np.ascontiguousarray(smidx, np.int8)})
+            "smidx": np.ascontiguousarray(smidx, np.int8), "wide": wide})
         return _Handle(self, r["hid"])
+
+    def _collect(self, handle: _Handle) -> dict:
+        if handle.hid is None:
+            return {"best": np.zeros(0, np.int32), "aec": np.zeros(0, np.int32),
+                    "wide_best": None, "wide_aec": None}
+        return self.client.rpc({"op": "collect", "hid": handle.hid})
 
     def collect_entries(self, handle: _Handle):
         """(best, aec) int64 [n]; aec WINDOW-LOCAL, as Pass1Scorer's."""
-        if handle.hid is None:
-            return np.zeros(0, np.int64), np.zeros(0, np.int64)
-        r = self.client.rpc({"op": "collect", "hid": handle.hid})
+        r = self._collect(handle)
         return r["best"].astype(np.int64), r["aec"].astype(np.int64)
 
     def dispatch_packed(self, s2c, lens, fw_ws, rc_ws, fw_ivg, rc_ivg, flags):
-        from .core.entries import build_pass1_entries
+        """As ``Pass1Scorer.dispatch_packed``: the entries and, without
+        ``-h``, the WIDE reads' rows (built here, scored on the server)."""
+        from .core.entries import build_pass1_entries, wide_rows
 
         n = len(lens)
         if n > self.batch:
             raise ValueError(f"{n} reads exceed the batch of {self.batch}")
         if n == 0:
-            return _Handle(self, None), fw_ws.copy(), rc_ws.copy()
+            return _Handle(self, None), fw_ws.copy(), rc_ws.copy(), None
         entries = build_pass1_entries(s2c, lens, fw_ws, rc_ws, fw_ivg, rc_ivg, flags)
-        return self.dispatch_entries(*entries), fw_ws.copy(), rc_ws.copy()
+        rows = None if self.hp else wide_rows(flags, lens, s2c, fw_ivg, rc_ivg)
+        return self.dispatch_entries(*entries, wide=rows), fw_ws.copy(), rc_ws.copy(), rows
 
     def collect_arrays(self, handle):
-        from .core.entries import split_pass1_results
+        """(fb, fa, rb, ra) int64 [n], aec GLOBAL, the wide reads' included."""
+        from .core.entries import merge_wide, split_pass1_results
 
-        batch, fw_ws, rc_ws = handle
-        best, aec = self.collect_entries(batch)
-        return split_pass1_results(best, aec, fw_ws, rc_ws)
+        batch, fw_ws, rc_ws, rows = handle
+        r = self._collect(batch)
+        fb, fa, rb, ra = split_pass1_results(r["best"].astype(np.int64),
+                                             r["aec"].astype(np.int64), fw_ws, rc_ws)
+        if rows is not None:
+            merge_wide(fb, fa, rb, ra, rows, r["wide_best"].astype(np.int64),
+                       r["wide_aec"])
+        return fb, fa, rb, ra
 
     @staticmethod
     def ready(handle) -> bool:

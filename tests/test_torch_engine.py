@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from mia_tpu.core import jax_engine as je
+from mia_tpu.ops import dp_jax
 from mia_tpu.ops.pssm import init_flatsubmat
+from mia_tpu_torch.core import entries
 from mia_tpu_torch.core import torch_engine as te
 from mia_tpu_torch.utils import torchcfg
 
@@ -75,12 +77,20 @@ def test_scorer_packed_batch_matches_jax_scorer():
     fw_ivg[:, 0, 0], fw_ivg[:, 0, 1] = fw_ws + 2, fw_ws + 300
     rc_ivg[:, 0, 0], rc_ivg[:, 0, 1] = rc_ws + 5, rc_ws + je.WIN_W
     flags = np.zeros(n, np.int32)
-    flags[::5] = 4  # FLAG_WIDE: scored as garbage, ignored by the caller
+    wide = np.zeros(n, bool)
+    wide[::5] = True
+    flags[wide] = 4  # FLAG_WIDE: garbage on the TPU engine, scored full width here
     args = (s2c, lens, fw_ws, rc_ws, fw_ivg, rc_ivg, flags)
-    want = jsc.collect_arrays(jsc.dispatch_packed(*args))
+    want = [np.array(a, np.int64) for a in jsc.collect_arrays(jsc.dispatch_packed(*args))]
+    # the WIDE reads: dp_jax.batch_last_row over each strand's window
+    rows = entries.wide_rows(flags, lens, s2c, fw_ivg, rc_ivg)
+    s1c, mask, rs2c, rlen, depths = entries.wide_inputs(rows, jsc._refs_np)
+    last = dp_jax.batch_last_row(s1c, mask, rs2c, rlen, depths, jsc._sms_np[0])
+    entries.merge_wide(*want, rows, *(np.asarray(x) for x in dp_jax.batch_best_and_aec(last)))
     h = tsc.dispatch_packed(*args)
     assert te.Pass1Scorer.ready(h)
     got = tsc.collect_arrays(h)
+    assert rows.n == 2 * wide.sum()
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g, w)
 

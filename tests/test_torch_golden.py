@@ -91,6 +91,17 @@ def test_torch_maln_byte_identical(name, tmp_path):
     assert c["dp.kernel_launches"] == c["dp.hp_kernel_launches"] == 0, c
     if "-k" in CONFIGS[name]:
         assert c["pass1.device_scored_reads"] > 0, c
+    # pass 1's WIDE reads (every read without -k): scored full width by the
+    # general-width scorer (its plain version here), but natively under -h
+    if hp:
+        assert "pass1.device_scored_wide_reads" not in c, c
+        assert c["dp.last_row_plain_calls"] == 0, c
+    else:
+        assert c.get("pass1.native_solved_wide_reads", 0) == 0, c
+        wide = c["pass1.device_scored_wide_reads"]
+        assert wide > 0 or "-k" in CONFIGS[name], c
+        assert (c["dp.last_row_plain_calls"] > 0) == (wide > 0), c
+    assert c["dp.last_row_launches"] == 0, c
     assert c["cons.plain_calls"] > 0 and c["cons.kernel_launches"] == 0, c
     assert c["consensus.device_calls"] == c["cons.plain_calls"], c
     assert "consensus.device_fallbacks" not in c, c

@@ -3,7 +3,8 @@
 The port keeps its own copy of every host module it needs.  Each module
 listed here was copied unchanged: its case fails when the port's file
 differs from ``mia_tpu``'s after the package name is put back (and the
-reference sources' path prefix that ``core/hostbatch.py`` cites is dropped).
+reference sources' path prefix that ``core/hostbatch.py`` cites is dropped,
+and a path into the port's ``native/`` sources read as the root's).
 A change made to a copy on purpose takes its case out of this list, with the
 reason in CHANGES.md.  Not listed, because they differ on purpose:
 ``utils/profiling.py`` (``device_trace`` on torch.profiler), ``core/driver.py``,
@@ -12,7 +13,16 @@ reason in CHANGES.md.  Not listed, because they differ on purpose:
 without the JAX platform override); ``core/fsdb.py`` and ``core/columns.py``
 (the cull's recount and the insertion columns' consensus in one pass each;
 ``tests/test_torch_gapcols.py`` holds them, and the rest of both files, to
-``mia_tpu``).
+``mia_tpu``); ``io/native.py``, ``ops/dp_numpy.py`` and ``core/hostbatch.py``
+(they load the port's own native library, built from
+``mia_tpu_torch/native/`` into ``mia_tpu_torch/_build/``).
+
+That native library's sources are copies too: each case of
+``NATIVE_COPIED`` holds the port's file to the root ``native/`` one (the
+machine-specific prefix of the reference sources' path dropped), until a
+change made on purpose takes it out of the list.  No port source and not
+``chip_smoke.py`` names the root ``native/``, and the library the port loads
+lies under ``mia_tpu_torch/_build/``.
 
 The numpy entry helpers that moved from ``mia_tpu/core/jax_engine.py`` into
 ``core/entries.py`` are held to their originals function by function: by
@@ -38,9 +48,9 @@ from .test_torch_golden import _norm, fixture_args
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIED = [
     "__init__.py", "config.py", "constants.py", "core/types.py",
-    "core/merge.py", "core/hostbatch.py", "io/fasta.py", "io/ids.py",
-    "io/maln.py", "io/native.py", "io/pssm_io.py", "ops/kmer.py", "ops/pssm.py",
-    "ops/dp_numpy.py", "ops/myers.py", "ops/consensus.py", "utils/encoding.py",
+    "core/merge.py", "io/fasta.py", "io/ids.py",
+    "io/maln.py", "io/pssm_io.py", "ops/kmer.py", "ops/pssm.py",
+    "ops/myers.py", "ops/consensus.py", "utils/encoding.py",
     "utils/hostmem.py", "models/simulate.py", "models/damage.py", "data/mt311.fa",
     "data/matrices/ancient.submat.txt", "data/matrices/ancient.submat.solexa.pe.txt",
     "data/matrices/ancient.submat.solexa.onepass.txt", "io/formats.py", "io/align_reader.py",
@@ -49,11 +59,17 @@ COPIED = [
 
 
 def _normalised(text: str) -> str:
+    # the port's native sources are its copy of the root native/ ones
+    text = text.replace("mia_tpu_torch/native/", "native/")
     text = text.replace("mia_tpu_torch", "mia_tpu")
     # the reference sources are cited as src/...: drop an absolute prefix
     text = re.sub(r"/\w+/reference/src/", "src/", text)
     # the one comment of the package's __init__ may name another reason
     return re.sub(r"(_tune_malloc\(\))  #.*", r"\1", text)
+
+
+NATIVE_COPIED = ["Makefile", "src/dpkernel.cc", "src/fastaio.cc", "src/hostbatch.cc",
+                 "src/scorecut.cc"]
 
 
 @pytest.mark.parametrize("path", COPIED)
@@ -63,6 +79,69 @@ def test_copy_equals_mia_tpu(path):
     with open(os.path.join(REPO, "mia_tpu", path)) as f:
         tpu = f.read()
     assert _normalised(port) == _normalised(tpu)
+
+
+@pytest.mark.parametrize("path", NATIVE_COPIED)
+def test_native_copy_equals_root_native(path):
+    """The port's native sources against the ones the JAX package builds."""
+    with open(os.path.join(REPO, "mia_tpu_torch", "native", path)) as f:
+        port = f.read()
+    with open(os.path.join(REPO, "native", path)) as f:
+        root = f.read()
+    assert _normalised(port) == _normalised(root)
+    assert sorted(os.listdir(os.path.join(REPO, "mia_tpu_torch", "native", "src"))) == sorted(
+        p[len("src/"):] for p in NATIVE_COPIED if p.startswith("src/"))
+
+
+# the root native/ named as a path: a path component (not the port's
+# mia_tpu_torch/native/), a make target, or a join onto the repository's root
+ROOT_NATIVE = re.compile(
+    r"(?<![\w/])native/(?=src\b|libmiaio|Makefile|\.build|[`'\"\s)]|$)|-C[\"']?\s*,?\s*[\"']?native\b|join\(\s*(REPO|ROOT|repo|root)\w*\s*,\s*[\"']native[\"']"
+    r"|dirname\(os\.path\.abspath\(__file__\)\)\)\)\s*,\s*[\"']native[\"']")
+
+
+def test_no_port_source_names_root_native():
+    """No module or kernel source of the port, and not chip_smoke.py,
+    reads, builds or locks anything under the root ``native/`` (the JAX
+    package's).  The native sources are left out: they are the root's
+    copies (``test_native_copy_equals_root_native``), whose comments name
+    their own directory."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for d, dirs, files in os.walk(os.path.join(REPO, "mia_tpu_torch")):
+        dirs[:] = [x for x in dirs if x not in ("__pycache__", "_build", "native")]
+        paths += [os.path.join(d, f) for f in files if f.endswith((".py", ".cu", ".cuh"))]
+    found = []
+    for path in paths:
+        with open(path) as f:
+            for no, line in enumerate(f, 1):
+                if ROOT_NATIVE.search(line):
+                    found.append(f"{os.path.relpath(path, REPO)}:{no}: {line.strip()}")
+    assert not found, "\n".join(found)
+    # the pattern finds what it is for
+    for line in ('lib = os.path.join(REPO, "native", "libmiaio.so")',
+                 'subprocess.run(["make", "-C", "native"])', "make -C native",
+                 "see native/src/hostbatch.cc", "builds ``native/``"):
+        assert ROOT_NATIVE.search(line), line
+    for line in ("mia_tpu_torch/native/src/hostbatch.cc", "the batched native/device path"):
+        assert not ROOT_NATIVE.search(line), line
+
+
+def test_port_loads_its_own_native_library():
+    """The library behind the parser, the host DP and the batched pass-1
+    engine is the port's build under ``mia_tpu_torch/_build/``, keyed on
+    its sources."""
+    from mia_tpu_torch.core import hostbatch
+    from mia_tpu_torch.io import native
+    from mia_tpu_torch.ops import dp_numpy
+
+    build = os.path.join(REPO, "mia_tpu_torch", "_build") + os.sep
+    lib = native._load()
+    assert lib is not None, native.build_error()
+    assert lib._name == native.library_path()
+    assert os.path.realpath(lib._name).startswith(build)
+    assert hostbatch._lib() is lib
+    assert dp_numpy._load_native() in (lib, None)  # None: MIA_TPU_NO_NATIVE or other penalties
+    assert os.path.basename(os.path.dirname(lib._name)).startswith("native-")
 
 
 def _run(main, argv):
