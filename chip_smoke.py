@@ -34,7 +34,12 @@ run's maln and counts held to the earlier layer's; no result line.
 is imported beside this tree's under another name, its own kernel and
 native libraries built from its own sources: every run's maln held to this
 tree's first, the wide reads' counters, ``pass1`` and its parts, and one
-sampled run of each; no result line.)
+sampled run of each; no result line.  ``--prep-ab ROOT [PAIRS]`` does the
+same on that workload for pass 1's banding, every run's maln held to this
+tree's ``--engine native``: ``pass1``, ``pass1.pack_prepare`` and
+``pass1.prep_wait`` of each run, then this tree's prepare threads swept in
+turns, one sampled run of each tree, and two pairs at the cell's 100,000
+reads; no result line.)
 
 Phases, each printing its own lines; any failure exits non-zero before the
 result line.  Every reference is the port's own: its plain PyTorch versions,
@@ -97,6 +102,10 @@ counts) and the committed goldens.
    widths and device time (CUDA events around each launch), and holds the
    run's largest wide call against the plain version and times it; the
    first maximum on the card (``batch_best_and_aec`` on tied rows).
+7c. banding threads: the ``mia-hsmt-100k`` cell's first batch (8,192 reads
+   at seed 1) through ``BatchHost.prepare`` on one thread, on pass 1's share
+   of the host's threads and on the default count: all six arrays equal;
+   prints the three times and the CPUs the process sees.
 8. -h end to end: the same workload with ``-h``, in this process only,
    against ``--engine native -h``, the ``-h`` scorer's launches in place of
    the scorer's.
@@ -1040,6 +1049,62 @@ def phase_wide(dev) -> dict:
             "rows": int(np.sum(rows))}
 
 
+def phase_prepare_threads() -> None:
+    """Phase 7c: pass 1's banding threaded over reads: the ``mia-hsmt-100k``
+    cell's first batch (its first 8,192 reads at seed 1, on its reference
+    with the circular wrap) through ``BatchHost.prepare`` on one thread, on
+    pass 1's share of the host and on the default count: all six arrays
+    equal; prints each one's time (host clock, median of 5 calls)."""
+    import numpy as np
+
+    from mia_tpu_torch.core import hostbatch
+    from mia_tpu_torch.core.entries import L_MAX, MAX_INTERVALS, SCORE_BATCH, WIN_W
+    from mia_tpu_torch.core.merge import add_ref_wrap
+    from mia_tpu_torch.io.fasta import read_fasta_ref
+    from mia_tpu_torch.io.native import iter_frag_seqs_fast
+    from mia_tpu_torch.ops.pssm import init_flatsubmat
+
+    inputs = wide_workload(os.path.join(WORK, "prepare"), reads=100000)
+    args = inputs["args"]
+    if not ("-c" in args and args[args.index("-k") + 1] == "12"):
+        raise AssertionError(f"banding threads: the cell's flags changed: {args}")
+    reads = []
+    for f in iter_frag_seqs_fast(args[args.index("-f") + 1]):
+        reads.append(f.seq[: f.seq_len])
+        if len(reads) == SCORE_BATCH:
+            break
+    ref = read_fasta_ref(args[args.index("-r") + 1])
+    add_ref_wrap(ref)
+    bhost = hostbatch.BatchHost.create(ref.seq, ref.rcseq, ref.wrap_seq_len, init_flatsubmat(),
+                                       None, 12, False, WIN_W, MAX_INTERVALS)
+    arena, off, lens = bhost.pack_reads(reads)
+    out, ms = {}, {}
+    try:
+        for what, n in (("1", 1), ("pass 1's share", hostbatch.pass1_threads()[0]),
+                        ("default", 0)):
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                got = bhost.prepare(arena, off, lens, L_MAX, MAX_INTERVALS, n_threads=n)
+                times.append(1e3 * (time.perf_counter() - t0))
+            out[what], ms[what] = got, statistics.median(times)
+    finally:
+        bhost.close()
+    names = ("s2c", "fw_ws", "rc_ws", "fw_ivg", "rc_ivg", "flags")
+    for what in ("pass 1's share", "default"):
+        for name, g, w in zip(names, out[what], out["1"]):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"banding threads: {name} on {what} threads differs "
+                                     f"from one thread's")
+    flags = out["1"][-1]
+    say(f"banding threads: the 100k cell's first batch, {len(reads)} reads "
+        f"({int((flags == 0).sum())} windowed, {int((flags == hostbatch.FLAG_WIDE).sum())} "
+        f"wide, {int((flags == hostbatch.FLAG_SKIP).sum())} without hits), all six arrays "
+        f"equal on 1, {hostbatch.pass1_threads()[0]} (pass 1's share) and "
+        f"{hostbatch._default_threads()} (default) threads; prepare ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f"; {host_threads()}")
+
+
 WIDE_AB_PHASES = ("pass1", "pass1.py_merge", "pass1.native_finish", "pass1.collect_wait",
                   "pass1.dispatch", "pass1.pack_prepare", "reiterate", "gc")
 WIDE_AB_COUNTERS = ("pass1.device_scored_reads", "pass1.device_scored_wide_reads",
@@ -1066,6 +1131,59 @@ def load_package_copy(root: str, name: str = "mia_tpu_torch_earlier"):
                  for m in ("cli.mia", "utils.profiling", "ops.dp_cuda"))
 
 
+def run_side(side: tuple, args: list[str], root: str, what: str):
+    """One whole ``mia.main --engine torch --profile`` run with the port of
+    ``side``, (``cli.mia``, ``utils.profiling``, ``ops.dp_cuda``) of this
+    tree or of an earlier one, writing ``root``: (maln bytes, wall s,
+    profile with the collector's time as the phase ``gc``, launch counts).
+    Fails unless the card scored."""
+    mia, prof_mod, dp = side
+    os.makedirs(os.path.dirname(root))
+    dp.reset_counts()
+    gc_s = [0.0, 0.0]
+
+    def gc_clock(phase: str, info: dict) -> None:
+        if phase == "start":
+            gc_s[1] = time.perf_counter()
+        else:
+            gc_s[0] += time.perf_counter() - gc_s[1]
+
+    gc.callbacks.append(gc_clock)
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(io.StringIO()):
+            if mia.main([*args, "-m", root, "--engine", "torch", "--profile"]) != 0:
+                raise RuntimeError(f"{what} failed")
+            prof = prof_mod.report(out=io.StringIO())
+    finally:
+        gc.callbacks.remove(gc_clock)
+    wall = time.time() - t0
+    prof["phases_s"]["gc"] = gc_s[0]
+    counts = {"dp.kernel_launches": dp.kernel_launches, "dp.plain_calls": dp.plain_calls,
+              "dp.hp_kernel_launches": dp.hp_kernel_launches,
+              "dp.hp_plain_calls": dp.hp_plain_calls,
+              "dp.last_row_launches": getattr(dp, "last_row_launches", 0)}
+    if (counts["dp.plain_calls"] or counts["dp.hp_plain_calls"]
+            or not counts["dp.kernel_launches"] + counts["dp.hp_kernel_launches"]):
+        raise AssertionError(f"{what} did not score on the card: {counts}")
+    return maln_bytes(root), wall, prof, counts
+
+
+def sampled_run(label: str, run) -> None:
+    """``run()`` once with every thread's stack sampled."""
+    samples: dict = {}
+    stop = threading.Event()
+    sampler = threading.Thread(target=sample_stacks, args=(stop, samples), daemon=True)
+    sampler.start()
+    try:
+        wall = run()[1]
+    finally:
+        stop.set()
+        sampler.join(timeout=10)
+    say_samples(label, samples, wall)
+
+
 def phase_wide_ab(earlier_root: str, pairs: int) -> None:
     """``--wide-ab``: whole ``mia.main --engine torch --profile`` runs of phase
     7b's workload (the 100k cell's traffic cut to 20k reads at seed 1) with
@@ -1077,47 +1195,17 @@ def phase_wide_ab(earlier_root: str, pairs: int) -> None:
     from mia_tpu_torch.ops import dp_cuda
     from mia_tpu_torch.utils import profiling
 
-    e_mia, e_prof, e_dp = load_package_copy(earlier_root)
-    sides = {"earlier": (e_mia, e_prof, e_dp), "this": (cli_mia, profiling, dp_cuda)}
+    sides = {"earlier": load_package_copy(earlier_root), "this": (cli_mia, profiling, dp_cuda)}
     d = os.path.join(WORK, "wide_ab")
     inputs = wide_workload(d)
     say(f"wide a/b: {inputs['held']}")
 
-    gc_s = [0.0]
-    gc_t0 = [0.0]
-
-    def gc_clock(phase: str, info: dict) -> None:
-        if phase == "start":
-            gc_t0[0] = time.perf_counter()
-        else:
-            gc_s[0] += time.perf_counter() - gc_t0[0]
-
     def run(name: str, tag: str):
-        mia, prof_mod, dp = sides[name]
-        root = os.path.join(d, tag, "out.maln")
-        os.makedirs(os.path.dirname(root))
-        dp.reset_counts()
-        gc_s[0] = 0.0
-        gc.callbacks.append(gc_clock)
-        t0 = time.time()
-        try:
-            with contextlib.redirect_stdout(io.StringIO()), \
-                    contextlib.redirect_stderr(io.StringIO()):
-                if mia.main([*inputs["args"], "-m", root, "--engine", "torch",
-                             "--profile"]) != 0:
-                    raise RuntimeError(f"wide a/b: {tag} ({name}) failed")
-                prof = prof_mod.report(out=io.StringIO())
-        finally:
-            gc.callbacks.remove(gc_clock)
-        wall = time.time() - t0
-        prof["phases_s"]["gc"] = gc_s[0]
-        counts = {"dp.kernel_launches": dp.kernel_launches, "dp.plain_calls": dp.plain_calls,
-                  "dp.last_row_launches": getattr(dp, "last_row_launches", 0),
-                  **{k: prof["counters"].get(k, 0) for k in WIDE_AB_COUNTERS}}
-        if counts["dp.plain_calls"] or not counts["dp.kernel_launches"]:
-            raise AssertionError(f"wide a/b: {tag} ({name}) did not score on the card: "
-                                 f"{counts}")
-        return maln_bytes(root), wall, prof, counts
+        got, wall, prof, counts = run_side(sides[name], inputs["args"],
+                                           os.path.join(d, tag, "out.maln"),
+                                           f"wide a/b: {tag} ({name})")
+        counts.update({k: prof["counters"].get(k, 0) for k in WIDE_AB_COUNTERS})
+        return got, wall, prof, counts
 
     want, wall, _, this_counts = run("this", "warm_this")
     _, wall_e, _, earlier_counts = run("earlier", "warm_earlier")
@@ -1143,16 +1231,133 @@ def phase_wide_ab(earlier_root: str, pairs: int) -> None:
             + "; ".join(f"{k} s {quartiles([r[k] for r in rs])}"
                         for k in ("wall", *WIDE_AB_PHASES)))
     for name in ("earlier", "this"):
-        samples: dict = {}
-        stop = threading.Event()
-        sampler = threading.Thread(target=sample_stacks, args=(stop, samples), daemon=True)
-        sampler.start()
+        sampled_run(f"wide a/b: sampled run ({name})",
+                    lambda: run(name, f"sampled_{name}"))
+
+
+PREP_AB_PHASES = ("pass1", "pass1.pack_prepare", "pass1.prep_wait", "pass1.dispatch",
+                  "pass1.py_merge", "pass1.native_finish", "pass1.collect_wait", "reiterate",
+                  "gc")
+
+
+def host_threads() -> str:
+    """The CPUs this process sees and pass 1's split of them."""
+    from mia_tpu_torch.core import hostbatch
+
+    env = {k: v for k, v in os.environ.items() if k != "OMP_NUM_THREADS"}
+    nproc = subprocess.run(["nproc"], capture_output=True, text=True, env=env).stdout.strip()
+    return (f"os.cpu_count() {os.cpu_count()}, affinity {hostbatch.host_cpus()}, nproc "
+            f"{nproc} (OMP_NUM_THREADS {os.environ.get('OMP_NUM_THREADS')}); pass 1's "
+            f"(prepare, finish) threads {hostbatch.pass1_threads()}")
+
+
+def phase_prep_ab(earlier_root: str, pairs: int) -> None:
+    """``--prep-ab``: whole ``mia.main --engine torch --profile`` runs of phase
+    7b's workload (the 100k cell's traffic cut to 20k reads at seed 1) with
+    the port of ``earlier_root`` (its ``core/`` and its native library,
+    built from its own sources) and this tree's, in turns, every run's maln
+    held to this tree's ``--engine native``; pass 1, its banding
+    (``pass1.pack_prepare``) and the main thread's wait on the prep thread
+    (``pass1.prep_wait``; 0 for a tree without it) for each run.  Then this
+    tree's prepare threads swept (``hostbatch.PREPARE_THREADS``; the finish
+    takes the rest of the host) on that workload with and without ``-h``
+    (whose WIDE reads the finish thread solves natively), in turns, forward
+    and back; one sampled run of each tree; and two pairs at the cell's own
+    100,000 reads."""
+    from mia_tpu_torch.cli import mia as cli_mia
+    from mia_tpu_torch.core import hostbatch
+    from mia_tpu_torch.ops import dp_cuda
+    from mia_tpu_torch.utils import profiling
+
+    sides = {"earlier": load_package_copy(earlier_root), "this": (cli_mia, profiling, dp_cuda)}
+    d = os.path.join(WORK, "prep_ab")
+    tags = iter(range(10**6))
+
+    def reference(inputs: dict, tag: str) -> dict:
+        """The maln of this tree's ``--engine native`` on ``inputs``."""
+        root = os.path.join(d, f"native{tag}", "out.maln")
+        os.makedirs(os.path.dirname(root))
+        with contextlib.redirect_stderr(io.StringIO()):
+            run_mia(inputs["args"], root, "native")
+        return maln_bytes(root)
+
+    def workload(reads: int) -> tuple[dict, dict]:
+        """The cell's traffic cut to ``reads`` and its reference maln."""
+        inputs = wide_workload(os.path.join(d, f"in{reads}"), reads=reads)
+        say(f"prep a/b: {inputs['held']}; {host_threads()}")
+        return inputs, reference(inputs, str(reads))
+
+    def run(name: str, inputs: dict, want: dict, threads: int = 0) -> dict:
+        hostbatch.PREPARE_THREADS = threads
         try:
-            _, wall, _, _ = run(name, f"sampled_{name}")
+            got, wall, prof, counts = run_side(sides[name], inputs["args"],
+                                               os.path.join(d, f"run{next(tags)}", "out.maln"),
+                                               f"prep a/b ({name})")
         finally:
-            stop.set()
-            sampler.join(timeout=10)
-        say_samples(f"wide a/b: sampled run ({name})", samples, wall)
+            hostbatch.PREPARE_THREADS = 0
+        if not want or got != want:
+            raise AssertionError(f"prep a/b: a run of {name} differs from --engine native")
+        ph = prof["phases_s"]
+        return {"wall": wall, "reads": inputs["reads"],
+                **{p: ph.get(p, 0.0) for p in PREP_AB_PHASES},
+                "errors": prof["counters"].get("pass1.prepare_host_only_errors", 0),
+                "counts": counts}
+
+    def say_run(what: str, r: dict) -> None:
+        say(f"prep a/b: {what}: {r['wall']:.3f} s, {r['reads'] / r['wall']:.2f} reads/s; "
+            + ", ".join(f"{p} {r[p]:.3f}" for p in PREP_AB_PHASES)
+            + f"; prepare_host_only_errors {r['errors']}")
+
+    def in_turns(inputs: dict, want: dict, n: int, label: str) -> None:
+        warm = {name: run(name, inputs, want) for name in ("this", "earlier")}
+        for name, r in warm.items():
+            say_run(f"{label} warm-up ({name}), counts {json.dumps(r['counts'])}", r)
+        runs: dict[str, list[dict]] = {"earlier": [], "this": []}
+        for name in ab_order(n):
+            r = run(name, inputs, want)
+            if r["counts"] != warm[name]["counts"] or r["errors"]:
+                raise AssertionError(f"prep a/b: {name}: counts {r['counts']} changed "
+                                     f"or {r['errors']} prepare errors")
+            runs[name].append(r)
+            say_run(f"{label} {name}", r)
+        wins = sum(b["wall"] < a["wall"] for a, b in zip(runs["earlier"], runs["this"]))
+        say(f"prep a/b: {label}: {n} pairs in turns, every maln equal to --engine native's; "
+            f"this tree faster in {wins} of {n} pairs")
+        for name, rs in runs.items():
+            say(f"prep a/b: {label}   {name}: reads/s "
+                f"{quartiles([r['reads'] / r['wall'] for r in rs])}; "
+                + "; ".join(f"{k} s {quartiles([r[k] for r in rs])}"
+                            for k in ("wall", *PREP_AB_PHASES)))
+
+    inputs, want = workload(20000)
+    in_turns(inputs, want, pairs, "20k")
+
+    # the prepare's share of the host, in turns: forward, then back; with
+    # -h too, where the finish thread also solves the WIDE reads natively
+    hp_inputs = dict(inputs, args=[*inputs["args"], "-h"])
+    workloads = {"": (inputs, want), " -h": (hp_inputs, reference(hp_inputs, "20000h"))}
+    total = hostbatch._default_threads()
+    counts = sorted({t for t in (1, 2, 4, 6, 8, 12, 16) if t <= total} | {total})
+    sweep: dict[tuple, list[dict]] = {(f, t): [] for f in workloads for t in counts}
+    for k in range(max(pairs // 2, 2)):
+        for t in counts if k % 2 == 0 else counts[::-1]:
+            for f, (w_inputs, w_want) in workloads.items():
+                hostbatch.PREPARE_THREADS = t
+                split = hostbatch.pass1_threads()
+                r = run("this", w_inputs, w_want, t)
+                sweep[f, t].append(r)
+                say_run(f"sweep{f}, (prepare, finish) threads {split}", r)
+    for (f, t), rs in sweep.items():
+        say(f"prep a/b: sweep{f} {t} prepare threads: "
+            + "; ".join(f"{k} s {quartiles([r[k] for r in rs])}"
+                        for k in ("wall", "pass1", "pass1.pack_prepare", "pass1.prep_wait",
+                                  "pass1.native_finish", "pass1.py_merge")))
+    for name in ("earlier", "this"):
+        sampled_run(f"prep a/b: sampled run ({name})",
+                    lambda: (None, run(name, inputs, want)["wall"]))
+
+    inputs, want = workload(100000)
+    in_turns(inputs, want, 2, "100k")
 
 
 def raw_myers_waves(lib, bm_a, bm_b, len_a: int, len_b: int, maxd: int):
@@ -2528,6 +2733,11 @@ def main() -> int:
         say(nvidia_smi())
         say(f"total: {time.time() - t_start:.1f} s (wide a/b only)")
         return 0
+    if sys.argv[1:2] == ["--prep-ab"] and len(sys.argv) in (3, 4):
+        phase_prep_ab(sys.argv[2], int(sys.argv[3]) if len(sys.argv) == 4 else 10)
+        say(nvidia_smi())
+        say(f"total: {time.time() - t_start:.1f} s (prep a/b only)")
+        return 0
     kern = phase_kernel(dev)
     hp_kern = phase_hp_kernel(dev)
     cons_kern = phase_consensus_kernel(dev)
@@ -2551,6 +2761,7 @@ def main() -> int:
     main_counts, main_walls = run_e2e("e2e", args, hp=False, new_process=True,
                                       captured=captured)
     wide = phase_wide(dev)
+    phase_prepare_threads()
     hp_counts, _ = run_e2e("e2e_hp", [*args, "-h"], hp=True, new_process=False,
                            captured=captured)
     shapes = phase_workload_shapes(captured)

@@ -106,6 +106,7 @@ from .hostbatch import (
     STATUS_HOST_FALLBACK,
     STATUS_NO_KMER,
     BatchHost,
+    pass1_threads,
 )
 from .merge import add_ref_wrap
 from .types import MapAlignment
@@ -423,6 +424,8 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
     # streaming (the FFI calls release the GIL); inflight holds futures in
     # stream order
     prep_pool = _cf.ThreadPoolExecutor(max_workers=1)
+    # the two workers' native calls can overlap: they split the host's threads
+    prep_threads, finish_threads = pass1_threads()
 
     def _host_align_one(f) -> None:
         """Per-read host path (mask too fragmented for the device)."""
@@ -445,13 +448,15 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
         bands): (meta, ref arena, frag arena) with read j's strings at j *
         TRACE_CAP, and the reads whose traceback outgrew that arena,
         solved again with a full-width one: {j: (meta_row, ref, frag)}."""
-        meta, ra, fa = bhost.solve_pass1(arena, off, lens, maln.distant_ref)
+        meta, ra, fa = bhost.solve_pass1(arena, off, lens, maln.distant_ref,
+                                         n_threads=finish_threads)
         retry = np.flatnonzero(meta[:, 0] == STATUS_HOST_FALLBACK)
         again = {}
         if len(retry):
             wcap = bhost.wide_cap
             m2, r2, f2 = bhost.solve_pass1(
-                arena, off[retry], lens[retry], maln.distant_ref, cap=wcap
+                arena, off[retry], lens[retry], maln.distant_ref,
+                n_threads=finish_threads, cap=wcap,
             )
             for t, j in enumerate(retry.tolist()):
                 again[j] = (m2[t], r2[t * wcap : (t + 1) * wcap], f2[t * wcap : (t + 1) * wcap])
@@ -487,7 +492,9 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
         python merge of the previous batch overlaps it (the FFI calls
         release the GIL).  Returns a token for :func:`_merge_drained`."""
         profiling.count("pass1.batches_drained")
-        records, handle, prep = inflight.pop(0).result()
+        # the prep thread's pack, prepare and dispatch of this batch
+        with profiling.phase("pass1.prep_wait"):
+            records, handle, prep = inflight.pop(0).result()
         arena, off, lens, fw_ivg, rc_ivg, flags = prep
         with profiling.phase("pass1.collect_wait"):
             fb, fa, rb, ra = scorer.collect_arrays(handle)
@@ -550,6 +557,7 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
                 best[fsel].astype(np.int32),
                 aec[fsel].astype(np.int32),
                 ivg[fin],
+                n_threads=finish_threads,
                 cap=fcap,
             )
             profiling.add_time("pass1.native_finish", time.time() - t0)
@@ -678,7 +686,7 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
         with profiling.phase("pass1.pack_prepare"):
             arena, off, lens = bhost.pack_reads(reads)
             s2c, fw_ws, rc_ws, fw_ivg, rc_ivg, flags = bhost.prepare(
-                arena, off, lens, L_MAX, MAX_INTERVALS
+                arena, off, lens, L_MAX, MAX_INTERVALS, n_threads=prep_threads
             )
         if scorer.hp:
             # reads with a homopolymer run of HPW or more stay on the exact
@@ -803,20 +811,21 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
             with profiling.phase("dist.replay"):
                 gf.refresh(fsdb)
                 gf.assign_slots()  # global maln slot layout BEFORE the sorts
-        if cfg.repeat_filt:
-            sort_fsdb(fsdb)
-            if multi:
-                with profiling.phase("dist.replay"):
-                    gf.sort_and_uniq(False, cfg.just_outer_coords, cfg.tolerance, fsdb)
-            else:
-                set_uniq_in_fsdb(fsdb, cfg.just_outer_coords, cfg.tolerance)
-        if cfg.repeat_qual_filt:
-            sort_fsdb_qscore(fsdb)
-            if multi:
-                with profiling.phase("dist.replay"):
-                    gf.sort_and_uniq(True, cfg.just_outer_coords, cfg.tolerance, fsdb)
-            else:
-                set_uniq_in_fsdb(fsdb, cfg.just_outer_coords, cfg.tolerance)
+        with profiling.phase("filters.repeat"):
+            if cfg.repeat_filt:
+                sort_fsdb(fsdb)
+                if multi:
+                    with profiling.phase("dist.replay"):
+                        gf.sort_and_uniq(False, cfg.just_outer_coords, cfg.tolerance, fsdb)
+                else:
+                    set_uniq_in_fsdb(fsdb, cfg.just_outer_coords, cfg.tolerance)
+            if cfg.repeat_qual_filt:
+                sort_fsdb_qscore(fsdb)
+                if multi:
+                    with profiling.phase("dist.replay"):
+                        gf.sort_and_uniq(True, cfg.just_outer_coords, cfg.tolerance, fsdb)
+                else:
+                    set_uniq_in_fsdb(fsdb, cfg.just_outer_coords, cfg.tolerance)
         with profiling.phase("filters.cull"):
             if multi and cfg.hard_cut <= 0 and not cfg.score_cut_set:
                 slope, intercept = gf.score_cut()
@@ -830,7 +839,8 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
             dist.allreduce_max(maln.ref.gaps)
         culled.fpsm = ancsubmat
         culled.rpsm = rcancsubmat
-        sort_aln_frags(culled)
+        with profiling.phase("filters.sort_aln"):
+            sort_aln_frags(culled)
         if multi:
             with profiling.phase("dist.replay"):
                 # global slot-dropped replay: the reference's DR bit is sticky
@@ -886,9 +896,10 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
     last_assembly_cons = maln.ref.seq[: maln.ref.seq_len]
 
     fw_align.align_mask[: fw_align.len1] = 1
-    clean_FSDB(fsdb)
-    if multi:
-        gf.clean()
+    with profiling.phase("filters.clean"):
+        clean_FSDB(fsdb)
+        if multi:
+            gf.clean()
     if cfg.collapse:
         _collapse()
 
@@ -897,7 +908,8 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
             last_assembly_cons, iter_num, maln, fsdb, fw_align, ancsubmat,
             rcancsubmat, engine=cfg.engine, placement=placement,
         )
-    pop_smp_from_FSDB(fsdb, PSSM_DEPTH)
+    with profiling.phase("filters.pop_smp"):
+        pop_smp_from_FSDB(fsdb, PSSM_DEPTH)
     _filter_and_cull()
     maln_fn = f"{cfg.maln_root}.{iter_num}"
     if not cfg.iterate or not cfg.final_only:

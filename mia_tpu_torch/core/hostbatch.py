@@ -14,10 +14,12 @@ dyn_prog/max_sg_score/find_align_begin (src/mia.c:605-637,
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 
 from ..io.native import _load
+from ..utils import profiling
 
 FLAG_SKIP = 1
 FLAG_HOST_ONLY = 2
@@ -30,10 +32,36 @@ FLAG_WIDE = 4
 MAX_SOLVE_THREADS = 16
 
 
-def _default_threads() -> int:
-    import os
+# pass 1's prepare threads; 0 takes pass1_threads()'s share (a sweep sets it)
+PREPARE_THREADS = 0
 
-    return min(os.cpu_count() or 1, MAX_SOLVE_THREADS)
+
+def host_cpus() -> int:
+    """CPUs this process may run on: its affinity set, which in a container
+    can be smaller than ``os.cpu_count()``."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:  # no affinity on this platform
+        return os.cpu_count() or 1
+
+
+def _default_threads() -> int:
+    return min(host_cpus(), MAX_SOLVE_THREADS)
+
+
+def pass1_threads() -> tuple[int, int]:
+    """(prepare, finish) threads of pass 1.  The prep thread's prepare and
+    the finish thread's finish (and, under ``-h``, the WIDE reads' native
+    solve) can run at once, so they split :func:`_default_threads` between
+    them rather than each taking all of it: the prepare ``PREPARE_THREADS``
+    or one in eight, the finish the rest.  With the k-mer table the prepare
+    is some 15 ms a batch of 8,192 reads on one thread of an H100's host,
+    and on that 8-CPU host one prepare thread gave the shortest pass 1 with
+    and without ``-h``, whose solve slowed as the finish lost threads
+    (``chip_smoke.py --prep-ab``'s sweep, PERF.md)."""
+    total = _default_threads()
+    prepare = min(PREPARE_THREADS or max(total // 8, 1), total)
+    return prepare, max(total - prepare, 1)
 
 # mia_p1_solve / mia_rei_solve status codes
 STATUS_OK = 0
@@ -63,11 +91,13 @@ def _lib():
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ]
         lib.mia_p1_free.argtypes = [ctypes.c_void_p]
+        lib.mia_p1_prepare.restype = ctypes.c_int
         lib.mia_p1_prepare.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int,
         ]
         lib.mia_p1_finish.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p,
@@ -196,16 +226,22 @@ class BatchHost:
         arena = "".join(reads).encode("latin-1")
         return arena, off, lens
 
-    def prepare(self, arena: bytes, off: np.ndarray, lens: np.ndarray, L: int, K: int):
-        """Returns (s2c [n,L], fw_ws, rc_ws, fw_ivg, rc_ivg [n,K,2], flags)."""
+    def prepare(self, arena: bytes, off: np.ndarray, lens: np.ndarray, L: int, K: int,
+                n_threads: int = 0):
+        """Returns (s2c [n,L], fw_ws, rc_ws, fw_ivg, rc_ivg [n,K,2], flags),
+        threaded over reads (the arrays do not depend on ``n_threads``).  A
+        read whose native iteration failed is flagged HOST_ONLY and counted
+        in ``pass1.prepare_host_only_errors``."""
         n = len(lens)
+        if n_threads <= 0:
+            n_threads = _default_threads()
         s2c = np.empty((n, L), np.int32)
         fw_ws = np.empty(n, np.int32)
         rc_ws = np.empty(n, np.int32)
         fw_ivg = np.empty((n, K, 2), np.int32)
         rc_ivg = np.empty((n, K, 2), np.int32)
         flags = np.empty(n, np.int32)
-        self._lib.mia_p1_prepare(
+        errors = self._lib.mia_p1_prepare(
             self._ctx,
             n,
             arena,
@@ -218,7 +254,9 @@ class BatchHost:
             fw_ivg.ctypes.data_as(ctypes.c_void_p),
             rc_ivg.ctypes.data_as(ctypes.c_void_p),
             flags.ctypes.data_as(ctypes.c_void_p),
+            n_threads,
         )
+        profiling.count("pass1.prepare_host_only_errors", errors)
         return s2c, fw_ws, rc_ws, fw_ivg, rc_ivg, flags
 
     def finish(

@@ -4,15 +4,18 @@
 // module does everything around those dispatches that would otherwise cost
 // per-read Python time:
 //
-//   * mia_kpa_build        — direct-address k-mer index over a reference
-//                            strand (init_kpa/populate_kpa,
-//                            src/kmer.c:90-168)
+//   * mia_kpa_build        — k-mer index over a reference strand
+//                            (init_kpa/populate_kpa, src/kmer.c:90-168):
+//                            the sorted distinct k-mers with their
+//                            positions, found through a table of their
+//                            leading 8 bases
 //   * mia_p1_create/free   — immutable per-assembly context (both encoded
 //                            reference strands, both PSSMs, k-mer indexes)
 //   * mia_p1_prepare       — per-batch k-mer filter + band intervals +
 //                            device-input packing (new_kmer_filter,
 //                            src/kmer.c:239-331, re-expressed
-//                            as interval lists instead of byte masks)
+//                            as interval lists instead of byte masks),
+//                            threaded over reads
 //   * mia_p1_finish        — per-batch score-verified window DP + traceback
 //                            for each read's winning strand (the host half of
 //                            the split described in jax_engine.windowed_exact_dp)
@@ -76,17 +79,36 @@ struct Kpa {
   std::vector<int32_t> starts;    // CSR offsets into positions
   std::vector<int32_t> counts;
   std::vector<int32_t> positions; // ascending within each k-mer
+  // two-level index: bucket[p] is the first index of uniq whose code's
+  // leading min(k, 8) bases are >= p (4^8 + 1 entries, 256 KB, at most);
+  // a lookup scans one bucket (a quarter of a k-mer on average for a
+  // 16.6 kb strand at k = 12) in place of a binary search over all of uniq
+  std::vector<int32_t> bucket;
+  int shift = 0;
+
+  void index() {
+    const int lead = std::min(k, 8);
+    shift = 2 * (k - lead);
+    bucket.assign((size_t(1) << (2 * lead)) + 1, 0);
+    size_t i = 0;
+    for (size_t p = 0; p + 1 < bucket.size(); ++p) {
+      bucket[p] = (int32_t)i;
+      while (i < uniq.size() && (uniq[i] >> shift) == (int64_t)p) ++i;
+    }
+    bucket.back() = (int32_t)uniq.size();
+  }
 
   // positions of `code`, or nullptr
   const int32_t* lookup(int64_t code, int32_t* count) const {
-    auto it = std::lower_bound(uniq.begin(), uniq.end(), code);
-    if (it == uniq.end() || *it != code) {
-      *count = 0;
-      return nullptr;
+    const int64_t p = code >> shift;
+    for (int32_t i = bucket[p], e = bucket[p + 1]; i < e; ++i) {
+      if (uniq[i] < code) continue;
+      if (uniq[i] != code) break;
+      *count = counts[i];
+      return positions.data() + starts[i];
     }
-    size_t i = it - uniq.begin();
-    *count = counts[i];
-    return positions.data() + starts[i];
+    *count = 0;
+    return nullptr;
   }
 };
 
@@ -249,6 +271,7 @@ void* mia_kpa_build(const char* seq, int64_t len, int k, int soft_mask) {
     for (size_t t = i; t < i + keep; ++t) kpa->positions.push_back(entries[t].second);
     i = j;
   }
+  kpa->index();
   return kpa;
 }
 
@@ -298,32 +321,44 @@ enum { kSkip = 1, kHostOnly = 2, kWide = 4 };
 //   fw_ivg/rc_ivg [n, K, 2] int32 GLOBAL-coordinate intervals (end-exclusive)
 //   flags    [n] int32 (kSkip / kHostOnly / kWide)
 // A strand with no hits gets zero intervals (device returns HIM).
-void mia_p1_prepare(void* h, int n, const char* arena, const int64_t* off,
-                    const int32_t* lens, int L, int32_t* s2c, int32_t* fw_ws,
-                    int32_t* rc_ws, int32_t* fw_ivg, int32_t* rc_ivg,
-                    int32_t* flags) {
+// Threaded over reads: each read's rows are written by its own iteration
+// only, so the outputs do not depend on n_threads.  A read whose iteration
+// threw (std::bad_alloc growing its interval lists) is flagged kHostOnly,
+// the per-read host path of a read with more than K intervals; returns the
+// number of such reads.
+int mia_p1_prepare(void* h, int n, const char* arena, const int64_t* off,
+                   const int32_t* lens, int L, int32_t* s2c, int32_t* fw_ws,
+                   int32_t* rc_ws, int32_t* fw_ivg, int32_t* rc_ivg,
+                   int32_t* flags, int n_threads) {
   Ctx* ctx = static_cast<Ctx*>(h);
   const int K = ctx->max_iv;
   const int64_t len1 = ctx->len1;
-  IvBuf fb, rb;
-  for (int b = 0; b < n; ++b) {
+  // zeroed intervals and window starts, the read's s2c row
+  auto clear = [&](int b) {
     const char* seq = arena + off[b];
     const int frag_len = lens[b];
-    int32_t* fi = fw_ivg + (int64_t)b * K * 2;
-    int32_t* ri = rc_ivg + (int64_t)b * K * 2;
-    std::memset(fi, 0, sizeof(int32_t) * K * 2);
-    std::memset(ri, 0, sizeof(int32_t) * K * 2);
+    std::memset(fw_ivg + (int64_t)b * K * 2, 0, sizeof(int32_t) * K * 2);
+    std::memset(rc_ivg + (int64_t)b * K * 2, 0, sizeof(int32_t) * K * 2);
     fw_ws[b] = rc_ws[b] = 0;
     int32_t* row = s2c + (int64_t)b * L;
     for (int i = 0; i < L; ++i)
       row[i] = i < frag_len ? base2inx((unsigned char)seq[i]) : 4;
+  };
+  std::atomic<int> errors(0);
+  mia_parallel_for(n, n_threads, [&](int b) {
+    static thread_local IvBuf fb, rb;
+    const char* seq = arena + off[b];
+    const int frag_len = lens[b];
+    int32_t* fi = fw_ivg + (int64_t)b * K * 2;
+    int32_t* ri = rc_ivg + (int64_t)b * K * 2;
+    clear(b);
 
     if (ctx->kmer_len < 0) {
       // no filtering: full-open both strands => wide path
       fi[0] = 0; fi[1] = (int32_t)len1;
       ri[0] = 0; ri[1] = (int32_t)len1;
       flags[b] = kWide;
-      continue;
+      return;
     }
     int num_f = 0, num_r = 0;
     fb.iv.clear(); rb.iv.clear();
@@ -337,11 +372,11 @@ void mia_p1_prepare(void* h, int n, const char* arena, const int64_t* off,
     }
     if (num_f + num_r == 0) {
       flags[b] = kSkip;
-      continue;
+      return;
     }
     if ((int)fb.iv.size() > K || (int)rb.iv.size() > K) {
       flags[b] = kHostOnly;
-      continue;
+      return;
     }
     bool wide = false;
     for (int s = 0; s < 2 && !wide; ++s) {
@@ -365,7 +400,12 @@ void mia_p1_prepare(void* h, int n, const char* arena, const int64_t* off,
       }
     }
     flags[b] = wide ? kWide : 0;
-  }
+  }, [&](int b) {
+    clear(b);
+    flags[b] = kHostOnly;
+    errors.fetch_add(1);
+  });
+  return errors.load();
 }
 
 // Score-verified window DP + traceback for each read's winning strand.
