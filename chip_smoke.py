@@ -37,9 +37,9 @@ tree's first, the wide reads' counters, ``pass1`` and its parts, and one
 sampled run of each; no result line.  ``--prep-ab ROOT [PAIRS]`` does the
 same on that workload for pass 1's banding, every run's maln held to this
 tree's ``--engine native``: ``pass1``, ``pass1.pack_prepare`` and
-``pass1.prep_wait`` of each run, then this tree's prepare threads swept in
-turns, one sampled run of each tree, and two pairs at the cell's 100,000
-reads; no result line.)
+``pass1.prep_wait`` of each run, then the threads of this tree's pass-1
+prepare swept in turns, one sampled run of each tree, and two pairs at the
+cell's 100,000 reads; no result line.)
 
 Phases, each printing its own lines; any failure exits non-zero before the
 result line.  Every reference is the port's own: its plain PyTorch versions,
@@ -102,10 +102,10 @@ counts) and the committed goldens.
    widths and device time (CUDA events around each launch), and holds the
    run's largest wide call against the plain version and times it; the
    first maximum on the card (``batch_best_and_aec`` on tied rows).
-7c. banding threads: the ``mia-hsmt-100k`` cell's first batch (8,192 reads
-   at seed 1) through ``BatchHost.prepare`` on one thread, on pass 1's share
-   of the host's threads and on the default count: all six arrays equal;
-   prints the three times and the CPUs the process sees.
+7c. banding threads: the ``mia-hsmt-100k`` cell's traffic cut to one batch
+   (8,192 reads at seed 1) through ``BatchHost.prepare`` on one thread, as
+   pass 1 calls it, and on the default count: all six arrays equal; prints
+   both times and the CPUs the process sees.
 8. -h end to end: the same workload with ``-h``, in this process only,
    against ``--engine native -h``, the ``-h`` scorer's launches in place of
    the scorer's.
@@ -1051,10 +1051,10 @@ def phase_wide(dev) -> dict:
 
 def phase_prepare_threads() -> None:
     """Phase 7c: pass 1's banding threaded over reads: the ``mia-hsmt-100k``
-    cell's first batch (its first 8,192 reads at seed 1, on its reference
-    with the circular wrap) through ``BatchHost.prepare`` on one thread, on
-    pass 1's share of the host and on the default count: all six arrays
-    equal; prints each one's time (host clock, median of 5 calls)."""
+    cell's traffic cut to one batch (8,192 reads at seed 1, on its reference
+    with the circular wrap) through ``BatchHost.prepare`` on one thread (as
+    pass 1 calls it) and on the default count: all six arrays equal, no
+    read failed; prints each one's time (host clock, median of 5 calls)."""
     import numpy as np
 
     from mia_tpu_torch.core import hostbatch
@@ -1064,45 +1064,44 @@ def phase_prepare_threads() -> None:
     from mia_tpu_torch.io.native import iter_frag_seqs_fast
     from mia_tpu_torch.ops.pssm import init_flatsubmat
 
-    inputs = wide_workload(os.path.join(WORK, "prepare"), reads=100000)
+    inputs = wide_workload(os.path.join(WORK, "prepare"), reads=SCORE_BATCH)
     args = inputs["args"]
     if not ("-c" in args and args[args.index("-k") + 1] == "12"):
         raise AssertionError(f"banding threads: the cell's flags changed: {args}")
-    reads = []
-    for f in iter_frag_seqs_fast(args[args.index("-f") + 1]):
-        reads.append(f.seq[: f.seq_len])
-        if len(reads) == SCORE_BATCH:
-            break
+    reads = [f.seq[: f.seq_len] for f in iter_frag_seqs_fast(args[args.index("-f") + 1])]
+    if len(reads) != SCORE_BATCH:
+        raise AssertionError(f"banding threads: {len(reads)} reads, not one batch")
     ref = read_fasta_ref(args[args.index("-r") + 1])
     add_ref_wrap(ref)
     bhost = hostbatch.BatchHost.create(ref.seq, ref.rcseq, ref.wrap_seq_len, init_flatsubmat(),
                                        None, 12, False, WIN_W, MAX_INTERVALS)
     arena, off, lens = bhost.pack_reads(reads)
+    default = hostbatch._default_threads()
     out, ms = {}, {}
     try:
-        for what, n in (("1", 1), ("pass 1's share", hostbatch.pass1_threads()[0]),
-                        ("default", 0)):
+        for n in sorted({1, default}):
             times = []
             for _ in range(5):
                 t0 = time.perf_counter()
-                got = bhost.prepare(arena, off, lens, L_MAX, MAX_INTERVALS, n_threads=n)
+                *got, errors = bhost.prepare(arena, off, lens, L_MAX, MAX_INTERVALS,
+                                             n_threads=n)
                 times.append(1e3 * (time.perf_counter() - t0))
-            out[what], ms[what] = got, statistics.median(times)
+                if errors:
+                    raise AssertionError(f"banding threads: {errors} reads failed on {n}")
+            out[n], ms[n] = got, statistics.median(times)
     finally:
         bhost.close()
     names = ("s2c", "fw_ws", "rc_ws", "fw_ivg", "rc_ivg", "flags")
-    for what in ("pass 1's share", "default"):
-        for name, g, w in zip(names, out[what], out["1"]):
-            if not np.array_equal(g, w):
-                raise AssertionError(f"banding threads: {name} on {what} threads differs "
-                                     f"from one thread's")
-    flags = out["1"][-1]
-    say(f"banding threads: the 100k cell's first batch, {len(reads)} reads "
+    for name, g, w in zip(names, out[default], out[1]):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"banding threads: {name} on {default} threads differs "
+                                 f"from one thread's")
+    flags = out[1][-1]
+    say(f"banding threads: the 100k cell's traffic cut to {len(reads)} reads "
         f"({int((flags == 0).sum())} windowed, {int((flags == hostbatch.FLAG_WIDE).sum())} "
         f"wide, {int((flags == hostbatch.FLAG_SKIP).sum())} without hits), all six arrays "
-        f"equal on 1, {hostbatch.pass1_threads()[0]} (pass 1's share) and "
-        f"{hostbatch._default_threads()} (default) threads; prepare ms "
-        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f"; {host_threads()}")
+        f"equal on 1 and {default} (default) threads; prepare ms "
+        + ", ".join(f"{k} threads {v:.3f}" for k, v in ms.items()) + f"; {host_threads()}")
 
 
 WIDE_AB_PHASES = ("pass1", "pass1.py_merge", "pass1.native_finish", "pass1.collect_wait",
@@ -1237,18 +1236,19 @@ def phase_wide_ab(earlier_root: str, pairs: int) -> None:
 
 PREP_AB_PHASES = ("pass1", "pass1.pack_prepare", "pass1.prep_wait", "pass1.dispatch",
                   "pass1.py_merge", "pass1.native_finish", "pass1.collect_wait", "reiterate",
-                  "gc")
+                  "filters.pop_smp", "filters.pop_smp_first", "gc")
 
 
 def host_threads() -> str:
-    """The CPUs this process sees and pass 1's split of them."""
+    """The CPUs this process sees and the native pools' default thread
+    count (the finish's and the solves'; pass 1's prepare takes one)."""
     from mia_tpu_torch.core import hostbatch
 
     env = {k: v for k, v in os.environ.items() if k != "OMP_NUM_THREADS"}
     nproc = subprocess.run(["nproc"], capture_output=True, text=True, env=env).stdout.strip()
     return (f"os.cpu_count() {os.cpu_count()}, affinity {hostbatch.host_cpus()}, nproc "
-            f"{nproc} (OMP_NUM_THREADS {os.environ.get('OMP_NUM_THREADS')}); pass 1's "
-            f"(prepare, finish) threads {hostbatch.pass1_threads()}")
+            f"{nproc} (OMP_NUM_THREADS {os.environ.get('OMP_NUM_THREADS')}); default "
+            f"threads {hostbatch._default_threads()}")
 
 
 def phase_prep_ab(earlier_root: str, pairs: int) -> None:
@@ -1258,12 +1258,12 @@ def phase_prep_ab(earlier_root: str, pairs: int) -> None:
     built from its own sources) and this tree's, in turns, every run's maln
     held to this tree's ``--engine native``; pass 1, its banding
     (``pass1.pack_prepare``) and the main thread's wait on the prep thread
-    (``pass1.prep_wait``; 0 for a tree without it) for each run.  Then this
-    tree's prepare threads swept (``hostbatch.PREPARE_THREADS``; the finish
-    takes the rest of the host) on that workload with and without ``-h``
-    (whose WIDE reads the finish thread solves natively), in turns, forward
-    and back; one sampled run of each tree; and two pairs at the cell's own
-    100,000 reads."""
+    (``pass1.prep_wait``; 0 for a tree without it) for each run.  Then the
+    threads of this tree's pass-1 prepare swept (the call forced to each
+    count here; the finish keeps its default) on that workload with and
+    without ``-h`` (whose WIDE reads the finish thread solves natively), in
+    turns, forward and back; one sampled run of each tree; and two pairs at
+    the cell's own 100,000 reads."""
     from mia_tpu_torch.cli import mia as cli_mia
     from mia_tpu_torch.core import hostbatch
     from mia_tpu_torch.ops import dp_cuda
@@ -1287,14 +1287,20 @@ def phase_prep_ab(earlier_root: str, pairs: int) -> None:
         say(f"prep a/b: {inputs['held']}; {host_threads()}")
         return inputs, reference(inputs, str(reads))
 
+    prepare = hostbatch.BatchHost.prepare
+
     def run(name: str, inputs: dict, want: dict, threads: int = 0) -> dict:
-        hostbatch.PREPARE_THREADS = threads
+        """One run of ``name``; ``threads`` > 0 forces this tree's pass-1
+        prepare to that many threads."""
+        if threads:
+            hostbatch.BatchHost.prepare = (
+                lambda self, *a, n_threads=0: prepare(self, *a, n_threads=threads))
         try:
             got, wall, prof, counts = run_side(sides[name], inputs["args"],
                                                os.path.join(d, f"run{next(tags)}", "out.maln"),
                                                f"prep a/b ({name})")
         finally:
-            hostbatch.PREPARE_THREADS = 0
+            hostbatch.BatchHost.prepare = prepare
         if not want or got != want:
             raise AssertionError(f"prep a/b: a run of {name} differs from --engine native")
         ph = prof["phases_s"]
@@ -1332,8 +1338,8 @@ def phase_prep_ab(earlier_root: str, pairs: int) -> None:
     inputs, want = workload(20000)
     in_turns(inputs, want, pairs, "20k")
 
-    # the prepare's share of the host, in turns: forward, then back; with
-    # -h too, where the finish thread also solves the WIDE reads natively
+    # the prepare's threads, in turns: forward, then back; with -h too,
+    # where the finish thread also solves the WIDE reads natively
     hp_inputs = dict(inputs, args=[*inputs["args"], "-h"])
     workloads = {"": (inputs, want), " -h": (hp_inputs, reference(hp_inputs, "20000h"))}
     total = hostbatch._default_threads()
@@ -1342,11 +1348,9 @@ def phase_prep_ab(earlier_root: str, pairs: int) -> None:
     for k in range(max(pairs // 2, 2)):
         for t in counts if k % 2 == 0 else counts[::-1]:
             for f, (w_inputs, w_want) in workloads.items():
-                hostbatch.PREPARE_THREADS = t
-                split = hostbatch.pass1_threads()
                 r = run("this", w_inputs, w_want, t)
                 sweep[f, t].append(r)
-                say_run(f"sweep{f}, (prepare, finish) threads {split}", r)
+                say_run(f"sweep{f}, {t} prepare threads, finish {total}", r)
     for (f, t), rs in sweep.items():
         say(f"prep a/b: sweep{f} {t} prepare threads: "
             + "; ".join(f"{k} s {quartiles([r[k] for r in rs])}"

@@ -106,7 +106,6 @@ from .hostbatch import (
     STATUS_HOST_FALLBACK,
     STATUS_NO_KMER,
     BatchHost,
-    pass1_threads,
 )
 from .merge import add_ref_wrap
 from .types import MapAlignment
@@ -424,8 +423,6 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
     # streaming (the FFI calls release the GIL); inflight holds futures in
     # stream order
     prep_pool = _cf.ThreadPoolExecutor(max_workers=1)
-    # the two workers' native calls can overlap: they split the host's threads
-    prep_threads, finish_threads = pass1_threads()
 
     def _host_align_one(f) -> None:
         """Per-read host path (mask too fragmented for the device)."""
@@ -448,15 +445,13 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
         bands): (meta, ref arena, frag arena) with read j's strings at j *
         TRACE_CAP, and the reads whose traceback outgrew that arena,
         solved again with a full-width one: {j: (meta_row, ref, frag)}."""
-        meta, ra, fa = bhost.solve_pass1(arena, off, lens, maln.distant_ref,
-                                         n_threads=finish_threads)
+        meta, ra, fa = bhost.solve_pass1(arena, off, lens, maln.distant_ref)
         retry = np.flatnonzero(meta[:, 0] == STATUS_HOST_FALLBACK)
         again = {}
         if len(retry):
             wcap = bhost.wide_cap
             m2, r2, f2 = bhost.solve_pass1(
-                arena, off[retry], lens[retry], maln.distant_ref,
-                n_threads=finish_threads, cap=wcap,
+                arena, off[retry], lens[retry], maln.distant_ref, cap=wcap
             )
             for t, j in enumerate(retry.tolist()):
                 again[j] = (m2[t], r2[t * wcap : (t + 1) * wcap], f2[t * wcap : (t + 1) * wcap])
@@ -557,7 +552,6 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
                 best[fsel].astype(np.int32),
                 aec[fsel].astype(np.int32),
                 ivg[fin],
-                n_threads=finish_threads,
                 cap=fcap,
             )
             profiling.add_time("pass1.native_finish", time.time() - t0)
@@ -685,9 +679,13 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
         ]
         with profiling.phase("pass1.pack_prepare"):
             arena, off, lens = bhost.pack_reads(reads)
-            s2c, fw_ws, rc_ws, fw_ivg, rc_ivg, flags = bhost.prepare(
-                arena, off, lens, L_MAX, MAX_INTERVALS, n_threads=prep_threads
+            # one thread: beside the finish's pool, more prepare threads
+            # made pass 1 longer on an H100's 8-CPU host (the sweep of
+            # chip_smoke.py --prep-ab); a batch of 8,192 reads is some 25 ms
+            s2c, fw_ws, rc_ws, fw_ivg, rc_ivg, flags, errors = bhost.prepare(
+                arena, off, lens, L_MAX, MAX_INTERVALS, n_threads=1
             )
+        profiling.count("pass1.prepare_host_only_errors", errors)
         if scorer.hp:
             # reads with a homopolymer run of HPW or more stay on the exact
             # host path, as in mia_tpu (entries.hp_routes_to_host); the
@@ -908,7 +906,7 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
             last_assembly_cons, iter_num, maln, fsdb, fw_align, ancsubmat,
             rcancsubmat, engine=cfg.engine, placement=placement,
         )
-    with profiling.phase("filters.pop_smp"):
+    with profiling.phase("filters.pop_smp_first"):
         pop_smp_from_FSDB(fsdb, PSSM_DEPTH)
     _filter_and_cull()
     maln_fn = f"{cfg.maln_root}.{iter_num}"

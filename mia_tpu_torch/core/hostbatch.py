@@ -19,7 +19,6 @@ import os
 import numpy as np
 
 from ..io.native import _load
-from ..utils import profiling
 
 FLAG_SKIP = 1
 FLAG_HOST_ONLY = 2
@@ -30,10 +29,6 @@ FLAG_WIDE = 4
 # a long reference) uncapped cpu_count threads could hold many GB resident
 # and oversubscribe shared hosts
 MAX_SOLVE_THREADS = 16
-
-
-# pass 1's prepare threads; 0 takes pass1_threads()'s share (a sweep sets it)
-PREPARE_THREADS = 0
 
 
 def host_cpus() -> int:
@@ -48,20 +43,6 @@ def host_cpus() -> int:
 def _default_threads() -> int:
     return min(host_cpus(), MAX_SOLVE_THREADS)
 
-
-def pass1_threads() -> tuple[int, int]:
-    """(prepare, finish) threads of pass 1.  The prep thread's prepare and
-    the finish thread's finish (and, under ``-h``, the WIDE reads' native
-    solve) can run at once, so they split :func:`_default_threads` between
-    them rather than each taking all of it: the prepare ``PREPARE_THREADS``
-    or one in eight, the finish the rest.  With the k-mer table the prepare
-    is some 15 ms a batch of 8,192 reads on one thread of an H100's host,
-    and on that 8-CPU host one prepare thread gave the shortest pass 1 with
-    and without ``-h``, whose solve slowed as the finish lost threads
-    (``chip_smoke.py --prep-ab``'s sweep, PERF.md)."""
-    total = _default_threads()
-    prepare = min(PREPARE_THREADS or max(total // 8, 1), total)
-    return prepare, max(total - prepare, 1)
 
 # mia_p1_solve / mia_rei_solve status codes
 STATUS_OK = 0
@@ -228,10 +209,10 @@ class BatchHost:
 
     def prepare(self, arena: bytes, off: np.ndarray, lens: np.ndarray, L: int, K: int,
                 n_threads: int = 0):
-        """Returns (s2c [n,L], fw_ws, rc_ws, fw_ivg, rc_ivg [n,K,2], flags),
-        threaded over reads (the arrays do not depend on ``n_threads``).  A
-        read whose native iteration failed is flagged HOST_ONLY and counted
-        in ``pass1.prepare_host_only_errors``."""
+        """Returns (s2c [n,L], fw_ws, rc_ws, fw_ivg, rc_ivg [n,K,2], flags,
+        errors), threaded over reads (the arrays do not depend on
+        ``n_threads``); ``errors`` counts the reads whose native iteration
+        failed, which are flagged HOST_ONLY."""
         n = len(lens)
         if n_threads <= 0:
             n_threads = _default_threads()
@@ -256,8 +237,7 @@ class BatchHost:
             flags.ctypes.data_as(ctypes.c_void_p),
             n_threads,
         )
-        profiling.count("pass1.prepare_host_only_errors", errors)
-        return s2c, fw_ws, rc_ws, fw_ivg, rc_ivg, flags
+        return s2c, fw_ws, rc_ws, fw_ivg, rc_ivg, flags, errors
 
     def finish(
         self,

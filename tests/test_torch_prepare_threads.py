@@ -13,8 +13,8 @@ empty batch, a batch smaller than the thread count and one of 8,192 reads,
 the cell's batch.
 
 Tolerance: none; all six arrays equal.  Beside it, a small ``--engine
-torch`` assembly on the CPU writes the same maln files with 1 and with 8
-prepare threads.
+torch`` assembly on the CPU writes the same maln files with the prepare on
+1 and on 8 threads.
 """
 import io
 import os
@@ -114,8 +114,10 @@ def test_prepare_threads_equal_serial(case, n_threads, sample_parts):
     if case not in _WANT:
         _WANT[case] = _prepared(TpuBatchHost, ref, kmer, reads)
     want = _WANT[case]
-    got = _prepared(BatchHost, ref, kmer, reads, n_threads=n_threads)
+    *got, errors = _prepared(BatchHost, ref, kmer, reads, n_threads=n_threads)
+    assert errors == 0
     names = ("s2c", "fw_ws", "rc_ws", "fw_ivg", "rc_ivg", "flags")
+    assert len(got) == len(want) == len(names)
     for name, g, w in zip(names, got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         np.testing.assert_array_equal(g, w, err_msg=f"{case}: {name}")
@@ -141,30 +143,22 @@ def test_prepare_threads_equal_serial(case, n_threads, sample_parts):
 
 
 def test_prepare_counts_no_errors():
-    """A prepare that fails for no read counts 0 in
-    ``pass1.prepare_host_only_errors``, which every profile then shows."""
-    was = profiling._enabled
-    profiling.enable()
-    try:
-        ref, sample, _ = testing.ccheck_sample(1)
-        _prepared(BatchHost, ref, K, _simulated(sample, 50, 1), n_threads=4)
-        assert profiling.report(out=io.StringIO())["counters"][
-            "pass1.prepare_host_only_errors"] == 0
-    finally:
-        profiling._enabled = was
+    """A prepare that fails for no read returns 0 errors, at the default
+    thread count too (pass 1 records the count in
+    ``pass1.prepare_host_only_errors``; the assembly test below reads it)."""
+    ref, sample, _ = testing.ccheck_sample(1)
+    reads = _simulated(sample, 50, 1)
+    for n in (0, 4):
+        *arrays, errors = _prepared(BatchHost, ref, K, reads, n_threads=n)
+        assert errors == 0 and len(arrays) == 6 and len(arrays[-1]) == len(reads)
 
 
 def test_thread_counts(monkeypatch):
-    """Threads come from the affinity set; pass 1's prepare and finish
-    split them."""
+    """The default thread count comes from the affinity set, capped, and
+    from ``os.cpu_count()`` where there is none."""
     cpus = len(os.sched_getaffinity(0))
     assert hostbatch.host_cpus() == cpus
-    total = min(cpus, hostbatch.MAX_SOLVE_THREADS)
-    monkeypatch.setattr(hostbatch, "PREPARE_THREADS", 0)
-    prepare, finish = hostbatch.pass1_threads()
-    assert prepare >= 1 and finish >= 1 and prepare + finish <= max(total, 2)
-    monkeypatch.setattr(hostbatch, "PREPARE_THREADS", 1)
-    assert hostbatch.pass1_threads() == (1, max(total - 1, 1))
+    assert hostbatch._default_threads() == min(cpus, hostbatch.MAX_SOLVE_THREADS)
     monkeypatch.setattr(hostbatch, "os", _NoAffinity(os))
     assert hostbatch.host_cpus() == (os.cpu_count() or 1)
 
@@ -183,8 +177,9 @@ class _NoAffinity:
 
 def test_assembly_same_with_1_and_8_prepare_threads(tmp_path, monkeypatch):
     """The fixtures' assembly (``-c -k 12``, as ``entry.dryrun_multichip``
-    runs it) on the CPU writes the same maln files with 1 and with 8
-    prepare threads; batches of 8 reads, so its 25 reads make 4 batches."""
+    runs it) on the CPU writes the same maln files with the prepare on 1
+    and on 8 threads (pass 1's own call forced to that count); batches of
+    8 reads, so its 25 reads make 4 batches."""
     from mia_tpu_torch.config import MiaConfig
     from mia_tpu_torch.core import assembler
 
@@ -192,9 +187,11 @@ def test_assembly_same_with_1_and_8_prepare_threads(tmp_path, monkeypatch):
     monkeypatch.setenv("MIA_TORCH_SERVER", "0")
     monkeypatch.setenv("MIA_SCORE_BATCH", "8")
     monkeypatch.setattr(profiling, "_enabled", profiling._enabled)
+    prepare = BatchHost.prepare
     outputs = {}
     for n in (1, 8):
-        monkeypatch.setattr(hostbatch, "PREPARE_THREADS", n)
+        monkeypatch.setattr(BatchHost, "prepare",
+                            lambda self, *a, n_threads=0, n=n: prepare(self, *a, n_threads=n))
         d = tmp_path / str(n)
         d.mkdir()
         profiling.enable()

@@ -83,7 +83,7 @@ def _setup(seed: int, kmer: int, circular: bool):
                             device="cpu")
     reads = _reads(rng, ref)
     arena, off, lens = bhost.pack_reads(reads)
-    prep = bhost.prepare(arena, off, lens, L_MAX, MAX_INTERVALS)
+    prep = bhost.prepare(arena, off, lens, L_MAX, MAX_INTERVALS)[:6]
     return bhost, scorer, sm, arena, off[:-1], lens, prep
 
 
