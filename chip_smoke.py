@@ -17,12 +17,13 @@ sample with ``FILE``, an earlier ``mia_tpu_torch/core/contamination.py``,
 in place of this tree's, and with this tree's, in turns: PAIRS pairs
 (default 10), each order in every other pair, every run held to
 ``--engine native``'s stdout; no result line.  ``--hp-ab ROOT [PAIRS]``
-runs phases 1-2 and then mia ``-h`` (``--engine torch``) on the ``-h``
-cell's traffic at seed 41 with the cull and consensus host layer of
-``ROOT``, a ``git archive`` of an earlier commit (its ``core/fsdb.py`` and
-``core/columns.py``), in place of this tree's, and with this tree's, in
-turns the same way, every run's maln held to the earlier layer's; no result
-line.  ``--merge-ab ROOT [PAIRS]`` does the same for mia (``--engine
+runs phases 1-2 and then whole mia ``-h`` runs (``--engine torch``) on the
+``-h`` cell's traffic at seed 41 with the port of ``ROOT``, a ``git
+archive`` of an earlier commit, and this tree's, in turns as ``--wide-ab``
+does: every run's maln held to this tree's first, ``pass1``,
+``pass1.native_finish``, the cull's and consensus's phases, the wide reads'
+counters and the ``-h`` scorers' launches of both trees; no result line.
+``--merge-ab ROOT [PAIRS]`` does the same for mia (``--engine
 torch``) on the ``mia-hsmt-100k`` cell's traffic at seed 41 with the pass-1
 merge and realignment host layer of ``ROOT`` (its ``core/entries.py``,
 ``core/driver.py`` and ``core/assembler.py``): pass 1, its merge, the
@@ -108,7 +109,13 @@ counts) and the committed goldens.
    both times and the CPUs the process sees.
 8. -h end to end: the same workload with ``-h``, in this process only,
    against ``--engine native -h``, the ``-h`` scorer's launches in place of
-   the scorer's.
+   the scorer's, and pass 1's WIDE reads on the full-width ``-h`` scorer
+   (``dp.last_row_hp_launches`` > 0, ``dp.last_row_hp_plain_calls`` 0,
+   ``pass1.native_solved_wide_reads`` 0).
+8c. -h wide reads: that run's ``dp_last_row_hp`` launches (K4g): rows,
+   widths and device time (CUDA events around each call), Gcells/s; the
+   run's largest call held to the plain version (exact), timed, and its
+   bound (29 operations a cell: the plain version's count).
 8a. workload shapes: the largest scorer batch of phase 7, the largest of
    phase 8 and the largest consensus record set of the two, kept as the runs
    went through the wrappers: each kernel against its plain version on them
@@ -185,9 +192,10 @@ counts) and the committed goldens.
    of the port's mia (``--engine torch --profile``, ``MIA_TORCH_SERVER`` on
    that socket) whose import system refuses torch, jax and ``mia_tpu``:
    each writes phase 7's malns, shows ``pass1.using_server`` and
-   device-scored reads, and raises the server's ``hello`` counts of scorer
-   and consensus launches with no plain call.  Then once with ``-h``
-   (phase 8's malns, ``-h`` scorer launches), two clients at once (both
+   device-scored reads, no native wide solve, and raises the server's
+   ``hello`` counts of scorer and consensus launches with no plain call.
+   Then once with ``-h`` (phase 8's malns, ``-h`` scorer and
+   ``dp_last_row_hp`` launches), two clients at once (both
    phase 7's bytes), and ``--engine native`` as a new process with torch
    refused.  Prints every wall beside phase 7's new-process walls, stops
    the server with SIGTERM and checks that its socket is gone.
@@ -822,6 +830,8 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool,
         "dp.hp_plain_calls": dp_cuda.hp_plain_calls,
         "dp.last_row_launches": dp_cuda.last_row_launches,
         "dp.last_row_plain_calls": dp_cuda.last_row_plain_calls,
+        "dp.last_row_hp_launches": dp_cuda.last_row_hp_launches,
+        "dp.last_row_hp_plain_calls": dp_cuda.last_row_hp_plain_calls,
         "cons.kernel_launches": consensus_torch.kernel_launches,
         "cons.plain_calls": consensus_torch.plain_calls,
     }
@@ -871,12 +881,16 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool,
         "consensus.device_calls": counters.get("consensus.device_calls", 0),
         "consensus.device_fallbacks": counters.get("consensus.device_fallbacks", 0),
     }
-    if not hp:
-        checks["pass1.native_solved_wide_reads"] = counters.get("pass1.native_solved_wide_reads", 0)
+    checks["pass1.native_solved_wide_reads"] = counters.get("pass1.native_solved_wide_reads", 0)
+    checks["pass1.device_scored_wide_reads"] = counters.get("pass1.device_scored_wide_reads", 0)
     if not (counts[scorer] > 0 and counts["cons.kernel_launches"] > 0
-            and checks.get("pass1.native_solved_wide_reads", 0) == 0
+            and checks["pass1.native_solved_wide_reads"] == 0
+            # under -h the WIDE reads went through the -h form of the
+            # general-width scorer (K4g)
+            and (not hp or (counts["dp.last_row_hp_launches"] > 0
+                            and checks["pass1.device_scored_wide_reads"] > 0))
             and counts["dp.plain_calls"] == counts["dp.hp_plain_calls"] == 0
-            and counts["dp.last_row_plain_calls"] == 0
+            and counts["dp.last_row_plain_calls"] == counts["dp.last_row_hp_plain_calls"] == 0
             and counts["cons.plain_calls"] == 0
             and checks["pass1.device_scored_reads"] > 0
             and checks["reiterate.device_entries"] > 0
@@ -890,46 +904,65 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool,
     say(f"{tag}: phases s, native " + json.dumps(native_prof["phases_s"], sort_keys=True))
     return counts, walls
 
+def last_row_call(args, hp: bool) -> dict:
+    """Rows, padded width, read rows and the DP cells a call of
+    ``dp_last_row`` (``hp``: ``dp_last_row_hp``) with ``args`` needs: each
+    row up to its read's length and its own window."""
+    import torch
+
+    if hp:  # dp_last_row_hp: ... ivl, s2chr, lengths, width
+        ivl, s2c, lengths, width = args[8:]
+        own_width = ivl[:, :, 1].max(1).values.to(torch.int64)
+    else:
+        _, mask, s2c, lengths = args[:4]
+        width = mask.shape[1]
+        own_width = width - torch.argmax(mask.flip(1).to(torch.int8), 1)
+    cells = int(((lengths.to(torch.int64) - 1).clamp(min=0) * own_width).sum())
+    return {"rows": s2c.shape[0], "width": int(width), "L": s2c.shape[1], "cells": cells}
+
+
 class LastRowTimer:
-    """Wraps ``dp_cuda.dp_last_row`` while a run goes through it: CUDA events
-    on the current stream around each call (the wrapper's checks, its
-    allocation and the launch, which follow the batch's entries on that
-    stream), each call's rows, padded width, read rows and the DP cells its
-    rows need (each row up to its read's length and its own window), and
-    the arguments of the largest call.  The calls and their launch counts
-    are the wrapper's own."""
+    """Wraps ``dp_cuda.dp_last_row`` (or ``name``: ``dp_last_row_hp``) while
+    a run goes through it: CUDA events on the current stream around each
+    call (the wrapper's checks, its allocation and the launch, which follow
+    the batch's entries on that stream), each call's rows, padded width,
+    read rows and cells (:func:`last_row_call`), and the arguments of the
+    largest call.  The calls and their launch counts are the wrapper's
+    own."""
+
+    def __init__(self, name: str = "dp_last_row"):
+        self.name = name
 
     def __enter__(self):
         import torch
 
         from mia_tpu_torch.ops import dp_cuda
 
-        self._mod, self._fn = dp_cuda, dp_cuda.dp_last_row
+        self._mod, self._fn = dp_cuda, getattr(dp_cuda, self.name)
         self.events: list = []
         self.calls: list = []
         self.largest = None
 
-        def wrapped(s1c, mask, s2c, lengths, depths, submat, sg5=True):
+        def wrapped(*args):
             start, stop = (torch.cuda.Event(enable_timing=True),
                            torch.cuda.Event(enable_timing=True))
             start.record()
-            out = self._fn(s1c, mask, s2c, lengths, depths, submat, sg5)
+            out = self._fn(*args)
             stop.record()
             self.events.append((start, stop))
-            own_width = mask.shape[1] - torch.argmax(mask.flip(1).to(torch.int8), 1)
-            cells = int(((lengths.to(torch.int64) - 1).clamp(min=0) * own_width).sum())
-            self.calls.append({"rows": mask.shape[0], "width": mask.shape[1],
-                               "L": s2c.shape[1], "cells": cells})
-            if self.largest is None or mask.numel() > self.largest[1].numel():
-                self.largest = tuple(a.clone() for a in (s1c, mask, s2c, lengths, depths,
-                                                         submat))
+            call = last_row_call(args, self.name == "dp_last_row_hp")
+            self.calls.append(call)
+            if self.largest is None or (call["rows"] * call["width"]
+                                        > self.largest[0]["rows"] * self.largest[0]["width"]):
+                self.largest = (call, tuple(a.clone() if hasattr(a, "clone") else a
+                                            for a in args))
             return out
 
-        dp_cuda.dp_last_row = wrapped
+        setattr(dp_cuda, self.name, wrapped)
         return self
 
     def __exit__(self, *exc):
-        self._mod.dp_last_row = self._fn
+        setattr(self._mod, self.name, self._fn)
 
     def device_ms(self) -> list[float]:
         import torch
@@ -1018,11 +1051,10 @@ def phase_wide(dev) -> dict:
     say("wide reads: phases s, torch " + json.dumps(prof["phases_s"], sort_keys=True))
 
     # the run's largest wide call against the plain version, then timed
-    args = timer.largest
+    call, args = timer.largest
     got_row = dp_cuda.dp_last_row(*args)
     err = check_equal("dp_last_row != plain at the run's largest wide call", got_row,
                       batch_last_row(*args))
-    call = max(timer.calls, key=lambda k: k["rows"] * k["width"])
     t = time_plain_pair(lambda: dp_cuda.dp_last_row(*args), lambda: batch_last_row(*args),
                         f"wide reads: dp_last_row at the run's largest call, R={call['rows']} "
                         f"W={call['width']} L={call['L']}", f"; {call['cells']} cells")
@@ -1047,6 +1079,58 @@ def phase_wide(dev) -> dict:
             "workload_ms": t["ms"], "workload_plain_ms": t["plain_ms"],
             "workload_bound_ms": b["bound_ms"], "workload_max_abs_err": err,
             "rows": int(np.sum(rows))}
+
+
+def phase_wide_hp(timer: "LastRowTimer", counts: dict) -> dict:
+    """Phase 8c: the full-width -h scorer (K4g, ``dp_last_row_hp``) as phase
+    8's run went through it (``timer``): its launches' rows, widths and
+    device time (CUDA events around each call); the run's largest call held
+    to the plain version, exact, then timed, with its bound and Gcells/s."""
+    import numpy as np
+
+    from mia_tpu_torch.ops import dp_cuda
+    from mia_tpu_torch.ops.dp_torch import last_row_hp_plain
+
+    ms = timer.device_ms()
+    if not ms or len(ms) != counts["dp.last_row_hp_launches"]:
+        raise AssertionError(f"-h wide reads: {len(ms)} timed calls, counts {counts}")
+    rows = [k["rows"] for k in timer.calls]
+    widths = [k["width"] for k in timer.calls]
+    cells = sum(k["cells"] for k in timer.calls)
+    say(f"-h wide reads: {len(ms)} dp_last_row_hp launches, rows {rows}, widths {widths}; "
+        f"device ms (events around each call) {sum(ms):.4f} in all, "
+        + ", ".join(f"{x:.4f}" for x in ms)
+        + f"; {cells} cells ({cells / max(sum(ms), 1e-9) / 1e6:.3f} Gcells/s)")
+    call, args = timer.largest
+    got = dp_cuda.dp_last_row_hp(*args)
+    err = check_equal("dp_last_row_hp != plain at the run's largest call", got,
+                      last_row_hp_plain(*args))
+    launches = dp_cuda.last_row_hp_launches
+    t = time_plain_pair(lambda: dp_cuda.dp_last_row_hp(*args),
+                        lambda: last_row_hp_plain(*args),
+                        f"-h wide reads: dp_last_row_hp at the run's largest call, "
+                        f"R={call['rows']} W={call['width']} L={call['L']}",
+                        f"; {call['cells']} cells")
+    if dp_cuda.last_row_hp_plain_calls:
+        raise AssertionError("-h wide reads: the wrapper took the plain version on the card")
+    kernel_calls = dp_cuda.last_row_hp_launches - launches
+    # each input read once (the strand state whole, the reads up to their
+    # lengths), the [2, R] result written once
+    lengths = args[10].cpu().numpy()
+    moved = nbytes(*args[:9], args[10], got) + read_bytes(lengths, args[9])
+    # the DP's 14 operations a cell, as K4's bound counts them
+    # (phase_hp_kernel): a row takes one of the two -h candidates (hp_col or
+    # hp_row; most of their masks are conditions of the row), and that one is
+    # left out, as it is for K4, so that both -h kernels share one bound
+    b = bound(moved, DP_OPS_PER_CELL * call["cells"])
+    say(f"-h wide reads: largest call == plain (exact, max |diff| {err}), bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {DP_OPS_PER_CELL} operations a cell), "
+        f"{call['cells'] / t['ms'] / 1e6:.3f} Gcells/s; {kernel_calls} timing launches "
+        f"after the run's {counts['dp.last_row_hp_launches']}; mean read length "
+        f"{float(np.mean(lengths)):.1f}")
+    return {"launches": counts["dp.last_row_hp_launches"], "max_abs_err": err, **t,
+            "library_ms": None, **b, "wide_device_ms": sum(ms), "wide_rows": int(np.sum(rows)),
+            "wide_cells": cells}
 
 
 def phase_prepare_threads() -> None:
@@ -1162,8 +1246,11 @@ def run_side(side: tuple, args: list[str], root: str, what: str):
     counts = {"dp.kernel_launches": dp.kernel_launches, "dp.plain_calls": dp.plain_calls,
               "dp.hp_kernel_launches": dp.hp_kernel_launches,
               "dp.hp_plain_calls": dp.hp_plain_calls,
-              "dp.last_row_launches": getattr(dp, "last_row_launches", 0)}
+              "dp.last_row_launches": getattr(dp, "last_row_launches", 0),
+              "dp.last_row_hp_launches": getattr(dp, "last_row_hp_launches", 0),
+              "dp.last_row_hp_plain_calls": getattr(dp, "last_row_hp_plain_calls", 0)}
     if (counts["dp.plain_calls"] or counts["dp.hp_plain_calls"]
+            or counts["dp.last_row_hp_plain_calls"]
             or not counts["dp.kernel_launches"] + counts["dp.hp_kernel_launches"]):
         raise AssertionError(f"{what} did not score on the card: {counts}")
     return maln_bytes(root), wall, prof, counts
@@ -1183,55 +1270,63 @@ def sampled_run(label: str, run) -> None:
     say_samples(label, samples, wall)
 
 
-def phase_wide_ab(earlier_root: str, pairs: int) -> None:
-    """``--wide-ab``: whole ``mia.main --engine torch --profile`` runs of phase
-    7b's workload (the 100k cell's traffic cut to 20k reads at seed 1) with
-    the port of ``earlier_root`` and this tree's, in turns; every run's maln
-    held to this tree's first run, pass 1's phases and the wide reads'
-    counters printed, and one more run of each with every thread's stack
-    sampled."""
+def port_ab(label: str, earlier_root: str, pairs: int, inputs: dict, phases: tuple,
+            counters: tuple, sampled: bool = True) -> None:
+    """Whole ``mia.main --engine torch --profile`` runs of ``inputs`` with the
+    port of ``earlier_root`` (imported beside this tree's) and this tree's,
+    in turns; every run's maln held to this tree's first run and its counts
+    (``run_side``'s and ``counters``) to its tree's first; ``phases`` printed
+    a run and as quartiles; with ``sampled`` one more run of each with every
+    thread's stack sampled."""
     from mia_tpu_torch.cli import mia as cli_mia
     from mia_tpu_torch.ops import dp_cuda
     from mia_tpu_torch.utils import profiling
 
     sides = {"earlier": load_package_copy(earlier_root), "this": (cli_mia, profiling, dp_cuda)}
-    d = os.path.join(WORK, "wide_ab")
-    inputs = wide_workload(d)
-    say(f"wide a/b: {inputs['held']}")
+    d = inputs["work"]
+    say(f"{label}: {inputs['held']}")
 
     def run(name: str, tag: str):
         got, wall, prof, counts = run_side(sides[name], inputs["args"],
                                            os.path.join(d, tag, "out.maln"),
-                                           f"wide a/b: {tag} ({name})")
-        counts.update({k: prof["counters"].get(k, 0) for k in WIDE_AB_COUNTERS})
+                                           f"{label}: {tag} ({name})")
+        counts.update({k: prof["counters"].get(k, 0) for k in counters})
         return got, wall, prof, counts
 
     want, wall, _, this_counts = run("this", "warm_this")
     _, wall_e, _, earlier_counts = run("earlier", "warm_earlier")
-    say(f"wide a/b: warm-up {wall:.3f} s (this) {wall_e:.3f} s (earlier); counts this "
+    say(f"{label}: warm-up {wall:.3f} s (this) {wall_e:.3f} s (earlier); counts this "
         f"{json.dumps(this_counts)}, earlier {json.dumps(earlier_counts)}")
     runs: dict[str, list[dict]] = {"earlier": [], "this": []}
     for k, name in enumerate(ab_order(pairs)):
         got, wall, prof, counts = run(name, f"run{k}")
         if got != want:
-            raise AssertionError(f"wide a/b: run {k} ({name}) maln differs from this tree's")
+            raise AssertionError(f"{label}: run {k} ({name}) maln differs from this tree's")
         if counts != (this_counts if name == "this" else earlier_counts):
-            raise AssertionError(f"wide a/b: run {k} ({name}) counts {counts} changed")
+            raise AssertionError(f"{label}: run {k} ({name}) counts {counts} changed")
         ph = prof["phases_s"]
-        r = {"wall": wall, **{p: ph.get(p, 0.0) for p in WIDE_AB_PHASES}}
+        r = {"wall": wall, **{p: ph.get(p, 0.0) for p in phases}}
         runs[name].append(r)
-        say(f"wide a/b: {name}: {wall:.3f} s, {inputs['reads'] / wall:.2f} reads/s; "
-            + ", ".join(f"{p} {r[p]:.3f}" for p in WIDE_AB_PHASES))
+        say(f"{label}: {name}: {wall:.3f} s, {inputs['reads'] / wall:.2f} reads/s; "
+            + ", ".join(f"{p} {r[p]:.3f}" for p in phases))
     wins = sum(b["wall"] < a["wall"] for a, b in zip(runs["earlier"], runs["this"]))
-    say(f"wide a/b: {pairs} pairs in turns, every maln byte-identical; this tree faster in "
+    say(f"{label}: {pairs} pairs in turns, every maln byte-identical; this tree faster in "
         f"{wins} of {pairs} pairs")
     for name, rs in runs.items():
-        say(f"wide a/b:   {name}: reads/s {quartiles([inputs['reads'] / r['wall'] for r in rs])}; "
-            + "; ".join(f"{k} s {quartiles([r[k] for r in rs])}"
-                        for k in ("wall", *WIDE_AB_PHASES)))
-    for name in ("earlier", "this"):
-        sampled_run(f"wide a/b: sampled run ({name})",
-                    lambda: run(name, f"sampled_{name}"))
+        say(f"{label}:   {name}: reads/s {quartiles([inputs['reads'] / r['wall'] for r in rs])}; "
+            + "; ".join(f"{k} s {quartiles([r[k] for r in rs])}" for k in ("wall", *phases)))
+    if sampled:
+        for name in ("earlier", "this"):
+            sampled_run(f"{label}: sampled run ({name})", lambda: run(name, f"sampled_{name}"))
+
+
+def phase_wide_ab(earlier_root: str, pairs: int) -> None:
+    """``--wide-ab``: :func:`port_ab` on phase 7b's workload (the 100k cell's
+    traffic cut to 20k reads at seed 1): pass 1's phases and the wide reads'
+    counters."""
+    d = os.path.join(WORK, "wide_ab")
+    inputs = dict(wide_workload(d), work=d)
+    port_ab("wide a/b", earlier_root, pairs, inputs, WIDE_AB_PHASES, WIDE_AB_COUNTERS)
 
 
 PREP_AB_PHASES = ("pass1", "pass1.pack_prepare", "pass1.prep_wait", "pass1.dispatch",
@@ -1679,93 +1774,30 @@ def phase_ccheck_ab(earlier: str, pairs: int) -> None:
                         for k in ("wall", "walks", "realign", "myers")))
 
 
-HP_AB_PHASES = ("filters.cull", "consensus", "consensus.ins_cols", "consensus.main_counts")
+HP_AB_PHASES = ("pass1", "pass1.native_finish", "pass1.py_merge", "pass1.collect_wait",
+                "filters.cull", "consensus", "consensus.ins_cols", "reiterate", "gc")
+HP_AB_COUNTERS = ("pass1.device_scored_reads", "pass1.device_scored_wide_reads",
+                  "pass1.native_solved_wide_reads", "pass1.finish_host_reads")
 
 
 def phase_hp_ab(earlier_root: str, pairs: int) -> None:
-    """``--hp-ab``: the gap-column host layer of ``earlier_root`` (a checkout
-    of an earlier commit: its ``core/fsdb.py`` and ``core/columns.py``,
-    loaded beside this tree's and bound to this tree's other modules)
-    against this tree's, whole ``mia.main`` calls with ``-h --engine torch
-    --profile`` in turns on the ``-h`` cell's traffic at seed 41 (20,000
-    reads with homopolymer-length errors at the cell's rate).  Every run's
-    maln bytes must equal the earlier layer's first run's."""
-    import importlib.util
+    """``--hp-ab``: :func:`port_ab` with ``-h`` on the ``-h`` cell's traffic
+    at seed 41 (20,000 reads with homopolymer-length errors at the cell's
+    rate): pass 1's phases (``pass1``, ``pass1.native_finish``), the cull's
+    and consensus's, the wide reads' counters and, from ``run_side``, the
+    ``-h`` scorers' launches; no sampled runs."""
     from types import SimpleNamespace
 
     from benchmark import cells
     from benchmark.run import load_benchmark, load_config
-    from mia_tpu_torch.core import assembler, columns, fsdb
-    from mia_tpu_torch.ops import consensus_torch, dp_cuda
 
-    swaps = {}
-    for this in (fsdb, columns):
-        name = this.__name__ + "_earlier"
-        spec = importlib.util.spec_from_file_location(
-            name, os.path.join(earlier_root, "mia_tpu_torch", "core",
-                               this.__name__.rsplit(".", 1)[1] + ".py"))
-        earlier = importlib.util.module_from_spec(spec)
-        sys.modules[name] = earlier
-        spec.loader.exec_module(earlier)
-        # the names core/assembler.py imports from the module
-        for attr, obj in vars(assembler).items():
-            if getattr(obj, "__module__", None) == this.__name__:
-                swaps[attr] = (getattr(earlier, attr), obj)
     cell = next(w for w in load_benchmark()["workloads"] if w["name"] == "mia-hsmt-100k-h")
     d = os.path.join(WORK, "hp_ab")
     os.makedirs(d)
-    ctx = SimpleNamespace(seed=41, scale=1.0, work=d)
-    inputs = cells.make_inputs(ctx, cell, load_config(cell))
-    say(f"hp a/b: {inputs['held']}; swapped for the earlier layer: {sorted(swaps)}")
-
-    def run(name: str, tag: str) -> tuple[dict, float, dict]:
-        root = os.path.join(d, tag, "out.maln")
-        os.makedirs(os.path.dirname(root))
-        for attr, (earlier, this) in swaps.items():
-            setattr(assembler, attr, earlier if name == "earlier" else this)
-        reset_counts()
-        t0 = time.time()
-        try:
-            # the run's own log would bury the phase's lines
-            with contextlib.redirect_stdout(io.StringIO()), \
-                    contextlib.redirect_stderr(io.StringIO()):
-                prof = run_port(inputs["args"], root, profile=True)
-        finally:
-            for attr, (_, this) in swaps.items():
-                setattr(assembler, attr, this)
-        return maln_bytes(root), time.time() - t0, prof
-
-    want, wall, _ = run("earlier", "warm")
-    say(f"hp a/b: warm-up (earlier layer) {wall:.3f} s, {len(want)} maln files")
-    runs: dict[str, list[dict]] = {"earlier": [], "this": []}
-    for k, name in enumerate(ab_order(pairs)):
-        got, wall, prof = run(name, f"run{k}")
-        if got != want:
-            raise AssertionError(f"hp a/b: run {k} ({name}) maln differs from the earlier "
-                                 f"layer's")
-        counts = {"dp.hp_kernel_launches": dp_cuda.hp_kernel_launches,
-                  "dp.hp_plain_calls": dp_cuda.hp_plain_calls,
-                  "cons.kernel_launches": consensus_torch.kernel_launches,
-                  "cons.plain_calls": consensus_torch.plain_calls,
-                  "pass1.device_scored_reads":
-                      prof["counters"].get("pass1.device_scored_reads", 0)}
-        if (counts["dp.hp_plain_calls"] or counts["cons.plain_calls"]
-                or not counts["dp.hp_kernel_launches"] or not counts["cons.kernel_launches"]):
-            raise AssertionError(f"hp a/b: run {k} ({name}) did not score on the card: "
-                                 f"{counts}")
-        ph = prof["phases_s"]
-        r = {"wall": wall, **{p: ph.get(p, 0.0) for p in HP_AB_PHASES}}
-        runs[name].append(r)
-        say(f"hp a/b: {name}: {wall:.3f} s, {inputs['reads'] / wall:.2f} reads/s; "
-            + ", ".join(f"{p} {r[p]:.3f}" for p in HP_AB_PHASES) + f"; {json.dumps(counts)}")
-    wins = sum(b["wall"] < a["wall"] for a, b in zip(runs["earlier"], runs["this"]))
-    say(f"hp a/b: {pairs} pairs in turns, every run's maln byte-identical to the earlier "
-        f"layer's; this tree faster in {wins} of {pairs} pairs")
-    for name, rs in runs.items():
-        rates = [inputs["reads"] / r["wall"] for r in rs]
-        say(f"hp a/b:   {name}: reads/s {quartiles(rates)}; "
-            + "; ".join(f"{k} s {quartiles([r[k] for r in rs])}"
-                        for k in ("wall", *HP_AB_PHASES)))
+    inputs = cells.make_inputs(SimpleNamespace(seed=41, scale=1.0, work=d), cell,
+                               load_config(cell))
+    port_ab("hp a/b", earlier_root, pairs, dict(inputs, work=d), HP_AB_PHASES,
+            HP_AB_COUNTERS, sampled=False)
 
 
 MERGE_AB_LAYER = ("entries", "driver", "assembler")  # core/ modules, in import order
@@ -2519,7 +2551,8 @@ assert not bad, bad
 sys.exit(rc)
 """
 SERVER_CHECKS = ("pass1.using_server", "pass1.device_scored_reads", "reiterate.device_entries",
-                 "consensus.device_calls", "consensus.device_fallbacks")
+                 "consensus.device_calls", "consensus.device_fallbacks",
+                 "pass1.native_solved_wide_reads")
 
 
 def server_hello(sock: str) -> dict:
@@ -2585,6 +2618,8 @@ def check_served(tag: str, counters: dict, before: dict, after: dict, scorer: st
             and checks["consensus.device_fallbacks"] == 0
             and rise[scorer] >= runs and rise["cons.kernel_launches"] >= runs
             and rise["dp.plain_calls"] == rise["dp.hp_plain_calls"] == 0
+            and rise["dp.last_row_plain_calls"] == rise["dp.last_row_hp_plain_calls"] == 0
+            and checks["pass1.native_solved_wide_reads"] == 0
             and rise["cons.plain_calls"] == 0):
         raise AssertionError(f"server {tag}: not served by the card: {checks}, server {rise}")
     return rise
@@ -2621,7 +2656,8 @@ def phase_server(args: list[str], walls: dict, smi: str) -> dict:
             f"library {h['library']}), {t_start:.3f} s from launch to the first hello; {smi}")
         want = maln_bytes(os.path.join(WORK, "e2e", "torch_inproc", "out.maln"))
         want_hp = maln_bytes(os.path.join(WORK, "e2e_hp", "torch_inproc", "out.maln"))
-        launches = {"dp_entries": 0, "dp_entries_hp": 0, "column_counts": 0}
+        launches = {"dp_entries": 0, "dp_entries_hp": 0, "column_counts": 0,
+                    "dp_last_row_hp": 0}
 
         def served(tags, run_args, want_bytes, scorer):
             before = server_hello(sock)
@@ -2634,6 +2670,7 @@ def phase_server(args: list[str], walls: dict, smi: str) -> dict:
             launches["dp_entries"] += rise["dp.kernel_launches"]
             launches["dp_entries_hp"] += rise["dp.hp_kernel_launches"]
             launches["column_counts"] += rise["cons.kernel_launches"]
+            launches["dp_last_row_hp"] += rise["dp.last_row_hp_launches"]
             return [w for w, _ in out], out[-1][1], rise
 
         client_walls = []
@@ -2647,6 +2684,9 @@ def phase_server(args: list[str], walls: dict, smi: str) -> dict:
         say("server: client phases s " + json.dumps(prof["phases_s"], sort_keys=True))
         (hp_wall,), prof, rise = served(["client_hp"], [*args, "-h"], want_hp,
                                         "dp.hp_kernel_launches")
+        if not rise["dp.last_row_hp_launches"]:
+            raise AssertionError(f"server: the -h client's WIDE reads did not go through "
+                                 f"dp_last_row_hp: {rise}")
         say(f"server: -h client {hp_wall:.3f} s (run {prof['total_s']:.3f} s), malns "
             f"byte-identical to phase 8; server launches {json.dumps(rise)}")
         say("server: -h client phases s " + json.dumps(prof["phases_s"], sort_keys=True))
@@ -2766,8 +2806,10 @@ def main() -> int:
                                       captured=captured)
     wide = phase_wide(dev)
     phase_prepare_threads()
-    hp_counts, _ = run_e2e("e2e_hp", [*args, "-h"], hp=True, new_process=False,
-                           captured=captured)
+    with LastRowTimer("dp_last_row_hp") as hp_timer:
+        hp_counts, _ = run_e2e("e2e_hp", [*args, "-h"], hp=True, new_process=False,
+                               captured=captured)
+    wide_hp = phase_wide_hp(hp_timer, hp_counts)
     shapes = phase_workload_shapes(captured)
     myers_kern = phase_myers_kernel(dev)
     phase_ccheck_golden()
@@ -2832,6 +2874,15 @@ def main() -> int:
         "workload_plain_ms": wide["workload_plain_ms"],
         "workload_bound_ms": wide["workload_bound_ms"],
         **last_row_kern,
+    }, {
+        "name": "dp_last_row_hp",
+        "route": "cuda",
+        "source": "mia_tpu_torch/csrc/dp_last_row.cu",
+        "replaces": "mia_tpu/ops/dp_jax.py:220",
+        # pass 1's -h WIDE reads (phase 8); its numbers at the run's largest
+        # call (phase 8c); the server's launches for the -h client (16b)
+        "server_launches": server_launches["dp_last_row_hp"],
+        **wide_hp,
     }, {
         "name": "pileup_counts",
         "route": "cuda",

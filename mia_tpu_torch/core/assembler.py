@@ -85,7 +85,6 @@ from .entries import (
     diag_gapfree,
     longest_runs,
     pack_chars,
-    wide_scored,
 )
 from .fsdb import (
     FSDB,
@@ -139,8 +138,9 @@ def _log(msg: str) -> None:
 
 # What the pass-1 merge does with a drained read: skip it, take the gate's
 # score, align it on the host, merge its native solve (band wider than the
-# device window, not scored on the card), merge its gap-free diagonal, or
-# merge its native traceback.
+# device window, and under -h a strand window past entries.HP_WIDE_COLS: not
+# scored on the card), merge its gap-free diagonal, or merge its native
+# traceback.
 SKIP, GATED, HOST, WIDE, GAPFREE, TRACED = range(6)
 
 
@@ -151,8 +151,9 @@ def plan_batch(flags, fb, fa, rb, ra, distant_ref: bool, dev_wide=None):
     column, and the gate (src/map_align.c:1614; none under -D).  Every
     winner is TRACED until its diagonal proves gap-free.  A WIDE read that
     the card scored full width (``dev_wide`` [n] bool,
-    ``entries.wide_scored``) is decided as a windowed one; the other WIDE
-    reads keep the native solve."""
+    ``entries.wide_scored``; with or without ``-h``) is decided as a
+    windowed one; the other WIDE reads (under ``-h`` the width rule's) keep
+    the native solve."""
     flags = np.asarray(flags)
     fb = np.asarray(fb)
     rb = np.asarray(rb)
@@ -493,10 +494,15 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
         arena, off, lens, fw_ivg, rc_ivg, flags = prep
         with profiling.phase("pass1.collect_wait"):
             fb, fa, rb, ra = scorer.collect_arrays(handle)
-        # without -h the card scored the WIDE reads full width too
-        dev_wide = None if scorer.hp else wide_scored(flags, lens)
+        # the WIDE reads the card scored full width: the rows the scorer
+        # dispatched, the fourth item of its packed handle (entries.wide_rows;
+        # under -h none past HP_WIDE_COLS)
+        dev_wide = np.zeros(len(lens), bool)
+        if handle[3] is not None:
+            dev_wide[handle[3].sel] = True
         kind, rc, best, aec = plan_batch(flags, fb, fa, rb, ra, maln.distant_ref, dev_wide)
-        # WIDE reads the card did not score (-h): threaded native solve
+        # WIDE reads the card did not score (-h, past the width rule): threaded
+        # native solve
         wide_idx = np.flatnonzero(kind == WIDE)
         win = np.flatnonzero(kind == TRACED)
         # the row of a WIDE read's native solve, or of a TRACED read's
@@ -505,8 +511,7 @@ def _assemble(cfg: MiaConfig, multi: bool, placement: Placement | None) -> MapAl
         row[wide_idx] = np.arange(len(wide_idx))
         abc = np.zeros(len(records), np.int64)
         profiling.count("pass1.device_scored_reads", len(win))
-        if dev_wide is not None:
-            profiling.count("pass1.device_scored_wide_reads", int(dev_wide.sum()))
+        profiling.count("pass1.device_scored_wide_reads", int(dev_wide.sum()))
         profiling.count("pass1.native_solved_wide_reads", len(wide_idx))
 
         def work():

@@ -84,7 +84,7 @@ def default_batch() -> int:
 MAX_INTERVALS = 16
 # per-read reference window for the banded scorer; a read whose band spans
 # more than WIN_W columns on either strand is WIDE: scored full width by the
-# general-width scorer (wide_rows), or under -h solved by the native engine
+# general-width scorers (wide_rows)
 WIN_W = 384
 L_MAX = INIT_ALN_SEQ_LEN     # 256: the reference's hard read-length cap
 REF_BUCKET = 2048            # reference width pads to a multiple of this
@@ -134,33 +134,68 @@ def split_pass1_results(best, aec, fw_ws, rc_ws):
 # native solve's fill_strand leaves it (mia_tpu_torch/native/src/hostbatch.cc)
 NO_BAND_SCORE = HIM
 
+# the widest strand window the -h full-width scorer takes (its register
+# form's 512 threads x 34 columns, csrc/dp_last_row.cu, whose
+# mia_dp_last_row_constants reports it to the loader): an -h WIDE read with
+# a wider window on either strand stays with the native solve, a routing
+# decided here before dispatch (the human-mt strands, 16,619 columns and the
+# wrap, never reach it)
+HP_WIDE_COLS = 512 * 34
 
-def wide_scored(flags, lens) -> np.ndarray:
-    """[n] bool: the WIDE reads the general-width scorer takes (the device
-    engine without ``-h``): not skipped or sent to the host, 1..L_MAX bases.
+
+def window_bounds(ivg) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(has [n] bool, win_lo [n] int64, hi [n] int64) of each read's window
+    on one strand from its GLOBAL band intervals ``ivg`` [n, K, 2], as the
+    native solve's ``fill_strand`` lays it out: from two columns before the
+    first interval (at least 0) to the end of the last; ``has`` is False for
+    a strand without intervals."""
+    ivg = np.asarray(ivg, np.int64)
+    used = ivg[:, :, 1] > 0
+    first = np.where(used, ivg[:, :, 0], np.iinfo(np.int64).max).min(axis=1)
+    has = used.any(axis=1)
+    win_lo = np.where(has, np.maximum(first - 2, 0), 0)
+    return has, win_lo, np.where(used, ivg[:, :, 1], 0).max(axis=1)
+
+
+def window_widths(fw_ivg, rc_ivg) -> np.ndarray:
+    """[n] int64: the wider of each read's two strand windows
+    (:func:`window_bounds`; 0 for a strand without intervals)."""
+    widths = [np.where(has, hi - lo, 0) for has, lo, hi in map(window_bounds, (fw_ivg, rc_ivg))]
+    return np.maximum(*widths)
+
+
+def wide_scored(flags, lens, widths=None) -> np.ndarray:
+    """[n] bool: the WIDE reads the general-width scorers take: not skipped
+    or sent to the host, 1..L_MAX bases, and under ``-h`` (``widths``:
+    :func:`window_widths`) no strand window wider than :data:`HP_WIDE_COLS`.
     The rest of the WIDE reads keep the native solve."""
     from .hostbatch import FLAG_HOST_ONLY, FLAG_SKIP, FLAG_WIDE
 
     flags = np.asarray(flags)
     lens = np.asarray(lens)
-    return (((flags & FLAG_WIDE) != 0) & ((flags & (FLAG_SKIP | FLAG_HOST_ONLY)) == 0)
-            & (lens >= 1) & (lens <= L_MAX))
+    taken = (((flags & FLAG_WIDE) != 0) & ((flags & (FLAG_SKIP | FLAG_HOST_ONLY)) == 0)
+             & (lens >= 1) & (lens <= L_MAX))
+    if widths is not None:
+        taken &= np.asarray(widths) <= HP_WIDE_COLS
+    return taken
 
 
 @dataclass
 class WideRows:
     """A batch's WIDE reads as rows of the general-width scorer
-    (``dp_cuda.dp_last_row``): one row per (read, strand with intervals),
-    each over its own window of the strand, exactly the window the native
-    solve fills (``fill_strand``, hostbatch.cc: it starts two columns before
-    the first interval and ends with the last)."""
+    (``dp_cuda.dp_last_row``, under ``-h`` ``dp_cuda.dp_last_row_hp``): one
+    row per (read, strand with intervals), each over its own window of the
+    strand, exactly the window the native solve fills (``fill_strand``,
+    hostbatch.cc: it starts two columns before the first interval and ends
+    with the last)."""
 
     sel: np.ndarray     # [m] int64 the reads taken (wide_scored), batch index
     read: np.ndarray    # [R] int64 each row's read, batch index
     strand: np.ndarray  # [R] int8 0 forward, 1 reverse complement
     win_lo: np.ndarray  # [R] int32 global column of the row's column 0
     ivl: np.ndarray     # [R, K, 2] int32 window-local [lo, hi), (0, 0) unused
-    s2c: np.ndarray     # [R, L] int32 read codes (pad 4), L the longest read
+    s2c: np.ndarray     # [R, L] int32 read codes (pad 4), or under -h uint8
+                        # read chars (pad 0); L the longest read
     lengths: np.ndarray  # [R] int32 read lengths
     width: int          # W: the widest row's columns
 
@@ -169,29 +204,29 @@ class WideRows:
         return len(self.read)
 
 
-def wide_rows(flags, lens, s2c, fw_ivg, rc_ivg) -> WideRows | None:
+def wide_rows(flags, lens, s2c, fw_ivg, rc_ivg, hp: bool = False) -> WideRows | None:
     """The rows of a pass-1 batch's :func:`wide_scored` reads (None when it
-    has none) from ``BatchHost.prepare``'s read codes and GLOBAL band
-    intervals: a strand's window starts at ``max(first lo - 2, 0)`` and is
-    ``last hi - win_lo`` columns wide; a strand without intervals gets no
-    row (its score is :data:`NO_BAND_SCORE`)."""
-    sel = np.flatnonzero(wide_scored(flags, lens))
+    has none) from ``BatchHost.prepare``'s read codes, or under ``-h`` the
+    read chars of ``pack_chars``, and GLOBAL band intervals: a strand's
+    window is :func:`window_bounds`'; a strand without intervals gets no
+    row (its score is :data:`NO_BAND_SCORE`).  Under ``-h`` a read with a
+    window wider than :data:`HP_WIDE_COLS` is not taken."""
+    sel = np.flatnonzero(wide_scored(flags, lens,
+                                     window_widths(fw_ivg, rc_ivg) if hp else None))
     if not len(sel):
         return None
     ivg = np.concatenate([fw_ivg[sel], rc_ivg[sel]]).astype(np.int64)
     read = np.concatenate([sel, sel])
     strand = np.repeat(np.array([0, 1], np.int8), len(sel))
+    has, win_lo, hi = window_bounds(ivg)
+    ivg, read, strand, win_lo, hi = ivg[has], read[has], strand[has], win_lo[has], hi[has]
     used = ivg[:, :, 1] > 0
-    has = used.any(axis=1)
-    ivg, read, strand, used = ivg[has], read[has], strand[has], used[has]
-    first = np.where(used, ivg[:, :, 0], np.iinfo(np.int64).max).min(axis=1)
-    win_lo = np.maximum(first - 2, 0)
-    hi = np.where(used, ivg[:, :, 1], 0).max(axis=1)
     ivl = np.where(used[:, :, None], ivg - win_lo[:, None, None], 0)
     lengths = np.asarray(lens, np.int32)[read]
     L = int(lengths.max())
     return WideRows(sel, read, strand, win_lo.astype(np.int32), ivl.astype(np.int32),
-                    np.ascontiguousarray(np.asarray(s2c)[read, :L], np.int32), lengths,
+                    np.ascontiguousarray(np.asarray(s2c)[read, :L],
+                                         np.uint8 if hp else np.int32), lengths,
                     int((hi - win_lo).max()))
 
 

@@ -38,8 +38,12 @@ What changed from the TPU engine, and why:
   over the strand's window (``entries.wide_rows``), launched after the
   batch's entries on the same stream, and only each row's (best, aec) comes
   back.  Under ``--dp-devices`` all of a batch's wide rows go to the first
-  shard.  Under ``-h`` WIDE reads stay native, as in the JAX package (the
-  general-width scorer has no ``-h`` form).
+  shard.  Under ``-h`` the rows carry the reads' chars and go to the
+  general-width scorer's ``-h`` form
+  (:func:`mia_tpu_torch.ops.dp_cuda.dp_last_row_hp`), which reads its
+  windows of the strands' codes, chars and run starts from the state
+  itself; a read with a strand window past that form's 17,408 columns
+  (``entries.HP_WIDE_COLS``) stays with the native solve.
 
 The numpy helpers (``build_pass1_entries``, ``split_pass1_results``,
 ``wide_rows``, ``merge_wide``, ``pack_s2c``, ``diag_gapfree``) and the shape
@@ -54,7 +58,7 @@ import numpy as np
 import torch
 
 from ..ops import dp_cuda
-from ..ops.dp_torch import batch_best_and_aec, depths_for
+from ..ops.dp_torch import batch_best_and_aec, depths_for, interval_mask, strand_windows
 from ..utils.encoding import BASE2INX, pop_hpl_and_hps
 from ..utils.torchcfg import kernel_library, select_device
 from .entries import (
@@ -149,34 +153,27 @@ def wide_device_inputs(refs: torch.Tensor, width: int, strand: torch.Tensor,
                        win_lo: torch.Tensor, ivl: torch.Tensor):
     """(s1c [R, W] int32, mask [R, W] bool) of wide rows, made on ``refs``'
     device from the rows' strands, window starts and window-local intervals
-    (``entries.wide_inputs`` in numpy): each strand is padded with ``width``
-    columns of code 4, so that every window is a slice of one flat array,
-    and the mask is the running sum of +1 at each interval's start and -1
-    at its end (an unused (0, 0) slot adds nothing), so no [R, K, W] array
-    is made."""
-    dev = refs.device
-    W = width
-    WTOT = refs.shape[1]
-    flat = torch.cat([refs, torch.full((2, W), 4, dtype=refs.dtype, device=dev)], 1)
-    starts = strand.to(torch.int64) * (WTOT + W) + win_lo.to(torch.int64)
-    s1c = flat.reshape(-1).unfold(0, W, 1)[starts].to(torch.int32)
-    iv = ivl.to(torch.int64)
-    ones = torch.ones(iv.shape[:2], dtype=torch.int32, device=dev)
-    edge = torch.zeros((len(starts), W + 1), dtype=torch.int32, device=dev)
-    edge.scatter_add_(1, iv[:, :, 0], ones)
-    edge.scatter_add_(1, iv[:, :, 1], -ones)
-    mask = torch.cumsum(edge[:, :W], 1, dtype=torch.int32) > 0
-    return s1c, mask
+    (``entries.wide_inputs`` in numpy; ``dp_torch.strand_windows`` and
+    ``interval_mask``)."""
+    return (strand_windows(refs, strand, win_lo, width, 4).to(torch.int32),
+            interval_mask(ivl, width))
 
 
 def score_wide(state: ScorerState, width: int, strand, win_lo, ivl, s2c,
                lengths) -> torch.Tensor:
     """(best, window-local aec) of wide rows as [2, R] int32: the last DP
-    row by ``dp_cuda.dp_last_row`` (the kernel on a card, its plain version
-    on the CPU) and its first maximum (the native solve takes the earliest
-    column too, hostbatch.cc ``fill_strand``).  Every row scores with the
+    row's first maximum (the native solve takes the earliest column too,
+    hostbatch.cc ``fill_strand``).  Without ``-h`` the row comes from
+    ``dp_cuda.dp_last_row`` (the kernel on a card, its plain version on the
+    CPU) and its maximum from ``batch_best_and_aec``; under ``-h`` (``s2c``:
+    read chars) ``dp_cuda.dp_last_row_hp`` reads the windows of the state's
+    strands itself and returns only the pair.  Every row scores with the
     forward PSSM, as ``mia_p1_solve`` does for both strands
     (``ctx->submat[0]``)."""
+    if state.hp:
+        return dp_cuda.dp_last_row_hp(state.refs, state.refchr, state.hpcs, state.sms[0],
+                                      state.pengop, state.b2i, strand, win_lo, ivl, s2c,
+                                      lengths, width)
     s1c, mask = wide_device_inputs(state.refs, width, strand, win_lo, ivl)
     depths = depths_for(lengths, s2c.shape[1]).to(torch.int32)
     last = dp_cuda.dp_last_row(s1c, mask, s2c, lengths, depths, state.sms[0])
@@ -336,10 +333,11 @@ class Pass1Scorer:
         return out, event
 
     def dispatch_wide(self, rows: WideRows | None) -> _Batch | None:
-        """Enqueue the general-width scorer on wide rows (``entries.wide_rows``;
-        None: nothing) on the first shard, behind what that shard's stream
-        holds already.  Results via :meth:`collect_entries`: (best, aec),
-        aec WINDOW-LOCAL (add the row's ``win_lo``)."""
+        """Enqueue the general-width scorer (under ``-h`` its ``-h`` form) on
+        wide rows (``entries.wide_rows``; None: nothing) on the first shard,
+        behind what that shard's stream holds already.  Results via
+        :meth:`collect_entries`: (best, aec), aec WINDOW-LOCAL (add the
+        row's ``win_lo``)."""
         if rows is None:
             return None
         host = (rows.strand, rows.win_lo, rows.ivl, rows.s2c, rows.lengths)
@@ -354,7 +352,7 @@ class Pass1Scorer:
         an entries handle or a packed pass-1 handle (its wide rows too)."""
         batches = [handle]
         if isinstance(handle, tuple):
-            batches = [handle[0]] + ([handle[3][1]] if handle[3] is not None else [])
+            batches = [b for b in (handle[0], handle[4]) if b is not None]
         return all(event is None or event.query()
                    for batch in batches for _, event in batch.parts)
 
@@ -378,29 +376,31 @@ class Pass1Scorer:
     def dispatch_packed(self, s2c, lens, fw_ws, rc_ws, fw_ivg, rc_ivg, flags):
         """Enqueue one pass-1 read batch packed by the native host engine
         (core/hostbatch.py: BatchHost.prepare): each read becomes two
-        entries (fw then rc), and without ``-h`` each WIDE read's strands
-        rows of the general-width scorer (:meth:`dispatch_wide`).  Other
-        flagged reads (FLAG_SKIP / HOST_ONLY, and WIDE under ``-h``) get
-        empty intervals and garbage scores the caller ignores.  Results via
-        :meth:`collect_arrays`."""
+        entries (fw then rc), and each WIDE read's strands rows of the
+        general-width scorer (:meth:`dispatch_wide`; under ``-h``, where
+        ``s2c`` holds the reads' chars, its ``-h`` form, and a read past
+        ``entries.HP_WIDE_COLS`` columns none).  The entries of flagged
+        reads (FLAG_SKIP / HOST_ONLY / WIDE) get empty intervals and scores
+        the caller ignores; a WIDE read's scores come from its rows.
+        Results via :meth:`collect_arrays`; the handle's fourth item is the
+        batch's ``entries.WideRows`` (None: no wide read taken), as the
+        server client's is."""
         n = len(lens)
         if n > self.batch:
             raise ValueError(f"{n} reads exceed the batch of {self.batch}")
         if n == 0:
-            return _Batch([], 0), fw_ws.copy(), rc_ws.copy(), None
+            return _Batch([], 0), fw_ws.copy(), rc_ws.copy(), None, None
         entries = build_pass1_entries(s2c, lens, fw_ws, rc_ws, fw_ivg, rc_ivg, flags)
         batch = self.dispatch_entries(*entries)
-        rows = None if self.hp else wide_rows(flags, lens, s2c, fw_ivg, rc_ivg)
-        wide = None if rows is None else (rows, self.dispatch_wide(rows))
-        return batch, fw_ws.copy(), rc_ws.copy(), wide
+        rows = wide_rows(flags, lens, s2c, fw_ivg, rc_ivg, hp=self.hp)
+        return batch, fw_ws.copy(), rc_ws.copy(), rows, self.dispatch_wide(rows)
 
     def collect_arrays(self, handle):
         """Materialise a packed pass-1 batch: (fb, fa, rb, ra) int64 [n]
         with aec in GLOBAL reference coordinates, the wide reads' included."""
-        batch, fw_ws, rc_ws, wide = handle
+        batch, fw_ws, rc_ws, rows, wbatch = handle
         best, aec = self.collect_entries(batch)
         fb, fa, rb, ra = split_pass1_results(best, aec, fw_ws, rc_ws)
-        if wide is not None:
-            rows, wbatch = wide
+        if rows is not None:
             merge_wide(fb, fa, rb, ra, rows, *self.collect_entries(wbatch))
         return fb, fa, rb, ra

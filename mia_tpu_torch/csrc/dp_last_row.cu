@@ -69,7 +69,41 @@
 // memory while 13 W bytes fit (W <= 17.8k), else in a scratch buffer in
 // global memory; two passes and two barriers a row.  It is the kernel this
 // file held before the register form, unchanged.
+//
+// The kHp instantiation of the register form (mia_dp_last_row_hp) replaces
+// mia_tpu/ops/dp_jax.py::batch_last_row_hp at full width, with the window
+// set-up of jax_engine._entries_core_hp done inside it: pass 1's -h WIDE
+// reads, one row per (read, strand with intervals).  A row reads its window
+// of the scorer's [2, WTOT] strand codes, chars and run starts itself, makes
+// its band from its intervals, its codes and depths from its read chars and
+// length, and only (best, first column of the best) leaves the block; the
+// plain version is mia_tpu_torch/ops/dp_torch.py::last_row_hp_plain.  What
+// -h adds (src/mia.c:883-905):
+//   * hp_col, on the first row of a read run: the previous row at the column
+//     before the cell's reference run, which may lie in any thread, and
+//     hp_row, on the run's later rows: the row before the run at the column
+//     to the left.  Both read the same row, the one before the run started,
+//     so it is staged in shared memory on every run start (17,408 columns,
+//     68 KB), in one of two buffers by turns, so that a thread can stage the
+//     next run's row while its neighbours still read the last one's: no
+//     barrier beyond the row's one.  The TPU's ring of 32 rows is not kept;
+//     its reach stays as a guard (row - run start < 32), as in dp_entries.cu;
+//   * per column one word in shared memory (68 KB): the reference char, and
+//     whether and from where the column takes a candidate.  Registers have
+//     no room for them: the plain form already holds 128.  A row's kind
+//     (none, hp_col, hp_row) is the same for the block, so each kind is its
+//     own straight-line variant of the cell loop;
+//   * a candidate joins the cell's max like the gap candidates, which keeps
+//     the row-gap max's one-row-early shortcut exact (the diagonal still
+//     beats the extra candidate by GOP); one from a closed column is as low
+//     as every value from a closed cell, below the restart value;
+//   * the row's window is the batch's widest, W, and a narrower row's
+//     columns past its own intervals are closed: it costs their cells, and
+//     no read of the strand state goes past it (columns past WTOT read code
+//     4, char 0, run start 0, as the plain version pads them).
+#include <climits>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -105,6 +139,46 @@ constexpr int kCodes = 6;          // reference codes 0..4, and 5: a closed colu
 constexpr int kRowBytes = kCodes * 8;
 constexpr int kCodeWords = (kCols + 3) / 4;
 
+// The kHp form (-h): intervals a row, the row reach of a read run, the
+// discount slots, and the flags of a column's word (bits 0-15: hp_col's
+// source column, bits 24-31: the reference char).
+constexpr int kPssmDepth = (kDepth - 1) / 2;
+constexpr int kK = 16;             // entries.MAX_INTERVALS
+constexpr int kHpw = 32;           // entries.HPW_ROUTE
+constexpr int kPengop = 11;        // entries.hp_pengop_table()
+constexpr uint32_t kHcOk = 1u << 16;  // hp_col: the reference run starts inside the window
+constexpr uint32_t kHrOk = 1u << 17;  // hp_row: the column starts a reference run (not column 0)
+
+// The kHp form's inputs: the scorer's [2, WTOT] strand state, and per row
+// its strand, window start, window-local intervals and read chars.
+struct HpArgs {
+  const int8_t* refs;      // [2, wtot] codes
+  const uint8_t* refchr;   // [2, wtot] chars
+  const int32_t* hpcs;     // [2, wtot] global run start per column (<= the column)
+  int wtot;
+  const int8_t* strand;    // [B]
+  const int32_t* win_lo;   // [B] global column of the row's column 0
+  const int32_t* ivl;      // [B, kK, 2] window-local [lo, hi), lo <= hi
+  const uint8_t* s2chr;    // [B, L] read chars, pad 0
+  const int32_t* pengop;   // [kPengop]
+  const int8_t* b2i;       // [256] char -> code
+};
+
+// Shared memory of the kHp form only: each read row's char, the row its
+// read run starts on and its discount slot; one (best, column) a warp.
+template <bool kHp>
+struct HpRows {
+  uint8_t chr[kLMax], hprs[kLMax], pidx[kLMax];
+  int pengop[kPengop];
+  int2 best[32];
+};
+template <>
+struct HpRows<false> {};
+
+template <int k>
+using Kind = std::integral_constant<int, k>;
+
+template <bool kHp>
 __global__ void __launch_bounds__(kRegThreads, 1)
 dp_last_row_kernel(const int32_t* __restrict__ s1c, int s1c_per_read,
                    const uint8_t* __restrict__ mask,
@@ -112,7 +186,7 @@ dp_last_row_kernel(const int32_t* __restrict__ s1c, int s1c_per_read,
                    const int32_t* __restrict__ depths,
                    const int32_t* __restrict__ submat,
                    const int32_t* __restrict__ lengths, int B, int W, int L, int sg5,
-                   int ranked, int32_t* __restrict__ out) {
+                   int ranked, HpArgs hp, int32_t* __restrict__ out) {
   // per row and code: (score where the cell keeps its base, addend where it
   // restarts); code 5, a closed column: (HIM, HIM)
   __shared__ int2 sh_tab[kLMax * kCodes];
@@ -120,6 +194,9 @@ dp_last_row_kernel(const int32_t* __restrict__ s1c, int s1c_per_read,
   // its last thread's last column, and that column's row value and row-gap max
   __shared__ int4 sh_edge[2][32];
   __shared__ int sh_hist[kLMax], sh_warp[32], sh_pick[2];
+  __shared__ HpRows<kHp> sh_hp;
+  // kHp: two staged rows of blockDim.x * kCols columns, then a word a column
+  extern __shared__ int32_t dyn[];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -178,13 +255,40 @@ dp_last_row_kernel(const int32_t* __restrict__ s1c, int s1c_per_read,
   }
   const int c0 = tid * kCols;
   const int goff = GEP * c0;  // thread-local column-gap coordinates to the row's
-  const int32_t* ref = s1c + (s1c_per_read ? (int64_t)b * W : 0);
-  const uint8_t* mk = mask + (int64_t)b * W;
   const int last = last_of(b);
+  const int wp = blockDim.x * kCols;  // kHp: the columns of a staged row
+  int32_t* stage = dyn;
+  uint32_t* colw = (uint32_t*)(dyn + 2 * wp);
 
+  if constexpr (kHp) {
+    // read runs (dp_torch.read_runs) over all L rows: a row's run starts
+    // after the last row before it with another char, and ends before the
+    // first row after it with another char
+    for (int r = tid; r < L; r += blockDim.x) sh_hp.chr[r] = hp.s2chr[(int64_t)b * L + r];
+    if (tid < kPengop) sh_hp.pengop[tid] = hp.pengop[tid];
+    __syncthreads();
+    for (int r = tid; r < L; r += blockDim.x) {
+      const uint8_t ch = sh_hp.chr[r];
+      int hs = r, he = r;
+      while (hs > 0 && sh_hp.chr[hs - 1] == ch) --hs;
+      while (he + 1 < L && sh_hp.chr[he + 1] == ch) ++he;
+      sh_hp.hprs[r] = (uint8_t)hs;
+      sh_hp.pidx[r] = (uint8_t)min(he - hs, kPengop - 1);
+    }
+  }
   for (int r = tid; r <= last; r += blockDim.x) {
-    const int64_t at = (int64_t)b * L + r;
-    int d = depths[at], x = s2c[at];
+    int d, x;
+    if constexpr (kHp) {
+      // the row's PSSM depth (dp_torch.depths_for) and its char's code
+      const int from_back = lengths[b] - (r + 1);
+      d = r < kPssmDepth ? r
+                         : (from_back < kPssmDepth ? 2 * kPssmDepth - from_back : kPssmDepth);
+      x = hp.b2i[hp.s2chr[(int64_t)b * L + r]];
+    } else {
+      const int64_t at = (int64_t)b * L + r;
+      d = depths[at];
+      x = s2c[at];
+    }
     d = d < 0 ? 0 : (d > kDepth - 1 ? kDepth - 1 : d);
     x = x < 0 ? 0 : (x > 4 ? 4 : x);
     const int32_t* p = submat + d * 25 + x;
@@ -192,6 +296,23 @@ dp_last_row_kernel(const int32_t* __restrict__ s1c, int s1c_per_read,
     for (int code = 0; code < 5; ++code) sh_tab[r * kCodes + code] = make_int2(p[5 * code], 0);
     sh_tab[r * kCodes + 5] = make_int2(HIM, HIM);
   }
+
+  // kHp: the row's window of its strand.  Columns past the strand state
+  // read code 4, char 0 and run start 0, as the plain version pads them;
+  // the band is the union of the row's intervals (36 bits: this thread's
+  // columns and the next thread's first two).
+  const int wlo = kHp ? hp.win_lo[b] : 0;
+  const int64_t sbase = kHp ? (int64_t)hp.strand[b] * hp.wtot : 0;
+  uint64_t band = 0;
+  if constexpr (kHp) {
+    const int32_t* iv = hp.ivl + (int64_t)b * kK * 2;
+    for (int k = 0; k < kK; ++k) {
+      const int lo = max(iv[2 * k], c0), hi = min(min(iv[2 * k + 1], W), c0 + kCols + 2);
+      if (lo < hi) band |= ((1ull << (hi - lo)) - 1) << (lo - c0);
+    }
+  }
+  const int32_t* ref = kHp ? nullptr : s1c + (s1c_per_read ? (int64_t)b * W : 0);
+  const uint8_t* mk = kHp ? nullptr : mask + (int64_t)b * W;
 
   // A column's code as the byte offset of its entry in a table row, four to
   // a word; bit j of `admit`: cell j takes origin j - 2 into the column-gap
@@ -202,9 +323,30 @@ dp_last_row_kernel(const int32_t* __restrict__ s1c, int s1c_per_read,
 #pragma unroll
   for (int j = 0; j < kCols + 2; ++j) {
     const int c = c0 + j;
-    const bool open = c < W && mk[c] != 0;
+    bool open;
+    int code;
+    if constexpr (kHp) {
+      open = (band >> j) & 1;
+      const int g = wlo + c;
+      const bool in = c < W && g < hp.wtot;
+      code = in ? hp.refs[sbase + g] : 4;
+      if (j < kCols) {
+        // the column's -h word: its char, and which candidate it may take
+        uint32_t w = 0;
+        if (in) {
+          const int hc = hp.hpcs[sbase + g];
+          w = (uint32_t)hp.refchr[sbase + g] << 24;
+          if (hc == g && c >= 1) w |= kHrOk;
+          if (hc != g && hc > 0 && hc - 1 >= wlo)
+            w |= kHcOk | (uint32_t)min(hc - 1 - wlo, W - 1);
+        }
+        colw[c] = w;
+      }
+    } else {
+      open = c < W && mk[c] != 0;
+      code = c < W ? ref[c] : 0;
+    }
     if (j < kCols) {
-      int code = c < W ? ref[c] : 0;
       code = code < 0 ? 0 : (code > 4 ? 4 : code);
       if ((j & 3) == 0) cw[j >> 2] = 0;
       cw[j >> 2] |= (uint32_t)(8 * (open ? code : 5)) << (8 * (j & 3));
@@ -240,6 +382,24 @@ dp_last_row_kernel(const int32_t* __restrict__ s1c, int s1c_per_read,
     if (lane == 31) sh_edge[parity][warp] = make_int4(inc, xw, R[kCols - 1], rb[kCols - 1]);
   };
   publish(0);
+
+  // kHp: the row before the read's current run, staged for the -h
+  // candidates of the run's rows (hp_col on its first row, hp_row on the
+  // rest; the TPU kept a ring of 32 rows for the second).  The row before a
+  // run start goes into the other of two buffers, so a thread may stage it
+  // while the others still read the last run's; the next row's barrier
+  // publishes it.
+  int sb = 0;
+  auto stage_if_run_starts = [&](int next) {
+    if constexpr (kHp) {
+      if (next <= last && sh_hp.hprs[next] == next) {
+        sb ^= 1;
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) stage[sb * wp + c0 + j] = R[j];
+      }
+    }
+  };
+  stage_if_run_starts(1);
 
   // ---- rows 1 .. last --------------------------------------------------------
   int parity = 0;
@@ -280,34 +440,115 @@ dp_last_row_kernel(const int32_t* __restrict__ s1c, int s1c_per_read,
     const char* trow = (const char*)sh_tab + row * kRowBytes;
     int run = pre2, pm2 = LOW;
     run_new = LOW;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      if (j == 1) run = pre1;
-      if (j >= 2 && (admit >> j & 1)) {
-        run = __viaddmax_s32(pm2, GEP * (j - 2), run);
-        run_new = __viaddmax_s32(R[j - 2], GEP * (j - 2), run_new);
+    // The cells, in one straight-line variant per kind of row (0: no -h
+    // candidate, 1: hp_col, 2: hp_row), picked by a block-uniform branch.
+    // hp_col of column c: the staged row at the column before its reference
+    // run, src, less GEP * (c - 1 - src) and the read run's discount; hp_row:
+    // the staged row at c - 1 less the discount; each only where the
+    // reference char equals the read's.  A candidate from a closed column
+    // stays below the restart value, as every value from a closed cell does.
+    // The -h rows come in as a parameter, so that the plain form, which has
+    // none, does not look their members up.
+    auto cells = [&](auto kind, auto& rows) {
+      constexpr int kKind = decltype(kind)::value;
+      uint32_t ch = 0;
+      int hp_add = 0;
+      const int32_t* stg = nullptr;
+      if constexpr (kKind != 0) {
+        ch = rows.chr[row];
+        hp_add = -rows.pengop[rows.pidx[row]] - (kKind == 1 ? goff : 0);
+        stg = stage + sb * wp;
       }
-      // gap_col = prefix[c - 2] - (GOP + GEP * (c - 1)), thread-local
-      int base = __viaddmax_s32(run, -(GOP + GEP * (j - 1)), pm1);
-      base = __viaddmax_s32(rbp, neg_grow, base);
-      const int2 cell = *(const int2*)(trow + entry_off(j));
-      bool keeps;  // base >= start_new: no restart
-      const int m = __vibmax_s32(base, start_new, &keeps);
-      const int q = m + (keeps ? cell.x : cell.y);
-      pm2 = pm1;
-      pm1 = R[j];
-      rbp = rb[j];
-      R[j] = q;
-      rb[j] = __viaddmax_s32(q, fold, rb[j]);
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        if (j == 1) run = pre1;
+        if (j >= 2 && (admit >> j & 1)) {
+          run = __viaddmax_s32(pm2, GEP * (j - 2), run);
+          run_new = __viaddmax_s32(R[j - 2], GEP * (j - 2), run_new);
+        }
+        // gap_col = prefix[c - 2] - (GOP + GEP * (c - 1)), thread-local
+        int base = __viaddmax_s32(run, -(GOP + GEP * (j - 1)), pm1);
+        base = __viaddmax_s32(rbp, neg_grow, base);
+        if constexpr (kKind != 0) {
+          const uint32_t w = colw[c0 + j];
+          int cand;
+          bool takes;
+          if constexpr (kKind == 1) {
+            const int src = w & 0xffff;
+            takes = (w & kHcOk) && (w >> 24) == ch;
+            cand = stg[src] + GEP * (src + 1 - j) + hp_add;
+          } else {
+            takes = (w & kHrOk) && (w >> 24) == ch;
+            cand = stg[c0 + j - (c0 + j > 0)] + hp_add;
+          }
+          base = max(base, takes ? cand : LOW);
+        }
+        const int2 cell = *(const int2*)(trow + entry_off(j));
+        bool keeps;  // base >= start_new: no restart
+        const int m = __vibmax_s32(base, start_new, &keeps);
+        const int q = m + (keeps ? cell.x : cell.y);
+        pm2 = pm1;
+        pm1 = R[j];
+        rbp = rb[j];
+        R[j] = q;
+        rb[j] = __viaddmax_s32(q, fold, rb[j]);
+      }
+    };
+    if constexpr (kHp) {
+      const int hs = sh_hp.hprs[row];
+      if (hs == row) cells(Kind<1>{}, sh_hp);
+      else if (hs > 0 && row - hs < kHpw) cells(Kind<2>{}, sh_hp);
+      else cells(Kind<0>{}, sh_hp);
+    } else {
+      cells(Kind<0>{}, sh_hp);
     }
     parity ^= 1;
-    if (row < last) publish(parity);
+    if (row < last) {
+      publish(parity);
+      stage_if_run_starts(row + 1);
+    }
   }
 
-  int32_t* o = out + (int64_t)b * W;
+  if constexpr (kHp) {
+    // the last row's best and its first column, closed columns at HIM
+    int bv = INT_MIN, bc = INT_MAX;
 #pragma unroll
-  for (int j = 0; j < kCols; ++j)
-    if (c0 + j < W) o[c0 + j] = entry_off(j) == 8 * 5 ? HIM : R[j];
+    for (int j = 0; j < kCols; ++j) {
+      const int v = entry_off(j) == 8 * 5 ? HIM : R[j];
+      if (c0 + j < W && v > bv) {
+        bv = v;
+        bc = c0 + j;
+      }
+    }
+    auto join = [&]() {
+#pragma unroll
+      for (int off = 16; off >= 1; off >>= 1) {
+        const int ov = __shfl_xor_sync(FULL, bv, off), oc = __shfl_xor_sync(FULL, bc, off);
+        if (ov > bv || (ov == bv && oc < bc)) {
+          bv = ov;
+          bc = oc;
+        }
+      }
+    };
+    join();
+    if (lane == 0) sh_hp.best[warp] = make_int2(bv, bc);
+    __syncthreads();
+    if (warp == 0) {
+      const int2 e = lane < nwarps ? sh_hp.best[lane] : make_int2(INT_MIN, INT_MAX);
+      bv = e.x;
+      bc = e.y;
+      join();
+      if (lane == 0) {
+        out[b] = bv;
+        out[B + b] = bc;
+      }
+    }
+  } else {
+    int32_t* o = out + (int64_t)b * W;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j)
+      if (c0 + j < W) o[c0 + j] = entry_off(j) == 8 * 5 ? HIM : R[j];
+  }
 }
 
 // ---- the wide form ----------------------------------------------------------
@@ -482,10 +723,41 @@ extern "C" int mia_dp_last_row(const void* s1c, int s1c_per_read, const void* ma
   // the longest reads first while finding a read's rank is cheap beside
   // scoring it: a block looks at every read's length, `threads` at a time
   const int ranked = B <= 8 * threads;
-  dp_last_row_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
+  dp_last_row_kernel<false><<<B, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)s1c, s1c_per_read, (const uint8_t*)mask, (const int32_t*)s2c,
       (const int32_t*)depths, (const int32_t*)submat, (const int32_t*)lengths, B, W, L,
-      sg5, ranked, (int32_t*)out);
+      sg5, ranked, HpArgs{}, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// -h (the kHp register form): (best, first column of the best) of each
+// row's last DP row, out [2, B] int32, the column window-local.  refs
+// [2, wtot] int8 codes, refchr [2, wtot] uint8 chars, hpcs [2, wtot] int32
+// run starts (the scorer's state); strand [B] int8, win_lo [B] int32, ivl
+// [B, 16, 2] int32 window-local intervals, s2chr [B, L] uint8 read chars
+// (pad 0), lengths [B] int32; submat [31, 5, 5] int32, pengop [11] int32,
+// b2i [256] int8.  W at most kRegThreads * kCols columns, L at most kLMax.
+extern "C" int mia_dp_last_row_hp(const void* refs, const void* refchr, const void* hpcs,
+                                  int wtot, const void* strand, const void* win_lo,
+                                  const void* ivl, const void* s2chr, const void* lengths,
+                                  const void* submat, const void* pengop, const void* b2i,
+                                  int B, int W, int L, void* out, void* stream) {
+  if (B <= 0 || W <= 0) return 0;
+  if (L < 1 || L > kLMax || W > kRegThreads * kCols) return (int)cudaErrorInvalidValue;
+  const int threads = ((W + kCols - 1) / kCols + 31) / 32 * 32;
+  const int ranked = B <= 8 * threads;
+  // two staged rows and a word a column
+  const int dyn = 3 * threads * kCols * (int)sizeof(int32_t);
+  const cudaError_t e = cudaFuncSetAttribute(
+      dp_last_row_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (e != cudaSuccess) return (int)e;
+  const HpArgs hp{(const int8_t*)refs,    (const uint8_t*)refchr, (const int32_t*)hpcs,
+                  wtot,                   (const int8_t*)strand,  (const int32_t*)win_lo,
+                  (const int32_t*)ivl,    (const uint8_t*)s2chr,  (const int32_t*)pengop,
+                  (const int8_t*)b2i};
+  dp_last_row_kernel<true><<<B, threads, dyn, (cudaStream_t)stream>>>(
+      nullptr, 0, nullptr, nullptr, nullptr, (const int32_t*)submat,
+      (const int32_t*)lengths, B, W, L, 1, ranked, hp, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 
@@ -523,9 +795,12 @@ extern "C" int mia_dp_last_row_wide(const void* s1c, int s1c_per_read, const voi
 // The compile-time constants of these kernels, in this order: GOP, GEP, HIM,
 // LOW, PSSM depth slots, the wide form's dynamic shared memory limit in
 // bytes, the register form's columns per thread, threads per block and read
-// rows.  Fills at most n values of out; returns how many there are.
+// rows, and the kHp form's intervals a row, read-run reach, discount slots
+// and widest row (entries.HP_WIDE_COLS).  Fills at most n values of out; returns how many there are.
 extern "C" int mia_dp_last_row_constants(int32_t* out, int n) {
-  const int32_t c[] = {GOP, GEP, HIM, LOW, kDepth, kSmemLimit, kCols, kRegThreads, kLMax};
+  const int32_t c[] = {GOP,   GEP,         HIM,   LOW, kDepth, kSmemLimit,
+                       kCols, kRegThreads, kLMax, kK,  kHpw,   kPengop,
+                       kRegThreads * kCols};
   const int count = (int)(sizeof(c) / sizeof(c[0]));
   for (int i = 0; i < n && i < count; ++i) out[i] = c[i];
   return count;

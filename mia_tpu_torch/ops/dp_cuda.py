@@ -26,10 +26,15 @@ The general form of the same recurrence, any width and the whole last row
 out, is ``dp_last_row`` (``csrc/dp_last_row.cu``, at the end of this module):
 one block per read, 34 columns a thread in registers, one barrier a row, for
 rows of up to 17,408 columns; wider rows take the same file's wide form.
+Its ``-h`` instantiation, ``dp_last_row_hp``, scores pass 1's ``-h`` WIDE
+reads: rows of up to 17,408 columns (wider ones stay with the native solve,
+``entries.HP_WIDE_COLS``), each reading its window of the scorer's strand
+state itself, (best, first column of the best) out.
 ``kernel_launches`` / ``plain_calls``, ``hp_kernel_launches`` /
-``hp_plain_calls`` and ``last_row_launches`` / ``last_row_plain_calls`` count
-the two routes of each (``last_row_wide_launches``: the launches of the wide
-form among them); ``shards`` is the largest
+``hp_plain_calls``, ``last_row_launches`` / ``last_row_plain_calls`` and
+``last_row_hp_launches`` / ``last_row_hp_plain_calls`` count the two routes
+of each (``last_row_wide_launches``: the launches of the wide form among
+them); ``shards`` is the largest
 number of device shards one dispatch of the scorer was dealt over
 (``core.torch_engine.Pass1Scorer``, 1 on a single device).  Both kernels share one
 library (``torchcfg.kernel_library``) with the consensus column counts
@@ -42,9 +47,9 @@ import contextlib
 
 import torch
 
-from ..core.entries import L_MAX, MAX_INTERVALS
+from ..core.entries import HP_WIDE_COLS, L_MAX, MAX_INTERVALS
 
-from .dp_torch import batch_last_row, entries_core_hp_plain, entries_core_plain
+from .dp_torch import batch_last_row, entries_core_hp_plain, entries_core_plain, last_row_hp_plain
 
 kernel_launches = 0
 plain_calls = 0
@@ -54,11 +59,14 @@ shards = 0
 last_row_launches = 0
 last_row_wide_launches = 0
 last_row_plain_calls = 0
+last_row_hp_launches = 0
+last_row_hp_plain_calls = 0
 
 
 def reset_counts() -> None:
     global kernel_launches, plain_calls, hp_kernel_launches, hp_plain_calls, shards
     global last_row_launches, last_row_wide_launches, last_row_plain_calls
+    global last_row_hp_launches, last_row_hp_plain_calls
     kernel_launches = 0
     plain_calls = 0
     hp_kernel_launches = 0
@@ -67,6 +75,8 @@ def reset_counts() -> None:
     last_row_launches = 0
     last_row_wide_launches = 0
     last_row_plain_calls = 0
+    last_row_hp_launches = 0
+    last_row_hp_plain_calls = 0
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -272,3 +282,53 @@ def dp_last_row(s1c, mask, s2c, lengths, depths, submat, sg5: bool = True) -> to
         last_row_plain_calls += 1
         return batch_last_row(s1c, mask, s2c, lengths, depths, submat, sg5=sg5)
     return _last_row(s1c, mask, s2c, lengths, depths, submat, sg5)
+
+
+def dp_last_row_hp(refs, refchr, hpcs, submat, pengop, b2i, strand, win_lo, ivl, s2chr,
+                   lengths, width: int) -> torch.Tensor:
+    """``-h`` scoring of rows of a whole strand window: (best, first column
+    of the best) of each row's last DP row as [2, R] int32, the column
+    window-local; what ``dp_jax.batch_last_row_hp`` and an argmax compute
+    on the window ``jax_engine._entries_core_hp`` would gather.
+
+    refs [2, WTOT] int8 codes, refchr [2, WTOT] uint8 chars, hpcs [2, WTOT]
+    int32 run starts (the scorer's state), submat [31, 5, 5] int32, pengop
+    [11] int32, b2i [256] int8; per row strand [R] int8, win_lo [R] int32
+    (0 <= win_lo <= WTOT), ivl [R, 16, 2] int32 window-local intervals (lo
+    <= hi <= width), s2chr [R, L] uint8 read chars (pad 0, L <= 256),
+    lengths [R] int32; width 1..17,408; all on one device, contiguous.  CPU
+    tensors go to the plain version (:func:`.dp_torch.last_row_hp_plain`),
+    CUDA tensors to the kernel (the kHp form of ``csrc/dp_last_row.cu``), or
+    the call raises.  ``last_row_hp_launches`` / ``last_row_hp_plain_calls``
+    count the two routes."""
+    global last_row_hp_launches, last_row_hp_plain_calls
+    dev = refs.device
+    R, L = s2chr.shape
+    state = tuple(refs.shape)
+    for name, t, dtype, shape in (
+            ("refs", refs, torch.int8, (2, refs.shape[1])),
+            ("refchr", refchr, torch.uint8, state), ("hpcs", hpcs, torch.int32, state),
+            ("submat", submat, torch.int32, (31, 5, 5)),
+            ("pengop", pengop, torch.int32, (11,)), ("b2i", b2i, torch.int8, (256,)),
+            ("strand", strand, torch.int8, (R,)), ("win_lo", win_lo, torch.int32, (R,)),
+            ("ivl", ivl, torch.int32, (R, MAX_INTERVALS, 2)),
+            ("s2chr", s2chr, torch.uint8, (R, L)), ("lengths", lengths, torch.int32, (R,))):
+        check_tensor(name, t, dtype, shape, dev)
+    if not 1 <= L <= L_MAX:
+        raise ValueError(f"reads: {L} rows, want 1..{L_MAX}")
+    if not 1 <= width <= HP_WIDE_COLS:
+        raise ValueError(f"width {width}, want 1..{HP_WIDE_COLS}")
+    if dev.type == "cpu":
+        last_row_hp_plain_calls += 1
+        return last_row_hp_plain(refs, refchr, hpcs, submat, pengop, b2i, strand, win_lo,
+                                 ivl, s2chr, lengths, width)
+    if dev.type != "cuda":
+        raise ValueError(f"dp_last_row_hp: no kernel for device {dev}")
+    out = _launch("dp_last_row_hp", dev, R, lambda lib, o, stream: lib.mia_dp_last_row_hp(
+        refs.data_ptr(), refchr.data_ptr(), hpcs.data_ptr(), refs.shape[1],
+        strand.data_ptr(), win_lo.data_ptr(), ivl.data_ptr(), s2chr.data_ptr(),
+        lengths.data_ptr(), submat.data_ptr(), pengop.data_ptr(), b2i.data_ptr(), R,
+        width, L, o, stream,
+    ))
+    last_row_hp_launches += 1
+    return out

@@ -250,6 +250,64 @@ def batch_last_row_hp(
     return snap
 
 
+def strand_windows(arr: torch.Tensor, strand: torch.Tensor, win_lo: torch.Tensor,
+                   width: int, pad: int) -> torch.Tensor:
+    """[R, width] windows of a [2, WTOT] strand array (codes, chars or run
+    starts): row r is ``arr[strand[r], win_lo[r] : win_lo[r] + width]``,
+    columns past WTOT ``pad``.  Each strand is padded with ``width`` columns,
+    so that every window is a slice of one flat array."""
+    WTOT = arr.shape[1]
+    flat = torch.cat([arr, torch.full((2, width), pad, dtype=arr.dtype, device=arr.device)], 1)
+    starts = strand.to(torch.int64) * (WTOT + width) + win_lo.to(torch.int64)
+    return flat.reshape(-1).unfold(0, width, 1)[starts]
+
+
+def interval_mask(ivl: torch.Tensor, width: int) -> torch.Tensor:
+    """[R, width] bool: the columns inside any of a row's window-local [lo,
+    hi) intervals (``ivl`` [R, K, 2], hi <= width; an unused (0, 0) adds
+    nothing).  The running sum of +1 at each start and -1 at each end, so
+    no [R, K, width] array is made."""
+    iv = ivl.to(torch.int64)
+    ones = torch.ones(iv.shape[:2], dtype=torch.int32, device=ivl.device)
+    edge = torch.zeros((iv.shape[0], width + 1), dtype=torch.int32, device=ivl.device)
+    edge.scatter_add_(1, iv[:, :, 0], ones)
+    edge.scatter_add_(1, iv[:, :, 1], -ones)
+    return torch.cumsum(edge[:, :width], 1, dtype=torch.int32) > 0
+
+
+def last_row_hp_plain(
+    refs: torch.Tensor,     # [2, WTOT] int8 padded strand codes
+    refchr: torch.Tensor,   # [2, WTOT] uint8 strand chars (pad 0)
+    hpcs: torch.Tensor,     # [2, WTOT] int32 homopolymer run start per column
+    submat: torch.Tensor,   # [31, 5, 5] int32 PSSM
+    pengop: torch.Tensor,   # [11] int32 homopolymer gap-open discounts
+    b2i: torch.Tensor,      # [256] int8 char -> code 0..4
+    strand: torch.Tensor,   # [R] int8 each row's strand
+    win_lo: torch.Tensor,   # [R] int32 global column of the row's column 0
+    ivl: torch.Tensor,      # [R, K, 2] int32 window-local [lo, hi) intervals
+    s2chr: torch.Tensor,    # [R, L] uint8 read chars (pad 0)
+    lengths: torch.Tensor,  # [R] int32 read lengths
+    width: int,             # W: every row's window
+) -> torch.Tensor:
+    """(best, first column of the best) of each row's last ``-h`` DP row over
+    its W-column window of its strand, as [2, R] int32, the column
+    window-local: :func:`batch_last_row_hp` (``dp_jax.batch_last_row_hp``)
+    and :func:`batch_best_and_aec` on the full-width inputs, which are made
+    here from the scorer's strand state as ``jax_engine._entries_core_hp``
+    makes a window's.  The plain version of the full-width ``-h`` kernel
+    (:func:`.dp_cuda.dp_last_row_hp`)."""
+    s1c = strand_windows(refs, strand, win_lo, width, 4)
+    s1chr = strand_windows(refchr, strand, win_lo, width, 0)
+    hpcs_w = strand_windows(hpcs, strand, win_lo, width, 0)
+    mask = interval_mask(ivl, width)
+    row_sm = make_row_sm(submat, b2i[s2chr.to(torch.int64)],
+                         depths_for(lengths, s2chr.shape[1]))
+    last = batch_last_row_hp(s1c, s1chr, mask, row_sm, lengths, s2chr, hpcs_w, win_lo,
+                             pengop)
+    best, aec = batch_best_and_aec(last)
+    return torch.stack([best, aec])
+
+
 def batch_best_and_aec(last_rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-read (best score, earliest argmax column) of the last DP row."""
     aec = torch.argmax(last_rows, dim=1).to(torch.int32)

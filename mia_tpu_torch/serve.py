@@ -27,11 +27,13 @@ this user may connect).  A request is a dict with an ``op``; a reply is
     free     {sid}                          -> {}
 
 ``wide`` is a pass-1 batch's ``entries.WideRows`` (or None), scored after
-the entries by the general-width scorer, as in process.
+the entries by the general-width scorer (under ``-h`` its ``-h`` form), as
+in process.
 
 ``counters`` are the server's launch counts (``dp.kernel_launches``,
 ``dp.plain_calls``, ``dp.hp_kernel_launches``, ``dp.hp_plain_calls``,
 ``dp.last_row_launches``, ``dp.last_row_plain_calls``,
+``dp.last_row_hp_launches``, ``dp.last_row_hp_plain_calls``,
 ``cons.kernel_launches``, ``cons.plain_calls``): a caller reads them before
 and after a run to see that the card did its work.  ``build`` is
 :func:`build_id` of the server's sources when it started, and ``library``
@@ -104,6 +106,7 @@ SPAWN_WAIT_S = 300.0
 MAX_STATES = 64
 COUNTERS = ("dp.kernel_launches", "dp.plain_calls", "dp.hp_kernel_launches",
             "dp.hp_plain_calls", "dp.last_row_launches", "dp.last_row_plain_calls",
+            "dp.last_row_hp_launches", "dp.last_row_hp_plain_calls",
             "cons.kernel_launches", "cons.plain_calls")
 
 
@@ -455,8 +458,9 @@ class ServerScorer:
         return r["best"].astype(np.int64), r["aec"].astype(np.int64)
 
     def dispatch_packed(self, s2c, lens, fw_ws, rc_ws, fw_ivg, rc_ivg, flags):
-        """As ``Pass1Scorer.dispatch_packed``: the entries and, without
-        ``-h``, the WIDE reads' rows (built here, scored on the server)."""
+        """As ``Pass1Scorer.dispatch_packed``: the entries and the WIDE
+        reads' rows (built here, scored on the server; under ``-h`` by its
+        ``-h`` form), the rows the handle's fourth item."""
         from .core.entries import build_pass1_entries, wide_rows
 
         n = len(lens)
@@ -465,7 +469,7 @@ class ServerScorer:
         if n == 0:
             return _Handle(self, None), fw_ws.copy(), rc_ws.copy(), None
         entries = build_pass1_entries(s2c, lens, fw_ws, rc_ws, fw_ivg, rc_ivg, flags)
-        rows = None if self.hp else wide_rows(flags, lens, s2c, fw_ivg, rc_ivg)
+        rows = wide_rows(flags, lens, s2c, fw_ivg, rc_ivg, hp=self.hp)
         return self.dispatch_entries(*entries, wide=rows), fw_ws.copy(), rc_ws.copy(), rows
 
     def collect_arrays(self, handle):

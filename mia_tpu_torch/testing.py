@@ -917,3 +917,86 @@ def edge_pileup_inputs(seed: int = 0) -> list[tuple[str, dict, int, bool]]:
     bad["s2c"][::3] = rng.choice([-7, -1, 5, 6, 2**31 - 1], bad["s2c"][::3].shape)
     out.append(("bad_codes", bad, 300, False))
     return out
+
+
+# ---- the -h full-width scorer ----
+
+HP_WIDE_KEYS = ("refs", "refchr", "hpcs", "submat", "pengop", "b2i", "strand", "win_lo",
+                "ivl", "s2chr", "lengths")
+
+
+def hp_wide_inputs(W: int, L: int, seed: int = 0, R: int = 16) -> dict:
+    """Inputs of ``dp_cuda.dp_last_row_hp`` / ``dp_torch.last_row_hp_plain``
+    (:data:`HP_WIDE_KEYS`, and ``width`` = W) on the edges of the ``-h``
+    recurrence, over a homopolymer-rich two-strand reference of W + 300
+    columns whose forward strand starts with a run of two bases, holds an
+    all-A stretch (ties), a lowercase stretch and IUPAC codes (chars that
+    differ where their codes are all 4).  R rows, alternately on each strand:
+
+    * row 0 from column 0 (the run at columns 0-1), row 1 starting inside a
+      reference run (its hp_col candidates from before the window dropped),
+      the rest at random starts, two of them 100 columns before the
+      strand's end (their columns past the state read its padding);
+    * bands: the whole window, 16 one-column bands, a band ending well
+      before W (a row narrower than the batch's), a few random intervals,
+      none at all;
+    * reads cut from the row's window with runs grown and shrunk, one with
+      runs of 1, 2 and 31 bases, one all A on the all-A stretch (tied
+      maxima), and lengths 1, 2 and L.  L is at least 37."""
+    rng = np.random.default_rng(seed)
+    len1 = W + 300
+    fw = list(_runs_string(rng, len1))
+    fw[:3] = "GG" + ("A" if fw[3] != "A" else "C")
+    lo = len1 // 3
+    fw[lo : lo + 400] = "A" * 400
+    fw[2 * lo : 2 * lo + 120] = [c.lower() for c in fw[2 * lo : 2 * lo + 120]]
+    for at in rng.integers(0, len1, max(2, len1 // 500)):
+        fw[at] = "RYN"[int(rng.integers(0, 3))]
+    fw = "".join(fw)
+    rc = revcom(fw)
+    sm = (init_flatsubmat() + rng.integers(-40, 40, (31, 5, 5))).astype(np.int32)
+    refs, _ = padded_state_numpy(encode_seq(fw), encode_seq(rc), len1, sm)
+    refchr, hpcs, pengop = hp_state_numpy((fw, rc), len1, refs.shape[1])
+    strands = (fw, rc)
+    strand = (np.arange(R) % 2).astype(np.int8)
+    win_lo = rng.integers(0, len1 - W // 2, R).astype(np.int32)
+    win_lo[0], strand[0] = 0, 0
+    # a window that starts one column into a reference run of 3 or more
+    runs = np.flatnonzero((hpcs[0, 1:len1 - 2] == hpcs[0, :len1 - 3])
+                          & (hpcs[0, 1:len1 - 2] == hpcs[0, 2:len1 - 1]))
+    win_lo[1], strand[1] = int(runs[len(runs) // 2]) + 1, 0
+    win_lo[2:4] = len1 - 100
+    ivl = np.zeros((R, MAX_INTERVALS, 2), np.int32)
+    lengths = rng.integers(3, L + 1, R).astype(np.int32)
+    s2chr = np.zeros((R, L), np.uint8)
+    for r in range(R):
+        k = r % 5
+        if k in (0, 1):
+            ivl[r, 0] = (0, W)
+        elif k == 2:
+            ivl[r, :, 0] = np.sort(rng.choice(W, MAX_INTERVALS, replace=False))
+            ivl[r, :, 1] = ivl[r, :, 0] + 1
+        elif k == 3:
+            ivl[r, 0] = (int(rng.integers(0, 20)), max(30, W // 2))
+        elif r % 10 == 4:
+            n = 3
+            ivl[r, :n] = np.sort(rng.integers(0, W + 1, 2 * n)).reshape(n, 2)
+        s = strands[int(strand[r])]
+        at = int(win_lo[r]) + int(rng.integers(0, max(1, min(W, len1 - int(win_lo[r])) - L)))
+        read = _mutate_runs(rng, s[at : at + 2 * L]) + _runs_string(rng, L)
+        s2chr[r] = np.frombuffer(read[:L].encode("latin-1"), np.uint8)
+    # read runs of 1, 2 and 31 bases (L >= 37)
+    runs_read = ("ACGG" + "T" * 31 + "CAG" + "ACGT" * L)[:L]
+    s2chr[5] = np.frombuffer(runs_read.encode("latin-1"), np.uint8)
+    lengths[5] = L
+    # an all-A read on the all-A stretch: ties
+    s2chr[6] = ord("A")
+    win_lo[6], strand[6] = lo - 40, 0
+    ivl[6] = 0
+    ivl[6, 0] = (0, W)
+    lengths[7], lengths[8], lengths[9] = 1, 2, L
+    for r in range(R):
+        s2chr[r, lengths[r]:] = 0
+    return dict(refs=refs, refchr=refchr, hpcs=hpcs, submat=sm, pengop=pengop,
+                b2i=BASE2INX.copy(), strand=strand, win_lo=win_lo, ivl=ivl, s2chr=s2chr,
+                lengths=lengths, width=W)

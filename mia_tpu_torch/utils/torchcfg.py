@@ -105,14 +105,17 @@ def expected_last_row_constants() -> list[int]:
     """The values ``mia_dp_last_row_constants`` must report: GOP, GEP, HIM,
     LOW, PSSM depth slots, the shared-memory limit the wrapper plans the
     wide form with, the register form's columns per thread and threads per
-    block (``dp_cuda.LAST_ROW_*``) and the most read rows."""
+    block (``dp_cuda.LAST_ROW_*``), the most read rows, and the ``-h``
+    form's intervals a row, read-run reach (HPW), discount slots and widest
+    row (``entries.HP_WIDE_COLS``)."""
     from ..constants import GEP, GOP, HIM, PSSM_DEPTH
-    from ..core.entries import L_MAX
+    from ..core.entries import HP_WIDE_COLS, HPW_ROUTE, L_MAX, MAX_INTERVALS, hp_pengop_table
     from ..ops.dp_cuda import LAST_ROW_COLS, LAST_ROW_SMEM, LAST_ROW_THREADS
     from ..ops.dp_torch import _LOW
 
     return [GOP, GEP, HIM, _LOW, 2 * PSSM_DEPTH + 1, LAST_ROW_SMEM, LAST_ROW_COLS,
-            LAST_ROW_THREADS, L_MAX]
+            LAST_ROW_THREADS, L_MAX, MAX_INTERVALS, HPW_ROUTE, len(hp_pengop_table()),
+            HP_WIDE_COLS]
 
 
 def expected_pileup_constants() -> list[int]:
@@ -257,6 +260,10 @@ def kernel_library() -> ctypes.CDLL:
         lib.mia_dp_last_row_wide.restype = ci
         lib.mia_dp_last_row_wide.argtypes = [
             vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp,
+        ]
+        lib.mia_dp_last_row_hp.restype = ci
+        lib.mia_dp_last_row_hp.argtypes = [
+            vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp,
         ]
         lib.mia_dp_last_row_constants.restype = ci
         lib.mia_dp_last_row_constants.argtypes = [vp, ci]

@@ -5,8 +5,8 @@ also against the exact host DP), the consensus column counts
 ccheck's Myers wavefront (mia_tpu_torch/csrc/myers_waves.cu, also against
 the host aligner, on the adversarial pairs too), the general-width
 last-row scorer (mia_tpu_torch/csrc/dp_last_row.cu: the register form, and
-the wide form with shared-memory and global-memory rows), the pileup
-counts and the consensus call of the assembly step (csrc/pileup_counts.cu,
+the wide form with shared-memory and global-memory rows, and its -h form),
+the pileup counts and the consensus call of the assembly step (csrc/pileup_counts.cu,
 csrc/consensus_call.cu, the latter over 1 to 32 parts), and the sharded
 scorer, consensus counts and step with every shard on the one card.
 
@@ -23,7 +23,7 @@ import pytest
 import torch
 
 from mia_tpu_torch import testing as T
-from mia_tpu_torch.core.torch_engine import Pass1Scorer, state_from_numpy
+from mia_tpu_torch.core.torch_engine import Pass1Scorer, score_wide, state_from_numpy
 from mia_tpu_torch.ops import consensus_torch, dp_cuda, dp_torch, myers_cuda, myers_torch
 from mia_tpu_torch.parallel import sharded
 
@@ -357,6 +357,45 @@ def test_last_row_kernel_rejects_mixed_devices(cuda):
     args[3] = args[3].cpu()
     with pytest.raises(ValueError):
         dp_cuda.dp_last_row(*args)
+
+
+@pytest.mark.parametrize("W,L,seed", [(40, 37, 0), (100, 48, 1), (1100, 64, 2),
+                                      (2300, 48, 3), (17024, 40, 4), (17408, 40, 5),
+                                      (17408, 256, 6)])
+def test_last_row_hp_kernel_matches_plain(cuda, W, L, seed):
+    """The -h form (dp_last_row_hp) on testing.hp_wide_inputs' edge rows
+    (read runs of 1, 2 and 31, a window starting inside a reference run, a
+    run at columns 0-1, ties, one-column bands, narrower rows, windows past
+    the strand state, lengths 1, 2 and L): widths of one and of two warps,
+    the human-mt strand's and the 17,408-column limit."""
+    d = T.hp_wide_inputs(W, L, seed)
+    args = [torch.from_numpy(d[k]).to(cuda) for k in T.HP_WIDE_KEYS]
+    dp_cuda.reset_counts()
+    got = dp_cuda.dp_last_row_hp(*args, W)
+    torch.cuda.synchronize()
+    assert (dp_cuda.last_row_hp_launches, dp_cuda.last_row_hp_plain_calls) == (1, 0)
+    assert torch.equal(got, dp_torch.last_row_hp_plain(*args, W))
+
+
+def test_last_row_hp_kernel_through_the_scorer(cuda):
+    """torch_engine.score_wide under -h on the card (the state's own strand
+    arrays) equals it on the CPU."""
+    d = T.hp_wide_inputs(2300, 64, 7)
+    rows = [torch.from_numpy(d[k]) for k in ("strand", "win_lo", "ivl", "s2chr", "lengths")]
+    sms = np.stack([d["submat"], d["submat"]])
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        st = state_from_numpy(d["refs"], sms, dev, d["refchr"], d["hpcs"], d["pengop"])
+        got[dev.type] = score_wide(st, d["width"], *(r.to(dev) for r in rows)).cpu()
+    assert torch.equal(got["cuda"], got["cpu"])
+
+
+def test_last_row_hp_kernel_rejects_mixed_devices(cuda):
+    d = T.hp_wide_inputs(100, 40, 8)
+    args = [torch.from_numpy(d[k]).to(cuda) for k in T.HP_WIDE_KEYS]
+    args[10] = args[10].cpu()
+    with pytest.raises(ValueError):
+        dp_cuda.dp_last_row_hp(*args, 100)
 
 
 @pytest.mark.parametrize("B,W,L,seed", [(16, 300, 32, 0), (2048, 17024, 256, 1)])

@@ -204,9 +204,32 @@ def test_hp_scorer_packed_batch_matches_jax_scorer():
     fw_ivg[:, 0, 0], fw_ivg[:, 0, 1] = fw_ws + 2, fw_ws + 300
     rc_ivg[:, 0, 0], rc_ivg[:, 0, 1] = rc_ws + 5, rc_ws + je.WIN_W
     flags = np.zeros(n, np.int32)
-    flags[::5] = 4  # FLAG_WIDE: scored as garbage, ignored by the caller
+    flags[::5] = 4  # FLAG_WIDE
     args = (d["s2chr"], lens, fw_ws, rc_ws, fw_ivg, rc_ivg, flags)
     want = jsc.collect_arrays(jsc.dispatch_packed(*args))
     got = tsc.collect_arrays(tsc.dispatch_packed(*args))
+    # the windowed reads as mia_tpu's scorer scores them; its WIDE reads'
+    # entries are empty (mia_tpu leaves them to the native solve), and the
+    # port scores them full width, each strand as dp_jax.batch_last_row_hp
+    # on the strand's window (tests/test_torch_wide_pass1_hp.py)
+    from mia_tpu_torch.core import entries
+
+    from .test_torch_wide_pass1_hp import _dense
+
+    wide = (flags & 4) != 0
     for w, g in zip(want, got):
-        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g[~wide], w[~wide])
+    rows = entries.wide_rows(flags, lens, d["s2chr"], fw_ivg, rc_ivg, hp=True)
+    st = tsc.state
+    last = np.asarray(dp_jax.batch_last_row_hp(**_dense(dict(
+        refs=st.refs.numpy(), refchr=st.refchr.numpy(), hpcs=st.hpcs.numpy(),
+        submat=st.sms[0].numpy(), pengop=st.pengop.numpy(), b2i=st.b2i.numpy(),
+        strand=rows.strand, win_lo=rows.win_lo, ivl=rows.ivl, s2chr=rows.s2c,
+        lengths=rows.lengths, width=rows.width))))
+    jb, ja = (np.asarray(x) for x in dp_jax.batch_best_and_aec(last))
+    fb, fa, rb, ra = got
+    assert rows.n == 2 * wide.sum()
+    for r in range(rows.n):
+        b, a = (fb, fa) if rows.strand[r] == 0 else (rb, ra)
+        i = rows.read[r]
+        assert (b[i], a[i]) == (jb[r], ja[r] + rows.win_lo[r]), r

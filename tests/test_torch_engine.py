@@ -211,14 +211,18 @@ def test_kernel_library_myers_constants_checked(myers):
 
 @pytest.mark.parametrize("which,values", [
     ("last_row", [1000, 200, -(2**30), -(2**30) - 2**29, 31, 227 * 1024, 34, 512,
-                  256]),                                                     # smem limit
+                  256, 16, 32, 11, 17408]),                                  # smem limit
     ("last_row", [1000, 200, -(2**30), -(2**30) - 2**29, 31, 227 * 1024 - 1024, 34,
-                  512]),                                                     # count
+                  512, 256, 16, 32, 11]),                                    # count
     ("cons", [50, -400, 32]),                                                # MIN_SCORE_CONS
     ("cons", [50, -399, 4]),                                                 # parts a call sums
     ("cons", [50, -399]),                                                    # count
     ("last_row", [1000, 200, -(2**30), -(2**30) - 2**29, 31, 227 * 1024 - 1024, 17,
-                  1024, 256]),                                               # columns a thread
+                  1024, 256, 16, 32, 11, 17408]),                            # columns a thread
+    ("last_row", [1000, 200, -(2**30), -(2**30) - 2**29, 31, 227 * 1024 - 1024, 34,
+                  512, 256, 16, 31, 11, 17408]),                             # -h row reach
+    ("last_row", [1000, 200, -(2**30), -(2**30) - 2**29, 31, 227 * 1024 - 1024, 34,
+                  512, 256, 16, 32, 11, 16384]),                             # -h widest row
     ("pileup", [31, 1024, 128]),                                             # a block's list
     ("pileup", [31, 2048, 512]),                                             # tile width
 ])
@@ -226,7 +230,8 @@ def test_kernel_library_step_constants_checked(which, values):
     """The last-row scorer's, the consensus call's and the pileup counts'
     constants are held against the Python side's too."""
     assert torchcfg.expected_last_row_constants() == [
-        1000, 200, -(2**30), -(2**30) - 2**29, 31, 227 * 1024 - 1024, 34, 512, 256]
+        1000, 200, -(2**30), -(2**30) - 2**29, 31, 227 * 1024 - 1024, 34, 512, 256, 16, 32,
+        11, 17408]
     assert torchcfg.expected_consensus_call_constants() == [50, -399, 32]
     assert torchcfg.expected_pileup_constants() == [31, 2048, 128]
     lib = _FakeKernelLibrary(torchcfg.expected_constants(), **{which: values})
@@ -236,7 +241,7 @@ def test_kernel_library_step_constants_checked(which, values):
     src = open(os.path.join(torchcfg.CSRC_DIR, "dp_last_row.cu")).read()
     for decl in ("GOP = 1000;", "GEP = 200;", "kDepth = 31;",
                  "kSmemLimit = 227 * 1024 - 1024;", "kCols = 34;", "kRegThreads = 512;",
-                 "kLMax = 256;"):
+                 "kLMax = 256;", "kK = 16;", "kHpw = 32;", "kPengop = 11;"):
         assert f"constexpr int {decl}" in src, decl
     src = open(os.path.join(torchcfg.CSRC_DIR, "pileup_counts.cu")).read()
     for decl in ("kThreads = 1024;", "kPer = 2;", "kMaxTile = 128;", "kDepth = 31;"):

@@ -141,16 +141,16 @@ def test_client_writes_golden_through_server(name, server, tmp_path):
     assert d["cons.plain_calls"] == c["consensus.device_calls"], (c, d)
     assert d["dp.kernel_launches"] == d["dp.hp_kernel_launches"] == d["cons.kernel_launches"] == 0
     # pass 1's WIDE reads (every read without -k): the server scored them
-    # full width, with the general-width scorer's plain version; under -h
-    # they stay native
-    assert c["dp.last_row_plain_calls"] == 0 and d["dp.last_row_launches"] == 0, (c, d)
-    if hp:
-        assert d["dp.last_row_plain_calls"] == 0, d
-    else:
-        assert c.get("pass1.native_solved_wide_reads", 0) == 0, c
-        wide = c["pass1.device_scored_wide_reads"]
-        assert wide > 0 or "-k" in fixture_args(name), c
-        assert (d["dp.last_row_plain_calls"] > 0) == (wide > 0), (c, d)
+    # full width, with the general-width scorer's plain version, under -h
+    # its -h form's; none by the native solve
+    assert c["dp.last_row_plain_calls"] == c["dp.last_row_hp_plain_calls"] == 0, c
+    assert d["dp.last_row_launches"] == d["dp.last_row_hp_launches"] == 0, d
+    assert c.get("pass1.native_solved_wide_reads", 0) == 0, c
+    wide = c["pass1.device_scored_wide_reads"]
+    assert wide > 0 or "-k" in fixture_args(name), c
+    plain, other = ("dp.last_row_hp_plain_calls", "dp.last_row_plain_calls")[:: 1 if hp else -1]
+    assert (d[plain] > 0) == (wide > 0), (c, d)
+    assert d[other] == 0, d
 
 
 def test_server_path_equals_mia_tpu_server_path(server, tmp_path):
@@ -246,6 +246,51 @@ def test_server_packed_batch_equals_in_process_scorer(server):
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
     assert (got[2][::8] == -(2**30)).all() and (got[0][1::4] != got[0][::4].min()).any()
+
+
+def test_server_packed_hp_batch_equals_in_process_scorer(server):
+    """The -h case of the test above: a pass-1 batch of read chars with
+    WIDE reads through ServerScorer and through Pass1Scorer, both with the
+    strands' chars: the same (fb, fa, rb, ra), the wide reads scored full
+    width by the -h form's plain version on the server."""
+    rng = np.random.default_rng(6)
+    len1, n = 1500, 40
+    fw = T._runs_string(rng, len1)
+    rc = fw[::-1]
+    fw_c, rc_c = (np.frombuffer(x.encode(), np.uint8) for x in (fw, rc))
+    sm = T.random_entries(4, 8, seed=6, len1=len1)["sms"][0]
+    lens = rng.integers(20, 100, n).astype(np.int32)
+    s2chr = np.zeros((n, 256), np.uint8)
+    for i in range(n):
+        p = int(rng.integers(0, len1 - 200))
+        s2chr[i, : lens[i]] = (fw_c if i % 2 else rc_c)[p : p + lens[i]]
+    ws = rng.integers(0, len1 - 400, (2, n)).astype(np.int32)
+    ivg = np.zeros((2, n, 16, 2), np.int32)
+    ivg[:, :, 0, 0], ivg[:, :, 0, 1] = ws + 3, ws + 300
+    ivg[:, ::4, 1, 0], ivg[:, ::4, 1, 1] = ws[:, ::4] + 900, ws[:, ::4] + 1000
+    ivg[1, ::8] = 0  # WIDE reads with no rc band
+    flags = np.where(np.arange(n) % 4 == 0, 4, 0).astype(np.int32)
+    args = (s2chr, lens, ws[0], ws[1], ivg[0], ivg[1], flags)
+    codes = [T.encode_seq(x) for x in (fw, rc)]
+    local = Pass1Scorer(*codes, len1, sm, batch=n, device="cpu", hp_seqs=(fw, rc))
+    want = local.collect_arrays(local.dispatch_packed(*args))
+    conn = serve._Client(server)
+    try:
+        before = conn.hello()["counters"]
+        remote = serve.ServerScorer(conn, *codes, len1, sm, batch=n, hp_seqs=(fw, rc))
+        h = remote.dispatch_packed(*args)
+        while not remote.ready(h):
+            time.sleep(0.01)
+        got = remote.collect_arrays(h)
+        after = conn.hello()["counters"]
+        remote.free()
+    finally:
+        conn.close()
+    assert after["dp.last_row_hp_plain_calls"] == before["dp.last_row_hp_plain_calls"] + 1
+    assert after["dp.last_row_plain_calls"] == before["dp.last_row_plain_calls"]
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    assert (got[2][::8] == -(2**30)).all() and (got[0][::4] > -(2**30)).all()
 
 
 @pytest.mark.parametrize("hp", [False, True], ids=["scorer", "hp_scorer"])
