@@ -109,13 +109,18 @@ counts) and the committed goldens.
    both times and the CPUs the process sees.
 8. -h end to end: the same workload with ``-h``, in this process only,
    against ``--engine native -h``, the ``-h`` scorer's launches in place of
-   the scorer's, and pass 1's WIDE reads on the full-width ``-h`` scorer
-   (``dp.last_row_hp_launches`` > 0, ``dp.last_row_hp_plain_calls`` 0,
+   the scorer's, and pass 1's WIDE reads on both forms of the full-width
+   ``-h`` scorer (``dp.last_row_hp_band_launches`` and
+   ``dp.last_row_hp_launches`` > 0, both plain calls 0,
    ``pass1.native_solved_wide_reads`` 0).
-8c. -h wide reads: that run's ``dp_last_row_hp`` launches (K4g): rows,
-   widths and device time (CUDA events around each call), Gcells/s; the
-   run's largest call held to the plain version (exact), timed, and its
-   bound (29 operations a cell: the plain version's count).
+8c. -h wide reads: that run's ``dp_last_row_hp`` calls (K4g): rows and
+   launches of each form (the band form for rows whose band takes at most
+   384 columns, the full form for the rest), widths, cells counted as
+   launched, over each row's own window and over its band, and device time
+   (CUDA events around each call and each form's launches), Gcells/s; each
+   form's largest call held to its plain version (exact), timed, and its
+   bound at the DP's 14 operations a cell (the band form's over its band
+   cells, with the own-window count beside it).
 8a. workload shapes: the largest scorer batch of phase 7, the largest of
    phase 8 and the largest consensus record set of the two, kept as the runs
    went through the wrappers: each kernel against its plain version on them
@@ -195,7 +200,7 @@ counts) and the committed goldens.
    device-scored reads, no native wide solve, and raises the server's
    ``hello`` counts of scorer and consensus launches with no plain call.
    Then once with ``-h`` (phase 8's malns, ``-h`` scorer and
-   ``dp_last_row_hp`` launches), two clients at once (both
+   ``dp_last_row_hp`` launches of both forms), two clients at once (both
    phase 7's bytes), and ``--engine native`` as a new process with torch
    refused.  Prints every wall beside phase 7's new-process walls, stops
    the server with SIGTERM and checks that its socket is gone.
@@ -832,6 +837,10 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool,
         "dp.last_row_plain_calls": dp_cuda.last_row_plain_calls,
         "dp.last_row_hp_launches": dp_cuda.last_row_hp_launches,
         "dp.last_row_hp_plain_calls": dp_cuda.last_row_hp_plain_calls,
+        "dp.last_row_hp_band_launches": dp_cuda.last_row_hp_band_launches,
+        "dp.last_row_hp_band_plain_calls": dp_cuda.last_row_hp_band_plain_calls,
+        "dp.last_row_hp_rows": dp_cuda.last_row_hp_rows,
+        "dp.last_row_hp_band_rows": dp_cuda.last_row_hp_band_rows,
         "cons.kernel_launches": consensus_torch.kernel_launches,
         "cons.plain_calls": consensus_torch.plain_calls,
     }
@@ -885,12 +894,15 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool,
     checks["pass1.device_scored_wide_reads"] = counters.get("pass1.device_scored_wide_reads", 0)
     if not (counts[scorer] > 0 and counts["cons.kernel_launches"] > 0
             and checks["pass1.native_solved_wide_reads"] == 0
-            # under -h the WIDE reads went through the -h form of the
-            # general-width scorer (K4g)
-            and (not hp or (counts["dp.last_row_hp_launches"] > 0
+            # under -h the WIDE reads went through both -h forms of the
+            # general-width scorer (K4g): this workload's wide rows hold
+            # narrow bands and whole strands
+            and (not hp or (counts["dp.last_row_hp_band_launches"] > 0
+                            and counts["dp.last_row_hp_launches"] > 0
                             and checks["pass1.device_scored_wide_reads"] > 0))
             and counts["dp.plain_calls"] == counts["dp.hp_plain_calls"] == 0
             and counts["dp.last_row_plain_calls"] == counts["dp.last_row_hp_plain_calls"] == 0
+            and counts["dp.last_row_hp_band_plain_calls"] == 0
             and counts["cons.plain_calls"] == 0
             and checks["pass1.device_scored_reads"] > 0
             and checks["reiterate.device_entries"] > 0
@@ -907,16 +919,29 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool,
 def last_row_call(args, hp: bool) -> dict:
     """Rows, padded width, read rows and the DP cells a call of
     ``dp_last_row`` (``hp``: ``dp_last_row_hp``) with ``args`` needs: each
-    row up to its read's length and its own window."""
+    row up to its read's length and its own window.  Under ``hp`` also the
+    call's band-form rows (``n_band``, its last argument) and its cells two
+    more ways: as launched (a band row at the band form's 384 columns, a
+    full row at the call's width) and over each row's band (the union of its
+    intervals, ``entries.band_columns``)."""
     import torch
 
-    if hp:  # dp_last_row_hp: ... ivl, s2chr, lengths, width
-        ivl, s2c, lengths, width = args[8:]
+    if hp:  # dp_last_row_hp: ... ivl, s2chr, lengths, width, n_band
+        from mia_tpu_torch.core.entries import HP_BAND_COLS, band_columns
+
+        ivl, s2c, lengths, width = args[8:12]
+        n_band = args[12] if len(args) > 12 else 0
         own_width = ivl[:, :, 1].max(1).values.to(torch.int64)
-    else:
-        _, mask, s2c, lengths = args[:4]
-        width = mask.shape[1]
-        own_width = width - torch.argmax(mask.flip(1).to(torch.int8), 1)
+        rows = (lengths.to(torch.int64) - 1).clamp(min=0)
+        band = torch.from_numpy(band_columns(ivl.cpu().numpy())[0]).to(rows.device)
+        return {"rows": s2c.shape[0], "band_rows": n_band, "width": int(width),
+                "L": s2c.shape[1], "cells": int((rows * own_width).sum()),
+                "band_cells": int((rows * band).sum()),
+                "launched": int(rows[:n_band].sum()) * HP_BAND_COLS
+                + int(rows[n_band:].sum()) * int(width)}
+    _, mask, s2c, lengths = args[:4]
+    width = mask.shape[1]
+    own_width = width - torch.argmax(mask.flip(1).to(torch.int8), 1)
     cells = int(((lengths.to(torch.int64) - 1).clamp(min=0) * own_width).sum())
     return {"rows": s2c.shape[0], "width": int(width), "L": s2c.shape[1], "cells": cells}
 
@@ -927,48 +952,87 @@ class LastRowTimer:
     call (the wrapper's checks, its allocation and the launch, which follow
     the batch's entries on that stream), each call's rows, padded width,
     read rows and cells (:func:`last_row_call`), and the arguments of the
-    largest call.  The calls and their launch counts are the wrapper's
-    own."""
+    largest call; for ``dp_last_row_hp`` every call's arguments instead,
+    and it also times each form's launches apart (events around the library's
+    ``mia_dp_band_hp`` and ``mia_dp_last_row_hp``).  The calls and their
+    launch counts are the wrapper's own."""
+
+    FORMS = {"band": "mia_dp_band_hp", "full": "mia_dp_last_row_hp"}
 
     def __init__(self, name: str = "dp_last_row"):
         self.name = name
+        self.hp = name == "dp_last_row_hp"
 
     def __enter__(self):
         import torch
 
         from mia_tpu_torch.ops import dp_cuda
+        from mia_tpu_torch.utils.torchcfg import kernel_library
 
         self._mod, self._fn = dp_cuda, getattr(dp_cuda, self.name)
         self.events: list = []
         self.calls: list = []
+        self.kept: list = []
         self.largest = None
+        self.form_events: dict = {form: [] for form in self.FORMS}
+
+        def events():
+            return (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
 
         def wrapped(*args):
-            start, stop = (torch.cuda.Event(enable_timing=True),
-                           torch.cuda.Event(enable_timing=True))
+            start, stop = events()
             start.record()
             out = self._fn(*args)
             stop.record()
             self.events.append((start, stop))
-            call = last_row_call(args, self.name == "dp_last_row_hp")
+            call = last_row_call(args, self.hp)
             self.calls.append(call)
-            if self.largest is None or (call["rows"] * call["width"]
-                                        > self.largest[0]["rows"] * self.largest[0]["width"]):
-                self.largest = (call, tuple(a.clone() if hasattr(a, "clone") else a
-                                            for a in args))
+            if self.hp or self.largest is None or (
+                    call["rows"] * call["width"]
+                    > self.largest[0]["rows"] * self.largest[0]["width"]):
+                kept = (call, tuple(a.clone() if hasattr(a, "clone") else a for a in args))
+                if self.hp:
+                    self.kept.append(kept)
+                else:
+                    self.largest = kept
             return out
 
         setattr(dp_cuda, self.name, wrapped)
+        self._lib, self._entries = kernel_library(), {}
+        if self.hp:
+            for form, entry in self.FORMS.items():
+                fn = getattr(self._lib, entry)
+
+                def timed(*a, _fn=fn, _form=form):
+                    start, stop = events()
+                    start.record()
+                    rc = _fn(*a)
+                    stop.record()
+                    self.form_events[_form].append((start, stop))
+                    return rc
+
+                self._entries[entry] = fn
+                setattr(self._lib, entry, timed)
         return self
 
     def __exit__(self, *exc):
         setattr(self._mod, self.name, self._fn)
+        for entry, fn in self._entries.items():
+            setattr(self._lib, entry, fn)
 
     def device_ms(self) -> list[float]:
         import torch
 
         torch.cuda.synchronize()
         return [a.elapsed_time(b) for a, b in self.events]
+
+    def form_ms(self) -> dict[str, list[float]]:
+        """Device ms of each form's launches (``dp_last_row_hp`` only)."""
+        import torch
+
+        torch.cuda.synchronize()
+        return {form: [a.elapsed_time(b) for a, b in ev]
+                for form, ev in self.form_events.items()}
 
 
 def wide_workload(d: str, seed: int = 1, reads: int = 20000) -> dict:
@@ -1081,56 +1145,130 @@ def phase_wide(dev) -> dict:
             "rows": int(np.sum(rows))}
 
 
-def phase_wide_hp(timer: "LastRowTimer", counts: dict) -> dict:
-    """Phase 8c: the full-width -h scorer (K4g, ``dp_last_row_hp``) as phase
-    8's run went through it (``timer``): its launches' rows, widths and
-    device time (CUDA events around each call); the run's largest call held
-    to the plain version, exact, then timed, with its bound and Gcells/s."""
+def phase_wide_hp(timer: "LastRowTimer", counts: dict) -> tuple[dict, dict]:
+    """Phase 8c: the -h scorer of wide rows (K4g, ``dp_last_row_hp``) as
+    phase 8's run went through it (``timer``): its calls' rows and launches
+    per form, widths, cells counted three ways (as launched, over each
+    row's own window, over its band) and device time (CUDA events around
+    each call and around each form's launches), Gcells/s; then each form's
+    largest call (the band form: the call with the most band rows; the full
+    form: the most full-row columns) held to its plain version (exact),
+    timed, and its bound at the DP's 14 operations a cell: the band form's
+    over band cells, with the own-window count's beside it.
+    Returns the ``kernels`` line's entries of the full and the band form."""
     import numpy as np
 
     from mia_tpu_torch.ops import dp_cuda
-    from mia_tpu_torch.ops.dp_torch import last_row_hp_plain
+    from mia_tpu_torch.ops.dp_torch import last_row_hp_band_plain, last_row_hp_plain
 
     ms = timer.device_ms()
-    if not ms or len(ms) != counts["dp.last_row_hp_launches"]:
-        raise AssertionError(f"-h wide reads: {len(ms)} timed calls, counts {counts}")
-    rows = [k["rows"] for k in timer.calls]
-    widths = [k["width"] for k in timer.calls]
-    cells = sum(k["cells"] for k in timer.calls)
-    say(f"-h wide reads: {len(ms)} dp_last_row_hp launches, rows {rows}, widths {widths}; "
-        f"device ms (events around each call) {sum(ms):.4f} in all, "
+    form_ms = timer.form_ms()
+    if not ms or len(form_ms["band"]) != counts["dp.last_row_hp_band_launches"] or len(
+            form_ms["full"]) != counts["dp.last_row_hp_launches"]:
+        raise AssertionError(f"-h wide reads: {len(ms)} timed calls, launches timed "
+                             f"{ {k: len(v) for k, v in form_ms.items()} }, counts {counts}")
+    calls = timer.calls
+    band_rows = [k["band_rows"] for k in calls]
+    full_rows = [k["rows"] - k["band_rows"] for k in calls]
+    if (sum(band_rows), sum(full_rows)) != (counts["dp.last_row_hp_band_rows"],
+                                            counts["dp.last_row_hp_rows"]):
+        raise AssertionError(f"-h wide reads: rows {band_rows} / {full_rows}, counts {counts}")
+    tot = {k: sum(c[k] for c in calls) for k in ("launched", "cells", "band_cells")}
+    run_ms = {form: sum(v) for form, v in form_ms.items()}
+    say(f"-h wide reads: {len(ms)} dp_last_row_hp calls; band form {len(form_ms['band'])} "
+        f"launches, rows {band_rows}; full form {len(form_ms['full'])} launches, rows "
+        f"{full_rows} at widths {[k['width'] for k in calls]}; counts "
+        + json.dumps({k: v for k, v in counts.items() if k.startswith("dp.last_row_hp")}))
+    say(f"-h wide reads: cells as launched {tot['launched']}, in each row's own window "
+        f"{tot['cells']}, in each row's band {tot['band_cells']}")
+    say(f"-h wide reads: device ms (events around each call) {sum(ms):.4f} in all, "
         + ", ".join(f"{x:.4f}" for x in ms)
-        + f"; {cells} cells ({cells / max(sum(ms), 1e-9) / 1e6:.3f} Gcells/s)")
-    call, args = timer.largest
-    got = dp_cuda.dp_last_row_hp(*args)
-    err = check_equal("dp_last_row_hp != plain at the run's largest call", got,
-                      last_row_hp_plain(*args))
-    launches = dp_cuda.last_row_hp_launches
-    t = time_plain_pair(lambda: dp_cuda.dp_last_row_hp(*args),
-                        lambda: last_row_hp_plain(*args),
-                        f"-h wide reads: dp_last_row_hp at the run's largest call, "
-                        f"R={call['rows']} W={call['width']} L={call['L']}",
-                        f"; {call['cells']} cells")
-    if dp_cuda.last_row_hp_plain_calls:
-        raise AssertionError("-h wide reads: the wrapper took the plain version on the card")
-    kernel_calls = dp_cuda.last_row_hp_launches - launches
-    # each input read once (the strand state whole, the reads up to their
-    # lengths), the [2, R] result written once
-    lengths = args[10].cpu().numpy()
-    moved = nbytes(*args[:9], args[10], got) + read_bytes(lengths, args[9])
-    # the DP's 14 operations a cell, as K4's bound counts them
-    # (phase_hp_kernel): a row takes one of the two -h candidates (hp_col or
-    # hp_row; most of their masks are conditions of the row), and that one is
-    # left out, as it is for K4, so that both -h kernels share one bound
-    b = bound(moved, DP_OPS_PER_CELL * call["cells"])
-    say(f"-h wide reads: largest call == plain (exact, max |diff| {err}), bound "
-        f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {DP_OPS_PER_CELL} operations a cell), "
-        f"{call['cells'] / t['ms'] / 1e6:.3f} Gcells/s; {kernel_calls} timing launches "
-        f"after the run's {counts['dp.last_row_hp_launches']}; mean read length "
-        f"{float(np.mean(lengths)):.1f}")
-    return {"launches": counts["dp.last_row_hp_launches"], "max_abs_err": err, **t,
-            "library_ms": None, **b, "wide_device_ms": sum(ms), "wide_rows": int(np.sum(rows)),
-            "wide_cells": cells}
+        + f"; band form {run_ms['band']:.4f} (" + ", ".join(f"{x:.4f}" for x in form_ms["band"])
+        + f"), full form {run_ms['full']:.4f} ("
+        + ", ".join(f"{x:.4f}" for x in form_ms["full"]) + "); "
+        f"{tot['band_cells'] / max(sum(ms), 1e-9) / 1e6:.3f} Gcells/s over band cells, "
+        f"{tot['cells'] / max(sum(ms), 1e-9) / 1e6:.3f} over own-window cells")
+
+    def held(form: str, call: dict, args: tuple) -> dict:
+        """One form's rows of a kept call: held to the plain version,
+        timed through the wrapper, bound."""
+        state, rows = args[:6], args[6:11]
+        nb = call["band_rows"]
+        if form == "band":
+            part = tuple(a[:nb] for a in rows)
+            call_args = (*state, *part, 0, nb)
+        else:
+            part = tuple(a[nb:] for a in rows)
+            call_args = (*state, *part, call["width"], 0)
+
+        def plain():
+            if form == "band":
+                return last_row_hp_band_plain(*state, *part)
+            return last_row_hp_plain(*state, *part, call["width"])
+        info = last_row_call(call_args, True)
+        launches = (dp_cuda.last_row_hp_band_launches, dp_cuda.last_row_hp_launches)
+        got = dp_cuda.dp_last_row_hp(*call_args)
+        err = check_equal(f"dp_last_row_hp ({form} form) != plain at the run's largest call",
+                          got, plain())
+        t = time_plain_pair(lambda: dp_cuda.dp_last_row_hp(*call_args), plain,
+                            f"-h wide reads: {form} form at the run's largest call, "
+                            f"R={info['rows']} W={info['width']} L={info['L']}",
+                            f"; {info['cells']} own-window cells, {info['band_cells']} band "
+                            f"cells")
+        if dp_cuda.last_row_hp_plain_calls or dp_cuda.last_row_hp_band_plain_calls:
+            raise AssertionError("-h wide reads: the wrapper took a plain version on the card")
+        timing = (dp_cuda.last_row_hp_band_launches - launches[0],
+                  dp_cuda.last_row_hp_launches - launches[1])
+        # the kernel alone, into a result buffer made here
+        ptrs = [a.data_ptr() for a in (*state[:3], *part)]
+        tail = [a.data_ptr() for a in state[3:]]
+        R, L = part[3].shape
+        out = got.clone()
+
+        def bare(lib, stream):
+            if form == "band":
+                return lib.mia_dp_band_hp(*ptrs[:3], state[0].shape[1], *ptrs[3:], *tail, R, L,
+                                          out.data_ptr(), R, stream)
+            return lib.mia_dp_last_row_hp(*ptrs[:3], state[0].shape[1], *ptrs[3:], *tail, R,
+                                          call["width"], L, out.data_ptr(), stream)
+
+        t["kernel_only_ms"] = time_raw_launch(bare, f"-h wide reads: {form} form", t["ms"], 50)
+        # each input read once (the strand state whole, the reads up to their
+        # lengths), the [2, R] result written once; the DP's 14 operations a
+        # cell, as K4's bound counts them: a row takes one of the two -h
+        # candidates, and that one is left out, so both -h kernels share one
+        # bound
+        lengths = part[4].cpu().numpy()
+        moved = nbytes(*state, *part[:3], part[4], got) + read_bytes(lengths, part[3])
+        cells = info["band_cells"] if form == "band" else info["cells"]
+        b = bound(moved, DP_OPS_PER_CELL * cells)
+        padded = bound(moved, DP_OPS_PER_CELL * info["cells"])
+        say(f"-h wide reads: {form} form == plain (exact, max |diff| {err}); bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {DP_OPS_PER_CELL} operations a "
+            f"{'band' if form == 'band' else 'own-window'} cell), "
+            f"{cells / t['ms'] / 1e6:.3f} Gcells/s; over own-window cells "
+            f"bound {padded['bound_ms']:.4f} ms, {info['cells'] / t['ms'] / 1e6:.3f} "
+            f"Gcells/s; launches (band, full) {timing} for the check and timing; mean read "
+            f"length {float(np.mean(lengths)):.1f}")
+        return {"max_abs_err": err, **t, "library_ms": None, **b,
+                "workload_rows": info["rows"], "workload_width": info["width"],
+                "workload_cells": info["cells"], "workload_band_cells": info["band_cells"],
+                "own_window_bound_ms": padded["bound_ms"]}
+
+    kept = timer.kept
+    band_at = max(range(len(kept)), key=lambda i: kept[i][0]["band_rows"])
+    full_at = max(range(len(kept)),
+                  key=lambda i: (kept[i][0]["rows"] - kept[i][0]["band_rows"])
+                  * kept[i][0]["width"])
+    run = {"wide_device_ms": sum(ms), "wide_rows": int(sum(band_rows) + sum(full_rows)),
+           "wide_cells": tot["cells"], "wide_band_cells": tot["band_cells"],
+           "wide_launched_cells": tot["launched"]}
+    full = {"launches": counts["dp.last_row_hp_launches"], **held("full", *kept[full_at]),
+            **run, "form_device_ms": run_ms["full"], "form_rows": sum(full_rows)}
+    band = {"launches": counts["dp.last_row_hp_band_launches"],
+            **held("band", *kept[band_at]), **run, "form_device_ms": run_ms["band"],
+            "form_rows": sum(band_rows)}
+    return full, band
 
 
 def phase_prepare_threads() -> None:
@@ -1248,9 +1386,11 @@ def run_side(side: tuple, args: list[str], root: str, what: str):
               "dp.hp_plain_calls": dp.hp_plain_calls,
               "dp.last_row_launches": getattr(dp, "last_row_launches", 0),
               "dp.last_row_hp_launches": getattr(dp, "last_row_hp_launches", 0),
-              "dp.last_row_hp_plain_calls": getattr(dp, "last_row_hp_plain_calls", 0)}
+              "dp.last_row_hp_plain_calls": getattr(dp, "last_row_hp_plain_calls", 0),
+              "dp.last_row_hp_band_launches": getattr(dp, "last_row_hp_band_launches", 0),
+              "dp.last_row_hp_band_plain_calls": getattr(dp, "last_row_hp_band_plain_calls", 0)}
     if (counts["dp.plain_calls"] or counts["dp.hp_plain_calls"]
-            or counts["dp.last_row_hp_plain_calls"]
+            or counts["dp.last_row_hp_plain_calls"] or counts["dp.last_row_hp_band_plain_calls"]
             or not counts["dp.kernel_launches"] + counts["dp.hp_kernel_launches"]):
         raise AssertionError(f"{what} did not score on the card: {counts}")
     return maln_bytes(root), wall, prof, counts
@@ -2619,6 +2759,7 @@ def check_served(tag: str, counters: dict, before: dict, after: dict, scorer: st
             and rise[scorer] >= runs and rise["cons.kernel_launches"] >= runs
             and rise["dp.plain_calls"] == rise["dp.hp_plain_calls"] == 0
             and rise["dp.last_row_plain_calls"] == rise["dp.last_row_hp_plain_calls"] == 0
+            and rise["dp.last_row_hp_band_plain_calls"] == 0
             and checks["pass1.native_solved_wide_reads"] == 0
             and rise["cons.plain_calls"] == 0):
         raise AssertionError(f"server {tag}: not served by the card: {checks}, server {rise}")
@@ -2657,7 +2798,7 @@ def phase_server(args: list[str], walls: dict, smi: str) -> dict:
         want = maln_bytes(os.path.join(WORK, "e2e", "torch_inproc", "out.maln"))
         want_hp = maln_bytes(os.path.join(WORK, "e2e_hp", "torch_inproc", "out.maln"))
         launches = {"dp_entries": 0, "dp_entries_hp": 0, "column_counts": 0,
-                    "dp_last_row_hp": 0}
+                    "dp_last_row_hp": 0, "dp_last_row_hp_band": 0}
 
         def served(tags, run_args, want_bytes, scorer):
             before = server_hello(sock)
@@ -2671,6 +2812,7 @@ def phase_server(args: list[str], walls: dict, smi: str) -> dict:
             launches["dp_entries_hp"] += rise["dp.hp_kernel_launches"]
             launches["column_counts"] += rise["cons.kernel_launches"]
             launches["dp_last_row_hp"] += rise["dp.last_row_hp_launches"]
+            launches["dp_last_row_hp_band"] += rise["dp.last_row_hp_band_launches"]
             return [w for w, _ in out], out[-1][1], rise
 
         client_walls = []
@@ -2684,9 +2826,9 @@ def phase_server(args: list[str], walls: dict, smi: str) -> dict:
         say("server: client phases s " + json.dumps(prof["phases_s"], sort_keys=True))
         (hp_wall,), prof, rise = served(["client_hp"], [*args, "-h"], want_hp,
                                         "dp.hp_kernel_launches")
-        if not rise["dp.last_row_hp_launches"]:
+        if not (rise["dp.last_row_hp_launches"] and rise["dp.last_row_hp_band_launches"]):
             raise AssertionError(f"server: the -h client's WIDE reads did not go through "
-                                 f"dp_last_row_hp: {rise}")
+                                 f"both forms of dp_last_row_hp: {rise}")
         say(f"server: -h client {hp_wall:.3f} s (run {prof['total_s']:.3f} s), malns "
             f"byte-identical to phase 8; server launches {json.dumps(rise)}")
         say("server: -h client phases s " + json.dumps(prof["phases_s"], sort_keys=True))
@@ -2809,7 +2951,7 @@ def main() -> int:
     with LastRowTimer("dp_last_row_hp") as hp_timer:
         hp_counts, _ = run_e2e("e2e_hp", [*args, "-h"], hp=True, new_process=False,
                                captured=captured)
-    wide_hp = phase_wide_hp(hp_timer, hp_counts)
+    wide_hp, band_hp = phase_wide_hp(hp_timer, hp_counts)
     shapes = phase_workload_shapes(captured)
     myers_kern = phase_myers_kernel(dev)
     phase_ccheck_golden()
@@ -2879,10 +3021,19 @@ def main() -> int:
         "route": "cuda",
         "source": "mia_tpu_torch/csrc/dp_last_row.cu",
         "replaces": "mia_tpu/ops/dp_jax.py:220",
-        # pass 1's -h WIDE reads (phase 8); its numbers at the run's largest
-        # call (phase 8c); the server's launches for the -h client (16b)
+        # pass 1's -h WIDE rows past the band form's 384 columns (phase 8);
+        # its numbers at the run's largest such call (phase 8c); the
+        # server's launches for the -h client (16b)
         "server_launches": server_launches["dp_last_row_hp"],
         **wide_hp,
+    }, {
+        "name": "dp_last_row_hp_band",
+        "route": "cuda",
+        "source": "mia_tpu_torch/csrc/dp_band_hp.cu",
+        "replaces": "mia_tpu/ops/dp_jax.py:220",
+        # the band form of the same: the rest of the -h WIDE rows
+        "server_launches": server_launches["dp_last_row_hp_band"],
+        **band_hp,
     }, {
         "name": "pileup_counts",
         "route": "cuda",

@@ -26,8 +26,10 @@ beside the pipeline's own: ``dp.kernel_launches`` / ``dp.plain_calls`` (the
 scorer), ``dp.hp_kernel_launches`` / ``dp.hp_plain_calls`` (the ``-h``
 scorer), ``dp.last_row_launches`` / ``dp.last_row_plain_calls`` (the
 general-width scorer, which takes pass 1's WIDE reads) and
-``dp.last_row_hp_launches`` / ``dp.last_row_hp_plain_calls`` (its ``-h``
-form, which takes them under ``-h``),
+``dp.last_row_hp_launches`` / ``dp.last_row_hp_plain_calls`` and
+``dp.last_row_hp_band_launches`` / ``dp.last_row_hp_band_plain_calls`` (its
+``-h`` full and band forms, which take them under ``-h``;
+``dp.last_row_hp_rows`` / ``dp.last_row_hp_band_rows`` the rows of each),
 ``dp.shards`` (device shards a dispatch was dealt over) and
 ``cons.kernel_launches`` / ``cons.plain_calls`` (consensus column counts),
 each 0 where this process never loaded the kernel's module (a run through
@@ -52,7 +54,9 @@ KERNEL_COUNTERS = (
     ("dp", "mia_tpu_torch.ops.dp_cuda",
      ("kernel_launches", "plain_calls", "hp_kernel_launches", "hp_plain_calls",
       "last_row_launches", "last_row_plain_calls", "last_row_hp_launches",
-      "last_row_hp_plain_calls", "shards")),
+      "last_row_hp_plain_calls", "last_row_hp_band_launches",
+      "last_row_hp_band_plain_calls", "last_row_hp_rows", "last_row_hp_band_rows",
+      "shards")),
     ("cons", "mia_tpu_torch.ops.consensus_torch", ("kernel_launches", "plain_calls")),
 )
 

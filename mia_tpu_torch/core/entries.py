@@ -143,6 +143,36 @@ NO_BAND_SCORE = HIM
 HP_WIDE_COLS = 512 * 34
 
 
+# the widest band the -h band form scores (csrc/dp_band_hp.cu: a warp a row,
+# 12 columns a lane, as csrc/dp_entries.cu's window; its
+# mia_dp_band_hp_constants reports it to the loader): an -h wide row whose
+# band takes more columns (band_columns) is scored by the full form
+HP_BAND_COLS = 32 * 12
+
+
+def band_columns(ivl) -> tuple[np.ndarray, np.ndarray]:
+    """(open [R] int64, cols [R] int64) of rows with window-local intervals
+    ``ivl`` [R, K, 2]: ``open`` the columns of the union of the intervals
+    (touching or overlapping ones count once; an interval with lo >= hi is
+    empty), ``cols`` the columns the ``-h`` band form scores, the union
+    with the two columns before each of its runs (at least 0), so that
+    every open column's two left neighbours are scored too."""
+    iv = np.asarray(ivl, np.int64)
+    lo, hi = iv[:, :, 0], iv[:, :, 1]
+    valid = lo < hi
+    order = np.argsort(np.where(valid, lo, np.iinfo(np.int64).max), axis=1, kind="stable")
+    lo, hi, valid = (np.take_along_axis(a, order, 1) for a in (lo, hi, valid))
+    hi = np.where(valid, hi, 0)
+    # the columns each interval adds past every earlier one's end
+    before = np.maximum.accumulate(np.concatenate([np.zeros_like(hi[:, :1]), hi[:, :-1]],
+                                                  1), 1)
+
+    def union(start):
+        return np.where(valid, np.maximum(hi - np.maximum(start, before), 0), 0).sum(1)
+
+    return union(lo), union(np.maximum(lo - 2, 0))
+
+
 def window_bounds(ivg) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(has [n] bool, win_lo [n] int64, hi [n] int64) of each read's window
     on one strand from its GLOBAL band intervals ``ivg`` [n, K, 2], as the
@@ -198,6 +228,10 @@ class WideRows:
                         # read chars (pad 0); L the longest read
     lengths: np.ndarray  # [R] int32 read lengths
     width: int          # W: the widest row's columns
+    # under -h: the leading rows the band form takes (band_columns at most
+    # HP_BAND_COLS), and the widest window of the rest, the full form's
+    n_band: int = 0
+    full_width: int = 0
 
     @property
     def n(self) -> int:
@@ -210,7 +244,10 @@ def wide_rows(flags, lens, s2c, fw_ivg, rc_ivg, hp: bool = False) -> WideRows | 
     read chars of ``pack_chars``, and GLOBAL band intervals: a strand's
     window is :func:`window_bounds`'; a strand without intervals gets no
     row (its score is :data:`NO_BAND_SCORE`).  Under ``-h`` a read with a
-    window wider than :data:`HP_WIDE_COLS` is not taken."""
+    window wider than :data:`HP_WIDE_COLS` is not taken, and the rows whose
+    band takes at most :data:`HP_BAND_COLS` columns (:func:`band_columns`)
+    come first, in order, as the band form's ``n_band``; the rest keep the
+    full form at ``full_width``, the widest of their own windows."""
     sel = np.flatnonzero(wide_scored(flags, lens,
                                      window_widths(fw_ivg, rc_ivg) if hp else None))
     if not len(sel):
@@ -222,12 +259,19 @@ def wide_rows(flags, lens, s2c, fw_ivg, rc_ivg, hp: bool = False) -> WideRows | 
     ivg, read, strand, win_lo, hi = ivg[has], read[has], strand[has], win_lo[has], hi[has]
     used = ivg[:, :, 1] > 0
     ivl = np.where(used[:, :, None], ivg - win_lo[:, None, None], 0)
+    n_band, full_width = 0, int((hi - win_lo).max())
+    if hp:
+        band = band_columns(ivl)[1] <= HP_BAND_COLS
+        order = np.argsort(~band, kind="stable")
+        read, strand, win_lo, hi, ivl = (a[order] for a in (read, strand, win_lo, hi, ivl))
+        n_band = int(band.sum())
+        full_width = int((hi - win_lo)[n_band:].max(initial=0))
     lengths = np.asarray(lens, np.int32)[read]
     L = int(lengths.max())
     return WideRows(sel, read, strand, win_lo.astype(np.int32), ivl.astype(np.int32),
                     np.ascontiguousarray(np.asarray(s2c)[read, :L],
                                          np.uint8 if hp else np.int32), lengths,
-                    int((hi - win_lo).max()))
+                    int((hi - win_lo).max()), n_band, full_width)
 
 
 def wide_inputs(rows: WideRows, refs: np.ndarray):
@@ -262,7 +306,12 @@ def merge_wide(fb, fa, rb, ra, rows: WideRows, best, aec) -> None:
     for b, a in ((fb, fa), (rb, ra)):
         b[rows.sel] = NO_BAND_SCORE
         a[rows.sel] = 0
-    aec = np.asarray(aec, np.int64) + rows.win_lo
+    aec = np.asarray(aec, np.int64)
+    if (aec < 0).any():
+        # the band form's mark of a row whose band is wider than it takes
+        raise RuntimeError(f"wide rows {np.flatnonzero(aec < 0)[:5].tolist()}: "
+                           "band too wide for the -h band form")
+    aec = aec + rows.win_lo
     fw = rows.strand == 0
     fb[rows.read[fw]] = best[fw]
     fa[rows.read[fw]] = aec[fw]

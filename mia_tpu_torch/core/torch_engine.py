@@ -42,8 +42,11 @@ What changed from the TPU engine, and why:
   general-width scorer's ``-h`` form
   (:func:`mia_tpu_torch.ops.dp_cuda.dp_last_row_hp`), which reads its
   windows of the strands' codes, chars and run starts from the state
-  itself; a read with a strand window past that form's 17,408 columns
-  (``entries.HP_WIDE_COLS``) stays with the native solve.
+  itself: ``entries.wide_rows`` puts the rows whose band takes at most 384
+  columns first, for its band form, which scores those columns only, and
+  the rest take its full form at their widest window; a read with a strand
+  window past 17,408 columns (``entries.HP_WIDE_COLS``) stays with the
+  native solve.
 
 The numpy helpers (``build_pass1_entries``, ``split_pass1_results``,
 ``wide_rows``, ``merge_wide``, ``pack_s2c``, ``diag_gapfree``) and the shape
@@ -159,21 +162,24 @@ def wide_device_inputs(refs: torch.Tensor, width: int, strand: torch.Tensor,
             interval_mask(ivl, width))
 
 
-def score_wide(state: ScorerState, width: int, strand, win_lo, ivl, s2c,
+def score_wide(state: ScorerState, width: int, n_band: int, strand, win_lo, ivl, s2c,
                lengths) -> torch.Tensor:
-    """(best, window-local aec) of wide rows as [2, R] int32: the last DP
-    row's first maximum (the native solve takes the earliest column too,
-    hostbatch.cc ``fill_strand``).  Without ``-h`` the row comes from
-    ``dp_cuda.dp_last_row`` (the kernel on a card, its plain version on the
-    CPU) and its maximum from ``batch_best_and_aec``; under ``-h`` (``s2c``:
-    read chars) ``dp_cuda.dp_last_row_hp`` reads the windows of the state's
-    strands itself and returns only the pair.  Every row scores with the
-    forward PSSM, as ``mia_p1_solve`` does for both strands
+    """(best, window-local aec) of wide rows as [2, R] int32 in row order:
+    the last DP row's first maximum (the native solve takes the earliest
+    column too, hostbatch.cc ``fill_strand``).  Without ``-h`` the row comes
+    from ``dp_cuda.dp_last_row`` (the kernel on a card, its plain version on
+    the CPU) at ``width`` columns and its maximum from
+    ``batch_best_and_aec``; under ``-h`` (``s2c``: read chars)
+    ``dp_cuda.dp_last_row_hp`` reads the windows of the state's strands
+    itself and returns only the pairs, the first ``n_band`` rows from its
+    band form and the rest from its full form at ``width``
+    (``entries.WideRows.n_band`` / ``full_width``).  Every row scores with
+    the forward PSSM, as ``mia_p1_solve`` does for both strands
     (``ctx->submat[0]``)."""
     if state.hp:
         return dp_cuda.dp_last_row_hp(state.refs, state.refchr, state.hpcs, state.sms[0],
                                       state.pengop, state.b2i, strand, win_lo, ivl, s2c,
-                                      lengths, width)
+                                      lengths, width, n_band)
     s1c, mask = wide_device_inputs(state.refs, width, strand, win_lo, ivl)
     depths = depths_for(lengths, s2c.shape[1]).to(torch.int32)
     last = dp_cuda.dp_last_row(s1c, mask, s2c, lengths, depths, state.sms[0])
@@ -343,8 +349,9 @@ class Pass1Scorer:
         host = (rows.strand, rows.win_lo, rows.ivl, rows.s2c, rows.lengths)
         host = tuple(np.ascontiguousarray(a) for a in host)
         shard = self.shards[0]
+        width = rows.full_width if self.hp else rows.width
         return _Batch([self._dispatch_shard(
-            shard, host, partial(score_wide, shard.state, rows.width))], rows.n)
+            shard, host, partial(score_wide, shard.state, width, rows.n_band))], rows.n)
 
     @staticmethod
     def ready(handle) -> bool:

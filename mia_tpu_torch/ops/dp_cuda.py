@@ -26,15 +26,21 @@ The general form of the same recurrence, any width and the whole last row
 out, is ``dp_last_row`` (``csrc/dp_last_row.cu``, at the end of this module):
 one block per read, 34 columns a thread in registers, one barrier a row, for
 rows of up to 17,408 columns; wider rows take the same file's wide form.
-Its ``-h`` instantiation, ``dp_last_row_hp``, scores pass 1's ``-h`` WIDE
-reads: rows of up to 17,408 columns (wider ones stay with the native solve,
-``entries.HP_WIDE_COLS``), each reading its window of the scorer's strand
-state itself, (best, first column of the best) out.
+``dp_last_row_hp`` scores pass 1's ``-h`` WIDE reads in two forms, each
+row reading its window of the scorer's strand state itself, (best, first
+column of the best) out: the band form (``csrc/dp_band_hp.cu``, a warp a
+row) for rows whose band takes at most 384 columns
+(``entries.HP_BAND_COLS``), on those columns only, and the full form (the
+``-h`` instantiation of ``dp_last_row``'s register form) for the rest, at
+their widest window, up to 17,408 columns (wider ones stay with the native
+solve, ``entries.HP_WIDE_COLS``).
 ``kernel_launches`` / ``plain_calls``, ``hp_kernel_launches`` /
-``hp_plain_calls``, ``last_row_launches`` / ``last_row_plain_calls`` and
-``last_row_hp_launches`` / ``last_row_hp_plain_calls`` count the two routes
-of each (``last_row_wide_launches``: the launches of the wide form among
-them); ``shards`` is the largest
+``hp_plain_calls``, ``last_row_launches`` / ``last_row_plain_calls``,
+``last_row_hp_launches`` / ``last_row_hp_plain_calls`` (the full form) and
+``last_row_hp_band_launches`` / ``last_row_hp_band_plain_calls`` count the
+two routes of each (``last_row_wide_launches``: the launches of the wide
+form among them; ``last_row_hp_rows`` / ``last_row_hp_band_rows``: the rows
+each ``-h`` form took); ``shards`` is the largest
 number of device shards one dispatch of the scorer was dealt over
 (``core.torch_engine.Pass1Scorer``, 1 on a single device).  Both kernels share one
 library (``torchcfg.kernel_library``) with the consensus column counts
@@ -49,7 +55,13 @@ import torch
 
 from ..core.entries import HP_WIDE_COLS, L_MAX, MAX_INTERVALS
 
-from .dp_torch import batch_last_row, entries_core_hp_plain, entries_core_plain, last_row_hp_plain
+from .dp_torch import (
+    batch_last_row,
+    entries_core_hp_plain,
+    entries_core_plain,
+    last_row_hp_band_plain,
+    last_row_hp_plain,
+)
 
 kernel_launches = 0
 plain_calls = 0
@@ -61,12 +73,17 @@ last_row_wide_launches = 0
 last_row_plain_calls = 0
 last_row_hp_launches = 0
 last_row_hp_plain_calls = 0
+last_row_hp_rows = 0
+last_row_hp_band_launches = 0
+last_row_hp_band_plain_calls = 0
+last_row_hp_band_rows = 0
 
 
 def reset_counts() -> None:
     global kernel_launches, plain_calls, hp_kernel_launches, hp_plain_calls, shards
     global last_row_launches, last_row_wide_launches, last_row_plain_calls
-    global last_row_hp_launches, last_row_hp_plain_calls
+    global last_row_hp_launches, last_row_hp_plain_calls, last_row_hp_rows
+    global last_row_hp_band_launches, last_row_hp_band_plain_calls, last_row_hp_band_rows
     kernel_launches = 0
     plain_calls = 0
     hp_kernel_launches = 0
@@ -77,6 +94,10 @@ def reset_counts() -> None:
     last_row_plain_calls = 0
     last_row_hp_launches = 0
     last_row_hp_plain_calls = 0
+    last_row_hp_rows = 0
+    last_row_hp_band_launches = 0
+    last_row_hp_band_plain_calls = 0
+    last_row_hp_band_rows = 0
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -285,23 +306,28 @@ def dp_last_row(s1c, mask, s2c, lengths, depths, submat, sg5: bool = True) -> to
 
 
 def dp_last_row_hp(refs, refchr, hpcs, submat, pengop, b2i, strand, win_lo, ivl, s2chr,
-                   lengths, width: int) -> torch.Tensor:
+                   lengths, width: int, n_band: int = 0) -> torch.Tensor:
     """``-h`` scoring of rows of a whole strand window: (best, first column
-    of the best) of each row's last DP row as [2, R] int32, the column
-    window-local; what ``dp_jax.batch_last_row_hp`` and an argmax compute
-    on the window ``jax_engine._entries_core_hp`` would gather.
+    of the best) of each row's last DP row as [2, R] int32 in row order, the
+    column window-local; what ``dp_jax.batch_last_row_hp`` and an argmax
+    compute on the window ``jax_engine._entries_core_hp`` would gather.
 
     refs [2, WTOT] int8 codes, refchr [2, WTOT] uint8 chars, hpcs [2, WTOT]
     int32 run starts (the scorer's state), submat [31, 5, 5] int32, pengop
     [11] int32, b2i [256] int8; per row strand [R] int8, win_lo [R] int32
-    (0 <= win_lo <= WTOT), ivl [R, 16, 2] int32 window-local intervals (lo
-    <= hi <= width), s2chr [R, L] uint8 read chars (pad 0, L <= 256),
-    lengths [R] int32; width 1..17,408; all on one device, contiguous.  CPU
-    tensors go to the plain version (:func:`.dp_torch.last_row_hp_plain`),
-    CUDA tensors to the kernel (the kHp form of ``csrc/dp_last_row.cu``), or
-    the call raises.  ``last_row_hp_launches`` / ``last_row_hp_plain_calls``
-    count the two routes."""
-    global last_row_hp_launches, last_row_hp_plain_calls
+    (0 <= win_lo <= WTOT), ivl [R, 16, 2] int32 window-local intervals (0 <=
+    lo, hi <= 17,408), s2chr [R, L] uint8 read chars (pad 0, L <= 256),
+    lengths [R] int32; all on one device, contiguous.  The first ``n_band``
+    rows take the band form, which scores a row's band columns only
+    (``entries.band_columns`` at most ``entries.HP_BAND_COLS``; a row past
+    that gives (HIM, -1)); the rest take the full form over their first
+    ``width`` window columns (1..17,408; hi <= width).  CPU tensors go to
+    the plain versions (:func:`.dp_torch.last_row_hp_band_plain`,
+    :func:`.dp_torch.last_row_hp_plain`), CUDA tensors to the kernels
+    (``csrc/dp_band_hp.cu``, the kHp form of ``csrc/dp_last_row.cu``), or
+    the call raises."""
+    global last_row_hp_launches, last_row_hp_plain_calls, last_row_hp_rows
+    global last_row_hp_band_launches, last_row_hp_band_plain_calls, last_row_hp_band_rows
     dev = refs.device
     R, L = s2chr.shape
     state = tuple(refs.shape)
@@ -316,19 +342,42 @@ def dp_last_row_hp(refs, refchr, hpcs, submat, pengop, b2i, strand, win_lo, ivl,
         check_tensor(name, t, dtype, shape, dev)
     if not 1 <= L <= L_MAX:
         raise ValueError(f"reads: {L} rows, want 1..{L_MAX}")
-    if not 1 <= width <= HP_WIDE_COLS:
+    if not 0 <= n_band <= R:
+        raise ValueError(f"n_band {n_band}, want 0..{R}")
+    if n_band < R and not 1 <= width <= HP_WIDE_COLS:
         raise ValueError(f"width {width}, want 1..{HP_WIDE_COLS}")
-    if dev.type == "cpu":
-        last_row_hp_plain_calls += 1
-        return last_row_hp_plain(refs, refchr, hpcs, submat, pengop, b2i, strand, win_lo,
-                                 ivl, s2chr, lengths, width)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"dp_last_row_hp: no kernel for device {dev}")
-    out = _launch("dp_last_row_hp", dev, R, lambda lib, o, stream: lib.mia_dp_last_row_hp(
-        refs.data_ptr(), refchr.data_ptr(), hpcs.data_ptr(), refs.shape[1],
-        strand.data_ptr(), win_lo.data_ptr(), ivl.data_ptr(), s2chr.data_ptr(),
-        lengths.data_ptr(), submat.data_ptr(), pengop.data_ptr(), b2i.data_ptr(), R,
-        width, L, o, stream,
-    ))
-    last_row_hp_launches += 1
+    state = (refs, refchr, hpcs, submat, pengop, b2i)
+    band = (strand[:n_band], win_lo[:n_band], ivl[:n_band], s2chr[:n_band], lengths[:n_band])
+    full = (strand[n_band:], win_lo[n_band:], ivl[n_band:], s2chr[n_band:], lengths[n_band:])
+    last_row_hp_band_rows += n_band
+    last_row_hp_rows += R - n_band
+    if dev.type == "cpu":
+        parts = [torch.empty((2, 0), dtype=torch.int32)]
+        if n_band:
+            last_row_hp_band_plain_calls += 1
+            parts.append(last_row_hp_band_plain(*state, *band))
+        if n_band < R:
+            last_row_hp_plain_calls += 1
+            parts.append(last_row_hp_plain(*state, *full, width))
+        return torch.cat(parts, 1)
+    head = [t.data_ptr() for t in (refs, refchr, hpcs)] + [refs.shape[1]]
+    tail = [t.data_ptr() for t in (submat, pengop, b2i)]
+    rest = None
+    if n_band < R:
+        rest = _launch("dp_last_row_hp", dev, R - n_band,
+                       lambda lib, o, stream: lib.mia_dp_last_row_hp(
+                           *head, *(t.data_ptr() for t in full), *tail, R - n_band, width,
+                           L, o, stream))
+        last_row_hp_launches += 1
+        if not n_band:
+            return rest
+    # the band form writes its pairs into the first n_band columns of the
+    # [2, R] result, whose rows are R apart
+    out = _launch("dp_last_row_hp", dev, R, lambda lib, o, stream: lib.mia_dp_band_hp(
+        *head, *(t.data_ptr() for t in band), *tail, n_band, L, o, R, stream))
+    last_row_hp_band_launches += int(n_band > 0)
+    if rest is not None:
+        out[:, n_band:] = rest
     return out

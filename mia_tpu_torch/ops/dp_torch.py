@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import GEP, GOP, HIM, PSSM_DEPTH
+from ..core.entries import HP_BAND_COLS
 from ..core.entries import HPW_ROUTE as HPW
 from ..core.entries import WIN_W
 
@@ -159,12 +160,19 @@ def batch_last_row_hp(
     hpcs_w: torch.Tensor,   # [B, W] int32 global homopolymer start per column
     ws: torch.Tensor,       # [B] int32 window start (global column of column 0)
     pengop: torch.Tensor,   # [11] int32 truncated GOP * fraction table
+    cols: torch.Tensor | None = None,  # [B, W] window-local column of each column
 ) -> torch.Tensor:
     """:func:`batch_last_row_rowsm` plus the ``-h`` homopolymer-discounted
     gap candidates (src/mia.c:883-905): line by line
     ``dp_jax.batch_last_row_hp``, with its ring of the last HPW rows, from
     which ``hp_row`` reads the row before the read's current run started.
-    The scan's value semantics collapse the priority chain into one max."""
+    The scan's value semantics collapse the priority chain into one max.
+
+    ``cols`` (ascending in each row) scores a subset of each row's window
+    columns: column j stands for window column ``cols[b, j]``, whose gap
+    costs and run starts it takes; an hp_col source outside the subset
+    gives no candidate.  Exact for every open column whose two left
+    neighbours are in the subset (:func:`band_layout`)."""
     B, W = mask.shape
     L = row_sm.shape[1]
     dev = mask.device
@@ -177,7 +185,10 @@ def batch_last_row_hp(
     hpcs_w = hpcs_w.to(i32)
     ws = ws.to(i32)[:, None]
     pengop = pengop.to(i32)
-    cols = torch.arange(W, device=dev, dtype=i32)[None, :]
+    subset = cols is not None
+    if not subset:
+        cols = torch.arange(W, device=dev, dtype=i32)[None, :]
+    cols = cols.to(i32)
     gcols = ws + cols
     him = torch.tensor(HIM, dtype=i32, device=dev)
     low = torch.tensor(_LOW, dtype=i32, device=dev)
@@ -200,6 +211,12 @@ def batch_last_row_hp(
     # loop-invariant hp_col gather index: prev[hpcs - 1 - window start]
     hc_idx = (hpcs_w - 1 - ws).clamp(0, W - 1).to(torch.int64)
     hc_ok_static = (hpcs_w != gcols) & (hpcs_w > 0) & (hpcs_w - 1 >= ws)
+    if subset:
+        # the source's column in the subset, if it is there
+        src = (hpcs_w - 1 - ws).to(torch.int64).contiguous()
+        at = torch.searchsorted(cols.to(torch.int64).contiguous(), src).clamp(max=W - 1)
+        hc_ok_static &= torch.gather(cols, 1, at) == src
+        hc_idx = at
     hr_ok_static = (hpcs_w == gcols) & (cols >= 1)
     gap_len = gcols - hpcs_w
 
@@ -306,6 +323,83 @@ def last_row_hp_plain(
                              pengop)
     best, aec = batch_best_and_aec(last)
     return torch.stack([best, aec])
+
+
+def band_layout(ivl: torch.Tensor):
+    """The columns the ``-h`` band form scores for rows with window-local
+    intervals ``ivl`` [R, K, 2]: (cols [R, C] int64 window-local column of
+    each band column, ascending; open [R, C] bool; n [R] int64 each row's
+    band columns, ``entries.band_columns``' ``cols``).  A row's band columns
+    are the union of its intervals with the two columns before each of its
+    runs (at least 0), in order: every open column's two left neighbours
+    are its left neighbours here too.  Columns past a row's n are closed
+    and continue its last column by one each; a row with more than
+    ``entries.HP_BAND_COLS`` band columns gets none (all its columns
+    closed)."""
+    iv = ivl.to(torch.int64)
+    lo, hi = iv[:, :, 0], iv[:, :, 1]
+    valid = lo < hi
+    big = torch.iinfo(torch.int64).max
+    order = torch.sort(torch.where(valid, lo, big), dim=1, stable=True).indices
+    lo, hi, valid = (torch.gather(a, 1, order) for a in (lo, hi, valid))
+    hi = torch.where(valid, hi, 0)
+    before = torch.cummax(torch.cat([torch.zeros_like(hi[:, :1]), hi[:, :-1]], 1), 1).values
+    start = torch.maximum((lo - 2).clamp(min=0), before)
+    cnt = torch.where(valid, (hi - start).clamp(min=0), 0)
+    n_all = cnt.sum(1)
+    cnt = torch.where((n_all <= HP_BAND_COLS)[:, None], cnt, 0)
+    n = cnt.sum(1)
+    ends = torch.cumsum(cnt, 1)
+    R, C = iv.shape[0], max(int(n.max()) if iv.shape[0] else 0, 1)
+    k = torch.arange(C, device=ivl.device)[None, :].expand(R, C).contiguous()
+    seg = torch.searchsorted(ends, k, right=True).clamp(max=iv.shape[1] - 1)
+    cols = torch.gather(start, 1, seg) + k - torch.gather(ends - cnt, 1, seg)
+    cols = torch.where(k < n[:, None], cols, hi.max(1).values[:, None] + k - n[:, None])
+    open_ = ((iv[:, None, :, 0] <= cols[:, :, None]) & (cols[:, :, None] < iv[:, None, :, 1])
+             ).any(2) & (k < n[:, None])
+    return cols, open_, n_all
+
+
+def last_row_hp_band_plain(
+    refs: torch.Tensor,     # [2, WTOT] int8 padded strand codes
+    refchr: torch.Tensor,   # [2, WTOT] uint8 strand chars (pad 0)
+    hpcs: torch.Tensor,     # [2, WTOT] int32 homopolymer run start per column
+    submat: torch.Tensor,   # [31, 5, 5] int32 PSSM
+    pengop: torch.Tensor,   # [11] int32 homopolymer gap-open discounts
+    b2i: torch.Tensor,      # [256] int8 char -> code 0..4
+    strand: torch.Tensor,   # [R] int8 each row's strand
+    win_lo: torch.Tensor,   # [R] int32 global column of the row's column 0
+    ivl: torch.Tensor,      # [R, K, 2] int32 window-local [lo, hi) intervals
+    s2chr: torch.Tensor,    # [R, L] uint8 read chars (pad 0)
+    lengths: torch.Tensor,  # [R] int32 read lengths
+) -> torch.Tensor:
+    """What :func:`last_row_hp_plain` computes, (best, first window column
+    of the best) as [2, R] int32, with each row's DP run on its band
+    columns only (:func:`band_layout`): the same recurrence, its gap costs
+    and run starts from the real window columns, the answer mapped back to
+    its real column.  A row without an open column gives (HIM, 0), as the
+    full width does; a row whose band takes more than ``entries.HP_BAND_COLS``
+    columns gives (HIM, -1).  The plain version of the ``-h`` band form
+    (``csrc/dp_band_hp.cu``, :func:`.dp_cuda.dp_last_row_hp`)."""
+    cols, mask, n = band_layout(ivl)
+    wide = n > HP_BAND_COLS
+    WTOT = refs.shape[1]
+    g = win_lo.to(torch.int64)[:, None] + cols
+    inside = g < WTOT
+    at = strand.to(torch.int64)[:, None] * WTOT + g.clamp(max=WTOT - 1)
+
+    def win(a, pad):
+        return torch.where(inside, a.reshape(-1)[at].to(torch.int32), pad)
+
+    row_sm = make_row_sm(submat, b2i[s2chr.to(torch.int64)],
+                         depths_for(lengths, s2chr.shape[1]))
+    last = batch_last_row_hp(win(refs, 4), win(refchr, 0), mask, row_sm, lengths, s2chr,
+                             win(hpcs, 0), win_lo, pengop, cols=cols)
+    best, k = batch_best_and_aec(last)
+    aec = torch.where(mask.any(1), torch.gather(cols, 1, k[:, None].to(torch.int64))[:, 0], 0)
+    best = torch.where(wide, HIM, best)
+    aec = torch.where(wide, -1, aec)
+    return torch.stack([best, aec.to(torch.int32)])
 
 
 def batch_best_and_aec(last_rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

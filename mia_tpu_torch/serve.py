@@ -34,6 +34,7 @@ in process.
 ``dp.plain_calls``, ``dp.hp_kernel_launches``, ``dp.hp_plain_calls``,
 ``dp.last_row_launches``, ``dp.last_row_plain_calls``,
 ``dp.last_row_hp_launches``, ``dp.last_row_hp_plain_calls``,
+``dp.last_row_hp_band_launches``, ``dp.last_row_hp_band_plain_calls``,
 ``cons.kernel_launches``, ``cons.plain_calls``): a caller reads them before
 and after a run to see that the card did its work.  ``build`` is
 :func:`build_id` of the server's sources when it started, and ``library``
@@ -107,6 +108,7 @@ MAX_STATES = 64
 COUNTERS = ("dp.kernel_launches", "dp.plain_calls", "dp.hp_kernel_launches",
             "dp.hp_plain_calls", "dp.last_row_launches", "dp.last_row_plain_calls",
             "dp.last_row_hp_launches", "dp.last_row_hp_plain_calls",
+            "dp.last_row_hp_band_launches", "dp.last_row_hp_band_plain_calls",
             "cons.kernel_launches", "cons.plain_calls")
 
 

@@ -1000,3 +1000,124 @@ def hp_wide_inputs(W: int, L: int, seed: int = 0, R: int = 16) -> dict:
     return dict(refs=refs, refchr=refchr, hpcs=hpcs, submat=sm, pengop=pengop,
                 b2i=BASE2INX.copy(), strand=strand, win_lo=win_lo, ivl=ivl, s2chr=s2chr,
                 lengths=lengths, width=W)
+
+
+# the edges of the -h band form, by name: what each row of hp_band_inputs is
+HP_BAND_EDGES = (
+    "band 384", "band 385", "open 384", "open 385", "at column 0", "at column 1",
+    "source in another interval", "source in a closed gap", "touching and overlapping",
+    "16 one-column intervals", "gaps of 1 and 2", "empty intervals", "no open column",
+    "past the state", "read of 1", "read of 2",
+)
+
+
+def hp_band_inputs(L: int = 48, seed: int = 0, copies: int = 2) -> dict:
+    """Inputs of ``dp_cuda.dp_last_row_hp`` (:data:`HP_WIDE_KEYS`, and
+    ``width``, the widest row's window) whose rows are the band form's
+    edges, :data:`HP_BAND_EDGES` in order, ``copies`` times over on fresh
+    reads and strands: band columns (``entries.band_columns``) of exactly
+    384 and 385 (the form's limit) in two runs, open columns of exactly 384
+    and 385 from window column 0 (no closed column before them), a band
+    from window column 0 and from column 1, a cell whose
+    hp_col source (the column before its reference run) lies in another
+    interval or in a closed gap between two, touching and overlapping
+    intervals, 16 one-column intervals, gaps of one and two closed columns,
+    empty intervals beside a real one, no open column at all, a band past
+    the strand state's end, and reads of 1 and 2 bases.  The reference is
+    homopolymer-rich with runs of 6-12 bases every 40 columns; the reads are
+    cut from each row's band with runs grown and shrunk, and those of the
+    two source rows lose most of the run that spans their gap, so that the
+    hp_col candidate from across it is live."""
+    rng = np.random.default_rng(seed)
+    len1 = 3000
+    fw = list(_runs_string(rng, len1))
+    for at in range(20, len1 - 20, 40):  # a run of 6-12 bases every 40 columns
+        b = "ACGT"[int(rng.integers(0, 4))]
+        k = int(rng.integers(6, 13))
+        fw[at : at + k] = b * k
+        if fw[at - 1] == b:
+            fw[at - 1] = "ACGT"[("ACGT".index(b) + 1) % 4]
+        if fw[at + k] == b:
+            fw[at + k] = "ACGT"[("ACGT".index(b) + 2) % 4]
+    fw = "".join(fw)[:len1]
+    rc = revcom(fw)
+    strands = (fw, rc)
+    sm = (init_flatsubmat() + rng.integers(-40, 40, (31, 5, 5))).astype(np.int32)
+    refs, _ = padded_state_numpy(encode_seq(fw), encode_seq(rc), len1, sm)
+    refchr, hpcs, pengop = hp_state_numpy((fw, rc), len1, refs.shape[1])
+    n = len(HP_BAND_EDGES)
+    R = n * copies
+    strand = (rng.integers(0, 2, R)).astype(np.int8)
+    win_lo = np.zeros(R, np.int32)
+    ivl = np.zeros((R, MAX_INTERVALS, 2), np.int32)
+    lengths = np.full(R, L, np.int32)
+    s2chr = np.zeros((R, L), np.uint8)
+    for r in range(R):
+        edge = HP_BAND_EDGES[r % n]
+        s = strands[int(strand[r])]
+        # a reference run of 6+ bases on this strand, 60 columns into a
+        # window that starts at a random column
+        runs = np.flatnonzero((hpcs[strand[r], 1:len1] != hpcs[strand[r], :len1 - 1])
+                              & (np.arange(1, len1) > 500) & (np.arange(1, len1) < len1 - 500)) + 1
+        starts = [int(x) for x in runs if hpcs[strand[r], x + 5] == x]
+        run0 = starts[int(rng.integers(0, len(starts)))]
+        run1 = run0 + 1 + int(np.flatnonzero(hpcs[strand[r], run0 + 1:] != run0)[0])
+        lo = run0 - 60
+        win_lo[r] = lo
+        iv = []
+        cut = None  # read: the window columns it is cut from
+        if edge in ("band 384", "band 385"):
+            iv = [(2, 100), (150, 432 if edge == "band 384" else 433)]
+        elif edge in ("open 384", "open 385"):
+            win_lo[r] = 0
+            iv = [(0, 200), (200, 384 if edge == "open 384" else 385)]
+        elif edge == "at column 0":
+            win_lo[r] = 0
+            iv = [(0, 90), (150, 200)]
+        elif edge == "at column 1":
+            win_lo[r] = 0
+            iv = [(1, 120)]
+        elif edge in ("source in another interval", "source in a closed gap"):
+            # the run at window columns [60, 60 + k); the cells of its last
+            # columns open, the column before it (59) open or not
+            k = run1 - run0
+            end = 59 if edge == "source in a closed gap" else 60
+            iv = [(2, end), (60 + k - 3, 60 + k + 80)]
+            cut = (10, 60 + k + 60)
+        elif edge == "touching and overlapping":
+            iv = [(2, 50), (50, 90), (40, 70), (120, 160), (150, 155)]
+        elif edge == "16 one-column intervals":
+            iv = [(2 + 7 * i, 3 + 7 * i) for i in range(MAX_INTERVALS)]
+        elif edge == "gaps of 1 and 2":
+            iv = [(2, 40), (41, 80), (82, 130), (133, 170)]
+        elif edge == "empty intervals":
+            iv = [(30, 30), (2, 100), (90, 60)]
+        elif edge == "no open column":
+            iv = [(40, 40), (70, 20)]
+        elif edge == "past the state":
+            win_lo[r] = refs.shape[1] - 120
+            iv = [(2, 200)]
+        elif edge in ("read of 1", "read of 2"):
+            iv = [(2, 150)]
+            lengths[r] = 1 if edge == "read of 1" else 2
+        for i, (a, b) in enumerate(iv):
+            ivl[r, i] = (a, b)
+        valid = [(a, b) for a, b in iv if a < b] or [(2, 60)]
+        a0, b0 = cut or (min(a for a, _ in valid), max(b for _, b in valid))
+        at = min(int(win_lo[r]) + a0 + int(rng.integers(0, 8)), len1 - 1)
+        piece = s[at : at + max(L, b0 - a0) + 20]
+        if cut:
+            # most of the run spanning the gap goes: a homopolymer deletion
+            # that hp_col scores from the column before the run
+            k = run1 - run0
+            rs = int(win_lo[r]) + 60 - at
+            piece = piece[:rs] + piece[rs] * 2 + piece[rs + k :]
+        else:
+            piece = _mutate_runs(rng, piece)
+        read = (piece + _runs_string(rng, L))[:L]
+        s2chr[r] = np.frombuffer(read.encode("latin-1"), np.uint8)
+        s2chr[r, lengths[r]:] = 0
+    width = int(max(int(ivl[:, :, 1].max()), 1))
+    return dict(refs=refs, refchr=refchr, hpcs=hpcs, submat=sm, pengop=pengop,
+                b2i=BASE2INX.copy(), strand=strand, win_lo=win_lo, ivl=ivl, s2chr=s2chr,
+                lengths=lengths, width=width)

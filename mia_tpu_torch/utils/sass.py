@@ -1,6 +1,6 @@
 """Count the machine instructions of a CUDA kernel's loops.
 
-    python -m mia_tpu_torch.utils.sass [--out DIR] [source.cu | kept.sass ...]
+    python -m mia_tpu_torch.utils.sass [--out DIR] [-D NAME=VALUE ...] [source.cu | kept.sass ...]
 
 Compiles each source (default: every ``mia_tpu_torch/csrc/*.cu``) to a cubin
 with the port's own ``nvcc`` flags, disassembles it with ``cuobjdump -sass``
@@ -11,6 +11,9 @@ there.  For the entry scorer the largest loop is the row loop: its count
 over the cells of one trip (12 columns a lane, times the rows a trip covers)
 is the instructions a DP cell costs; a loop that holds exclusive branches
 (the ``-h`` candidates) is counted whole, so its figure is an upper bound.
+``-D`` defines a macro for the compile: ``-D MIA_BAND_HP_KIND=k`` builds
+``csrc/dp_band_hp.cu`` with every row of one ``-h`` kind (0 none, 1 hp_col,
+2 hp_row), so that its row loop is that kind's alone.
 Needs the CUDA toolkit; no card.
 """
 from __future__ import annotations
@@ -28,13 +31,15 @@ from .torchcfg import CSRC_DIR, NVCC_FLAGS, _nvcc
 _INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?);")
 
 
-def disassemble(source: str) -> str:
-    """``cuobjdump -sass`` of ``source`` compiled alone with the port's flags."""
+def disassemble(source: str, defines: tuple[str, ...] = ()) -> str:
+    """``cuobjdump -sass`` of ``source`` compiled alone with the port's flags
+    and ``-D`` each of ``defines``."""
     nvcc = _nvcc()
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     with tempfile.TemporaryDirectory() as d:
         cubin = os.path.join(d, "k.cubin")
         flags = [f for f in NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+        flags += [f"-D{d}" for d in defines]
         subprocess.run([nvcc, *flags, "-cubin", "-o", cubin, source], check=True,
                        capture_output=True, text=True)
         return subprocess.run([cuobjdump, "-sass", cubin], check=True,
@@ -78,12 +83,12 @@ def loops(instrs: list[tuple[int, str]]) -> list[tuple[int, int, int]]:
     return sorted(found, key=lambda t: -t[2])
 
 
-def report(source: str, out_dir: str | None) -> None:
+def report(source: str, out_dir: str | None, defines: tuple[str, ...] = ()) -> None:
     if source.endswith(".sass"):  # a disassembly kept by an earlier run
         with open(source) as f:
             sass, out_dir = f.read(), None
     else:
-        sass = disassemble(source)
+        sass = disassemble(source, defines)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, os.path.basename(source) + ".sass"), "w") as f:
@@ -99,11 +104,15 @@ def report(source: str, out_dir: str | None) -> None:
 
 
 def main(argv: list[str]) -> int:
-    out_dir = None
-    if argv[:1] == ["--out"]:
-        out_dir, argv = argv[1], argv[2:]
+    out_dir, defines = None, []
+    while argv[:1] in (["--out"], ["-D"]):
+        if argv[0] == "--out":
+            out_dir = argv[1]
+        else:
+            defines.append(argv[1])
+        argv = argv[2:]
     for source in argv or sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))):
-        report(source, out_dir)
+        report(source, out_dir, tuple(defines))
     return 0
 
 

@@ -1,6 +1,6 @@
 """Process-wide PyTorch set-up for the port: device selection and the
 build of the hand-written CUDA kernels (the entry scorers, the general-width
-last-row scorer, the consensus column counts, ccheck's Myers wavefront, and
+last-row scorer and its ``-h`` band form, the consensus column counts, ccheck's Myers wavefront, and
 the assembly step's pileup counts and consensus call).
 
 Port of :mod:`mia_tpu.utils.jaxcfg`.  JAX's "compile once" was its
@@ -118,6 +118,19 @@ def expected_last_row_constants() -> list[int]:
             HP_WIDE_COLS]
 
 
+def expected_band_hp_constants() -> list[int]:
+    """The values ``mia_dp_band_hp_constants`` must report: the ``-h`` band
+    form's band columns a row (``entries.HP_BAND_COLS``), intervals a row,
+    read rows, PSSM depth slots, GOP, GEP, HIM, LOW, the read-run reach
+    (HPW) and the discount slots."""
+    from ..constants import GEP, GOP, HIM, PSSM_DEPTH
+    from ..core.entries import HP_BAND_COLS, HPW_ROUTE, L_MAX, MAX_INTERVALS, hp_pengop_table
+    from ..ops.dp_torch import _LOW
+
+    return [HP_BAND_COLS, MAX_INTERVALS, L_MAX, 2 * PSSM_DEPTH + 1, GOP, GEP, HIM, _LOW,
+            HPW_ROUTE, len(hp_pengop_table())]
+
+
 def expected_pileup_constants() -> list[int]:
     """The values ``mia_pileup_counts_constants`` must report: PSSM depth
     slots, the reads a block lists per round and its widest tile
@@ -147,6 +160,7 @@ def check_constants(lib) -> None:
         ("mia_dp_entries_constants", expected_constants),
         ("mia_myers_constants", expected_myers_constants),
         ("mia_dp_last_row_constants", expected_last_row_constants),
+        ("mia_dp_band_hp_constants", expected_band_hp_constants),
         ("mia_pileup_counts_constants", expected_pileup_constants),
         ("mia_consensus_call_constants", expected_consensus_call_constants),
     ):
@@ -265,6 +279,12 @@ def kernel_library() -> ctypes.CDLL:
         lib.mia_dp_last_row_hp.argtypes = [
             vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp,
         ]
+        lib.mia_dp_band_hp.restype = ci
+        lib.mia_dp_band_hp.argtypes = [
+            vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp, ci, vp,
+        ]
+        lib.mia_dp_band_hp_constants.restype = ci
+        lib.mia_dp_band_hp_constants.argtypes = [vp, ci]
         lib.mia_dp_last_row_constants.restype = ci
         lib.mia_dp_last_row_constants.argtypes = [vp, ci]
         lib.mia_pileup_counts.restype = ci
