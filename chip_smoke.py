@@ -77,7 +77,11 @@ counts) and the committed goldens.
    lengths 0 to L + 1, closed rows, bands over every thread and warp border,
    ties; shared and per-read reference, ``sg5`` on and off) and
    ``edge_pileup_inputs`` (every tile border, starts off both ends, a batch
-   larger than a block's list, sums that wrap, codes outside 0..4), exact.
+   larger than a block's list, sums that wrap, codes outside 0..4), exact;
+   both band forms on ``band_inputs`` and ``hp_band_inputs`` (each form's
+   column limit and one past it, bands at columns 0 and 1, 16 one-column
+   intervals, no open column, a band over both ends of a circular strand),
+   exact.
    And the Myers kernel on ``edge_myers_pairs`` (lengths 0 to 65 around its
    8- and 16-base snake steps and padding, N runs, bitmap-0 characters, snakes
    ending at either or both ends, maxd 1 and clipped, all three modes,
@@ -97,11 +101,16 @@ counts) and the committed goldens.
 7b. wide reads: the ``mia-hsmt-100k`` cell's traffic cut to 20,000 reads at
    seed 1 (``benchmark.cells``), the port in this process with every count
    set to 0 just before and read just after: maln bytes equal to its own
-   ``--engine native``, the general-width scorer launched for pass 1's WIDE
-   reads (``dp.last_row_launches`` > 0, no plain call of any kernel,
-   ``pass1.native_solved_wide_reads`` 0); prints the wide launches' rows,
-   widths and device time (CUDA events around each launch), and holds the
-   run's largest wide call against the plain version and times it; the
+   ``--engine native``, pass 1's WIDE reads on both forms of the
+   general-width scorer, ``dp_last_row_strand`` (K1g: the band form for
+   rows whose band takes at most 384 columns, ``dp.last_row_band_launches``
+   > 0, and the full form for the rest, ``dp.last_row_launches`` > 0; no
+   plain call of any kernel, ``pass1.native_solved_wide_reads`` 0); then
+   what phase 8c prints for ``-h``: rows and launches of each form, rows
+   over 384 and over 512 band columns, cells three ways, device time of the
+   calls and of each form, each form's largest call held to its plain
+   version (exact), timed through the wrapper and alone, and bound (the
+   band form's over band cells, the own-window bound beside it); and the
    first maximum on the card (``batch_best_and_aec`` on tied rows).
 7c. banding threads: the ``mia-hsmt-100k`` cell's traffic cut to one batch
    (8,192 reads at seed 1) through ``BatchHost.prepare`` on one thread, as
@@ -120,7 +129,7 @@ counts) and the committed goldens.
    (CUDA events around each call and each form's launches), Gcells/s; each
    form's largest call held to its plain version (exact), timed, and its
    bound at the DP's 14 operations a cell (the band form's over its band
-   cells, with the own-window count beside it).
+   cells, with the own-window count beside it), as phase 7b does.
 8a. workload shapes: the largest scorer batch of phase 7, the largest of
    phase 8 and the largest consensus record set of the two, kept as the runs
    went through the wrappers: each kernel against its plain version on them
@@ -198,7 +207,8 @@ counts) and the committed goldens.
    that socket) whose import system refuses torch, jax and ``mia_tpu``:
    each writes phase 7's malns, shows ``pass1.using_server`` and
    device-scored reads, no native wide solve, and raises the server's
-   ``hello`` counts of scorer and consensus launches with no plain call.
+   ``hello`` counts of scorer, band-form (``dp_last_row_strand``) and
+   consensus launches with no plain call.
    Then once with ``-h`` (phase 8's malns, ``-h`` scorer and
    ``dp_last_row_hp`` launches of both forms), two clients at once (both
    phase 7's bytes), and ``--engine native`` as a new process with torch
@@ -546,13 +556,17 @@ def phase_consensus_kernel(dev) -> dict:
 
 
 def phase_step_edges(dev) -> None:
-    """The general-width scorer and the pileup counts against their plain
-    versions on their adversarial inputs, exact."""
+    """The general-width scorer, its two band forms and the pileup counts
+    against their plain versions on their adversarial inputs, exact."""
     import torch
 
     from mia_tpu_torch import testing as T
     from mia_tpu_torch.ops import dp_cuda
-    from mia_tpu_torch.ops.dp_torch import batch_last_row
+    from mia_tpu_torch.ops.dp_torch import (
+        batch_last_row,
+        last_row_band_plain,
+        last_row_hp_band_plain,
+    )
     from mia_tpu_torch.parallel import sharded
 
     n = 0
@@ -569,6 +583,26 @@ def phase_step_edges(dev) -> None:
         f"of 1 to 2,300 columns, lengths 0 to L + 1, closed rows, one-column bands, bands "
         f"over every thread and warp border, ties; shared and per read, sg5 on and off; "
         f"exact)")
+    # both band forms on their edge rows, every row given to the band form
+    # (a row past its columns gives (HIM, -1), as its plain version does)
+    for seed, L in ((0, 48), (1, 256)):
+        d = T.band_inputs(L, seed)
+        args = [torch.from_numpy(d[k]).to(dev) for k in T.BAND_KEYS]
+        R = len(d["lengths"])
+        check_equal(f"dp_last_row_strand's band form != plain on edge rows (seed {seed})",
+                    dp_cuda.dp_last_row_strand(*args, 0, R), last_row_band_plain(*args))
+        h = T.hp_band_inputs(L, seed)
+        hargs = [torch.from_numpy(h[k]).to(dev) for k in T.HP_WIDE_KEYS]
+        check_equal(f"dp_last_row_hp's band form != plain on edge rows (seed {seed})",
+                    dp_cuda.dp_last_row_hp(*hargs, 0, len(h["lengths"])),
+                    last_row_hp_band_plain(*hargs))
+    say(f"edges: both band forms == their plain versions on 2 x {R} / "
+        f"{len(h['lengths'])} edge rows (band "
+        f"and open columns at each form's limit and one past it, bands at columns 0 and 1, "
+        f"touching, overlapping and empty intervals, 16 one-column intervals, gaps of 1 and "
+        f"2, no open column, past the state, reads of 1 and 2, a band over both ends of a "
+        f"circular strand; -h: hp_col sources across intervals and gaps; L = 48 and 256; "
+        f"exact)")
     names = []
     for seed in (0, 1):
         for name, d, W, _ in T.edge_pileup_inputs(seed):
@@ -580,7 +614,8 @@ def phase_step_edges(dev) -> None:
             names.append(name)
     say(f"edges: pileup_counts == _pileup_counts on {len(names)} adversarial batches "
         f"({', '.join(names[: len(names) // 2])}; exact)")
-    if dp_cuda.last_row_plain_calls or sharded.pileup_plain_calls:
+    if (dp_cuda.last_row_plain_calls or dp_cuda.last_row_band_plain_calls
+            or dp_cuda.last_row_hp_band_plain_calls or sharded.pileup_plain_calls):
         raise AssertionError("edges: a plain version was called through a wrapper on the card")
 
 
@@ -835,6 +870,10 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool,
         "dp.hp_plain_calls": dp_cuda.hp_plain_calls,
         "dp.last_row_launches": dp_cuda.last_row_launches,
         "dp.last_row_plain_calls": dp_cuda.last_row_plain_calls,
+        "dp.last_row_band_launches": dp_cuda.last_row_band_launches,
+        "dp.last_row_band_plain_calls": dp_cuda.last_row_band_plain_calls,
+        "dp.last_row_rows": dp_cuda.last_row_rows,
+        "dp.last_row_band_rows": dp_cuda.last_row_band_rows,
         "dp.last_row_hp_launches": dp_cuda.last_row_hp_launches,
         "dp.last_row_hp_plain_calls": dp_cuda.last_row_hp_plain_calls,
         "dp.last_row_hp_band_launches": dp_cuda.last_row_hp_band_launches,
@@ -894,14 +933,16 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool,
     checks["pass1.device_scored_wide_reads"] = counters.get("pass1.device_scored_wide_reads", 0)
     if not (counts[scorer] > 0 and counts["cons.kernel_launches"] > 0
             and checks["pass1.native_solved_wide_reads"] == 0
-            # under -h the WIDE reads went through both -h forms of the
-            # general-width scorer (K4g): this workload's wide rows hold
+            # the WIDE reads went through both forms of the general-width
+            # scorer (K1g; under -h K4g): this workload's wide rows hold
             # narrow bands and whole strands
-            and (not hp or (counts["dp.last_row_hp_band_launches"] > 0
-                            and counts["dp.last_row_hp_launches"] > 0
-                            and checks["pass1.device_scored_wide_reads"] > 0))
+            and counts["dp.last_row_hp_band_launches" if hp
+                       else "dp.last_row_band_launches"] > 0
+            and counts["dp.last_row_hp_launches" if hp else "dp.last_row_launches"] > 0
+            and checks["pass1.device_scored_wide_reads"] > 0
             and counts["dp.plain_calls"] == counts["dp.hp_plain_calls"] == 0
             and counts["dp.last_row_plain_calls"] == counts["dp.last_row_hp_plain_calls"] == 0
+            and counts["dp.last_row_band_plain_calls"] == 0
             and counts["dp.last_row_hp_band_plain_calls"] == 0
             and counts["cons.plain_calls"] == 0
             and checks["pass1.device_scored_reads"] > 0
@@ -916,52 +957,60 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool,
     say(f"{tag}: phases s, native " + json.dumps(native_prof["phases_s"], sort_keys=True))
     return counts, walls
 
-def last_row_call(args, hp: bool) -> dict:
-    """Rows, padded width, read rows and the DP cells a call of
-    ``dp_last_row`` (``hp``: ``dp_last_row_hp``) with ``args`` needs: each
-    row up to its read's length and its own window.  Under ``hp`` also the
-    call's band-form rows (``n_band``, its last argument) and its cells two
-    more ways: as launched (a band row at the band form's 384 columns, a
-    full row at the call's width) and over each row's band (the union of its
-    intervals, ``entries.band_columns``)."""
+def last_row_call(args, name: str = "dp_last_row") -> dict:
+    """Rows, padded width, read rows and the DP cells a call of ``name``
+    (``dp_last_row``, ``dp_last_row_strand`` or ``dp_last_row_hp``) with
+    ``args`` needs: each row up to its read's length and its own window.
+    For the two scorers of wide rows also the call's band-form rows
+    (``n_band``, its last argument), its cells two more ways, as launched (a
+    band row at the band forms' 384 columns, a full row
+    at the call's width) and over each row's band (the union of its
+    intervals, ``entries.band_columns``), and its rows whose band (with the
+    two columns before each run, what the split counts) takes more than 384
+    and more than 512 columns."""
     import torch
 
-    if hp:  # dp_last_row_hp: ... ivl, s2chr, lengths, width, n_band
-        from mia_tpu_torch.core.entries import HP_BAND_COLS, band_columns
+    if name == "dp_last_row":
+        _, mask, s2c, lengths = args[:4]
+        width = mask.shape[1]
+        own_width = width - torch.argmax(mask.flip(1).to(torch.int8), 1)
+        cells = int(((lengths.to(torch.int64) - 1).clamp(min=0) * own_width).sum())
+        return {"rows": s2c.shape[0], "width": int(width), "L": s2c.shape[1], "cells": cells}
+    from mia_tpu_torch.core.entries import BAND_COLS, band_columns
 
-        ivl, s2c, lengths, width = args[8:12]
-        n_band = args[12] if len(args) > 12 else 0
-        own_width = ivl[:, :, 1].max(1).values.to(torch.int64)
-        rows = (lengths.to(torch.int64) - 1).clamp(min=0)
-        band = torch.from_numpy(band_columns(ivl.cpu().numpy())[0]).to(rows.device)
-        return {"rows": s2c.shape[0], "band_rows": n_band, "width": int(width),
-                "L": s2c.shape[1], "cells": int((rows * own_width).sum()),
-                "band_cells": int((rows * band).sum()),
-                "launched": int(rows[:n_band].sum()) * HP_BAND_COLS
-                + int(rows[n_band:].sum()) * int(width)}
-    _, mask, s2c, lengths = args[:4]
-    width = mask.shape[1]
-    own_width = width - torch.argmax(mask.flip(1).to(torch.int8), 1)
-    cells = int(((lengths.to(torch.int64) - 1).clamp(min=0) * own_width).sum())
-    return {"rows": s2c.shape[0], "width": int(width), "L": s2c.shape[1], "cells": cells}
+    # dp_last_row_hp: ... ivl, s2chr, lengths, width, n_band;
+    # dp_last_row_strand: refs, submat, strand, win_lo, ivl, s2c, lengths, width, n_band
+    at = 8 if name == "dp_last_row_hp" else 4
+    ivl, s2c, lengths, width = args[at:at + 4]
+    n_band = args[at + 4] if len(args) > at + 4 else 0
+    own_width = ivl[:, :, 1].max(1).values.to(torch.int64)
+    rows = (lengths.to(torch.int64) - 1).clamp(min=0)
+    open_cols, band_cols = band_columns(ivl.cpu().numpy())
+    return {"rows": s2c.shape[0], "band_rows": n_band, "width": int(width),
+            "L": s2c.shape[1], "cells": int((rows * own_width).sum()),
+            "band_cells": int((rows * torch.from_numpy(open_cols).to(rows.device)).sum()),
+            "launched": int(rows[:n_band].sum()) * BAND_COLS
+            + int(rows[n_band:].sum()) * int(width),
+            "over_384": int((band_cols > 384).sum()), "over_512": int((band_cols > 512).sum())}
 
 
 class LastRowTimer:
-    """Wraps ``dp_cuda.dp_last_row`` (or ``name``: ``dp_last_row_hp``) while
-    a run goes through it: CUDA events on the current stream around each
-    call (the wrapper's checks, its allocation and the launch, which follow
-    the batch's entries on that stream), each call's rows, padded width,
-    read rows and cells (:func:`last_row_call`), and the arguments of the
-    largest call; for ``dp_last_row_hp`` every call's arguments instead,
-    and it also times each form's launches apart (events around the library's
-    ``mia_dp_band_hp`` and ``mia_dp_last_row_hp``).  The calls and their
-    launch counts are the wrapper's own."""
+    """Wraps ``dp_cuda.dp_last_row`` (or ``name``: ``dp_last_row_strand``,
+    ``dp_last_row_hp``) while a run goes through it: CUDA events on the
+    current stream around each call (the wrapper's checks, its allocation
+    and the launch, which follow the batch's entries on that stream), each
+    call's rows, padded width, read rows and cells (:func:`last_row_call`),
+    and the arguments of the largest call; for the two scorers of wide rows
+    every call's arguments instead, and it also times each form's launches
+    apart (events around the library's entries, ``FORMS``).  The calls and
+    their launch counts are the wrapper's own."""
 
-    FORMS = {"band": "mia_dp_band_hp", "full": "mia_dp_last_row_hp"}
+    FORMS = {"dp_last_row_strand": {"band": "mia_dp_band", "full": "mia_dp_last_row"},
+             "dp_last_row_hp": {"band": "mia_dp_band_hp", "full": "mia_dp_last_row_hp"}}
 
     def __init__(self, name: str = "dp_last_row"):
         self.name = name
-        self.hp = name == "dp_last_row_hp"
+        self.forms = self.FORMS.get(name, {})
 
     def __enter__(self):
         import torch
@@ -974,7 +1023,7 @@ class LastRowTimer:
         self.calls: list = []
         self.kept: list = []
         self.largest = None
-        self.form_events: dict = {form: [] for form in self.FORMS}
+        self.form_events: dict = {form: [] for form in self.forms}
 
         def events():
             return (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -985,13 +1034,13 @@ class LastRowTimer:
             out = self._fn(*args)
             stop.record()
             self.events.append((start, stop))
-            call = last_row_call(args, self.hp)
+            call = last_row_call(args, self.name)
             self.calls.append(call)
-            if self.hp or self.largest is None or (
+            if self.forms or self.largest is None or (
                     call["rows"] * call["width"]
                     > self.largest[0]["rows"] * self.largest[0]["width"]):
                 kept = (call, tuple(a.clone() if hasattr(a, "clone") else a for a in args))
-                if self.hp:
+                if self.forms:
                     self.kept.append(kept)
                 else:
                     self.largest = kept
@@ -999,20 +1048,19 @@ class LastRowTimer:
 
         setattr(dp_cuda, self.name, wrapped)
         self._lib, self._entries = kernel_library(), {}
-        if self.hp:
-            for form, entry in self.FORMS.items():
-                fn = getattr(self._lib, entry)
+        for form, entry in self.forms.items():
+            fn = getattr(self._lib, entry)
 
-                def timed(*a, _fn=fn, _form=form):
-                    start, stop = events()
-                    start.record()
-                    rc = _fn(*a)
-                    stop.record()
-                    self.form_events[_form].append((start, stop))
-                    return rc
+            def timed(*a, _fn=fn, _form=form):
+                start, stop = events()
+                start.record()
+                rc = _fn(*a)
+                stop.record()
+                self.form_events[_form].append((start, stop))
+                return rc
 
-                self._entries[entry] = fn
-                setattr(self._lib, entry, timed)
+            self._entries[entry] = fn
+            setattr(self._lib, entry, timed)
         return self
 
     def __exit__(self, *exc):
@@ -1027,7 +1075,7 @@ class LastRowTimer:
         return [a.elapsed_time(b) for a, b in self.events]
 
     def form_ms(self) -> dict[str, list[float]]:
-        """Device ms of each form's launches (``dp_last_row_hp`` only)."""
+        """Device ms of each form's launches (the scorers of wide rows)."""
         import torch
 
         torch.cuda.synchronize()
@@ -1050,15 +1098,16 @@ def wide_workload(d: str, seed: int = 1, reads: int = 20000) -> dict:
                              load_config(cell))
 
 
-def phase_wide(dev) -> dict:
+def phase_wide(dev) -> tuple[dict, dict]:
     """Phase 7b: pass 1's WIDE reads on the card, on the 100k cell's traffic
-    cut to 20k reads at seed 1; returns the general-width scorer's launches,
-    their device time and its time at the run's largest call."""
-    import numpy as np
+    cut to 20k reads at seed 1, through ``dp_last_row_strand`` (K1g's band
+    and full forms): maln bytes equal to ``--engine native``, both forms
+    launched, no plain call, no native wide solve; then :func:`wide_forms`.
+    Returns the ``kernels`` line's entries of the full and the band form."""
     import torch
 
     from mia_tpu_torch.ops import consensus_torch, dp_cuda
-    from mia_tpu_torch.ops.dp_torch import batch_best_and_aec, batch_last_row
+    from mia_tpu_torch.ops.dp_torch import batch_best_and_aec
 
     d = os.path.join(WORK, "wide")
     inputs = wide_workload(d)
@@ -1067,7 +1116,7 @@ def phase_wide(dev) -> dict:
     os.makedirs(os.path.join(d, "native"))
     reset_counts()
     t0 = time.time()
-    with LastRowTimer() as timer, contextlib.redirect_stderr(io.StringIO()):
+    with LastRowTimer("dp_last_row_strand") as timer, contextlib.redirect_stderr(io.StringIO()):
         prof = run_port(inputs["args"], os.path.join(d, "torch", "out.maln"), profile=True)
     wall = time.time() - t0
     counts = {
@@ -1076,6 +1125,10 @@ def phase_wide(dev) -> dict:
         "dp.last_row_launches": dp_cuda.last_row_launches,
         "dp.last_row_wide_launches": dp_cuda.last_row_wide_launches,
         "dp.last_row_plain_calls": dp_cuda.last_row_plain_calls,
+        "dp.last_row_band_launches": dp_cuda.last_row_band_launches,
+        "dp.last_row_band_plain_calls": dp_cuda.last_row_band_plain_calls,
+        "dp.last_row_rows": dp_cuda.last_row_rows,
+        "dp.last_row_band_rows": dp_cuda.last_row_band_rows,
         "cons.kernel_launches": consensus_torch.kernel_launches,
         "cons.plain_calls": consensus_torch.plain_calls,
     }
@@ -1093,41 +1146,23 @@ def phase_wide(dev) -> dict:
     if not want or got != want:
         raise AssertionError(f"wide reads: maln differs from --engine native: "
                              f"{[k for k in sorted(set(got) | set(want)) if got.get(k) != want.get(k)]}")
-    if not (counts["dp.last_row_launches"] > 0 and counts["dp.kernel_launches"] > 0
-            and counts["cons.kernel_launches"] > 0
+    # this workload's wide rows hold narrow bands and whole strands: both
+    # forms run
+    if not (counts["dp.last_row_band_launches"] > 0 and counts["dp.last_row_launches"] > 0
+            and counts["dp.kernel_launches"] > 0 and counts["cons.kernel_launches"] > 0
             and counts["dp.plain_calls"] == counts["dp.last_row_plain_calls"] == 0
+            and counts["dp.last_row_band_plain_calls"] == 0
             and counts["cons.plain_calls"] == 0
             and counts["pass1.device_scored_wide_reads"] > 0
             and counts["pass1.native_solved_wide_reads"] == 0):
         raise AssertionError(f"wide reads: the card did not score them: {counts}")
-    ms = timer.device_ms()
-    rows = [k["rows"] for k in timer.calls]
-    widths = [k["width"] for k in timer.calls]
-    cells = sum(k["cells"] for k in timer.calls)
     say(f"wide reads: {len(want)} maln files byte-identical to --engine native; "
         + json.dumps(counts))
     say(f"wide reads: wall s torch {wall:.3f}, native {native_wall:.3f}; pass1 torch "
         f"{prof['phases_s'].get('pass1', 0):.3f}, native "
         f"{native_prof['phases_s'].get('pass1', 0):.3f}")
-    say(f"wide reads: {len(ms)} dp_last_row launches, rows {rows}, widths {widths}; device "
-        f"ms (events around each call) {sum(ms):.4f} in all, "
-        + ", ".join(f"{x:.4f}" for x in ms) + f"; {cells} cells ({cells / max(sum(ms), 1e-9) / 1e6:.3f} Gcells/s)")
     say("wide reads: phases s, torch " + json.dumps(prof["phases_s"], sort_keys=True))
-
-    # the run's largest wide call against the plain version, then timed
-    call, args = timer.largest
-    got_row = dp_cuda.dp_last_row(*args)
-    err = check_equal("dp_last_row != plain at the run's largest wide call", got_row,
-                      batch_last_row(*args))
-    t = time_plain_pair(lambda: dp_cuda.dp_last_row(*args), lambda: batch_last_row(*args),
-                        f"wide reads: dp_last_row at the run's largest call, R={call['rows']} "
-                        f"W={call['width']} L={call['L']}", f"; {call['cells']} cells")
-    lengths = args[3].cpu().numpy()
-    moved = (nbytes(args[0], args[1], args[3], args[5], got_row)
-             + read_bytes(lengths, args[2], args[4]))
-    b = bound(moved, DP_OPS_PER_CELL * call["cells"])
-    say(f"wide reads: largest call == plain (exact), bound {b['bound_ms']:.4f} ms "
-        f"({b['bound_by']}); {call['cells'] / t['ms'] / 1e6:.3f} Gcells/s")
+    forms = wide_forms("wide reads", timer, counts, hp=False)
 
     # the first maximum on the card, as the native solve's strict '>' scan
     tied = torch.full((4, 1000), 7, dtype=torch.int32, device=dev)
@@ -1139,49 +1174,63 @@ def phase_wide(dev) -> dict:
         raise AssertionError(f"wide reads: argmax on the card is not the first maximum: "
                              f"{aec.cpu().tolist()}")
     say("wide reads: batch_best_and_aec on the card takes the first of tied maxima")
-    return {"launches": counts["dp.last_row_launches"], "device_ms": sum(ms),
-            "workload_ms": t["ms"], "workload_plain_ms": t["plain_ms"],
-            "workload_bound_ms": b["bound_ms"], "workload_max_abs_err": err,
-            "rows": int(np.sum(rows))}
+    return forms
 
 
-def phase_wide_hp(timer: "LastRowTimer", counts: dict) -> tuple[dict, dict]:
-    """Phase 8c: the -h scorer of wide rows (K4g, ``dp_last_row_hp``) as
-    phase 8's run went through it (``timer``): its calls' rows and launches
-    per form, widths, cells counted three ways (as launched, over each
-    row's own window, over its band) and device time (CUDA events around
-    each call and around each form's launches), Gcells/s; then each form's
-    largest call (the band form: the call with the most band rows; the full
-    form: the most full-row columns) held to its plain version (exact),
-    timed, and its bound at the DP's 14 operations a cell: the band form's
-    over band cells, with the own-window count's beside it.
-    Returns the ``kernels`` line's entries of the full and the band form."""
+def wide_forms(label: str, timer: "LastRowTimer", counts: dict, hp: bool) -> tuple[dict, dict]:
+    """Phases 7b and 8c: a scorer of wide rows (``dp_last_row_strand``, K1g;
+    under ``hp`` ``dp_last_row_hp``, K4g) as a run went through it
+    (``timer``): its calls' rows and launches per form, widths, rows over
+    384 and 512 band columns, cells counted three ways (as launched, over
+    each row's own window, over its band) and device time (CUDA events
+    around each call and around each form's launches), Gcells/s; then each
+    form's largest call (the band form: the call with the most band rows;
+    the full form: the most full-row columns) held to its plain version
+    (exact), timed through the wrapper and alone, and its bound at the DP's
+    14 operations a cell: the band form's over band cells, with the
+    own-window count's beside it.  Returns the ``kernels`` line's entries
+    of the full and the band form."""
     import numpy as np
+    import torch
 
     from mia_tpu_torch.ops import dp_cuda
-    from mia_tpu_torch.ops.dp_torch import last_row_hp_band_plain, last_row_hp_plain
+    from mia_tpu_torch.ops.dp_torch import (
+        batch_best_and_aec,
+        batch_last_row,
+        depths_for,
+        last_row_band_plain,
+        last_row_hp_band_plain,
+        last_row_hp_plain,
+        wide_device_inputs,
+    )
 
+    pre = "dp.last_row_hp" if hp else "dp.last_row"
+    key = {"band_launches": f"{pre}_band_launches", "full_launches": f"{pre}_launches",
+           "band_rows": f"{pre}_band_rows", "full_rows": f"{pre}_rows"}
+    wrapper = dp_cuda.dp_last_row_hp if hp else dp_cuda.dp_last_row_strand
+    name = "dp_last_row_hp" if hp else "dp_last_row_strand"
     ms = timer.device_ms()
     form_ms = timer.form_ms()
-    if not ms or len(form_ms["band"]) != counts["dp.last_row_hp_band_launches"] or len(
-            form_ms["full"]) != counts["dp.last_row_hp_launches"]:
-        raise AssertionError(f"-h wide reads: {len(ms)} timed calls, launches timed "
+    if not ms or len(form_ms["band"]) != counts[key["band_launches"]] or len(
+            form_ms["full"]) != counts[key["full_launches"]]:
+        raise AssertionError(f"{label}: {len(ms)} timed calls, launches timed "
                              f"{ {k: len(v) for k, v in form_ms.items()} }, counts {counts}")
     calls = timer.calls
     band_rows = [k["band_rows"] for k in calls]
     full_rows = [k["rows"] - k["band_rows"] for k in calls]
-    if (sum(band_rows), sum(full_rows)) != (counts["dp.last_row_hp_band_rows"],
-                                            counts["dp.last_row_hp_rows"]):
-        raise AssertionError(f"-h wide reads: rows {band_rows} / {full_rows}, counts {counts}")
-    tot = {k: sum(c[k] for c in calls) for k in ("launched", "cells", "band_cells")}
+    if (sum(band_rows), sum(full_rows)) != (counts[key["band_rows"]], counts[key["full_rows"]]):
+        raise AssertionError(f"{label}: rows {band_rows} / {full_rows}, counts {counts}")
+    tot = {k: sum(c[k] for c in calls)
+           for k in ("launched", "cells", "band_cells", "over_384", "over_512")}
     run_ms = {form: sum(v) for form, v in form_ms.items()}
-    say(f"-h wide reads: {len(ms)} dp_last_row_hp calls; band form {len(form_ms['band'])} "
+    say(f"{label}: {len(ms)} {name} calls; band form {len(form_ms['band'])} "
         f"launches, rows {band_rows}; full form {len(form_ms['full'])} launches, rows "
-        f"{full_rows} at widths {[k['width'] for k in calls]}; counts "
-        + json.dumps({k: v for k, v in counts.items() if k.startswith("dp.last_row_hp")}))
-    say(f"-h wide reads: cells as launched {tot['launched']}, in each row's own window "
+        f"{full_rows} at widths {[k['width'] for k in calls]}; rows over 384 band columns "
+        f"{[k['over_384'] for k in calls]}, over 512 {[k['over_512'] for k in calls]}; counts "
+        + json.dumps({k: v for k, v in counts.items() if k.startswith(pre)}))
+    say(f"{label}: cells as launched {tot['launched']}, in each row's own window "
         f"{tot['cells']}, in each row's band {tot['band_cells']}")
-    say(f"-h wide reads: device ms (events around each call) {sum(ms):.4f} in all, "
+    say(f"{label}: device ms (events around each call) {sum(ms):.4f} in all, "
         + ", ".join(f"{x:.4f}" for x in ms)
         + f"; band form {run_ms['band']:.4f} (" + ", ".join(f"{x:.4f}" for x in form_ms["band"])
         + f"), full form {run_ms['full']:.4f} ("
@@ -1189,61 +1238,89 @@ def phase_wide_hp(timer: "LastRowTimer", counts: dict) -> tuple[dict, dict]:
         f"{tot['band_cells'] / max(sum(ms), 1e-9) / 1e6:.3f} Gcells/s over band cells, "
         f"{tot['cells'] / max(sum(ms), 1e-9) / 1e6:.3f} over own-window cells")
 
+    n_state = 6 if hp else 2  # the scorer's state, then the rows' five arrays
+
     def held(form: str, call: dict, args: tuple) -> dict:
         """One form's rows of a kept call: held to the plain version,
-        timed through the wrapper, bound."""
-        state, rows = args[:6], args[6:11]
+        timed through the wrapper and alone, bound."""
+        state, rows = args[:n_state], args[n_state:n_state + 5]
         nb = call["band_rows"]
-        if form == "band":
-            part = tuple(a[:nb] for a in rows)
-            call_args = (*state, *part, 0, nb)
-        else:
-            part = tuple(a[nb:] for a in rows)
-            call_args = (*state, *part, call["width"], 0)
+        part = tuple(a[:nb] if form == "band" else a[nb:] for a in rows)
+        width = call["width"]
+        call_args = (*state, *part, 0, nb) if form == "band" else (*state, *part, width, 0)
+        R, L = part[3].shape
+        if not hp and form == "full":
+            # the full form's inputs, made once for the plain version and
+            # the kernel alone
+            s1c, mask = wide_device_inputs(state[0], width, *part[:3])
+            depths = depths_for(part[4], L).to(torch.int32)
 
         def plain():
+            if hp:
+                return (last_row_hp_band_plain(*state, *part) if form == "band"
+                        else last_row_hp_plain(*state, *part, width))
             if form == "band":
-                return last_row_hp_band_plain(*state, *part)
-            return last_row_hp_plain(*state, *part, call["width"])
-        info = last_row_call(call_args, True)
-        launches = (dp_cuda.last_row_hp_band_launches, dp_cuda.last_row_hp_launches)
-        got = dp_cuda.dp_last_row_hp(*call_args)
-        err = check_equal(f"dp_last_row_hp ({form} form) != plain at the run's largest call",
+                return last_row_band_plain(*state, *part)
+            return torch.stack(batch_best_and_aec(
+                batch_last_row(s1c, mask, part[3], part[4], depths, state[1])))
+        info = last_row_call(call_args, name)
+        launches = (getattr(dp_cuda, key["band_launches"][3:]),
+                    getattr(dp_cuda, key["full_launches"][3:]))
+        got = wrapper(*call_args)
+        err = check_equal(f"{name} ({form} form) != plain at the run's largest call",
                           got, plain())
-        t = time_plain_pair(lambda: dp_cuda.dp_last_row_hp(*call_args), plain,
-                            f"-h wide reads: {form} form at the run's largest call, "
+        t = time_plain_pair(lambda: wrapper(*call_args), plain,
+                            f"{label}: {form} form at the run's largest call, "
                             f"R={info['rows']} W={info['width']} L={info['L']}",
                             f"; {info['cells']} own-window cells, {info['band_cells']} band "
                             f"cells")
-        if dp_cuda.last_row_hp_plain_calls or dp_cuda.last_row_hp_band_plain_calls:
-            raise AssertionError("-h wide reads: the wrapper took a plain version on the card")
-        timing = (dp_cuda.last_row_hp_band_launches - launches[0],
-                  dp_cuda.last_row_hp_launches - launches[1])
+        plain_calls = ((dp_cuda.last_row_hp_plain_calls, dp_cuda.last_row_hp_band_plain_calls)
+                       if hp else
+                       (dp_cuda.last_row_plain_calls, dp_cuda.last_row_band_plain_calls))
+        if any(plain_calls):
+            raise AssertionError(f"{label}: the wrapper took a plain version on the card")
+        timing = (getattr(dp_cuda, key["band_launches"][3:]) - launches[0],
+                  getattr(dp_cuda, key["full_launches"][3:]) - launches[1])
         # the kernel alone, into a result buffer made here
-        ptrs = [a.data_ptr() for a in (*state[:3], *part)]
-        tail = [a.data_ptr() for a in state[3:]]
-        R, L = part[3].shape
+        ptrs = [a.data_ptr() for a in part]
+        wtot = state[0].shape[1]
         out = got.clone()
 
         def bare(lib, stream):
+            if hp:
+                head = [a.data_ptr() for a in state[:3]] + [wtot]
+                tail = [a.data_ptr() for a in state[3:]]
+                if form == "band":
+                    return lib.mia_dp_band_hp(*head, *ptrs, *tail, R, L, out.data_ptr(), R,
+                                              stream)
+                return lib.mia_dp_last_row_hp(*head, *ptrs, *tail, R, width, L,
+                                              out.data_ptr(), stream)
             if form == "band":
-                return lib.mia_dp_band_hp(*ptrs[:3], state[0].shape[1], *ptrs[3:], *tail, R, L,
-                                          out.data_ptr(), R, stream)
-            return lib.mia_dp_last_row_hp(*ptrs[:3], state[0].shape[1], *ptrs[3:], *tail, R,
-                                          call["width"], L, out.data_ptr(), stream)
+                return lib.mia_dp_band(state[0].data_ptr(), wtot, *ptrs, state[1].data_ptr(),
+                                       R, L, out.data_ptr(), R, stream)
+            # the whole last row of each: the argmax after it is torch's
+            return lib.mia_dp_last_row(s1c.data_ptr(), 1, mask.data_ptr(), part[3].data_ptr(),
+                                       depths.data_ptr(), state[1].data_ptr(),
+                                       part[4].data_ptr(), R, width, L, 1, last.data_ptr(),
+                                       stream)
 
-        t["kernel_only_ms"] = time_raw_launch(bare, f"-h wide reads: {form} form", t["ms"], 50)
+        if not hp and form == "full":
+            if width > dp_cuda.LAST_ROW_COLS * dp_cuda.LAST_ROW_THREADS:
+                raise AssertionError(f"{label}: full rows of {width} columns: the register "
+                                     "form cannot time them alone")
+            last = torch.empty((R, width), dtype=torch.int32, device=part[4].device)
+        t["kernel_only_ms"] = time_raw_launch(bare, f"{label}: {form} form", t["ms"], 50)
         # each input read once (the strand state whole, the reads up to their
         # lengths), the [2, R] result written once; the DP's 14 operations a
-        # cell, as K4's bound counts them: a row takes one of the two -h
-        # candidates, and that one is left out, so both -h kernels share one
-        # bound
+        # cell (under -h as K4's bound counts them: a row takes one of the
+        # two -h candidates, and that one is left out, so both -h kernels
+        # share one bound)
         lengths = part[4].cpu().numpy()
         moved = nbytes(*state, *part[:3], part[4], got) + read_bytes(lengths, part[3])
         cells = info["band_cells"] if form == "band" else info["cells"]
         b = bound(moved, DP_OPS_PER_CELL * cells)
         padded = bound(moved, DP_OPS_PER_CELL * info["cells"])
-        say(f"-h wide reads: {form} form == plain (exact, max |diff| {err}); bound "
+        say(f"{label}: {form} form == plain (exact, max |diff| {err}); bound "
             f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {DP_OPS_PER_CELL} operations a "
             f"{'band' if form == 'band' else 'own-window'} cell), "
             f"{cells / t['ms'] / 1e6:.3f} Gcells/s; over own-window cells "
@@ -1262,12 +1339,12 @@ def phase_wide_hp(timer: "LastRowTimer", counts: dict) -> tuple[dict, dict]:
                   * kept[i][0]["width"])
     run = {"wide_device_ms": sum(ms), "wide_rows": int(sum(band_rows) + sum(full_rows)),
            "wide_cells": tot["cells"], "wide_band_cells": tot["band_cells"],
-           "wide_launched_cells": tot["launched"]}
-    full = {"launches": counts["dp.last_row_hp_launches"], **held("full", *kept[full_at]),
+           "wide_launched_cells": tot["launched"], "wide_rows_over_384": tot["over_384"],
+           "wide_rows_over_512": tot["over_512"]}
+    full = {"launches": counts[key["full_launches"]], **held("full", *kept[full_at]),
             **run, "form_device_ms": run_ms["full"], "form_rows": sum(full_rows)}
-    band = {"launches": counts["dp.last_row_hp_band_launches"],
-            **held("band", *kept[band_at]), **run, "form_device_ms": run_ms["band"],
-            "form_rows": sum(band_rows)}
+    band = {"launches": counts[key["band_launches"]], **held("band", *kept[band_at]), **run,
+            "form_device_ms": run_ms["band"], "form_rows": sum(band_rows)}
     return full, band
 
 
@@ -1384,12 +1461,13 @@ def run_side(side: tuple, args: list[str], root: str, what: str):
     counts = {"dp.kernel_launches": dp.kernel_launches, "dp.plain_calls": dp.plain_calls,
               "dp.hp_kernel_launches": dp.hp_kernel_launches,
               "dp.hp_plain_calls": dp.hp_plain_calls,
-              "dp.last_row_launches": getattr(dp, "last_row_launches", 0),
-              "dp.last_row_hp_launches": getattr(dp, "last_row_hp_launches", 0),
-              "dp.last_row_hp_plain_calls": getattr(dp, "last_row_hp_plain_calls", 0),
-              "dp.last_row_hp_band_launches": getattr(dp, "last_row_hp_band_launches", 0),
-              "dp.last_row_hp_band_plain_calls": getattr(dp, "last_row_hp_band_plain_calls", 0)}
+              **{f"dp.{k}": getattr(dp, k, 0) for k in (
+                  "last_row_launches", "last_row_plain_calls", "last_row_band_launches",
+                  "last_row_band_plain_calls", "last_row_hp_launches",
+                  "last_row_hp_plain_calls", "last_row_hp_band_launches",
+                  "last_row_hp_band_plain_calls")}}
     if (counts["dp.plain_calls"] or counts["dp.hp_plain_calls"]
+            or counts["dp.last_row_plain_calls"] or counts["dp.last_row_band_plain_calls"]
             or counts["dp.last_row_hp_plain_calls"] or counts["dp.last_row_hp_band_plain_calls"]
             or not counts["dp.kernel_launches"] + counts["dp.hp_kernel_launches"]):
         raise AssertionError(f"{what} did not score on the card: {counts}")
@@ -2759,6 +2837,7 @@ def check_served(tag: str, counters: dict, before: dict, after: dict, scorer: st
             and rise[scorer] >= runs and rise["cons.kernel_launches"] >= runs
             and rise["dp.plain_calls"] == rise["dp.hp_plain_calls"] == 0
             and rise["dp.last_row_plain_calls"] == rise["dp.last_row_hp_plain_calls"] == 0
+            and rise["dp.last_row_band_plain_calls"] == 0
             and rise["dp.last_row_hp_band_plain_calls"] == 0
             and checks["pass1.native_solved_wide_reads"] == 0
             and rise["cons.plain_calls"] == 0):
@@ -2798,7 +2877,8 @@ def phase_server(args: list[str], walls: dict, smi: str) -> dict:
         want = maln_bytes(os.path.join(WORK, "e2e", "torch_inproc", "out.maln"))
         want_hp = maln_bytes(os.path.join(WORK, "e2e_hp", "torch_inproc", "out.maln"))
         launches = {"dp_entries": 0, "dp_entries_hp": 0, "column_counts": 0,
-                    "dp_last_row_hp": 0, "dp_last_row_hp_band": 0}
+                    "dp_last_row": 0, "dp_last_row_band": 0, "dp_last_row_hp": 0,
+                    "dp_last_row_hp_band": 0}
 
         def served(tags, run_args, want_bytes, scorer):
             before = server_hello(sock)
@@ -2811,6 +2891,8 @@ def phase_server(args: list[str], walls: dict, smi: str) -> dict:
             launches["dp_entries"] += rise["dp.kernel_launches"]
             launches["dp_entries_hp"] += rise["dp.hp_kernel_launches"]
             launches["column_counts"] += rise["cons.kernel_launches"]
+            launches["dp_last_row"] += rise["dp.last_row_launches"]
+            launches["dp_last_row_band"] += rise["dp.last_row_band_launches"]
             launches["dp_last_row_hp"] += rise["dp.last_row_hp_launches"]
             launches["dp_last_row_hp_band"] += rise["dp.last_row_hp_band_launches"]
             return [w for w, _ in out], out[-1][1], rise
@@ -2818,6 +2900,9 @@ def phase_server(args: list[str], walls: dict, smi: str) -> dict:
         client_walls = []
         for i in range(3):
             (wall,), prof, rise = served([f"client{i}"], args, want, "dp.kernel_launches")
+            if not rise["dp.last_row_band_launches"]:
+                raise AssertionError(f"server: client {i}'s WIDE reads did not go through "
+                                     f"the band form of dp_last_row_strand: {rise}")
             client_walls.append(wall)
             say(f"server: client {i}, 20k reads as a new process with torch refused: "
                 f"{wall:.3f} s (run {prof['total_s']:.3f} s), malns byte-identical to phase 7; "
@@ -2946,12 +3031,12 @@ def main() -> int:
     captured: dict = {}
     main_counts, main_walls = run_e2e("e2e", args, hp=False, new_process=True,
                                       captured=captured)
-    wide = phase_wide(dev)
+    wide_full, wide_band = phase_wide(dev)
     phase_prepare_threads()
     with LastRowTimer("dp_last_row_hp") as hp_timer:
         hp_counts, _ = run_e2e("e2e_hp", [*args, "-h"], hp=True, new_process=False,
                                captured=captured)
-    wide_hp, band_hp = phase_wide_hp(hp_timer, hp_counts)
+    wide_hp, band_hp = wide_forms("-h wide reads", hp_timer, hp_counts, hp=True)
     shapes = phase_workload_shapes(captured)
     myers_kern = phase_myers_kernel(dev)
     phase_ccheck_golden()
@@ -3006,16 +3091,30 @@ def main() -> int:
         "route": "cuda",
         "source": "mia_tpu_torch/csrc/dp_last_row.cu",
         "replaces": "mia_tpu/ops/dp_pallas.py:133",
-        # pass 1's WIDE reads on the mia path (phase 7b); the assembly step's
-        # launches (one per dp shard) beside them
-        "launches": wide["launches"],
+        # the full form of pass 1's WIDE rows on the mia path (phase 7b:
+        # rows whose band takes over 384 columns), its numbers at the run's
+        # largest such call as workload_*; the assembly step's launches (one
+        # per dp shard) and the server's for its clients (16b) beside them;
+        # ms, plain_ms and the bound at the JAX bench's full-width shape
+        # (phase 12)
+        "launches": wide_full["launches"],
         "step_launches": step_counts["dp.last_row_launches"],
-        "wide_device_ms": wide["device_ms"],
-        "wide_rows": wide["rows"],
-        "workload_ms": wide["workload_ms"],
-        "workload_plain_ms": wide["workload_plain_ms"],
-        "workload_bound_ms": wide["workload_bound_ms"],
+        "server_launches": server_launches["dp_last_row"],
+        **{k: v for k, v in wide_full.items() if k.startswith("wide_") or k.startswith("form_")},
+        **{f"workload_{k}": wide_full[k] for k in ("ms", "plain_ms", "kernel_only_ms",
+                                                   "bound_ms", "max_abs_err")},
+        **{k: v for k, v in wide_full.items() if k.startswith("workload_")},
+        "workload_own_window_bound_ms": wide_full["own_window_bound_ms"],
         **last_row_kern,
+    }, {
+        "name": "dp_last_row_band",
+        "route": "cuda",
+        "source": "mia_tpu_torch/csrc/dp_band.cu",
+        "replaces": "mia_tpu/ops/dp_pallas.py:46",
+        # the band form of the same: pass 1's WIDE rows whose band takes at
+        # most 384 columns (phase 7b), its numbers at the run's largest call
+        "server_launches": server_launches["dp_last_row_band"],
+        **wide_band,
     }, {
         "name": "dp_last_row_hp",
         "route": "cuda",
@@ -3029,7 +3128,7 @@ def main() -> int:
     }, {
         "name": "dp_last_row_hp_band",
         "route": "cuda",
-        "source": "mia_tpu_torch/csrc/dp_band_hp.cu",
+        "source": "mia_tpu_torch/csrc/dp_band.cu",
         "replaces": "mia_tpu/ops/dp_jax.py:220",
         # the band form of the same: the rest of the -h WIDE rows
         "server_launches": server_launches["dp_last_row_hp_band"],

@@ -24,8 +24,10 @@ native`` or ``numpy``, a single-process run imports no torch.
 Under ``--profile`` the JSON profile on stderr carries the kernels' counters
 beside the pipeline's own: ``dp.kernel_launches`` / ``dp.plain_calls`` (the
 scorer), ``dp.hp_kernel_launches`` / ``dp.hp_plain_calls`` (the ``-h``
-scorer), ``dp.last_row_launches`` / ``dp.last_row_plain_calls`` (the
-general-width scorer, which takes pass 1's WIDE reads) and
+scorer), ``dp.last_row_launches`` / ``dp.last_row_plain_calls`` and
+``dp.last_row_band_launches`` / ``dp.last_row_band_plain_calls`` (the
+general-width scorer's full and band forms, which take pass 1's WIDE reads;
+``dp.last_row_rows`` / ``dp.last_row_band_rows`` the rows of each) and
 ``dp.last_row_hp_launches`` / ``dp.last_row_hp_plain_calls`` and
 ``dp.last_row_hp_band_launches`` / ``dp.last_row_hp_band_plain_calls`` (its
 ``-h`` full and band forms, which take them under ``-h``;
@@ -53,8 +55,9 @@ ENGINES = ("torch", "native", "numpy")
 KERNEL_COUNTERS = (
     ("dp", "mia_tpu_torch.ops.dp_cuda",
      ("kernel_launches", "plain_calls", "hp_kernel_launches", "hp_plain_calls",
-      "last_row_launches", "last_row_plain_calls", "last_row_hp_launches",
-      "last_row_hp_plain_calls", "last_row_hp_band_launches",
+      "last_row_launches", "last_row_plain_calls", "last_row_band_launches",
+      "last_row_band_plain_calls", "last_row_rows", "last_row_band_rows",
+      "last_row_hp_launches", "last_row_hp_plain_calls", "last_row_hp_band_launches",
       "last_row_hp_band_plain_calls", "last_row_hp_rows", "last_row_hp_band_rows",
       "shards")),
     ("cons", "mia_tpu_torch.ops.consensus_torch", ("kernel_launches", "plain_calls")),

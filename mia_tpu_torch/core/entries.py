@@ -143,18 +143,19 @@ NO_BAND_SCORE = HIM
 HP_WIDE_COLS = 512 * 34
 
 
-# the widest band the -h band form scores (csrc/dp_band_hp.cu: a warp a row,
-# 12 columns a lane, as csrc/dp_entries.cu's window; its
-# mia_dp_band_hp_constants reports it to the loader): an -h wide row whose
-# band takes more columns (band_columns) is scored by the full form
-HP_BAND_COLS = 32 * 12
+# the widest band the band forms score, with and without -h
+# (csrc/dp_band.cu: a warp a row, 12 columns a lane, as csrc/dp_entries.cu's
+# window; mia_dp_band_constants and mia_dp_band_hp_constants report it to
+# the loader): a wide row whose band takes more columns (band_columns) is
+# scored by the full form
+BAND_COLS = 32 * 12
 
 
 def band_columns(ivl) -> tuple[np.ndarray, np.ndarray]:
     """(open [R] int64, cols [R] int64) of rows with window-local intervals
     ``ivl`` [R, K, 2]: ``open`` the columns of the union of the intervals
     (touching or overlapping ones count once; an interval with lo >= hi is
-    empty), ``cols`` the columns the ``-h`` band form scores, the union
+    empty), ``cols`` the columns the band forms score, the union
     with the two columns before each of its runs (at least 0), so that
     every open column's two left neighbours are scored too."""
     iv = np.asarray(ivl, np.int64)
@@ -228,8 +229,8 @@ class WideRows:
                         # read chars (pad 0); L the longest read
     lengths: np.ndarray  # [R] int32 read lengths
     width: int          # W: the widest row's columns
-    # under -h: the leading rows the band form takes (band_columns at most
-    # HP_BAND_COLS), and the widest window of the rest, the full form's
+    # the leading rows the band form takes (band_columns at most
+    # BAND_COLS), and the widest window of the rest, the full form's
     n_band: int = 0
     full_width: int = 0
 
@@ -243,11 +244,11 @@ def wide_rows(flags, lens, s2c, fw_ivg, rc_ivg, hp: bool = False) -> WideRows | 
     has none) from ``BatchHost.prepare``'s read codes, or under ``-h`` the
     read chars of ``pack_chars``, and GLOBAL band intervals: a strand's
     window is :func:`window_bounds`'; a strand without intervals gets no
-    row (its score is :data:`NO_BAND_SCORE`).  Under ``-h`` a read with a
-    window wider than :data:`HP_WIDE_COLS` is not taken, and the rows whose
-    band takes at most :data:`HP_BAND_COLS` columns (:func:`band_columns`)
-    come first, in order, as the band form's ``n_band``; the rest keep the
-    full form at ``full_width``, the widest of their own windows."""
+    row (its score is :data:`NO_BAND_SCORE`).  The rows whose band takes at
+    most :data:`BAND_COLS` columns (:func:`band_columns`) come first, in
+    order, as the band form's ``n_band``; the rest keep the full form at
+    ``full_width``, the widest of their own windows.  Under ``-h`` a read
+    with a window wider than :data:`HP_WIDE_COLS` is not taken."""
     sel = np.flatnonzero(wide_scored(flags, lens,
                                      window_widths(fw_ivg, rc_ivg) if hp else None))
     if not len(sel):
@@ -259,13 +260,11 @@ def wide_rows(flags, lens, s2c, fw_ivg, rc_ivg, hp: bool = False) -> WideRows | 
     ivg, read, strand, win_lo, hi = ivg[has], read[has], strand[has], win_lo[has], hi[has]
     used = ivg[:, :, 1] > 0
     ivl = np.where(used[:, :, None], ivg - win_lo[:, None, None], 0)
-    n_band, full_width = 0, int((hi - win_lo).max())
-    if hp:
-        band = band_columns(ivl)[1] <= HP_BAND_COLS
-        order = np.argsort(~band, kind="stable")
-        read, strand, win_lo, hi, ivl = (a[order] for a in (read, strand, win_lo, hi, ivl))
-        n_band = int(band.sum())
-        full_width = int((hi - win_lo)[n_band:].max(initial=0))
+    band = band_columns(ivl)[1] <= BAND_COLS
+    order = np.argsort(~band, kind="stable")
+    read, strand, win_lo, hi, ivl = (a[order] for a in (read, strand, win_lo, hi, ivl))
+    n_band = int(band.sum())
+    full_width = int((hi - win_lo)[n_band:].max(initial=0))
     lengths = np.asarray(lens, np.int32)[read]
     L = int(lengths.max())
     return WideRows(sel, read, strand, win_lo.astype(np.int32), ivl.astype(np.int32),
@@ -281,7 +280,7 @@ def wide_inputs(rows: WideRows, refs: np.ndarray):
     PSSM depth per row, src/pssm.c:36-46).  ``refs`` is the scorer's [2,
     WTOT] padded strand codes; a window's columns past them read code 4
     (they are masked).  The device builds the same arrays itself
-    (``torch_engine.wide_device_inputs``)."""
+    (``dp_torch.wide_device_inputs``)."""
     W = rows.width
     cols = np.arange(W, dtype=np.int64)[None, :]
     gcol = rows.win_lo.astype(np.int64)[:, None] + cols
@@ -308,9 +307,9 @@ def merge_wide(fb, fa, rb, ra, rows: WideRows, best, aec) -> None:
         a[rows.sel] = 0
     aec = np.asarray(aec, np.int64)
     if (aec < 0).any():
-        # the band form's mark of a row whose band is wider than it takes
+        # a band form's mark of a row whose band is wider than it takes
         raise RuntimeError(f"wide rows {np.flatnonzero(aec < 0)[:5].tolist()}: "
-                           "band too wide for the -h band form")
+                           "band too wide for the band form")
     aec = aec + rows.win_lo
     fw = rows.strand == 0
     fb[rows.read[fw]] = best[fw]

@@ -34,19 +34,19 @@ What changed from the TPU engine, and why:
 * A pass-1 read whose band is wider than the entry window (WIDE) is scored
   on the card too, where the TPU engine sent it to the native solve to keep
   its device program count at one: each of its strands with intervals is a
-  row of the general-width scorer (:func:`mia_tpu_torch.ops.dp_cuda.dp_last_row`)
-  over the strand's window (``entries.wide_rows``), launched after the
-  batch's entries on the same stream, and only each row's (best, aec) comes
-  back.  Under ``--dp-devices`` all of a batch's wide rows go to the first
-  shard.  Under ``-h`` the rows carry the reads' chars and go to the
-  general-width scorer's ``-h`` form
-  (:func:`mia_tpu_torch.ops.dp_cuda.dp_last_row_hp`), which reads its
-  windows of the strands' codes, chars and run starts from the state
-  itself: ``entries.wide_rows`` puts the rows whose band takes at most 384
-  columns first, for its band form, which scores those columns only, and
-  the rest take its full form at their widest window; a read with a strand
-  window past 17,408 columns (``entries.HP_WIDE_COLS``) stays with the
-  native solve.
+  row of the general-width scorer
+  (:func:`mia_tpu_torch.ops.dp_cuda.dp_last_row_strand`; under ``-h``, where
+  the rows carry the reads' chars, its ``-h`` form
+  :func:`~mia_tpu_torch.ops.dp_cuda.dp_last_row_hp`) over the strand's
+  window (``entries.wide_rows``), launched after the batch's entries on the
+  same stream, and only each row's (best, aec) comes back.  Each reads its
+  windows of the strands (and under ``-h`` their chars and run starts) from
+  the state itself, in two forms: ``entries.wide_rows`` puts the rows whose
+  band takes at most 384 columns first, for the band form, which scores
+  those columns only, and the rest take the full form at their widest
+  window.  Under ``--dp-devices`` all of a batch's wide rows go to the
+  first shard.  Under ``-h`` a read with a strand window past 17,408
+  columns (``entries.HP_WIDE_COLS``) stays with the native solve.
 
 The numpy helpers (``build_pass1_entries``, ``split_pass1_results``,
 ``wide_rows``, ``merge_wide``, ``pack_s2c``, ``diag_gapfree``) and the shape
@@ -61,7 +61,6 @@ import numpy as np
 import torch
 
 from ..ops import dp_cuda
-from ..ops.dp_torch import batch_best_and_aec, depths_for, interval_mask, strand_windows
 from ..utils.encoding import BASE2INX, pop_hpl_and_hps
 from ..utils.torchcfg import kernel_library, select_device
 from .entries import (
@@ -152,39 +151,23 @@ def state_from_numpy(refs_np: np.ndarray, sms_np: np.ndarray, device,
                        on(hp[1], np.int32), on(hp[2], np.int32), on(BASE2INX, np.int8))
 
 
-def wide_device_inputs(refs: torch.Tensor, width: int, strand: torch.Tensor,
-                       win_lo: torch.Tensor, ivl: torch.Tensor):
-    """(s1c [R, W] int32, mask [R, W] bool) of wide rows, made on ``refs``'
-    device from the rows' strands, window starts and window-local intervals
-    (``entries.wide_inputs`` in numpy; ``dp_torch.strand_windows`` and
-    ``interval_mask``)."""
-    return (strand_windows(refs, strand, win_lo, width, 4).to(torch.int32),
-            interval_mask(ivl, width))
-
-
 def score_wide(state: ScorerState, width: int, n_band: int, strand, win_lo, ivl, s2c,
                lengths) -> torch.Tensor:
     """(best, window-local aec) of wide rows as [2, R] int32 in row order:
     the last DP row's first maximum (the native solve takes the earliest
-    column too, hostbatch.cc ``fill_strand``).  Without ``-h`` the row comes
-    from ``dp_cuda.dp_last_row`` (the kernel on a card, its plain version on
-    the CPU) at ``width`` columns and its maximum from
-    ``batch_best_and_aec``; under ``-h`` (``s2c``: read chars)
-    ``dp_cuda.dp_last_row_hp`` reads the windows of the state's strands
-    itself and returns only the pairs, the first ``n_band`` rows from its
-    band form and the rest from its full form at ``width``
-    (``entries.WideRows.n_band`` / ``full_width``).  Every row scores with
-    the forward PSSM, as ``mia_p1_solve`` does for both strands
-    (``ctx->submat[0]``)."""
+    column too, hostbatch.cc ``fill_strand``).  ``dp_cuda.dp_last_row_strand``
+    (under ``-h``, where ``s2c`` holds read chars, ``dp_cuda.dp_last_row_hp``)
+    reads the windows of the state's strands itself and returns only the
+    pairs, the first ``n_band`` rows from its band form and the rest from
+    its full form at ``width`` (``entries.WideRows.n_band`` /
+    ``full_width``).  Every row scores with the forward PSSM, as
+    ``mia_p1_solve`` does for both strands (``ctx->submat[0]``)."""
     if state.hp:
         return dp_cuda.dp_last_row_hp(state.refs, state.refchr, state.hpcs, state.sms[0],
                                       state.pengop, state.b2i, strand, win_lo, ivl, s2c,
                                       lengths, width, n_band)
-    s1c, mask = wide_device_inputs(state.refs, width, strand, win_lo, ivl)
-    depths = depths_for(lengths, s2c.shape[1]).to(torch.int32)
-    last = dp_cuda.dp_last_row(s1c, mask, s2c, lengths, depths, state.sms[0])
-    best, aec = batch_best_and_aec(last)
-    return torch.stack([best, aec])
+    return dp_cuda.dp_last_row_strand(state.refs, state.sms[0], strand, win_lo, ivl, s2c,
+                                      lengths, width, n_band)
 
 
 def make_dp_devices(n_dp: int, devices=None) -> list[torch.device] | None:
@@ -339,19 +322,19 @@ class Pass1Scorer:
         return out, event
 
     def dispatch_wide(self, rows: WideRows | None) -> _Batch | None:
-        """Enqueue the general-width scorer (under ``-h`` its ``-h`` form) on
-        wide rows (``entries.wide_rows``; None: nothing) on the first shard,
-        behind what that shard's stream holds already.  Results via
-        :meth:`collect_entries`: (best, aec), aec WINDOW-LOCAL (add the
-        row's ``win_lo``)."""
+        """Enqueue the general-width scorer's two forms (under ``-h`` its
+        ``-h`` forms) on wide rows (``entries.wide_rows``; None: nothing) on
+        the first shard, behind what that shard's stream holds already.
+        Results via :meth:`collect_entries`: (best, aec), aec WINDOW-LOCAL
+        (add the row's ``win_lo``)."""
         if rows is None:
             return None
         host = (rows.strand, rows.win_lo, rows.ivl, rows.s2c, rows.lengths)
         host = tuple(np.ascontiguousarray(a) for a in host)
         shard = self.shards[0]
-        width = rows.full_width if self.hp else rows.width
         return _Batch([self._dispatch_shard(
-            shard, host, partial(score_wide, shard.state, width, rows.n_band))], rows.n)
+            shard, host, partial(score_wide, shard.state, rows.full_width, rows.n_band))],
+            rows.n)
 
     @staticmethod
     def ready(handle) -> bool:

@@ -1,19 +1,23 @@
-// -h scorer of pass 1's WIDE rows on their band columns only (Hopper,
-// sm_90a): the band form of K4g.
+// Scorers of pass 1's WIDE rows on their band columns only (Hopper, sm_90a):
+// the band forms of K1g (plain) and K4g (-h).
 //
-// Replaces mia_tpu/ops/dp_jax.py::batch_last_row_hp at full width, with the
-// window set-up of jax_engine._entries_core_hp and the argmax around it, for
-// a row whose band is narrow: (best, first window column of the best) of the
-// last -h DP row over the row's whole strand window, which is what
-// csrc/dp_last_row.cu's kHp form (the full form) computes.  The plain version
-// is mia_tpu_torch/ops/dp_torch.py::last_row_hp_band_plain; both equal
-// dp_torch.last_row_hp_plain bit for bit (int32, restart only on a strict >).
+// Replaces, for a row whose band is narrow, the last DP row over the row's
+// whole strand window and the argmax after it: without -h
+// mia_tpu/ops/dp_pallas.py::_dp_kernel at full width (dp_jax.batch_last_row
+// with dp_jax.batch_best_and_aec), under -h dp_jax.batch_last_row_hp with
+// the window set-up of jax_engine._entries_core_hp.  (best, first window
+// column of the best) leaves, which is what csrc/dp_last_row.cu (the full
+// forms) and an argmax compute over the whole window.  The plain versions
+// are mia_tpu_torch/ops/dp_torch.py::last_row_band_plain and
+// last_row_hp_band_plain; each equals the full form's plain version bit for
+// bit (int32, restart only on a strict >).  One source, one template: the
+// plain instantiation (kHp = false) is the -h one without its candidates.
 //
 // What bounds it: the integer pipe's instructions per DP cell, as for
 // csrc/dp_entries.cu, and before that the cells themselves.  A wide row's
 // window spans up to a whole strand (17,408 columns), but its band, the
-// union of its <= 16 intervals, is a few hundred columns: on the -h cell's
-// wide rows 1% of the window's cells lie in a band, and the full form, at
+// union of its <= 16 intervals, is a few hundred columns: on the cells'
+// wide rows 1-3% of the window's cells lie in a band, and the full form, at
 // the batch's widest window, computes closed cells for the rest.  A closed
 // cell never reaches the answer.  So this form computes the band's cells
 // only:
@@ -27,35 +31,38 @@
 //     state, as column 2 does column 0 (band column 0 is window column 0
 //     whenever that is open);
 //   * one warp a row, lane l owning band columns [12 l, 12 l + 12), 384 in
-//     all (entries.HP_BAND_COLS): the recurrence and layout of dp_entries.cu's
-//     kHp form (two rows and the row-gap max in registers, DPX add-max, the
-//     lane-major staged row and hp_col sources in shared memory, the
-//     straight-line cell variants per kind of row), with two changes: the
-//     column-gap terms take each column's real window column (GEP * column
-//     and the gap cost sit in registers, not immediates), and a closed column
-//     is a sixth code of the score table, (HIM, HIM), so no per-column mask
-//     register is kept;
+//     all (entries.BAND_COLS; 16 a lane would spill in the plain form's row
+//     loop at 128 registers).  The recurrence and layout of dp_entries.cu
+//     (two rows and the
+//     row-gap max in registers, DPX add-max; under -h the lane-major staged
+//     row and hp_col sources in shared memory, the straight-line cell
+//     variants per kind of row), with two changes: the column-gap terms take
+//     each column's real window column (GEP * column and the gap cost sit in
+//     registers, not immediates), and a closed column is a sixth code of the
+//     score table, (HIM, HIM), so no per-column mask register is kept;
 //   * the prologue sorts the row's intervals by rank, joins them into runs,
 //     and gives each lane the window column of each of its band columns; it
-//     reads codes, chars and run starts from the strand state at win_lo +
-//     that column (past the state: code 4, char 0, run start 0);
-//   * hp_col's source, the column before the cell's reference run, may lie
-//     in any lane or interval: the prologue finds its band column, and a
+//     reads codes (-h: chars and run starts too) from the strand state at
+//     win_lo + that column (past the state: code 4, char 0, run start 0);
+//   * the PSSM depth of each DP row comes from the read's length
+//     (find_sm_depth, src/pssm.c:36-46), as dp_torch.depths_for gives it;
+//   * -h: hp_col's source, the column before the cell's reference run, may
+//     lie in any lane or interval: the prologue finds its band column, and a
 //     source that is not open gives no candidate (on the whole window its
 //     value is HIM, below the restart);
-//   * a row whose band takes more than 384 columns is left to the full form
-//     by the host (entries.wide_rows); given one anyway, the kernel writes
-//     (HIM, -1), which the host refuses.
+//   * a row whose band takes more columns than its form's is left to the
+//     full form by the host (entries.wide_rows); given one anyway, the
+//     kernel writes (HIM, -1), which the host refuses.
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
 
-// Duplicates of the Python side's values (entries.HP_BAND_COLS,
-// MAX_INTERVALS, L_MAX, HPW_ROUTE, mia_tpu_torch.constants, dp_torch._LOW);
-// mia_dp_band_hp_constants exports them so that the loader
-// (torchcfg.kernel_library) refuses a library that disagrees.
+// Duplicates of the Python side's values (entries.BAND_COLS, MAX_INTERVALS,
+// L_MAX, HPW_ROUTE, mia_tpu_torch.constants, dp_torch._LOW);
+// mia_dp_band_constants and mia_dp_band_hp_constants export them so that
+// the loader (torchcfg.kernel_library) refuses a library that disagrees.
 constexpr int kCPL = 12;              // band columns per lane
 constexpr int kBand = 32 * kCPL;      // band columns a row
 constexpr int kK = 16;                // intervals a row
@@ -75,36 +82,54 @@ constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
   const int8_t* refs;      // [2, wtot] codes
-  const uint8_t* refchr;   // [2, wtot] chars
-  const int32_t* hpcs;     // [2, wtot] global run start per column
+  const uint8_t* refchr;   // -h: [2, wtot] chars
+  const int32_t* hpcs;     // -h: [2, wtot] global run start per column
   int wtot;
   const int8_t* strand;    // [B]
   const int32_t* win_lo;   // [B] global column of window column 0
   const int32_t* ivl;      // [B, kK, 2] window-local [lo, hi)
-  const uint8_t* s2chr;    // [B, L] read chars, pad 0
+  const uint8_t* s2chr;    // -h: [B, L] read chars, pad 0
   int L;
   const int32_t* lengths;  // [B]
   const int32_t* submat;   // [31, 5, 5]
-  const int32_t* pengop;   // [kPengop]
-  const int8_t* b2i;       // [256]
+  const int32_t* pengop;   // -h: [kPengop]
+  const int8_t* b2i;       // -h: [256]
   int B;
   int32_t* out;            // out[b]: best, out[ldo + b]: its window column
   int ldo;
+  const int32_t* s2c;      // plain: [B, L] read codes, pad 4
 };
 
-struct Shared {
-  // per depth and read code, per reference code: (score where the cell
-  // keeps its base, addend where it restarts); code 5: (HIM, HIM)
-  int2 tab[kDepth * 5 * kCodes];
+// Per-block shared memory of the -h instantiation only: its tables, and
+// its per-row arrays.
+template <bool kHp>
+struct HpTables {
   int32_t pengop[kPengop];
   int8_t b2i[256];
-  uint8_t chr[kWarps][kLMax];     // read chars
+};
+template <>
+struct HpTables<false> {};
+
+template <bool kHp>
+struct HpRows {
   uint8_t hprs[kWarps][kLMax];    // start row of the read run holding each row
   uint8_t pidx[kWarps][kLMax];    // min(run length - 1, 10): pengop slot
   // lane-major, as in dp_entries.cu: band column 12 l + j at j * 32 + l
   uint16_t hsrc[kWarps][kBand];   // hp_col: byte offset of the source column in row[]
   int32_t hneg[kWarps][kBand];    // hp_col: minus the distance cost to that column
   int32_t row[kWarps][kBand];     // the row before the current read run, staged
+};
+template <>
+struct HpRows<false> {};
+
+template <bool kHp>
+struct Shared {
+  // per depth and read code, per reference code: (score where the cell
+  // keeps its base, addend where it restarts); code 5: (HIM, HIM)
+  int2 tab[kDepth * 5 * kCodes];
+  HpTables<kHp> ht;
+  uint8_t chr[kWarps][kLMax];     // read chars (-h) or codes 0..4
+  HpRows<kHp> hp;
   // the row's valid intervals sorted by start, and the band's runs: the
   // first window column and first band column of each, and its columns
   int32_t lo[kWarps][kK], hi[kWarps][kK];
@@ -116,14 +141,17 @@ __device__ __forceinline__ unsigned zero_bytes(unsigned x) {
   return ~(((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x);
 }
 
-__global__ void __launch_bounds__(kWarps * 32, 2) dp_band_hp_kernel(Args a) {
-  __shared__ Shared sh;
+template <bool kHp>
+__global__ void __launch_bounds__(kWarps * 32, 2) dp_band_kernel(Args a) {
+  __shared__ Shared<kHp> sh;
   for (int i = threadIdx.x; i < kDepth * 5 * kCodes; i += blockDim.x) {
     const int w = i % kCodes, x = (i / kCodes) % 5, d = i / (kCodes * 5);
     sh.tab[i] = w < 5 ? make_int2(a.submat[(d * 5 + w) * 5 + x], 0) : make_int2(HIM, HIM);
   }
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) sh.b2i[i] = a.b2i[i];
-  if (threadIdx.x < kPengop) sh.pengop[threadIdx.x] = a.pengop[threadIdx.x];
+  if constexpr (kHp) {
+    for (int i = threadIdx.x; i < 256; i += blockDim.x) sh.ht.b2i[i] = a.b2i[i];
+    if (threadIdx.x < kPengop) sh.ht.pengop[threadIdx.x] = a.pengop[threadIdx.x];
+  }
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
@@ -186,10 +214,17 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dp_band_hp_kernel(Args a) {
     return;
   }
 
-  // ---- read chars and runs ------------------------------------------------
-  for (int r = lane; r < L; r += 32) sh.chr[warp][r] = a.s2chr[(int64_t)e * L + r];
+  // ---- read chars (-h) or codes, and -h's read runs -----------------------
+  for (int r = lane; r < L; r += 32) {
+    if constexpr (kHp) {
+      sh.chr[warp][r] = a.s2chr[(int64_t)e * L + r];
+    } else {
+      const int x = a.s2c[(int64_t)e * L + r];
+      sh.chr[warp][r] = (uint8_t)(x < 0 ? 0 : (x > 4 ? 4 : x));
+    }
+  }
   __syncwarp();
-  {
+  if constexpr (kHp) {
     // dp_entries.cu's ballots: the nearest run start at or before each row,
     // the nearest run end at or after it
     int carry = 0;
@@ -198,7 +233,7 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dp_band_hp_kernel(Args a) {
       const bool changed = r >= L || r == 0 || sh.chr[warp][r] != sh.chr[warp][r - 1];
       const unsigned m = __ballot_sync(FULL, changed) & (FULL >> (31 - lane));
       const int hs = m ? base + 31 - __clz(m) : carry;
-      if (r < L) sh.hprs[warp][r] = (uint8_t)hs;
+      if (r < L) sh.hp.hprs[warp][r] = (uint8_t)hs;
       carry = __shfl_sync(FULL, hs, 31);
     }
     carry = L - 1;
@@ -208,13 +243,13 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dp_band_hp_kernel(Args a) {
       const unsigned m = __ballot_sync(FULL, ends) & (FULL << lane);
       const int he = m ? base + __ffs(m) - 1 : carry;
       if (r < L) {
-        const int run = he - sh.hprs[warp][r] + 1;
-        sh.pidx[warp][r] = (uint8_t)(run < 1 ? 0 : (run > kPengop ? kPengop - 1 : run - 1));
+        const int run = he - sh.hp.hprs[warp][r] + 1;
+        sh.hp.pidx[warp][r] = (uint8_t)(run < 1 ? 0 : (run > kPengop ? kPengop - 1 : run - 1));
       }
       carry = __shfl_sync(FULL, he, 0);
     }
+    __syncwarp();
   }
-  __syncwarp();
 
   // ---- this lane's band columns --------------------------------------------
   auto is_open = [&](int c) {
@@ -231,8 +266,10 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dp_band_hp_kernel(Args a) {
 
   int woff[kCPL];   // byte offset of the column's code in a table row
   int gadd[kCPL];   // what the column adds as a column-gap origin: GEP * its
-                    // window column, or kGate where it may not count
+                 // window column, or kGate where it may not count
   int ncost[kCPL];  // minus the column gap's cost into it: GOP + GEP * (column - 1)
+  // -h: window chars (4 per word) and, as 0x80 flags in the same layout,
+  // the columns that start a reference run and those with an hp_col source
   uint32_t wchr[kCPL / 4], hrb[kCPL / 4], hcb[kCPL / 4];
   unsigned mbits = 0;
 #pragma unroll
@@ -253,24 +290,26 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dp_band_hp_kernel(Args a) {
     woff[j] = 8 * (open ? (code < 0 ? 0 : (code > 4 ? 4 : code)) : 5);
     gadd[j] = GEP * c;
     ncost[j] = -(GOP + GEP * (c - 1));
-    const uint32_t ch = in ? a.refchr[sbase + g] : 0;
-    if ((j & 3) == 0) wchr[j >> 2] = hrb[j >> 2] = hcb[j >> 2] = 0;
-    wchr[j >> 2] |= ch << (8 * (j & 3));
-    const int hc = in ? a.hpcs[sbase + g] : 0;
-    const uint32_t flag = 0x80u << (8 * (j & 3));
-    if (open && c >= 1 && hc == g) hrb[j >> 2] |= flag;
-    // hp_col: the source column's band column, where it is open
-    int src = 0;
-    if (open && c >= 1 && hc != g && hc > 0 && hc - 1 >= wlo && is_open(hc - 1 - wlo)) {
-      const int s = hc - 1 - wlo;
-      for (int i = 0; i < n; ++i) {
-        const int s0 = sh.seg_col[warp][i];
-        if (s0 <= s && s < s0 + sh.seg_n[warp][i]) src = sh.seg_at[warp][i] + s - s0;
+    if constexpr (kHp) {
+      const uint32_t ch = in ? a.refchr[sbase + g] : 0;
+      if ((j & 3) == 0) wchr[j >> 2] = hrb[j >> 2] = hcb[j >> 2] = 0;
+      wchr[j >> 2] |= ch << (8 * (j & 3));
+      const int hc = in ? a.hpcs[sbase + g] : 0;
+      const uint32_t flag = 0x80u << (8 * (j & 3));
+      if (open && c >= 1 && hc == g) hrb[j >> 2] |= flag;
+      // hp_col: the source column's band column, where it is open
+      int src = 0;
+      if (open && c >= 1 && hc != g && hc > 0 && hc - 1 >= wlo && is_open(hc - 1 - wlo)) {
+        const int s = hc - 1 - wlo;
+        for (int i = 0; i < n; ++i) {
+          const int s0 = sh.seg_col[warp][i];
+          if (s0 <= s && s < s0 + sh.seg_n[warp][i]) src = sh.seg_at[warp][i] + s - s0;
+        }
+        hcb[j >> 2] |= flag;
       }
-      hcb[j >> 2] |= flag;
+      sh.hp.hsrc[warp][j * 32 + lane] = (uint16_t)(4 * ((src % kCPL) * 32 + src / kCPL));
+      sh.hp.hneg[warp][j * 32 + lane] = -GEP * (g - hc);
     }
-    sh.hsrc[warp][j * 32 + lane] = (uint16_t)(4 * ((src % kCPL) * 32 + src / kCPL));
-    sh.hneg[warp][j * 32 + lane] = -GEP * (g - hc);
   }
   // origin k counts where band column k + 2 is open; band column 0 always
   unsigned nbits = __shfl_down_sync(FULL, mbits, 1);
@@ -287,8 +326,11 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dp_band_hp_kernel(Args a) {
     int d = row < kPssmDepth ? row
                              : (from_back < kPssmDepth ? 2 * kPssmDepth - from_back : kPssmDepth);
     d = d < 0 ? 0 : (d > 2 * kPssmDepth ? 2 * kPssmDepth : d);
-    int x = sh.b2i[sh.chr[warp][row]];
-    x = x < 0 ? 0 : (x > 4 ? 4 : x);
+    int x = sh.chr[warp][row];
+    if constexpr (kHp) {
+      x = sh.ht.b2i[x];
+      x = x < 0 ? 0 : (x > 4 ? 4 : x);
+    }
     return (const char*)(sh.tab + (d * 5 + x) * kCodes);
   };
   int prev[kCPL], prev2[kCPL], rbest[kCPL];
@@ -310,27 +352,32 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dp_band_hp_kernel(Args a) {
     // no row gap ends on row 1: its cost there sinks the candidate
     const int neg_grow = row >= 2 ? -(GOP + GEP * (row - 1)) : kGate;
 
-    // which candidate this row may take (warp-uniform), and the columns
-    // that take it as 0x80 flags
-    const int hs = sh.hprs[warp][row];
-    const int slot = sh.pidx[warp][row];
-    const bool hp_col_row = hs == row;
-    const bool hp_row_row = hs != row && hs > 0 && row - hs < kHpw;
-    const int neg_pen = -sh.pengop[slot];
-    const uint32_t ch4 = sh.chr[warp][row] * 0x01010101u;
-    uint32_t hit[kCPL / 4], any = 0;
+    // -h: which candidate this row may take (warp-uniform), and the
+    // columns that take it as 0x80 flags
+    bool hp_col_row = false, hp_row_row = false;
+    int neg_pen = 0;
+    uint32_t hit[kCPL / 4];
+    if constexpr (kHp) {
+      const int hs = sh.hp.hprs[warp][row];
+      const int slot = sh.hp.pidx[warp][row];
+      hp_col_row = hs == row;
+      hp_row_row = hs != row && hs > 0 && row - hs < kHpw;
+      neg_pen = -sh.ht.pengop[slot];
+      const uint32_t ch4 = sh.chr[warp][row] * 0x01010101u;
+      uint32_t any = 0;
 #pragma unroll
-    for (int k = 0; k < kCPL / 4; ++k) {
-      hit[k] = zero_bytes(wchr[k] ^ ch4) & (hp_col_row ? hcb[k] : hrb[k]);
-      any |= hit[k];
-    }
-    // the row before this run: hp_col's source now, hp_row's on the run's
-    // later rows
-    if (hp_col_row && (slot > 0 || __any_sync(FULL, any != 0))) {
-      __syncwarp();
+      for (int k = 0; k < kCPL / 4; ++k) {
+        hit[k] = zero_bytes(wchr[k] ^ ch4) & (hp_col_row ? hcb[k] : hrb[k]);
+        any |= hit[k];
+      }
+      // the row before this run: hp_col's source now, hp_row's on the
+      // run's later rows
+      if (hp_col_row && (slot > 0 || __any_sync(FULL, any != 0))) {
+        __syncwarp();
 #pragma unroll
-      for (int j = 0; j < kCPL; ++j) sh.row[warp][j * 32 + lane] = P[j];
-      __syncwarp();
+        for (int j = 0; j < kCPL; ++j) sh.hp.row[warp][j * 32 + lane] = P[j];
+        __syncwarp();
+      }
     }
 
     // column gaps: inclusive prefix max of prev[c] + GEP * column over the
@@ -368,7 +415,9 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dp_band_hp_kernel(Args a) {
 
     // The cells, in one straight-line variant per kind of row (0: no -h
     // candidate, 1: hp_col, 2: hp_row), picked by a warp-uniform branch.
-    auto cells = [&](auto kind) {
+    // The -h arrays come in as a parameter, so that the plain
+    // instantiation, which has none, does not look their members up.
+    auto cells = [&](auto kind, auto& hs) {
       constexpr int kKind = decltype(kind)::value;
 #pragma unroll
       for (int j = 0; j < kCPL; ++j) {
@@ -377,17 +426,17 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dp_band_hp_kernel(Args a) {
         const int diag = j >= 1 ? P[j - 1] : pv_m1;
         int base = __viaddmax_s32(pre, ncost[j], diag);
         base = __viaddmax_s32(j >= 1 ? rbest[j - 1] : rb_m1, neg_grow, base);
-        if constexpr (kKind != 0) {
+        if constexpr (kHp && kKind != 0) {
           const bool takes = hit[j >> 2] & (0x80u << (8 * (j & 3)));
           int cand;
           if constexpr (kKind == 1) {
-            const int src = *(const int32_t*)((const char*)sh.row[warp] +
-                                              sh.hsrc[warp][j * 32 + lane]);
-            cand = src + sh.hneg[warp][j * 32 + lane] + neg_pen;
+            const int src = *(const int32_t*)((const char*)hs.row[warp] +
+                                              hs.hsrc[warp][j * 32 + lane]);
+            cand = src + hs.hneg[warp][j * 32 + lane] + neg_pen;
           } else {
             // the column to the left; band column 0 takes none: lane 0
             // reads some column of its own instead
-            cand = sh.row[warp][j >= 1 ? (j - 1) * 32 + lane
+            cand = hs.row[warp][j >= 1 ? (j - 1) * 32 + lane
                                        : (kCPL - 1) * 32 + lane - (lane != 0)] + neg_pen;
           }
           base = max(base, takes ? cand : HIM);
@@ -398,15 +447,19 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dp_band_hp_kernel(Args a) {
         Q[j] = m + (keeps ? cell.x : cell.y);
       }
     };
+    if constexpr (kHp) {
 #ifdef MIA_BAND_HP_KIND
-    // every row of one kind, for counting that kind's instructions alone
-    // (python -m mia_tpu_torch.utils.sass -D MIA_BAND_HP_KIND=k); wrong scores
-    cells(std::integral_constant<int, MIA_BAND_HP_KIND>{});
+      // every row of one kind, for counting that kind's instructions alone
+      // (python -m mia_tpu_torch.utils.sass -D MIA_BAND_HP_KIND=k); wrong scores
+      cells(std::integral_constant<int, MIA_BAND_HP_KIND>{}, sh.hp);
 #else
-    if (hp_col_row) cells(std::integral_constant<int, 1>{});
-    else if (hp_row_row) cells(std::integral_constant<int, 2>{});
-    else cells(std::integral_constant<int, 0>{});
+      if (hp_col_row) cells(std::integral_constant<int, 1>{}, sh.hp);
+      else if (hp_row_row) cells(std::integral_constant<int, 2>{}, sh.hp);
+      else cells(std::integral_constant<int, 0>{}, sh.hp);
 #endif
+    } else {
+      cells(std::integral_constant<int, 0>{}, sh.hp);
+    }
   };
 
   int row = 1;
@@ -449,6 +502,19 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dp_band_hp_kernel(Args a) {
   }
 }
 
+template <bool kHp>
+int launch(const Args& a, void* stream) {
+  if (a.B <= 0) return 0;
+  if (a.L < 1 || a.L > kLMax || a.ldo < a.B) return (int)cudaErrorInvalidValue;
+  dp_band_kernel<kHp><<<(a.B + kWarps - 1) / kWarps, kWarps * 32, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int fill(const int32_t* c, int count, int32_t* out, int n) {
+  for (int i = 0; i < n && i < count; ++i) out[i] = c[i];
+  return count;
+}
+
 }  // namespace
 
 // (best, first window column of the best) of each row's last -h DP row, its
@@ -463,25 +529,46 @@ extern "C" int mia_dp_band_hp(const void* refs, const void* refchr, const void* 
                               const void* ivl, const void* s2chr, const void* lengths,
                               const void* submat, const void* pengop, const void* b2i,
                               int B, int L, void* out, int ldo, void* stream) {
-  if (B <= 0) return 0;
-  if (L < 1 || L > kLMax || ldo < B) return (int)cudaErrorInvalidValue;
   const Args a{(const int8_t*)refs,     (const uint8_t*)refchr, (const int32_t*)hpcs,
                wtot,                    (const int8_t*)strand,  (const int32_t*)win_lo,
                (const int32_t*)ivl,     (const uint8_t*)s2chr,  L,
                (const int32_t*)lengths, (const int32_t*)submat, (const int32_t*)pengop,
                (const int8_t*)b2i,      B,                      (int32_t*)out,
-               ldo};
-  dp_band_hp_kernel<<<(B + kWarps - 1) / kWarps, kWarps * 32, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+               ldo,                     nullptr};
+  return launch<true>(a, stream);
 }
 
-// The compile-time constants of this kernel, in this order: band columns a
+// The same without -h: (best, first window column of the best) of each
+// row's last DP row (sg5 on, the one PSSM submat for every row), its band
+// columns scored only.  refs [2, wtot] int8 codes; strand [B] int8, win_lo
+// [B] int32, ivl [B, 16, 2] int32 window-local intervals, s2c [B, L] int32
+// read codes (pad 4), lengths [B] int32; submat [31, 5, 5] int32.  L at
+// most 256.
+extern "C" int mia_dp_band(const void* refs, int wtot, const void* strand,
+                           const void* win_lo, const void* ivl, const void* s2c,
+                           const void* lengths, const void* submat, int B, int L,
+                           void* out, int ldo, void* stream) {
+  const Args a{(const int8_t*)refs,     nullptr,                nullptr,
+               wtot,                    (const int8_t*)strand,  (const int32_t*)win_lo,
+               (const int32_t*)ivl,     nullptr,                L,
+               (const int32_t*)lengths, (const int32_t*)submat, nullptr,
+               nullptr,                 B,                      (int32_t*)out,
+               ldo,                     (const int32_t*)s2c};
+  return launch<false>(a, stream);
+}
+
+// The compile-time constants of the -h form, in this order: band columns a
 // row, intervals a row, read rows, PSSM depth slots, GOP, GEP, HIM, LOW, -h
 // row reach, -h discount slots.  Fills at most n values of out; returns how
 // many there are.
 extern "C" int mia_dp_band_hp_constants(int32_t* out, int n) {
   const int32_t c[] = {kBand, kK, kLMax, kDepth, GOP, GEP, HIM, LOW, kHpw, kPengop};
-  const int count = (int)(sizeof(c) / sizeof(c[0]));
-  for (int i = 0; i < n && i < count; ++i) out[i] = c[i];
-  return count;
+  return fill(c, (int)(sizeof(c) / sizeof(c[0])), out, n);
+}
+
+// The same for the plain form: band columns a row, intervals a row, read
+// rows, PSSM depth slots, PSSM depth, GOP, GEP, HIM, LOW.
+extern "C" int mia_dp_band_constants(int32_t* out, int n) {
+  const int32_t c[] = {kBand, kK, kLMax, kDepth, kPssmDepth, GOP, GEP, HIM, LOW};
+  return fill(c, (int)(sizeof(c) / sizeof(c[0])), out, n);
 }

@@ -26,21 +26,24 @@ The general form of the same recurrence, any width and the whole last row
 out, is ``dp_last_row`` (``csrc/dp_last_row.cu``, at the end of this module):
 one block per read, 34 columns a thread in registers, one barrier a row, for
 rows of up to 17,408 columns; wider rows take the same file's wide form.
-``dp_last_row_hp`` scores pass 1's ``-h`` WIDE reads in two forms, each
-row reading its window of the scorer's strand state itself, (best, first
-column of the best) out: the band form (``csrc/dp_band_hp.cu``, a warp a
-row) for rows whose band takes at most 384 columns
-(``entries.HP_BAND_COLS``), on those columns only, and the full form (the
-``-h`` instantiation of ``dp_last_row``'s register form) for the rest, at
-their widest window, up to 17,408 columns (wider ones stay with the native
-solve, ``entries.HP_WIDE_COLS``).
+``dp_last_row_strand`` and, under ``-h``, ``dp_last_row_hp`` score pass
+1's WIDE reads in two forms each, each row's window read from the scorer's
+strand state, (best, first column of the best) out: the band form
+(``csrc/dp_band.cu``, a warp a row) for rows whose band takes at most 384
+columns (``entries.BAND_COLS``), on those columns only, and the full form
+for the rest, at their widest window: ``dp_last_row`` and an argmax, under
+``-h`` the ``-h`` instantiation of ``dp_last_row``'s register form, up to
+17,408 columns (wider ones stay with the native solve,
+``entries.HP_WIDE_COLS``).
 ``kernel_launches`` / ``plain_calls``, ``hp_kernel_launches`` /
 ``hp_plain_calls``, ``last_row_launches`` / ``last_row_plain_calls``,
-``last_row_hp_launches`` / ``last_row_hp_plain_calls`` (the full form) and
-``last_row_hp_band_launches`` / ``last_row_hp_band_plain_calls`` count the
-two routes of each (``last_row_wide_launches``: the launches of the wide
-form among them; ``last_row_hp_rows`` / ``last_row_hp_band_rows``: the rows
-each ``-h`` form took); ``shards`` is the largest
+``last_row_band_launches`` / ``last_row_band_plain_calls``,
+``last_row_hp_launches`` / ``last_row_hp_plain_calls`` (the ``-h`` full
+form) and ``last_row_hp_band_launches`` / ``last_row_hp_band_plain_calls``
+count the two routes of each (``last_row_wide_launches``: the launches of
+the wide form among them; ``last_row_rows`` / ``last_row_band_rows`` and
+``last_row_hp_rows`` / ``last_row_hp_band_rows``: the wide rows each form
+took); ``shards`` is the largest
 number of device shards one dispatch of the scorer was dealt over
 (``core.torch_engine.Pass1Scorer``, 1 on a single device).  Both kernels share one
 library (``torchcfg.kernel_library``) with the consensus column counts
@@ -56,11 +59,15 @@ import torch
 from ..core.entries import HP_WIDE_COLS, L_MAX, MAX_INTERVALS
 
 from .dp_torch import (
+    batch_best_and_aec,
     batch_last_row,
+    depths_for,
     entries_core_hp_plain,
     entries_core_plain,
+    last_row_band_plain,
     last_row_hp_band_plain,
     last_row_hp_plain,
+    wide_device_inputs,
 )
 
 kernel_launches = 0
@@ -71,6 +78,10 @@ shards = 0
 last_row_launches = 0
 last_row_wide_launches = 0
 last_row_plain_calls = 0
+last_row_rows = 0
+last_row_band_launches = 0
+last_row_band_plain_calls = 0
+last_row_band_rows = 0
 last_row_hp_launches = 0
 last_row_hp_plain_calls = 0
 last_row_hp_rows = 0
@@ -82,6 +93,7 @@ last_row_hp_band_rows = 0
 def reset_counts() -> None:
     global kernel_launches, plain_calls, hp_kernel_launches, hp_plain_calls, shards
     global last_row_launches, last_row_wide_launches, last_row_plain_calls
+    global last_row_rows, last_row_band_launches, last_row_band_plain_calls, last_row_band_rows
     global last_row_hp_launches, last_row_hp_plain_calls, last_row_hp_rows
     global last_row_hp_band_launches, last_row_hp_band_plain_calls, last_row_hp_band_rows
     kernel_launches = 0
@@ -92,6 +104,10 @@ def reset_counts() -> None:
     last_row_launches = 0
     last_row_wide_launches = 0
     last_row_plain_calls = 0
+    last_row_rows = 0
+    last_row_band_launches = 0
+    last_row_band_plain_calls = 0
+    last_row_band_rows = 0
     last_row_hp_launches = 0
     last_row_hp_plain_calls = 0
     last_row_hp_rows = 0
@@ -305,6 +321,70 @@ def dp_last_row(s1c, mask, s2c, lengths, depths, submat, sg5: bool = True) -> to
     return _last_row(s1c, mask, s2c, lengths, depths, submat, sg5)
 
 
+def dp_last_row_strand(refs, submat, strand, win_lo, ivl, s2c, lengths, width: int,
+                       n_band: int = 0) -> torch.Tensor:
+    """Scoring of rows of a whole strand window: (best, first column of the
+    best) of each row's last DP row as [2, R] int32 in row order, the column
+    window-local; what ``dp_jax.batch_last_row`` (sg5 on) and
+    ``dp_jax.batch_best_and_aec`` compute on each row's window.
+
+    refs [2, WTOT] int8 codes (the scorer's state), submat [31, 5, 5] int32;
+    per row strand [R] int8, win_lo [R] int32 (0 <= win_lo <= WTOT), ivl
+    [R, 16, 2] int32 window-local intervals, s2c [R, L] int32 read codes
+    (pad 4, L <= 256), lengths [R] int32; all on one device, contiguous.
+    The first ``n_band`` rows take the band form, which scores a row's band
+    columns only (``entries.band_columns`` at most ``entries.BAND_COLS``; a
+    row past that gives (HIM, -1)); the rest take the full form over their
+    first ``width`` window columns (hi <= width): :func:`dp_last_row` on
+    their windows and :func:`.dp_torch.batch_best_and_aec`.  CPU tensors go
+    to the plain versions (:func:`.dp_torch.last_row_band_plain`,
+    :func:`.dp_torch.batch_last_row`), CUDA tensors to the kernels
+    (``csrc/dp_band.cu``, ``csrc/dp_last_row.cu``), or the call raises."""
+    global last_row_rows, last_row_band_launches, last_row_band_plain_calls
+    global last_row_band_rows
+    dev = refs.device
+    R, L = s2c.shape
+    for name, t, dtype, shape in (
+            ("refs", refs, torch.int8, (2, refs.shape[1])),
+            ("submat", submat, torch.int32, (31, 5, 5)),
+            ("strand", strand, torch.int8, (R,)), ("win_lo", win_lo, torch.int32, (R,)),
+            ("ivl", ivl, torch.int32, (R, MAX_INTERVALS, 2)),
+            ("s2c", s2c, torch.int32, (R, L)), ("lengths", lengths, torch.int32, (R,))):
+        check_tensor(name, t, dtype, shape, dev)
+    if not 1 <= L <= L_MAX:
+        raise ValueError(f"reads: {L} rows, want 1..{L_MAX}")
+    if not 0 <= n_band <= R:
+        raise ValueError(f"n_band {n_band}, want 0..{R}")
+    if n_band < R and width < 1:
+        raise ValueError(f"width {width}, want at least 1")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"dp_last_row_strand: no kernel for device {dev}")
+    band = (strand[:n_band], win_lo[:n_band], ivl[:n_band], s2c[:n_band], lengths[:n_band])
+    last_row_band_rows += n_band
+    last_row_rows += R - n_band
+    rest = torch.empty((2, 0), dtype=torch.int32, device=dev)
+    if n_band < R:
+        f_strand, f_win_lo, f_ivl, f_s2c, f_lengths = (
+            a[n_band:] for a in (strand, win_lo, ivl, s2c, lengths))
+        s1c, mask = wide_device_inputs(refs, width, f_strand, f_win_lo, f_ivl)
+        depths = depths_for(f_lengths, L).to(torch.int32)
+        rest = torch.stack(batch_best_and_aec(
+            dp_last_row(s1c, mask, f_s2c, f_lengths, depths, submat)))
+    if not n_band:
+        return rest
+    if dev.type == "cpu":
+        last_row_band_plain_calls += 1
+        return torch.cat([last_row_band_plain(refs, submat, *band), rest], 1)
+    # the band form writes its pairs into the first n_band columns of the
+    # [2, R] result, whose rows are R apart
+    out = _launch("dp_last_row_strand", dev, R, lambda lib, o, stream: lib.mia_dp_band(
+        refs.data_ptr(), refs.shape[1], *(t.data_ptr() for t in band), submat.data_ptr(),
+        n_band, L, o, R, stream))
+    last_row_band_launches += 1
+    out[:, n_band:] = rest
+    return out
+
+
 def dp_last_row_hp(refs, refchr, hpcs, submat, pengop, b2i, strand, win_lo, ivl, s2chr,
                    lengths, width: int, n_band: int = 0) -> torch.Tensor:
     """``-h`` scoring of rows of a whole strand window: (best, first column
@@ -319,13 +399,13 @@ def dp_last_row_hp(refs, refchr, hpcs, submat, pengop, b2i, strand, win_lo, ivl,
     lo, hi <= 17,408), s2chr [R, L] uint8 read chars (pad 0, L <= 256),
     lengths [R] int32; all on one device, contiguous.  The first ``n_band``
     rows take the band form, which scores a row's band columns only
-    (``entries.band_columns`` at most ``entries.HP_BAND_COLS``; a row past
+    (``entries.band_columns`` at most ``entries.BAND_COLS``; a row past
     that gives (HIM, -1)); the rest take the full form over their first
     ``width`` window columns (1..17,408; hi <= width).  CPU tensors go to
     the plain versions (:func:`.dp_torch.last_row_hp_band_plain`,
     :func:`.dp_torch.last_row_hp_plain`), CUDA tensors to the kernels
-    (``csrc/dp_band_hp.cu``, the kHp form of ``csrc/dp_last_row.cu``), or
-    the call raises."""
+    (``csrc/dp_band.cu``'s ``-h`` instantiation, the kHp form of
+    ``csrc/dp_last_row.cu``), or the call raises."""
     global last_row_hp_launches, last_row_hp_plain_calls, last_row_hp_rows
     global last_row_hp_band_launches, last_row_hp_band_plain_calls, last_row_hp_band_rows
     dev = refs.device

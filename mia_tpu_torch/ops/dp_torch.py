@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import GEP, GOP, HIM, PSSM_DEPTH
-from ..core.entries import HP_BAND_COLS
+from ..core.entries import BAND_COLS
 from ..core.entries import HPW_ROUTE as HPW
 from ..core.entries import WIN_W
 
@@ -51,11 +51,17 @@ def batch_last_row_rowsm(
     row_sm: torch.Tensor,   # [B, L, 5] int32 per-row substitution scores
     lengths: torch.Tensor,  # [B] int32 read lengths
     sg5: bool = True,
+    cols: torch.Tensor | None = None,  # [B, W] window-local column of each column
 ) -> torch.Tensor:
     """The DP row at each read's last row (length - 1): [B, W] int32; masked
     columns hold HIM.  Reads whose last row lies outside [1, L) keep row 0,
     as in the JAX scan.  Rows past the longest read are skipped: they never
-    reach a snapshot.  Without ``sg5`` a restart and column 0 cost nothing."""
+    reach a snapshot.  Without ``sg5`` a restart and column 0 cost nothing.
+
+    ``cols`` (ascending in each row) scores a subset of each row's window
+    columns: column j stands for window column ``cols[b, j]``, whose gap
+    costs it takes.  Exact for every open column whose two left neighbours
+    are in the subset (:func:`band_layout`)."""
     B, W = mask.shape
     L = row_sm.shape[1]
     dev = mask.device
@@ -63,7 +69,9 @@ def batch_last_row_rowsm(
     s1c = s1c.to(torch.int64)
     mask = mask.to(torch.bool)
     lengths = lengths.to(i32)
-    cols = torch.arange(W, device=dev, dtype=i32)[None, :]
+    if cols is None:
+        cols = torch.arange(W, device=dev, dtype=i32)[None, :]
+    cols = cols.to(i32)
     him = torch.tensor(HIM, dtype=i32, device=dev)
     low = torch.tensor(_LOW, dtype=i32, device=dev)
 
@@ -123,15 +131,17 @@ def batch_last_row(
     depths: torch.Tensor,   # [B, L] PSSM depth per row (clipped)
     submat: torch.Tensor,   # [31, 5, 5] int32
     sg5: bool = True,
+    cols: torch.Tensor | None = None,  # [B, W] window-local column of each column
 ) -> torch.Tensor:
     """``dp_jax.batch_last_row``: :func:`batch_last_row_rowsm` with one PSSM
-    for the batch and a reference row that may be shared by it.  The plain
-    version of the general-width kernel (:func:`.dp_cuda.dp_last_row`)."""
+    for the batch and a reference row that may be shared by it (and, with
+    ``cols``, a subset of each row's columns).  The plain version of the
+    general-width kernel (:func:`.dp_cuda.dp_last_row`)."""
     B, W = mask.shape
     if s1c.dim() == 1:
         s1c = s1c[None, :].expand(B, W)
     return batch_last_row_rowsm(s1c, mask, make_row_sm(submat, s2c, depths), lengths,
-                                sg5=sg5)
+                                sg5=sg5, cols=cols)
 
 
 def read_runs(s2chr: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -292,6 +302,16 @@ def interval_mask(ivl: torch.Tensor, width: int) -> torch.Tensor:
     return torch.cumsum(edge[:, :width], 1, dtype=torch.int32) > 0
 
 
+def wide_device_inputs(refs: torch.Tensor, width: int, strand: torch.Tensor,
+                       win_lo: torch.Tensor, ivl: torch.Tensor):
+    """(s1c [R, W] int32, mask [R, W] bool) of wide rows, made on ``refs``'
+    device from the rows' strands, window starts and window-local intervals
+    (``entries.wide_inputs`` in numpy; :func:`strand_windows` and
+    :func:`interval_mask`): the full form's inputs."""
+    return (strand_windows(refs, strand, win_lo, width, 4).to(torch.int32),
+            interval_mask(ivl, width))
+
+
 def last_row_hp_plain(
     refs: torch.Tensor,     # [2, WTOT] int8 padded strand codes
     refchr: torch.Tensor,   # [2, WTOT] uint8 strand chars (pad 0)
@@ -326,7 +346,7 @@ def last_row_hp_plain(
 
 
 def band_layout(ivl: torch.Tensor):
-    """The columns the ``-h`` band form scores for rows with window-local
+    """The columns the band forms score for rows with window-local
     intervals ``ivl`` [R, K, 2]: (cols [R, C] int64 window-local column of
     each band column, ascending; open [R, C] bool; n [R] int64 each row's
     band columns, ``entries.band_columns``' ``cols``).  A row's band columns
@@ -334,7 +354,7 @@ def band_layout(ivl: torch.Tensor):
     runs (at least 0), in order: every open column's two left neighbours
     are its left neighbours here too.  Columns past a row's n are closed
     and continue its last column by one each; a row with more than
-    ``entries.HP_BAND_COLS`` band columns gets none (all its columns
+    ``entries.BAND_COLS`` band columns gets none (all its columns
     closed)."""
     iv = ivl.to(torch.int64)
     lo, hi = iv[:, :, 0], iv[:, :, 1]
@@ -347,7 +367,7 @@ def band_layout(ivl: torch.Tensor):
     start = torch.maximum((lo - 2).clamp(min=0), before)
     cnt = torch.where(valid, (hi - start).clamp(min=0), 0)
     n_all = cnt.sum(1)
-    cnt = torch.where((n_all <= HP_BAND_COLS)[:, None], cnt, 0)
+    cnt = torch.where((n_all <= BAND_COLS)[:, None], cnt, 0)
     n = cnt.sum(1)
     ends = torch.cumsum(cnt, 1)
     R, C = iv.shape[0], max(int(n.max()) if iv.shape[0] else 0, 1)
@@ -378,11 +398,11 @@ def last_row_hp_band_plain(
     columns only (:func:`band_layout`): the same recurrence, its gap costs
     and run starts from the real window columns, the answer mapped back to
     its real column.  A row without an open column gives (HIM, 0), as the
-    full width does; a row whose band takes more than ``entries.HP_BAND_COLS``
+    full width does; a row whose band takes more than ``entries.BAND_COLS``
     columns gives (HIM, -1).  The plain version of the ``-h`` band form
     (``csrc/dp_band_hp.cu``, :func:`.dp_cuda.dp_last_row_hp`)."""
     cols, mask, n = band_layout(ivl)
-    wide = n > HP_BAND_COLS
+    wide = n > BAND_COLS
     WTOT = refs.shape[1]
     g = win_lo.to(torch.int64)[:, None] + cols
     inside = g < WTOT
@@ -395,6 +415,40 @@ def last_row_hp_band_plain(
                          depths_for(lengths, s2chr.shape[1]))
     last = batch_last_row_hp(win(refs, 4), win(refchr, 0), mask, row_sm, lengths, s2chr,
                              win(hpcs, 0), win_lo, pengop, cols=cols)
+    best, k = batch_best_and_aec(last)
+    aec = torch.where(mask.any(1), torch.gather(cols, 1, k[:, None].to(torch.int64))[:, 0], 0)
+    best = torch.where(wide, HIM, best)
+    aec = torch.where(wide, -1, aec)
+    return torch.stack([best, aec.to(torch.int32)])
+
+
+def last_row_band_plain(
+    refs: torch.Tensor,     # [2, WTOT] int8 padded strand codes
+    submat: torch.Tensor,   # [31, 5, 5] int32 PSSM
+    strand: torch.Tensor,   # [R] int8 each row's strand
+    win_lo: torch.Tensor,   # [R] int32 global column of the row's column 0
+    ivl: torch.Tensor,      # [R, K, 2] int32 window-local [lo, hi) intervals
+    s2c: torch.Tensor,      # [R, L] int32 read codes (pad 4)
+    lengths: torch.Tensor,  # [R] int32 read lengths
+) -> torch.Tensor:
+    """(best, first window column of the best) of each row's last DP row
+    over its whole window of its strand, as [2, R] int32: what
+    :func:`batch_last_row` (``dp_jax.batch_last_row``, sg5 on) and
+    :func:`batch_best_and_aec` compute on the full-width inputs, with each
+    row's DP run on its band columns only (:func:`band_layout`), its gap
+    costs from the real window columns and the answer mapped back to its
+    real column.  A row without an open column gives (HIM, 0), as the full
+    width does; a row whose band takes more than ``entries.BAND_COLS``
+    columns gives (HIM, -1).  The plain version of the band form
+    (``csrc/dp_band.cu``'s plain instantiation, :func:`.dp_cuda.dp_last_row_strand`)."""
+    cols, mask, n = band_layout(ivl)
+    wide = n > BAND_COLS
+    WTOT = refs.shape[1]
+    g = win_lo.to(torch.int64)[:, None] + cols
+    s1c = torch.where(g < WTOT, refs.reshape(-1)[strand.to(torch.int64)[:, None] * WTOT
+                                                 + g.clamp(max=WTOT - 1)].to(torch.int32), 4)
+    last = batch_last_row(s1c, mask, s2c, lengths, depths_for(lengths, s2c.shape[1]), submat,
+                          cols=cols)
     best, k = batch_best_and_aec(last)
     aec = torch.where(mask.any(1), torch.gather(cols, 1, k[:, None].to(torch.int64))[:, 0], 0)
     best = torch.where(wide, HIM, best)

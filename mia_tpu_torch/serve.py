@@ -33,6 +33,8 @@ in process.
 ``counters`` are the server's launch counts (``dp.kernel_launches``,
 ``dp.plain_calls``, ``dp.hp_kernel_launches``, ``dp.hp_plain_calls``,
 ``dp.last_row_launches``, ``dp.last_row_plain_calls``,
+``dp.last_row_band_launches``, ``dp.last_row_band_plain_calls``,
+``dp.last_row_rows``, ``dp.last_row_band_rows``,
 ``dp.last_row_hp_launches``, ``dp.last_row_hp_plain_calls``,
 ``dp.last_row_hp_band_launches``, ``dp.last_row_hp_band_plain_calls``,
 ``cons.kernel_launches``, ``cons.plain_calls``): a caller reads them before
@@ -107,6 +109,8 @@ SPAWN_WAIT_S = 300.0
 MAX_STATES = 64
 COUNTERS = ("dp.kernel_launches", "dp.plain_calls", "dp.hp_kernel_launches",
             "dp.hp_plain_calls", "dp.last_row_launches", "dp.last_row_plain_calls",
+            "dp.last_row_band_launches", "dp.last_row_band_plain_calls",
+            "dp.last_row_rows", "dp.last_row_band_rows",
             "dp.last_row_hp_launches", "dp.last_row_hp_plain_calls",
             "dp.last_row_hp_band_launches", "dp.last_row_hp_band_plain_calls",
             "cons.kernel_launches", "cons.plain_calls")

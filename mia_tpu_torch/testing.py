@@ -1121,3 +1121,107 @@ def hp_band_inputs(L: int = 48, seed: int = 0, copies: int = 2) -> dict:
     return dict(refs=refs, refchr=refchr, hpcs=hpcs, submat=sm, pengop=pengop,
                 b2i=BASE2INX.copy(), strand=strand, win_lo=win_lo, ivl=ivl, s2chr=s2chr,
                 lengths=lengths, width=width)
+
+
+# ---- the band form of the general-width scorer ----
+
+BAND_KEYS = ("refs", "submat", "strand", "win_lo", "ivl", "s2c", "lengths")
+
+# the edges of the plain band form, by name: what each row of band_inputs is
+BAND_EDGES = (
+    "band 384", "band 385", "open 384", "open 385", "at column 0", "at column 1",
+    "touching and overlapping", "16 one-column intervals", "gaps of 1 and 2",
+    "empty intervals", "no open column", "past the state", "read of 1", "read of 2",
+    "wrapping both ends", "wrapping both ends, wide",
+)
+
+
+def band_inputs(L: int = 48, seed: int = 0, copies: int = 2) -> dict:
+    """Inputs of ``dp_cuda.dp_last_row_strand`` (:data:`BAND_KEYS`, and
+    ``width``, the widest row's window) whose rows are the plain band form's
+    edges, :data:`BAND_EDGES` in order, ``copies`` times over on fresh reads
+    and strands: band columns (``entries.band_columns``) of exactly 384 and
+    385 (the form's limit and one past it) in two runs, open columns of as
+    many from window column 0 (no closed column before them), a band from
+    window column 0 and from column 1, touching and overlapping intervals,
+    16 one-column intervals, gaps of one and two closed columns, empty
+    intervals beside a real one, no open column at all, a band past the
+    strand state's end, reads of 1 and 2 bases, and a window over a whole
+    circular strand whose band holds its two ends (as a read across the
+    origin gets), once narrow and once over 384 columns.  The reference is random with a few N, 3,000 columns
+    and its first 400 again after them (a circular strand's wrap, as pass 1
+    lays it out); the reads are cut from each row's band with about 6% of
+    their bases redrawn, and the wrapping rows' across the origin."""
+    rng = np.random.default_rng(seed)
+    base, wrap = 3000, 400
+    fw = "".join(rng.choice(list("ACGT"), base))
+    fw = "".join("N" if rng.random() < 0.002 else c for c in fw)
+    rc = revcom(fw)
+    fw, rc = fw + fw[:wrap], rc + rc[:wrap]
+    len1 = base + wrap
+    strands = (fw, rc)
+    sm = (init_flatsubmat() + rng.integers(-40, 40, (31, 5, 5))).astype(np.int32)
+    refs, _ = padded_state_numpy(encode_seq(fw), encode_seq(rc), len1, sm)
+    n = len(BAND_EDGES)
+    R = n * copies
+    strand = rng.integers(0, 2, R).astype(np.int8)
+    win_lo = np.zeros(R, np.int32)
+    ivl = np.zeros((R, MAX_INTERVALS, 2), np.int32)
+    lengths = np.full(R, L, np.int32)
+    s2c = np.full((R, L), 4, np.int32)
+    for r in range(R):
+        edge = BAND_EDGES[r % n]
+        s = strands[int(strand[r])]
+        win_lo[r] = int(rng.integers(0, len1 - 1200))
+        read = None
+        if edge.startswith("band "):
+            k = int(edge.split()[1])
+            iv = [(2, 100), (150, 48 + k)]  # band columns 0..99, then 148..47 + k
+        elif edge.startswith("open "):
+            win_lo[r] = 0
+            k = int(edge.split()[1])
+            iv = [(0, 200), (200, k)]
+        elif edge == "at column 0":
+            win_lo[r] = 0
+            iv = [(0, 90), (150, 200)]
+        elif edge == "at column 1":
+            win_lo[r] = 0
+            iv = [(1, 120)]
+        elif edge == "touching and overlapping":
+            iv = [(2, 50), (50, 90), (40, 70), (120, 160), (150, 155)]
+        elif edge == "16 one-column intervals":
+            iv = [(2 + 7 * i, 3 + 7 * i) for i in range(MAX_INTERVALS)]
+        elif edge == "gaps of 1 and 2":
+            iv = [(2, 40), (41, 80), (82, 130), (133, 170)]
+        elif edge == "empty intervals":
+            iv = [(30, 30), (2, 100), (90, 60)]
+        elif edge == "no open column":
+            iv = [(40, 40), (70, 20)]
+        elif edge == "past the state":
+            win_lo[r] = refs.shape[1] - 120
+            iv = [(2, 200)]
+        elif edge in ("read of 1", "read of 2"):
+            iv = [(2, 150)]
+            lengths[r] = 1 if edge == "read of 1" else 2
+        else:  # wrapping both ends: the k-mers of a read across the origin
+            # hit around the origin's two copies, at the strand's start and
+            # in its wrap
+            win_lo[r] = 0
+            slack = 40 if edge == "wrapping both ends" else 200
+            tail = int(rng.integers(L // 3, 2 * L // 3 + 1))
+            head = L - tail
+            iv = [(base - tail - slack, base + head + slack), (0, head + slack)]
+            read = s[base - tail : base + head]
+        for i, (a, b) in enumerate(iv):
+            ivl[r, i] = (a, b)
+        if read is None:
+            valid = [(a, b) for a, b in iv if a < b] or [(2, 60)]
+            a0 = min(a for a, _ in valid)
+            at = min(int(win_lo[r]) + a0 + int(rng.integers(0, 8)), len1 - L)
+            read = s[at : at + L]
+        read = "".join(c if rng.random() > 0.06 else str(rng.choice(list("ACGT")))
+                       for c in read)
+        s2c[r, : lengths[r]] = encode_seq(read)[: lengths[r]]
+    width = int(max(int(ivl[:, :, 1].max()), 1))
+    return dict(refs=refs, submat=sm, strand=strand, win_lo=win_lo, ivl=ivl, s2c=s2c,
+                lengths=lengths, width=width)

@@ -12,8 +12,8 @@ over the cells of one trip (12 columns a lane, times the rows a trip covers)
 is the instructions a DP cell costs; a loop that holds exclusive branches
 (the ``-h`` candidates) is counted whole, so its figure is an upper bound.
 ``-D`` defines a macro for the compile: ``-D MIA_BAND_HP_KIND=k`` builds
-``csrc/dp_band_hp.cu`` with every row of one ``-h`` kind (0 none, 1 hp_col,
-2 hp_row), so that its row loop is that kind's alone.
+``csrc/dp_band.cu`` with every row of one ``-h`` kind (0 none, 1 hp_col,
+2 hp_row), so that its ``-h`` row loop is that kind's alone.
 Needs the CUDA toolkit; no card.
 """
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Process-wide PyTorch set-up for the port: device selection and the
 build of the hand-written CUDA kernels (the entry scorers, the general-width
-last-row scorer and its ``-h`` band form, the consensus column counts, ccheck's Myers wavefront, and
-the assembly step's pileup counts and consensus call).
+last-row scorer and its band forms, the consensus column counts, ccheck's
+Myers wavefront, and the assembly step's pileup counts and consensus call).
 
 Port of :mod:`mia_tpu.utils.jaxcfg`.  JAX's "compile once" was its
 persistent compilation cache; here it is one shared library built by
@@ -120,15 +120,27 @@ def expected_last_row_constants() -> list[int]:
 
 def expected_band_hp_constants() -> list[int]:
     """The values ``mia_dp_band_hp_constants`` must report: the ``-h`` band
-    form's band columns a row (``entries.HP_BAND_COLS``), intervals a row,
+    form's band columns a row (``entries.BAND_COLS``), intervals a row,
     read rows, PSSM depth slots, GOP, GEP, HIM, LOW, the read-run reach
     (HPW) and the discount slots."""
     from ..constants import GEP, GOP, HIM, PSSM_DEPTH
-    from ..core.entries import HP_BAND_COLS, HPW_ROUTE, L_MAX, MAX_INTERVALS, hp_pengop_table
+    from ..core.entries import BAND_COLS, HPW_ROUTE, L_MAX, MAX_INTERVALS, hp_pengop_table
     from ..ops.dp_torch import _LOW
 
-    return [HP_BAND_COLS, MAX_INTERVALS, L_MAX, 2 * PSSM_DEPTH + 1, GOP, GEP, HIM, _LOW,
+    return [BAND_COLS, MAX_INTERVALS, L_MAX, 2 * PSSM_DEPTH + 1, GOP, GEP, HIM, _LOW,
             HPW_ROUTE, len(hp_pengop_table())]
+
+
+def expected_band_constants() -> list[int]:
+    """The values ``mia_dp_band_constants`` must report: the plain band
+    form's band columns a row (``entries.BAND_COLS``), intervals a row, read
+    rows, PSSM depth slots, PSSM depth, GOP, GEP, HIM and LOW."""
+    from ..constants import GEP, GOP, HIM, PSSM_DEPTH
+    from ..core.entries import BAND_COLS, L_MAX, MAX_INTERVALS
+    from ..ops.dp_torch import _LOW
+
+    return [BAND_COLS, MAX_INTERVALS, L_MAX, 2 * PSSM_DEPTH + 1, PSSM_DEPTH, GOP, GEP, HIM,
+            _LOW]
 
 
 def expected_pileup_constants() -> list[int]:
@@ -161,6 +173,7 @@ def check_constants(lib) -> None:
         ("mia_myers_constants", expected_myers_constants),
         ("mia_dp_last_row_constants", expected_last_row_constants),
         ("mia_dp_band_hp_constants", expected_band_hp_constants),
+        ("mia_dp_band_constants", expected_band_constants),
         ("mia_pileup_counts_constants", expected_pileup_constants),
         ("mia_consensus_call_constants", expected_consensus_call_constants),
     ):
@@ -285,6 +298,10 @@ def kernel_library() -> ctypes.CDLL:
         ]
         lib.mia_dp_band_hp_constants.restype = ci
         lib.mia_dp_band_hp_constants.argtypes = [vp, ci]
+        lib.mia_dp_band.restype = ci
+        lib.mia_dp_band.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, ci, ci, vp, ci, vp]
+        lib.mia_dp_band_constants.restype = ci
+        lib.mia_dp_band_constants.argtypes = [vp, ci]
         lib.mia_dp_last_row_constants.restype = ci
         lib.mia_dp_last_row_constants.argtypes = [vp, ci]
         lib.mia_pileup_counts.restype = ci

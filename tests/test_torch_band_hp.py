@@ -25,7 +25,7 @@ import torch
 from mia_tpu.ops import dp_jax
 from mia_tpu_torch import testing as T
 from mia_tpu_torch.core import entries
-from mia_tpu_torch.core.entries import HIM, HP_BAND_COLS
+from mia_tpu_torch.core.entries import HIM, BAND_COLS
 from mia_tpu_torch.ops import dp_cuda, dp_torch
 
 from .test_torch_wide_pass1_hp import CASES, IDS, _dense, _setup
@@ -62,7 +62,7 @@ def test_band_columns_match_the_dense_band(seed):
     bc, bopen, bn = (x.numpy() for x in dp_torch.band_layout(torch.from_numpy(ivl)))
     np.testing.assert_array_equal(bn, c)
     for r in range(len(ivl)):
-        if c[r] > HP_BAND_COLS:
+        if c[r] > BAND_COLS:
             assert not bopen[r].any()
             continue
         np.testing.assert_array_equal(bc[r, : c[r]], np.flatnonzero(near[r]))
@@ -87,7 +87,7 @@ def test_band_plain_equals_jax_on_edge_rows(seed):
     d = T.hp_band_inputs(48, seed)
     got = dp_torch.last_row_hp_band_plain(*_args(d)).numpy()
     want = _jax_pairs(d)
-    fits = entries.band_columns(d["ivl"])[1] <= HP_BAND_COLS
+    fits = entries.band_columns(d["ivl"])[1] <= BAND_COLS
     assert 0 < (~fits).sum() < len(fits)
     np.testing.assert_array_equal(got[:, fits], want[:, fits])
     assert (got[0, ~fits] == HIM).all() and (got[1, ~fits] == -1).all()
@@ -107,7 +107,7 @@ def test_band_plain_equals_jax_on_wide_inputs(W, L, seed):
     inside a reference run, one-column bands, ties, rows past the state):
     those whose band fits, equal to the JAX scan."""
     d = T.hp_wide_inputs(W, L, seed)
-    fits = entries.band_columns(d["ivl"])[1] <= HP_BAND_COLS
+    fits = entries.band_columns(d["ivl"])[1] <= BAND_COLS
     assert fits.sum() >= 3
     got = dp_torch.last_row_hp_band_plain(*_args(d)).numpy()
     np.testing.assert_array_equal(got[:, fits], _jax_pairs(d)[:, fits])
@@ -118,7 +118,7 @@ def test_wrapper_scores_both_forms_in_row_order():
     and the full form's at the full rows' widest window, in row order,
     each equal to the JAX scan; each form counted once, with its rows."""
     d = T.hp_band_inputs(40, 3)
-    band = entries.band_columns(d["ivl"])[1] <= HP_BAND_COLS
+    band = entries.band_columns(d["ivl"])[1] <= BAND_COLS
     order = np.argsort(~band, kind="stable")
     d = {k: (v[order] if k in T.HP_WIDE_KEYS[6:] else v) for k, v in d.items()}
     n_band = int(band.sum())
@@ -171,7 +171,11 @@ def test_pass1_hp_batch_split(seed, kmer, circular):
     s2chr, fw_ws, rc_ws, fw_ivg, rc_ivg, flags = prep
     rows = entries.wide_rows(flags, lens, s2chr, fw_ivg, rc_ivg, hp=True)
     plain = entries.wide_rows(flags, lens, s2chr, fw_ivg, rc_ivg)
-    fits = entries.band_columns(plain.ivl)[1] <= HP_BAND_COLS
+    # the rows as they were before any split: by strand, then read
+    unsplit = np.lexsort((plain.read, plain.strand))
+    for k in ("read", "strand", "win_lo", "ivl"):
+        setattr(plain, k, getattr(plain, k)[unsplit])
+    fits = entries.band_columns(plain.ivl)[1] <= BAND_COLS
     order = np.r_[np.flatnonzero(fits), np.flatnonzero(~fits)]
     assert rows.n_band == fits.sum()
     for k in ("read", "strand", "win_lo", "ivl"):

@@ -5,8 +5,8 @@ also against the exact host DP), the consensus column counts
 ccheck's Myers wavefront (mia_tpu_torch/csrc/myers_waves.cu, also against
 the host aligner, on the adversarial pairs too), the general-width
 last-row scorer (mia_tpu_torch/csrc/dp_last_row.cu: the register form, and
-the wide form with shared-memory and global-memory rows, and its -h form,
-with its band form, mia_tpu_torch/csrc/dp_band_hp.cu),
+the wide form with shared-memory and global-memory rows, and its -h form;
+and the band forms of both, mia_tpu_torch/csrc/dp_band.cu),
 the pileup counts and the consensus call of the assembly step (csrc/pileup_counts.cu,
 csrc/consensus_call.cu, the latter over 1 to 32 parts), and the sharded
 scorer, consensus counts and step with every shard on the one card.
@@ -399,21 +399,22 @@ def test_last_row_hp_kernel_rejects_mixed_devices(cuda):
         dp_cuda.dp_last_row_hp(*args, 100)
 
 
-def _band_first(d: dict) -> tuple[dict, int, int]:
-    """``d``'s rows with those whose band fits the band form first (as
-    entries.wide_rows orders them), n_band, and the rest's widest window."""
-    from mia_tpu_torch.core.entries import HP_BAND_COLS, band_columns
+def _band_first(d: dict, rows=T.HP_WIDE_KEYS[6:]) -> tuple[dict, int, int]:
+    """``d``'s rows (its per-row arrays ``rows``) with those whose band fits
+    the band form first (as entries.wide_rows orders them), n_band, and the
+    rest's widest window."""
+    from mia_tpu_torch.core.entries import BAND_COLS, band_columns
 
-    band = band_columns(d["ivl"])[1] <= HP_BAND_COLS
+    band = band_columns(d["ivl"])[1] <= BAND_COLS
     order = np.argsort(~band, kind="stable")
-    d = {k: (v[order] if k in T.HP_WIDE_KEYS[6:] else v) for k, v in d.items()}
+    d = {k: (v[order] if k in rows else v) for k, v in d.items()}
     n_band = int(band.sum())
     return d, n_band, int(d["ivl"][n_band:, :, 1].max(initial=1))
 
 
 @pytest.mark.parametrize("L,seed", [(40, 0), (48, 1), (256, 2)])
 def test_band_hp_kernel_matches_plain_on_edge_rows(cuda, L, seed):
-    """The -h band form (csrc/dp_band_hp.cu) on testing.hp_band_inputs'
+    """The -h band form (csrc/dp_band.cu) on testing.hp_band_inputs'
     edge rows, the full form taking the rows past 384 band columns in the
     same call: both equal their plain versions; one launch of each."""
     d, n_band, width = _band_first(T.hp_band_inputs(L, seed))
@@ -462,6 +463,51 @@ def test_band_hp_kernel_rejects_mixed_devices(cuda):
     args[8] = args[8].cpu()
     with pytest.raises(ValueError):
         dp_cuda.dp_last_row_hp(*args, 0, len(d["lengths"]))
+
+
+@pytest.mark.parametrize("L,seed,copies", [(40, 0, 2), (48, 1, 2), (256, 2, 2),
+                                           (96, 3, 70)])
+def test_band_kernel_matches_plain_on_edge_rows(cuda, L, seed, copies):
+    """The plain band form (csrc/dp_band.cu) on testing.band_inputs' edge
+    rows (with copies=70: 1,400 rows, 175 blocks), the full form
+    (dp_last_row and an argmax) taking the rows past 384 band columns in
+    the same call: both equal their plain versions; one launch of each."""
+    d, n_band, width = _band_first(T.band_inputs(L, seed, copies), T.BAND_KEYS[2:])
+    args = [torch.from_numpy(d[k]).to(cuda) for k in T.BAND_KEYS]
+    dp_cuda.reset_counts()
+    got = dp_cuda.dp_last_row_strand(*args, width, n_band)
+    torch.cuda.synchronize()
+    assert (dp_cuda.last_row_band_launches, dp_cuda.last_row_launches) == (1, 1)
+    assert dp_cuda.last_row_band_plain_calls == dp_cuda.last_row_plain_calls == 0
+    assert (dp_cuda.last_row_band_rows, dp_cuda.last_row_rows) == (n_band,
+                                                                   len(d["lengths"]) - n_band)
+    want = dp_cuda.dp_last_row_strand(*(a.cpu() for a in args), width, n_band)
+    assert torch.equal(got.cpu(), want)
+    # every row given to the band form: those past it marked (HIM, -1)
+    got = dp_cuda.dp_last_row_strand(*args, 0, len(d["lengths"]))
+    assert torch.equal(got.cpu(), dp_torch.last_row_band_plain(*(a.cpu() for a in args)))
+    assert (got[1] == -1).sum().item() == len(d["lengths"]) - n_band
+
+
+def test_band_kernel_through_the_scorer(cuda):
+    """torch_engine.score_wide without -h, a mixed batch on the card equal
+    to it on the CPU."""
+    d, n_band, width = _band_first(T.band_inputs(64, 5), T.BAND_KEYS[2:])
+    rows = [torch.from_numpy(d[k]) for k in T.BAND_KEYS[2:]]
+    sms = np.stack([d["submat"], d["submat"]])
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        st = state_from_numpy(d["refs"], sms, dev)
+        got[dev.type] = score_wide(st, width, n_band, *(r.to(dev) for r in rows)).cpu()
+    assert torch.equal(got["cuda"], got["cpu"])
+
+
+def test_band_kernel_rejects_mixed_devices(cuda):
+    d = T.band_inputs(40, 6, copies=1)
+    args = [torch.from_numpy(d[k]).to(cuda) for k in T.BAND_KEYS]
+    args[4] = args[4].cpu()
+    with pytest.raises(ValueError):
+        dp_cuda.dp_last_row_strand(*args, 0, len(d["lengths"]))
 
 
 @pytest.mark.parametrize("B,W,L,seed", [(16, 300, 32, 0), (2048, 17024, 256, 1)])

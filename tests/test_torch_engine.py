@@ -140,9 +140,12 @@ def test_kernel_library_path_keys_on_sources(tmp_path, monkeypatch):
 class _FakeKernelLibrary:
     """Stands in for the ctypes library: reports the given constants."""
 
-    def __init__(self, values, myers=None, last_row=None, cons=None, pileup=None, band=None):
+    def __init__(self, values, myers=None, last_row=None, cons=None, pileup=None, band=None,
+                 plain_band=None):
         self.values = values
         self.band = torchcfg.expected_band_hp_constants() if band is None else band
+        self.plain_band = (torchcfg.expected_band_constants() if plain_band is None
+                           else plain_band)
         self.myers = torchcfg.expected_myers_constants() if myers is None else myers
         self.last_row = (torchcfg.expected_last_row_constants() if last_row is None
                          else last_row)
@@ -166,6 +169,9 @@ class _FakeKernelLibrary:
 
     def mia_dp_band_hp_constants(self, buf, n):
         return self._fill(self.band, buf, n)
+
+    def mia_dp_band_constants(self, buf, n):
+        return self._fill(self.plain_band, buf, n)
 
     def mia_consensus_call_constants(self, buf, n):
         return self._fill(self.cons, buf, n)
@@ -231,10 +237,12 @@ def test_kernel_library_myers_constants_checked(myers):
     ("pileup", [31, 2048, 512]),                                             # tile width
     ("band", [385, 16, 256, 31, 1000, 200, -(2**30), -(2**30) - 2**29, 32, 11]),  # band columns
     ("band", [384, 16, 256, 31, 1000, 200, -(2**30), -(2**30) - 2**29, 32]),      # count
+    ("plain_band", [512, 16, 256, 31, 15, 1000, 200, -(2**30), -(2**30) - 2**29]),  # band columns
+    ("plain_band", [384, 16, 256, 31, 15, 1000, 200, -(2**30)]),                  # count
 ])
 def test_kernel_library_step_constants_checked(which, values):
-    """The last-row scorer's, its -h band form's, the consensus call's and
-    the pileup counts' constants are held against the Python side's too."""
+    """The last-row scorer's, its band forms', the consensus call's and the
+    pileup counts' constants are held against the Python side's too."""
     assert torchcfg.expected_last_row_constants() == [
         1000, 200, -(2**30), -(2**30) - 2**29, 31, 227 * 1024 - 1024, 34, 512, 256, 16, 32,
         11, 17408]
@@ -242,9 +250,11 @@ def test_kernel_library_step_constants_checked(which, values):
     assert torchcfg.expected_pileup_constants() == [31, 2048, 128]
     assert torchcfg.expected_band_hp_constants() == [
         384, 16, 256, 31, 1000, 200, -(2**30), -(2**30) - 2**29, 32, 11]
+    assert torchcfg.expected_band_constants() == [
+        384, 16, 256, 31, 15, 1000, 200, -(2**30), -(2**30) - 2**29]
     lib = _FakeKernelLibrary(torchcfg.expected_constants(), **{which: values})
     entry = {"last_row": "dp_last_row", "cons": "consensus_call", "pileup": "pileup_counts",
-             "band": "dp_band_hp"}
+             "band": "dp_band_hp", "plain_band": "dp_band"}
     with pytest.raises(RuntimeError, match=f"mia_{entry[which]}_constants"):
         torchcfg.check_constants(lib)
     src = open(os.path.join(torchcfg.CSRC_DIR, "dp_last_row.cu")).read()
@@ -252,7 +262,7 @@ def test_kernel_library_step_constants_checked(which, values):
                  "kSmemLimit = 227 * 1024 - 1024;", "kCols = 34;", "kRegThreads = 512;",
                  "kLMax = 256;", "kK = 16;", "kHpw = 32;", "kPengop = 11;"):
         assert f"constexpr int {decl}" in src, decl
-    src = open(os.path.join(torchcfg.CSRC_DIR, "dp_band_hp.cu")).read()
+    src = open(os.path.join(torchcfg.CSRC_DIR, "dp_band.cu")).read()
     for decl in ("kCPL = 12;", "kBand = 32 * kCPL;", "kK = 16;", "kLMax = 256;",
                  "kHpw = 32;", "kPengop = 11;", "GOP = 1000;", "GEP = 200;"):
         assert f"constexpr int {decl}" in src, decl

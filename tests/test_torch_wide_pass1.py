@@ -114,7 +114,12 @@ def test_wide_scores_match_native_solve_and_jax(seed, kmer, circular):
     assert rows.n < 2 * int(sel.sum()) or kmer < 0
     dp_cuda.reset_counts()
     fb, fa, rb, ra = _scores(scorer, lens, prep)
-    assert dp_cuda.last_row_plain_calls == 1 and dp_cuda.last_row_launches == 0
+    # the rows whose band fits took the band form, the rest the full form
+    assert (dp_cuda.last_row_band_plain_calls, dp_cuda.last_row_plain_calls) == (
+        int(rows.n_band > 0), int(rows.n_band < rows.n))
+    assert dp_cuda.last_row_band_launches == dp_cuda.last_row_launches == 0
+    assert (dp_cuda.last_row_band_rows, dp_cuda.last_row_rows) == (rows.n_band,
+                                                                   rows.n - rows.n_band)
 
     # the same windows through mia_tpu's scan
     s1c, mask, rs2c, rlen, depths = entries.wide_inputs(rows, scorer.state.refs.numpy())
@@ -190,7 +195,7 @@ def test_wide_device_inputs_equal_numpy_helper(seed, kmer, circular):
     _, scorer, _, _, _, lens, prep = _setup(seed, kmer, circular)
     s2c, _, _, fw_ivg, rc_ivg, flags = prep
     rows = entries.wide_rows(flags, lens, s2c, fw_ivg, rc_ivg)
-    s1c, mask = te.wide_device_inputs(
+    s1c, mask = dp_torch.wide_device_inputs(
         scorer.state.refs, rows.width, torch.from_numpy(rows.strand),
         torch.from_numpy(rows.win_lo), torch.from_numpy(rows.ivl))
     want = entries.wide_inputs(rows, scorer.state.refs.numpy())
