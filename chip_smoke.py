@@ -6,7 +6,13 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 (``--kernels`` runs phases 1-5, 6a, 9, 12 and 13 only, for work on the
-kernels, and prints their numbers but no result line.  ``--myers-ab FILE``
+kernels, and prints their numbers but no result line.  ``--census [CELL
+...]`` runs phases 1-2 and then each cell's traffic at its own size through
+the port, counting its WIDE rows by the form and class of the scorer that
+took each; no result line.  ``--band-ab ROOT [REPS]`` runs phases 1-2 and
+then times the band form's one-warp rows bare with ``ROOT``'s kernel
+library (a ``git archive`` of an earlier commit) and this tree's, in turns;
+no result line.  ``--myers-ab FILE``
 runs phases 1-2 and then times the Myers kernel of ``FILE``, an earlier
 ``myers_waves.cu`` with the same C interface, beside this tree's, built
 also at 256 and 512 threads, on phase 9's pairs: each build held to the
@@ -30,7 +36,8 @@ merge and realignment host layer of ``ROOT`` (its ``core/entries.py``,
 realignment and the realignment's classify, drain and merge for both, every
 run's maln and counts held to the earlier layer's; no result line.
 ``--wide-ab ROOT [PAIRS]`` runs phases 1-2 and then whole mia runs
-(``--engine torch``) of phase 7b's workload in turns with the port of
+(``--engine torch``) of phase 7b's workload, the scorers of wide rows
+timed by CUDA events around each call (``wide_calls_ms``), in turns with the port of
 ``ROOT``, a ``git archive`` of an earlier commit whose ``mia_tpu_torch``
 is imported beside this tree's under another name, its own kernel and
 native libraries built from its own sources: every run's maln held to this
@@ -81,7 +88,12 @@ counts) and the committed goldens.
    both band forms on ``band_inputs`` and ``hp_band_inputs`` (each form's
    column limit and one past it, bands at columns 0 and 1, 16 one-column
    intervals, no open column, a band over both ends of a circular strand),
-   exact.
+   exact; the strand form on ``strand_inputs``; and one call of
+   ``dp_last_row_strand`` on ``mixed_wide_inputs`` in ``wide_rows``' order,
+   band rows of every class, whole strands and rows past 18,432 band columns
+   (the full form's route: its windows, the register or wide kernel, the
+   argmax), equal to the same call on the CPU with exactly one launch of
+   each form and no plain call.
    And the Myers kernel on ``edge_myers_pairs`` (lengths 0 to 65 around its
    8- and 16-base snake steps and padding, N runs, bitmap-0 characters, snakes
    ending at either or both ends, maxd 1 and clipped, all three modes,
@@ -101,35 +113,40 @@ counts) and the committed goldens.
 7b. wide reads: the ``mia-hsmt-100k`` cell's traffic cut to 20,000 reads at
    seed 1 (``benchmark.cells``), the port in this process with every count
    set to 0 just before and read just after: maln bytes equal to its own
-   ``--engine native``, pass 1's WIDE reads on both forms of the
-   general-width scorer, ``dp_last_row_strand`` (K1g: the band form for
-   rows whose band takes at most 384 columns, ``dp.last_row_band_launches``
-   > 0, and the full form for the rest, ``dp.last_row_launches`` > 0; no
-   plain call of any kernel, ``pass1.native_solved_wide_reads`` 0); then
-   what phase 8c prints for ``-h``: rows and launches of each form, rows
-   over 384 and over 512 band columns, cells three ways, device time of the
-   calls and of each form, each form's largest call held to its plain
-   version (exact), timed through the wrapper and alone, and bound (the
-   band form's over band cells, the own-window bound beside it); and the
-   first maximum on the card (``batch_best_and_aec`` on tied rows).
+   ``--engine native``, pass 1's WIDE reads on the general-width scorer,
+   ``dp_last_row_strand`` (K1g: the band form for rows whose band takes at
+   most 3,072 columns, on 1, 2, 4 or 8 warps a row,
+   ``dp.last_row_band_launches`` > 0; the strand form for wider bands up to
+   18,432 columns, whole strands, ``dp.last_row_strand_launches`` > 0; the
+   full form for none, ``dp.last_row_launches`` 0; no plain call of any
+   kernel, ``pass1.native_solved_wide_reads`` 0); then what phase 8c prints
+   for ``-h``: rows and launches of each form and rows of each class (the
+   band form's warps a row, strand, full) with their cells, rows over 384,
+   512 and 3,072 band columns and whole strands, cells three ways, device
+   time of the calls and of each form, each form's largest call held to its
+   plain version (exact), timed through the wrapper and alone, and bound
+   (the band and strand forms' over band cells, the own-window bound beside
+   it); and the first maximum on the card (``batch_best_and_aec`` on tied
+   rows).
 7c. banding threads: the ``mia-hsmt-100k`` cell's traffic cut to one batch
    (8,192 reads at seed 1) through ``BatchHost.prepare`` on one thread, as
    pass 1 calls it, and on the default count: all six arrays equal; prints
    both times and the CPUs the process sees.
 8. -h end to end: the same workload with ``-h``, in this process only,
    against ``--engine native -h``, the ``-h`` scorer's launches in place of
-   the scorer's, and pass 1's WIDE reads on both forms of the full-width
-   ``-h`` scorer (``dp.last_row_hp_band_launches`` and
-   ``dp.last_row_hp_launches`` > 0, both plain calls 0,
+   the scorer's, and pass 1's WIDE reads on the full-width ``-h`` scorer
+   (``dp.last_row_hp_band_launches`` > 0, both plain calls 0,
    ``pass1.native_solved_wide_reads`` 0).
 8c. -h wide reads: that run's ``dp_last_row_hp`` calls (K4g): rows and
    launches of each form (the band form for rows whose band takes at most
-   384 columns, the full form for the rest), widths, cells counted as
-   launched, over each row's own window and over its band, and device time
-   (CUDA events around each call and each form's launches), Gcells/s; each
-   form's largest call held to its plain version (exact), timed, and its
-   bound at the DP's 14 operations a cell (the band form's over its band
-   cells, with the own-window count beside it), as phase 7b does.
+   3,072 columns, on 1, 2, 4 or 8 warps a row, the full form for the rest)
+   and of each class, widths, cells counted as launched, over each row's
+   own window and over its band, and device time (CUDA events around each
+   call and each form's launches), Gcells/s; each form's largest call held
+   to its plain version (exact), timed, and its bound at the DP's 14
+   operations a cell (the band form's over its band cells, with the
+   own-window count beside it), as phase 7b does; the full form must have
+   run (this workload's ``-h`` wide rows hold whole strands).
 8a. workload shapes: the largest scorer batch of phase 7, the largest of
    phase 8 and the largest consensus record set of the two, kept as the runs
    went through the wrappers: each kernel against its plain version on them
@@ -556,16 +573,20 @@ def phase_consensus_kernel(dev) -> dict:
 
 
 def phase_step_edges(dev) -> None:
-    """The general-width scorer, its two band forms and the pileup counts
-    against their plain versions on their adversarial inputs, exact."""
+    """The general-width scorer, its two band forms, its strand form and the
+    pileup counts against their plain versions on their adversarial inputs,
+    exact."""
+    import numpy as np
     import torch
 
     from mia_tpu_torch import testing as T
+    from mia_tpu_torch.core.entries import band_columns, wide_order
     from mia_tpu_torch.ops import dp_cuda
     from mia_tpu_torch.ops.dp_torch import (
         batch_last_row,
         last_row_band_plain,
         last_row_hp_band_plain,
+        last_row_strand_plain,
     )
     from mia_tpu_torch.parallel import sharded
 
@@ -584,25 +605,76 @@ def phase_step_edges(dev) -> None:
         f"over every thread and warp border, ties; shared and per read, sg5 on and off; "
         f"exact)")
     # both band forms on their edge rows, every row given to the band form
-    # (a row past its columns gives (HIM, -1), as its plain version does)
+    # in wide_rows' order, by the warps each takes, the rows past 3,072
+    # columns on eight (they give (HIM, -1), as the plain versions do)
+    def by_warps(d: dict, keys: tuple) -> tuple[list, tuple]:
+        order, classes, _ = wide_order(band_columns(d["ivl"])[1], hp=True)
+        rest = len(order) - sum(classes)
+        return ([torch.from_numpy(np.ascontiguousarray(d[k][order] if k in keys[-5:]
+                                                       else d[k])).to(dev) for k in keys],
+                (*classes[:3], classes[3] + rest))
+
     for seed, L in ((0, 48), (1, 256)):
         d = T.band_inputs(L, seed)
-        args = [torch.from_numpy(d[k]).to(dev) for k in T.BAND_KEYS]
+        args, classes = by_warps(d, T.BAND_KEYS)
         R = len(d["lengths"])
         check_equal(f"dp_last_row_strand's band form != plain on edge rows (seed {seed})",
-                    dp_cuda.dp_last_row_strand(*args, 0, R), last_row_band_plain(*args))
+                    dp_cuda.dp_last_row_strand(*args, 0, R, classes),
+                    last_row_band_plain(*args))
         h = T.hp_band_inputs(L, seed)
-        hargs = [torch.from_numpy(h[k]).to(dev) for k in T.HP_WIDE_KEYS]
+        hargs, hclasses = by_warps(h, T.HP_WIDE_KEYS)
         check_equal(f"dp_last_row_hp's band form != plain on edge rows (seed {seed})",
-                    dp_cuda.dp_last_row_hp(*hargs, 0, len(h["lengths"])),
+                    dp_cuda.dp_last_row_hp(*hargs, 0, len(h["lengths"]), hclasses),
                     last_row_hp_band_plain(*hargs))
+        # the strand form on whole strands of a human-mt-sized strand
+        st = T.strand_inputs(L, seed, base=16569)
+        sargs = [torch.from_numpy(st[k]).to(dev) for k in T.BAND_KEYS]
+        check_equal(f"dp_last_row_strand's strand form != plain on edge rows (seed {seed})",
+                    dp_cuda.dp_last_row_strand(*sargs, 0, 0, (), len(st["lengths"])),
+                    last_row_strand_plain(*sargs))
+    # one call of every form, as pass 1 orders a call's rows: the band form's
+    # four classes, the strand form's whole strands and the full form's rows
+    # past 18,432 band columns, at the full rows' widest window
+    m = T.mixed_wide_inputs(64, 1)
+    order, mclasses, m_strand = wide_order(band_columns(m["ivl"])[1])
+    margs = [torch.from_numpy(np.ascontiguousarray(m[k][order] if k in T.BAND_KEYS[2:]
+                                                   else m[k])) for k in T.BAND_KEYS]
+    m_band = sum(mclasses)
+    m_width = int(margs[4][m_band + m_strand:, :, 1].max())
+    if not (all(mclasses) and m_strand and m_band + m_strand < len(order)):
+        raise AssertionError(f"edges: the mixed call lacks a form: {mclasses}, {m_strand}")
+    before = {k: getattr(dp_cuda, k) for k in (
+        "last_row_band_launches", "last_row_strand_launches", "last_row_launches",
+        "last_row_wide_launches", "last_row_plain_calls", "last_row_band_plain_calls",
+        "last_row_strand_plain_calls")}
+    got = dp_cuda.dp_last_row_strand(*(a.to(dev) for a in margs), m_width, m_band, mclasses,
+                                     m_strand)
+    rise = {k: getattr(dp_cuda, k) - v for k, v in before.items()}
+    if (rise["last_row_band_launches"], rise["last_row_strand_launches"],
+            rise["last_row_launches"]) != (1, 1, 1) or any(
+            rise[k] for k in rise if k.endswith("plain_calls")):
+        raise AssertionError(f"edges: the mixed call's launches {rise}")
+    # the same call on the CPU takes the plain versions, as it should: its
+    # plain calls are the reference's, not the card's, and are not kept
+    plain_counts = {k: getattr(dp_cuda, k) for k in before if k.endswith("plain_calls")}
+    want = dp_cuda.dp_last_row_strand(*margs, m_width, m_band, mclasses, m_strand)
+    for k, v in plain_counts.items():
+        setattr(dp_cuda, k, v)
+    check_equal("dp_last_row_strand != its CPU call on a call of every form", got.cpu(), want)
+    say(f"edges: dp_last_row_strand on one call of every form == the same call on the CPU "
+        f"(exact; {len(order)} rows: band classes {mclasses}, {m_strand} strand rows, "
+        f"{len(order) - m_band - m_strand} full rows at width {m_width}, L = 64); one launch "
+        f"each of the band, strand and full forms ({rise['last_row_wide_launches']} of them "
+        f"the wide kernel), no plain call")
     say(f"edges: both band forms == their plain versions on 2 x {R} / "
         f"{len(h['lengths'])} edge rows (band "
-        f"and open columns at each form's limit and one past it, bands at columns 0 and 1, "
-        f"touching, overlapping and empty intervals, 16 one-column intervals, gaps of 1 and "
-        f"2, no open column, past the state, reads of 1 and 2, a band over both ends of a "
-        f"circular strand; -h: hp_col sources across intervals and gaps; L = 48 and 256; "
-        f"exact)")
+        f"columns at 1, 2 and 8 warps' limit and one past it, open columns at one warp's, "
+        f"bands at columns 0 and 1, touching, overlapping and empty intervals, 16 one-column "
+        f"intervals, gaps of 1 and 2, no open column, past the state, reads of 1 and 2, a "
+        f"band over both ends of a circular strand; -h: hp_col sources across intervals, "
+        f"gaps and warps; L = 48 and 256; exact), the strand form on 2 x "
+        f"{len(st['lengths'])} whole-strand rows (16,569 columns and the wrap: one and 16 "
+        f"intervals, across the origin, ties, no open column, a read of 1, past the state)")
     names = []
     for seed in (0, 1):
         for name, d, W, _ in T.edge_pileup_inputs(seed):
@@ -874,6 +946,7 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool,
         "dp.last_row_band_plain_calls": dp_cuda.last_row_band_plain_calls,
         "dp.last_row_rows": dp_cuda.last_row_rows,
         "dp.last_row_band_rows": dp_cuda.last_row_band_rows,
+        **wide_counts(dp_cuda),
         "dp.last_row_hp_launches": dp_cuda.last_row_hp_launches,
         "dp.last_row_hp_plain_calls": dp_cuda.last_row_hp_plain_calls,
         "dp.last_row_hp_band_launches": dp_cuda.last_row_hp_band_launches,
@@ -933,16 +1006,18 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool,
     checks["pass1.device_scored_wide_reads"] = counters.get("pass1.device_scored_wide_reads", 0)
     if not (counts[scorer] > 0 and counts["cons.kernel_launches"] > 0
             and checks["pass1.native_solved_wide_reads"] == 0
-            # the WIDE reads went through both forms of the general-width
-            # scorer (K1g; under -h K4g): this workload's wide rows hold
-            # narrow bands and whole strands
+            # the WIDE reads went through the general-width scorer's band
+            # form (K1g; under -h K4g) and, without -h, never its full form
+            # (whole strands take the strand form, phase 7b's check; under
+            # -h the full form keeps the rows past 3,072 band columns)
             and counts["dp.last_row_hp_band_launches" if hp
                        else "dp.last_row_band_launches"] > 0
-            and counts["dp.last_row_hp_launches" if hp else "dp.last_row_launches"] > 0
+            and (hp or counts["dp.last_row_launches"] == 0)
             and checks["pass1.device_scored_wide_reads"] > 0
             and counts["dp.plain_calls"] == counts["dp.hp_plain_calls"] == 0
             and counts["dp.last_row_plain_calls"] == counts["dp.last_row_hp_plain_calls"] == 0
             and counts["dp.last_row_band_plain_calls"] == 0
+            and counts["dp.last_row_strand_plain_calls"] == 0
             and counts["dp.last_row_hp_band_plain_calls"] == 0
             and counts["cons.plain_calls"] == 0
             and checks["pass1.device_scored_reads"] > 0
@@ -957,17 +1032,34 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool,
     say(f"{tag}: phases s, native " + json.dumps(native_prof["phases_s"], sort_keys=True))
     return counts, walls
 
+def wide_counts(dp_cuda) -> dict:
+    """The strand form's counters and the band rows on more than one warp
+    (``dp_cuda``'s), under their profile names."""
+    return {f"dp.{k}": getattr(dp_cuda, k) for k in (
+        "last_row_strand_launches", "last_row_strand_plain_calls", "last_row_strand_rows",
+        "last_row_band_multi_rows", "last_row_hp_band_multi_rows")}
+
+
+# the forms of the scorers of wide rows, in the order of a call's rows:
+# the band form's classes (1, 2, 4 and 8 warps a row), the strand form
+# (without -h), the full form
+WIDE_CLASSES = ("band1", "band2", "band4", "band8", "strand", "full")
+
+
 def last_row_call(args, name: str = "dp_last_row") -> dict:
     """Rows, padded width, read rows and the DP cells a call of ``name``
     (``dp_last_row``, ``dp_last_row_strand`` or ``dp_last_row_hp``) with
     ``args`` needs: each row up to its read's length and its own window.
-    For the two scorers of wide rows also the call's band-form rows
-    (``n_band``, its last argument), its cells two more ways, as launched (a
-    band row at the band forms' 384 columns, a full row
-    at the call's width) and over each row's band (the union of its
-    intervals, ``entries.band_columns``), and its rows whose band (with the
-    two columns before each run, what the split counts) takes more than 384
-    and more than 512 columns."""
+    For the two scorers of wide rows also the call's rows of each form
+    (``n_band`` with its warp classes, ``n_strand``: its last arguments)
+    and of each class (``WIDE_CLASSES``, with their cells as launched and
+    over each row's band: the union of its intervals,
+    ``entries.band_columns``), its cells as launched (a band row at its
+    warps' 384 columns each, a strand row at its band columns, a full row
+    at the call's width) and over each row's band, its rows whose band
+    (with the two columns before each run, what the split counts) takes
+    more than 384, 512 and 3,072 columns, and its whole strands (a band
+    past 3,072 columns that is the row's whole window)."""
     import torch
 
     if name == "dp_last_row":
@@ -976,22 +1068,59 @@ def last_row_call(args, name: str = "dp_last_row") -> dict:
         own_width = width - torch.argmax(mask.flip(1).to(torch.int8), 1)
         cells = int(((lengths.to(torch.int64) - 1).clamp(min=0) * own_width).sum())
         return {"rows": s2c.shape[0], "width": int(width), "L": s2c.shape[1], "cells": cells}
-    from mia_tpu_torch.core.entries import BAND_COLS, band_columns
+    from mia_tpu_torch.core.entries import BAND_COLS, BAND_ROW_COLS, BAND_WARPS, band_columns
 
-    # dp_last_row_hp: ... ivl, s2chr, lengths, width, n_band;
-    # dp_last_row_strand: refs, submat, strand, win_lo, ivl, s2c, lengths, width, n_band
-    at = 8 if name == "dp_last_row_hp" else 4
+    # dp_last_row_hp: ... ivl, s2chr, lengths, width, n_band, band_classes;
+    # dp_last_row_strand: refs, submat, strand, win_lo, ivl, s2c, lengths, width, n_band,
+    # band_classes, n_strand
+    hp = name == "dp_last_row_hp"
+    at = 8 if hp else 4
     ivl, s2c, lengths, width = args[at:at + 4]
-    n_band = args[at + 4] if len(args) > at + 4 else 0
-    own_width = ivl[:, :, 1].max(1).values.to(torch.int64)
-    rows = (lengths.to(torch.int64) - 1).clamp(min=0)
+    rest = list(args[at + 4:]) + [0, (), 0][len(args) - at - 4:]
+    n_band, classes, n_strand = int(rest[0]), tuple(rest[1]) or (int(rest[0]),), int(rest[2])
+    classes = classes + (0,) * (len(BAND_WARPS) - len(classes))
+    R = s2c.shape[0]
+    counts = [*classes, n_strand, R - n_band - n_strand]
+    own_width = ivl[:, :, 1].max(1).values.to(torch.int64).cpu().numpy()
+    rows = (lengths.to(torch.int64) - 1).clamp(min=0).cpu().numpy()
     open_cols, band_cols = band_columns(ivl.cpu().numpy())
-    return {"rows": s2c.shape[0], "band_rows": n_band, "width": int(width),
+    launched, band_cells, lo = {}, {}, 0
+    for form, n in zip(WIDE_CLASSES, counts):
+        part = slice(lo, lo + n)
+        lo += n
+        w = (BAND_COLS * int(form[4:]) if form.startswith("band")
+             else band_cols[part] if form == "strand" else int(width))
+        launched[form] = int((rows[part] * w).sum())
+        band_cells[form] = int((rows[part] * open_cols[part]).sum())
+    return {"rows": R, "band_rows": n_band, "strand_rows": n_strand,
+            "full_rows": R - n_band - n_strand, "band_classes": classes,
+            "class_rows": dict(zip(WIDE_CLASSES, counts)), "width": int(width),
             "L": s2c.shape[1], "cells": int((rows * own_width).sum()),
-            "band_cells": int((rows * torch.from_numpy(open_cols).to(rows.device)).sum()),
-            "launched": int(rows[:n_band].sum()) * BAND_COLS
-            + int(rows[n_band:].sum()) * int(width),
-            "over_384": int((band_cols > 384).sum()), "over_512": int((band_cols > 512).sum())}
+            "band_cells": int((rows * open_cols).sum()),
+            "launched": sum(launched.values()), "class_launched": launched,
+            "class_band_cells": band_cells,
+            "over_384": int((band_cols > 384).sum()), "over_512": int((band_cols > 512).sum()),
+            "over_3072": int((band_cols > BAND_ROW_COLS).sum()),
+            "whole_strands": int(((band_cols > BAND_ROW_COLS)
+                                  & (band_cols == own_width)).sum())}
+
+
+def wide_totals(calls: list[dict], hp: bool) -> tuple[dict, dict]:
+    """A run's calls of a scorer of wide rows (:func:`last_row_call` each):
+    its totals of cells (as launched, over each row's own window, over its
+    band), of rows over 384, 512 and 3,072 band columns and of whole
+    strands; and per class (``WIDE_CLASSES``; under ``hp`` no strand form)
+    its rows, the calls that hold any, and its cells as launched and over
+    the rows' bands."""
+    tot = {k: sum(c[k] for c in calls)
+           for k in ("launched", "cells", "band_cells", "over_384", "over_512", "over_3072",
+                     "whole_strands")}
+    per_class = {c: {"rows": sum(k["class_rows"][c] for k in calls),
+                     "calls": sum(1 for k in calls if k["class_rows"][c]),
+                     "launched_cells": sum(k["class_launched"][c] for k in calls),
+                     "band_cells": sum(k["class_band_cells"][c] for k in calls)}
+                 for c in WIDE_CLASSES if c != "strand" or not hp}
+    return tot, per_class
 
 
 class LastRowTimer:
@@ -1005,7 +1134,8 @@ class LastRowTimer:
     apart (events around the library's entries, ``FORMS``).  The calls and
     their launch counts are the wrapper's own."""
 
-    FORMS = {"dp_last_row_strand": {"band": "mia_dp_band", "full": "mia_dp_last_row"},
+    FORMS = {"dp_last_row_strand": {"band": "mia_dp_band", "strand": "mia_dp_strand",
+                                    "full": "mia_dp_last_row"},
              "dp_last_row_hp": {"band": "mia_dp_band_hp", "full": "mia_dp_last_row_hp"}}
 
     def __init__(self, name: str = "dp_last_row"):
@@ -1083,27 +1213,30 @@ class LastRowTimer:
                 for form, ev in self.form_events.items()}
 
 
-def wide_workload(d: str, seed: int = 1, reads: int = 20000) -> dict:
-    """The ``mia-hsmt-100k`` cell's traffic (``benchmark.cells``) cut to
-    ``reads`` reads, written under ``d``: its inputs dict."""
+def wide_workload(d: str, seed: int = 1, reads: int | None = 20000,
+                  cell_name: str = "mia-hsmt-100k") -> dict:
+    """A cell's traffic (``benchmark.cells``; the ``mia-hsmt-100k`` cell's)
+    cut to ``reads`` reads (None: the cell's own), written under ``d``: its
+    inputs dict."""
     from types import SimpleNamespace
 
     from benchmark import cells
     from benchmark.run import load_benchmark, load_config
 
-    cell = next(w for w in load_benchmark()["workloads"] if w["name"] == "mia-hsmt-100k")
+    cell = next(w for w in load_benchmark()["workloads"] if w["name"] == cell_name)
     os.makedirs(d)
-    scale = reads / cell["traffic"]["reads"]
+    scale = 1.0 if reads is None else reads / cell["traffic"]["reads"]
     return cells.make_inputs(SimpleNamespace(seed=seed, scale=scale, work=d), cell,
                              load_config(cell))
 
 
-def phase_wide(dev) -> tuple[dict, dict]:
+def phase_wide(dev) -> dict:
     """Phase 7b: pass 1's WIDE reads on the card, on the 100k cell's traffic
     cut to 20k reads at seed 1, through ``dp_last_row_strand`` (K1g's band
-    and full forms): maln bytes equal to ``--engine native``, both forms
-    launched, no plain call, no native wide solve; then :func:`wide_forms`.
-    Returns the ``kernels`` line's entries of the full and the band form."""
+    and strand forms): maln bytes equal to ``--engine native``, the band
+    and strand forms launched and the full form not, no plain call, no
+    native wide solve; then :func:`wide_forms`.  Returns the ``kernels``
+    line's entries of the full, band and strand forms."""
     import torch
 
     from mia_tpu_torch.ops import consensus_torch, dp_cuda
@@ -1129,6 +1262,7 @@ def phase_wide(dev) -> tuple[dict, dict]:
         "dp.last_row_band_plain_calls": dp_cuda.last_row_band_plain_calls,
         "dp.last_row_rows": dp_cuda.last_row_rows,
         "dp.last_row_band_rows": dp_cuda.last_row_band_rows,
+        **wide_counts(dp_cuda),
         "cons.kernel_launches": consensus_torch.kernel_launches,
         "cons.plain_calls": consensus_torch.plain_calls,
     }
@@ -1146,12 +1280,15 @@ def phase_wide(dev) -> tuple[dict, dict]:
     if not want or got != want:
         raise AssertionError(f"wide reads: maln differs from --engine native: "
                              f"{[k for k in sorted(set(got) | set(want)) if got.get(k) != want.get(k)]}")
-    # this workload's wide rows hold narrow bands and whole strands: both
-    # forms run
-    if not (counts["dp.last_row_band_launches"] > 0 and counts["dp.last_row_launches"] > 0
+    # this workload's wide rows hold narrow bands and whole strands: the band
+    # and strand forms run, the full form (rows past 18,432 band columns) not
+    if not (counts["dp.last_row_band_launches"] > 0
+            and counts["dp.last_row_strand_launches"] > 0
+            and counts["dp.last_row_launches"] == 0
             and counts["dp.kernel_launches"] > 0 and counts["cons.kernel_launches"] > 0
             and counts["dp.plain_calls"] == counts["dp.last_row_plain_calls"] == 0
             and counts["dp.last_row_band_plain_calls"] == 0
+            and counts["dp.last_row_strand_plain_calls"] == 0
             and counts["cons.plain_calls"] == 0
             and counts["pass1.device_scored_wide_reads"] > 0
             and counts["pass1.native_solved_wide_reads"] == 0):
@@ -1177,19 +1314,22 @@ def phase_wide(dev) -> tuple[dict, dict]:
     return forms
 
 
-def wide_forms(label: str, timer: "LastRowTimer", counts: dict, hp: bool) -> tuple[dict, dict]:
+def wide_forms(label: str, timer: "LastRowTimer", counts: dict, hp: bool) -> dict:
     """Phases 7b and 8c: a scorer of wide rows (``dp_last_row_strand``, K1g;
     under ``hp`` ``dp_last_row_hp``, K4g) as a run went through it
-    (``timer``): its calls' rows and launches per form, widths, rows over
-    384 and 512 band columns, cells counted three ways (as launched, over
-    each row's own window, over its band) and device time (CUDA events
-    around each call and around each form's launches), Gcells/s; then each
-    form's largest call (the band form: the call with the most band rows;
-    the full form: the most full-row columns) held to its plain version
-    (exact), timed through the wrapper and alone, and its bound at the DP's
-    14 operations a cell: the band form's over band cells, with the
-    own-window count's beside it.  Returns the ``kernels`` line's entries
-    of the full and the band form."""
+    (``timer``): its calls' rows and launches per form (band, strand, full)
+    and per class (the band form's 1, 2, 4 and 8 warps a row), widths, rows
+    over 384, 512 and 3,072 band columns and whole strands, cells counted
+    three ways (as launched, over each row's own window, over its band) and
+    per class, and device time (CUDA events around each call and around
+    each form's launches), Gcells/s; then each form that launched, at the
+    run's largest call of that form (the most rows of the form; the full
+    form: the most full-row columns), held to its plain version (exact),
+    timed through the wrapper and alone, and its bound at the DP's 14
+    operations a cell: the band and strand forms' over band cells, with
+    the own-window count's beside it.  Returns the ``kernels`` line's
+    entries of each form, by form (a form that did not launch: its run's
+    counts only)."""
     import numpy as np
     import torch
 
@@ -1201,40 +1341,45 @@ def wide_forms(label: str, timer: "LastRowTimer", counts: dict, hp: bool) -> tup
         last_row_band_plain,
         last_row_hp_band_plain,
         last_row_hp_plain,
+        last_row_strand_plain,
         wide_device_inputs,
     )
 
     pre = "dp.last_row_hp" if hp else "dp.last_row"
-    key = {"band_launches": f"{pre}_band_launches", "full_launches": f"{pre}_launches",
-           "band_rows": f"{pre}_band_rows", "full_rows": f"{pre}_rows"}
+    forms = ("band", "full") if hp else ("band", "strand", "full")
+    launch_key = {"band": f"{pre}_band_launches", "strand": "dp.last_row_strand_launches",
+                  "full": f"{pre}_launches"}
+    rows_key = {"band": f"{pre}_band_rows", "strand": "dp.last_row_strand_rows",
+                "full": f"{pre}_rows"}
     wrapper = dp_cuda.dp_last_row_hp if hp else dp_cuda.dp_last_row_strand
     name = "dp_last_row_hp" if hp else "dp_last_row_strand"
     ms = timer.device_ms()
     form_ms = timer.form_ms()
-    if not ms or len(form_ms["band"]) != counts[key["band_launches"]] or len(
-            form_ms["full"]) != counts[key["full_launches"]]:
+    if not ms or any(len(form_ms[f]) != counts[launch_key[f]] for f in forms):
         raise AssertionError(f"{label}: {len(ms)} timed calls, launches timed "
                              f"{ {k: len(v) for k, v in form_ms.items()} }, counts {counts}")
     calls = timer.calls
-    band_rows = [k["band_rows"] for k in calls]
-    full_rows = [k["rows"] - k["band_rows"] for k in calls]
-    if (sum(band_rows), sum(full_rows)) != (counts[key["band_rows"]], counts[key["full_rows"]]):
-        raise AssertionError(f"{label}: rows {band_rows} / {full_rows}, counts {counts}")
-    tot = {k: sum(c[k] for c in calls)
-           for k in ("launched", "cells", "band_cells", "over_384", "over_512")}
+    form_rows = {f: [k[f"{f}_rows"] for k in calls] for f in forms}
+    if any(sum(form_rows[f]) != counts[rows_key[f]] for f in forms):
+        raise AssertionError(f"{label}: rows {form_rows}, counts {counts}")
+    tot, per_class = wide_totals(calls, hp)
     run_ms = {form: sum(v) for form, v in form_ms.items()}
-    say(f"{label}: {len(ms)} {name} calls; band form {len(form_ms['band'])} "
-        f"launches, rows {band_rows}; full form {len(form_ms['full'])} launches, rows "
-        f"{full_rows} at widths {[k['width'] for k in calls]}; rows over 384 band columns "
-        f"{[k['over_384'] for k in calls]}, over 512 {[k['over_512'] for k in calls]}; counts "
-        + json.dumps({k: v for k, v in counts.items() if k.startswith(pre)}))
+    say(f"{label}: {len(ms)} {name} calls; "
+        + "; ".join(f"{f} form {len(form_ms[f])} launches, rows {form_rows[f]}" for f in forms)
+        + f"; widths {[k['width'] for k in calls]}; rows over 384 band columns "
+        f"{[k['over_384'] for k in calls]}, over 512 {[k['over_512'] for k in calls]}, over "
+        f"3,072 {[k['over_3072'] for k in calls]}, whole strands "
+        f"{[k['whole_strands'] for k in calls]}; counts "
+        + json.dumps({k: v for k, v in counts.items() if k.startswith(pre)
+                      or k.startswith("dp.last_row_strand")}))
+    say(f"{label}: rows by class (band form's warps a row, strand, full): "
+        + json.dumps(per_class))
     say(f"{label}: cells as launched {tot['launched']}, in each row's own window "
         f"{tot['cells']}, in each row's band {tot['band_cells']}")
     say(f"{label}: device ms (events around each call) {sum(ms):.4f} in all, "
-        + ", ".join(f"{x:.4f}" for x in ms)
-        + f"; band form {run_ms['band']:.4f} (" + ", ".join(f"{x:.4f}" for x in form_ms["band"])
-        + f"), full form {run_ms['full']:.4f} ("
-        + ", ".join(f"{x:.4f}" for x in form_ms["full"]) + "); "
+        + ", ".join(f"{x:.4f}" for x in ms) + "; "
+        + ", ".join(f"{f} form {run_ms[f]:.4f} (" + ", ".join(f"{x:.4f}" for x in form_ms[f])
+                    + ")" for f in forms) + "; "
         f"{tot['band_cells'] / max(sum(ms), 1e-9) / 1e6:.3f} Gcells/s over band cells, "
         f"{tot['cells'] / max(sum(ms), 1e-9) / 1e6:.3f} over own-window cells")
 
@@ -1244,10 +1389,15 @@ def wide_forms(label: str, timer: "LastRowTimer", counts: dict, hp: bool) -> tup
         """One form's rows of a kept call: held to the plain version,
         timed through the wrapper and alone, bound."""
         state, rows = args[:n_state], args[n_state:n_state + 5]
-        nb = call["band_rows"]
-        part = tuple(a[:nb] if form == "band" else a[nb:] for a in rows)
+        nb, ns = call["band_rows"], call["strand_rows"]
+        lo, hi = {"band": (0, nb), "strand": (nb, nb + ns),
+                  "full": (nb + ns, call["rows"])}[form]
+        part = tuple(a[lo:hi] for a in rows)
         width = call["width"]
-        call_args = (*state, *part, 0, nb) if form == "band" else (*state, *part, width, 0)
+        classes = call["band_classes"]
+        call_args = {"band": (*state, *part, 0, nb, classes),
+                     "strand": (*state, *part, 0, 0, (), ns),
+                     "full": (*state, *part, width, 0)}[form]
         R, L = part[3].shape
         if not hp and form == "full":
             # the full form's inputs, made once for the plain version and
@@ -1261,11 +1411,12 @@ def wide_forms(label: str, timer: "LastRowTimer", counts: dict, hp: bool) -> tup
                         else last_row_hp_plain(*state, *part, width))
             if form == "band":
                 return last_row_band_plain(*state, *part)
+            if form == "strand":
+                return last_row_strand_plain(*state, *part)
             return torch.stack(batch_best_and_aec(
                 batch_last_row(s1c, mask, part[3], part[4], depths, state[1])))
         info = last_row_call(call_args, name)
-        launches = (getattr(dp_cuda, key["band_launches"][3:]),
-                    getattr(dp_cuda, key["full_launches"][3:]))
+        before = {f: getattr(dp_cuda, launch_key[f][3:]) for f in forms}
         got = wrapper(*call_args)
         err = check_equal(f"{name} ({form} form) != plain at the run's largest call",
                           got, plain())
@@ -1276,11 +1427,11 @@ def wide_forms(label: str, timer: "LastRowTimer", counts: dict, hp: bool) -> tup
                             f"cells")
         plain_calls = ((dp_cuda.last_row_hp_plain_calls, dp_cuda.last_row_hp_band_plain_calls)
                        if hp else
-                       (dp_cuda.last_row_plain_calls, dp_cuda.last_row_band_plain_calls))
+                       (dp_cuda.last_row_plain_calls, dp_cuda.last_row_band_plain_calls,
+                        dp_cuda.last_row_strand_plain_calls))
         if any(plain_calls):
             raise AssertionError(f"{label}: the wrapper took a plain version on the card")
-        timing = (getattr(dp_cuda, key["band_launches"][3:]) - launches[0],
-                  getattr(dp_cuda, key["full_launches"][3:]) - launches[1])
+        timing = {f: getattr(dp_cuda, launch_key[f][3:]) - before[f] for f in forms}
         # the kernel alone, into a result buffer made here
         ptrs = [a.data_ptr() for a in part]
         wtot = state[0].shape[1]
@@ -1291,13 +1442,16 @@ def wide_forms(label: str, timer: "LastRowTimer", counts: dict, hp: bool) -> tup
                 head = [a.data_ptr() for a in state[:3]] + [wtot]
                 tail = [a.data_ptr() for a in state[3:]]
                 if form == "band":
-                    return lib.mia_dp_band_hp(*head, *ptrs, *tail, R, L, out.data_ptr(), R,
-                                              stream)
+                    return lib.mia_dp_band_hp(*head, *ptrs, *tail, *classes, L,
+                                              out.data_ptr(), R, stream)
                 return lib.mia_dp_last_row_hp(*head, *ptrs, *tail, R, width, L,
                                               out.data_ptr(), stream)
             if form == "band":
                 return lib.mia_dp_band(state[0].data_ptr(), wtot, *ptrs, state[1].data_ptr(),
-                                       R, L, out.data_ptr(), R, stream)
+                                       *classes, L, out.data_ptr(), R, stream)
+            if form == "strand":
+                return lib.mia_dp_strand(state[0].data_ptr(), wtot, *ptrs,
+                                         state[1].data_ptr(), R, L, out.data_ptr(), R, stream)
             # the whole last row of each: the argmax after it is torch's
             return lib.mia_dp_last_row(s1c.data_ptr(), 1, mask.data_ptr(), part[3].data_ptr(),
                                        depths.data_ptr(), state[1].data_ptr(),
@@ -1317,35 +1471,40 @@ def wide_forms(label: str, timer: "LastRowTimer", counts: dict, hp: bool) -> tup
         # share one bound)
         lengths = part[4].cpu().numpy()
         moved = nbytes(*state, *part[:3], part[4], got) + read_bytes(lengths, part[3])
-        cells = info["band_cells"] if form == "band" else info["cells"]
+        cells = info["cells"] if form == "full" else info["band_cells"]
         b = bound(moved, DP_OPS_PER_CELL * cells)
         padded = bound(moved, DP_OPS_PER_CELL * info["cells"])
         say(f"{label}: {form} form == plain (exact, max |diff| {err}); bound "
             f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {DP_OPS_PER_CELL} operations a "
-            f"{'band' if form == 'band' else 'own-window'} cell), "
+            f"{'own-window' if form == 'full' else 'band'} cell), "
             f"{cells / t['ms'] / 1e6:.3f} Gcells/s; over own-window cells "
             f"bound {padded['bound_ms']:.4f} ms, {info['cells'] / t['ms'] / 1e6:.3f} "
-            f"Gcells/s; launches (band, full) {timing} for the check and timing; mean read "
-            f"length {float(np.mean(lengths)):.1f}")
+            f"Gcells/s; launches {timing} for the check and timing; rows by class "
+            f"{json.dumps(info['class_rows'])}; mean read length {float(np.mean(lengths)):.1f}")
         return {"max_abs_err": err, **t, "library_ms": None, **b,
                 "workload_rows": info["rows"], "workload_width": info["width"],
                 "workload_cells": info["cells"], "workload_band_cells": info["band_cells"],
+                "workload_class_rows": info["class_rows"],
                 "own_window_bound_ms": padded["bound_ms"]}
 
     kept = timer.kept
-    band_at = max(range(len(kept)), key=lambda i: kept[i][0]["band_rows"])
-    full_at = max(range(len(kept)),
-                  key=lambda i: (kept[i][0]["rows"] - kept[i][0]["band_rows"])
-                  * kept[i][0]["width"])
-    run = {"wide_device_ms": sum(ms), "wide_rows": int(sum(band_rows) + sum(full_rows)),
+    run = {"wide_device_ms": sum(ms), "wide_rows": sum(k["rows"] for k in calls),
            "wide_cells": tot["cells"], "wide_band_cells": tot["band_cells"],
            "wide_launched_cells": tot["launched"], "wide_rows_over_384": tot["over_384"],
-           "wide_rows_over_512": tot["over_512"]}
-    full = {"launches": counts[key["full_launches"]], **held("full", *kept[full_at]),
-            **run, "form_device_ms": run_ms["full"], "form_rows": sum(full_rows)}
-    band = {"launches": counts[key["band_launches"]], **held("band", *kept[band_at]), **run,
-            "form_device_ms": run_ms["band"], "form_rows": sum(band_rows)}
-    return full, band
+           "wide_rows_over_512": tot["over_512"], "wide_rows_over_3072": tot["over_3072"],
+           "wide_whole_strands": tot["whole_strands"], "wide_classes": per_class}
+    out = {}
+    for form in forms:
+        entry = {"launches": counts[launch_key[form]], **run, "form_device_ms": run_ms[form],
+                 "form_rows": sum(form_rows[form])}
+        if form == "band":
+            entry["multi_warp_rows"] = counts[f"{pre}_band_multi_rows"]
+        if entry["launches"]:
+            at = max(range(len(kept)), key=lambda i: kept[i][0][f"{form}_rows"]
+                     * (kept[i][0]["width"] if form == "full" else 1))
+            entry.update(held(form, *kept[at]))
+        out[form] = entry
+    return out
 
 
 def phase_prepare_threads() -> None:
@@ -1404,7 +1563,7 @@ def phase_prepare_threads() -> None:
 
 
 WIDE_AB_PHASES = ("pass1", "pass1.py_merge", "pass1.native_finish", "pass1.collect_wait",
-                  "pass1.dispatch", "pass1.pack_prepare", "reiterate", "gc")
+                  "pass1.dispatch", "pass1.pack_prepare", "reiterate", "gc", "wide_calls_ms")
 WIDE_AB_COUNTERS = ("pass1.device_scored_reads", "pass1.device_scored_wide_reads",
                     "pass1.native_solved_wide_reads")
 
@@ -1435,10 +1594,29 @@ def run_side(side: tuple, args: list[str], root: str, what: str):
     tree or of an earlier one, writing ``root``: (maln bytes, wall s,
     profile with the collector's time as the phase ``gc``, launch counts).
     Fails unless the card scored."""
+    import torch
+
     mia, prof_mod, dp = side
     os.makedirs(os.path.dirname(root))
     dp.reset_counts()
     gc_s = [0.0, 0.0]
+    # the scorers of wide rows, timed by CUDA events around each call
+    events: list = []
+    wrapped = {}
+    for fn in ("dp_last_row_strand", "dp_last_row_hp"):
+        f = getattr(dp, fn)
+
+        def timed(*a, _f=f):
+            start, stop = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            start.record()
+            out = _f(*a)
+            stop.record()
+            events.append((start, stop))
+            return out
+
+        wrapped[fn] = f
+        setattr(dp, fn, timed)
 
     def gc_clock(phase: str, info: dict) -> None:
         if phase == "start":
@@ -1456,8 +1634,12 @@ def run_side(side: tuple, args: list[str], root: str, what: str):
             prof = prof_mod.report(out=io.StringIO())
     finally:
         gc.callbacks.remove(gc_clock)
+        for fn, f in wrapped.items():
+            setattr(dp, fn, f)
     wall = time.time() - t0
     prof["phases_s"]["gc"] = gc_s[0]
+    torch.cuda.synchronize()
+    prof["phases_s"]["wide_calls_ms"] = sum(a.elapsed_time(b) for a, b in events)
     counts = {"dp.kernel_launches": dp.kernel_launches, "dp.plain_calls": dp.plain_calls,
               "dp.hp_kernel_launches": dp.hp_kernel_launches,
               "dp.hp_plain_calls": dp.hp_plain_calls,
@@ -1465,9 +1647,11 @@ def run_side(side: tuple, args: list[str], root: str, what: str):
                   "last_row_launches", "last_row_plain_calls", "last_row_band_launches",
                   "last_row_band_plain_calls", "last_row_hp_launches",
                   "last_row_hp_plain_calls", "last_row_hp_band_launches",
-                  "last_row_hp_band_plain_calls")}}
+                  "last_row_hp_band_plain_calls", "last_row_strand_launches",
+                  "last_row_strand_plain_calls")}}
     if (counts["dp.plain_calls"] or counts["dp.hp_plain_calls"]
             or counts["dp.last_row_plain_calls"] or counts["dp.last_row_band_plain_calls"]
+            or counts["dp.last_row_strand_plain_calls"]
             or counts["dp.last_row_hp_plain_calls"] or counts["dp.last_row_hp_band_plain_calls"]
             or not counts["dp.kernel_launches"] + counts["dp.hp_kernel_launches"]):
         raise AssertionError(f"{what} did not score on the card: {counts}")
@@ -1550,6 +1734,127 @@ def phase_wide_ab(earlier_root: str, pairs: int) -> None:
 PREP_AB_PHASES = ("pass1", "pass1.pack_prepare", "pass1.prep_wait", "pass1.dispatch",
                   "pass1.py_merge", "pass1.native_finish", "pass1.collect_wait", "reiterate",
                   "filters.pop_smp", "filters.pop_smp_first", "gc")
+
+
+def phase_census(names: list[str]) -> None:
+    """``--census [CELL ...]``: each cell's traffic at its own size (seed 1;
+    default ``mia-hsmt-100k`` and ``mia-hsmt-100k-h``) through the port on
+    the card, its scorer of wide rows watched (:class:`LastRowTimer`): pass
+    1's own batching and routing decide the rows, and :func:`wide_totals`
+    counts them by form and class as phases 7b and 8c do: rows of each call
+    and of each class, the calls holding each, cells as launched and over
+    the bands, rows over 384, 512 and 3,072 band columns, whole strands."""
+    from mia_tpu_torch.ops import dp_cuda
+
+    for name in names or ["mia-hsmt-100k", "mia-hsmt-100k-h"]:
+        d = os.path.join(WORK, f"census_{name}")
+        inputs = wide_workload(d, reads=None, cell_name=name)
+        os.makedirs(os.path.join(d, "torch"))
+        hp = "-h" in inputs["args"]
+        fn = "dp_last_row_hp" if hp else "dp_last_row_strand"
+        reset_counts()
+        with LastRowTimer(fn) as timer, contextlib.redirect_stderr(io.StringIO()):
+            run_port(inputs["args"], os.path.join(d, "torch", "out.maln"))
+        if dp_cuda.plain_calls or dp_cuda.hp_plain_calls or not timer.calls:
+            raise AssertionError(f"census {name}: the card did not score its wide rows")
+        tot, per_class = wide_totals(timer.calls, hp)
+        say(f"census {name}: " + json.dumps({
+            "reads": inputs["reads"], "seed": 1, "scorer": fn, "calls": len(timer.calls),
+            "rows": sum(c["rows"] for c in timer.calls),
+            "rows_per_call": {c: [k["class_rows"][c] for k in timer.calls] for c in per_class},
+            "classes": per_class, **tot}))
+
+
+def phase_band_ab(earlier_root: str, reps: int) -> None:
+    """``--band-ab ROOT [REPS]``: the band form's one-warp rows, bare, with
+    this tree's kernel library and with that of ``ROOT`` (a ``git archive``
+    of an earlier commit, whose ``mia_dp_band`` and ``mia_dp_band_hp`` take
+    one count of rows, all on one warp, or one count a class), in turns (earlier, this, this,
+    earlier; REPS times, default 3): the one-warp rows of the run's largest
+    band call of phase 7b's workload (without ``-h``) and of phase 8c's
+    (``-h``), each launch held to the other library's and to the plain
+    version (exact).  Beside them this tree's whole band call (its several-
+    warp rows too) alone, so that the rows that moved in from the full form
+    show apart."""
+    import importlib
+
+    import torch
+
+    from mia_tpu_torch.ops.dp_torch import last_row_band_plain, last_row_hp_band_plain
+    from mia_tpu_torch.utils.torchcfg import kernel_library
+
+    load_package_copy(earlier_root)
+    elib = importlib.import_module("mia_tpu_torch_earlier.utils.torchcfg").kernel_library()
+    lib = kernel_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    d = os.path.join(WORK, "band_ab")
+    wide = wide_workload(os.path.join(d, "wide"))
+    os.makedirs(os.path.join(d, "plain"))
+    os.makedirs(os.path.join(d, "hp"))
+    for hp, args in ((False, wide["args"]), (True, [*e2e_workload(), "-h"])):
+        name = "dp_last_row_hp" if hp else "dp_last_row_strand"
+        label = f"band a/b ({'-h' if hp else 'plain'})"
+        with LastRowTimer(name) as timer, contextlib.redirect_stderr(io.StringIO()):
+            run_port(args, os.path.join(d, "hp" if hp else "plain", "out.maln"))
+        call, cargs = max(timer.kept, key=lambda k: k[0]["band_rows"])
+        n_state = 6 if hp else 2
+        state, rows = cargs[:n_state], cargs[n_state:n_state + 5]
+        classes = call["band_classes"]
+        n1, nb = classes[0], call["band_rows"]
+        L = rows[3].shape[1]
+        one = tuple(a[:n1] for a in rows)
+        want = (last_row_hp_band_plain(*state, *one) if hp
+                else last_row_band_plain(*state, *one))
+        wtot = state[0].shape[1]
+        outs = {k: torch.empty((2, n), dtype=torch.int32, device=want.device)
+                for k, n in (("earlier", n1), ("this", n1), ("all", nb))}
+
+        def launch(which: str):
+            part = rows if which == "all" else one
+            n = nb if which == "all" else n1
+            counts = classes if which == "all" else (n1, 0, 0, 0)
+            # an earlier library takes one count of rows, or one a class
+            ecounts = (n1,) if len(elib.mia_dp_band.argtypes) == 13 else (n1, 0, 0, 0)
+            out = outs[which]
+            ptrs = [a.data_ptr() for a in part]
+            if hp:
+                head = [a.data_ptr() for a in state[:3]] + [wtot]
+                tail = [a.data_ptr() for a in state[3:]]
+                rc = (elib.mia_dp_band_hp(*head, *ptrs, *tail, *ecounts, L, out.data_ptr(), n,
+                                          stream)
+                      if which == "earlier" else
+                      lib.mia_dp_band_hp(*head, *ptrs, *tail, *counts, L, out.data_ptr(), n,
+                                         stream))
+            else:
+                head = (state[0].data_ptr(), wtot)
+                rc = (elib.mia_dp_band(*head, *ptrs, state[1].data_ptr(), *ecounts, L,
+                                       out.data_ptr(), n, stream)
+                      if which == "earlier" else
+                      lib.mia_dp_band(*head, *ptrs, state[1].data_ptr(), *counts, L,
+                                      out.data_ptr(), n, stream))
+            if rc:
+                raise RuntimeError(f"{label}: {which} launch failed: CUDA error {rc}")
+
+        for which in outs:
+            launch(which)
+        torch.cuda.synchronize()
+        for which in ("earlier", "this"):
+            check_equal(f"{label}: {which} library's one-warp rows != plain", outs[which], want)
+        check_equal(f"{label}: this library's whole band call, one-warp rows", outs["all"][:, :n1],
+                    want)
+        times: dict = {"earlier": [], "this": [], "all": []}
+        for _ in range(reps):
+            for which in ("earlier", "this", "all", "all", "this", "earlier"):
+                cuda_ms(lambda: launch(which), 5)
+                times[which].append(cuda_ms(lambda: launch(which), 200))
+        med = {k: statistics.median(v) for k, v in times.items()}
+        say(f"{label}: the run's largest band call R={nb} (classes {list(classes)}), L={L}, "
+            f"{call['class_band_cells']['band1']} one-warp band cells; bare ms in turns, "
+            + "; ".join(f"{k} " + ", ".join(f"{x:.4f}" for x in v) for k, v in times.items())
+            + f"; medians: one-warp rows earlier {med['earlier']:.4f}, this "
+            f"{med['this']:.4f} ({(med['this'] / med['earlier'] - 1) * 100:+.2f}%), this "
+            f"tree's whole call {med['all']:.4f} (its {nb - n1} several-warp rows "
+            f"{med['all'] - med['this']:+.4f})")
 
 
 def host_threads() -> str:
@@ -2838,6 +3143,7 @@ def check_served(tag: str, counters: dict, before: dict, after: dict, scorer: st
             and rise["dp.plain_calls"] == rise["dp.hp_plain_calls"] == 0
             and rise["dp.last_row_plain_calls"] == rise["dp.last_row_hp_plain_calls"] == 0
             and rise["dp.last_row_band_plain_calls"] == 0
+            and rise["dp.last_row_strand_plain_calls"] == 0
             and rise["dp.last_row_hp_band_plain_calls"] == 0
             and checks["pass1.native_solved_wide_reads"] == 0
             and rise["cons.plain_calls"] == 0):
@@ -2877,8 +3183,8 @@ def phase_server(args: list[str], walls: dict, smi: str) -> dict:
         want = maln_bytes(os.path.join(WORK, "e2e", "torch_inproc", "out.maln"))
         want_hp = maln_bytes(os.path.join(WORK, "e2e_hp", "torch_inproc", "out.maln"))
         launches = {"dp_entries": 0, "dp_entries_hp": 0, "column_counts": 0,
-                    "dp_last_row": 0, "dp_last_row_band": 0, "dp_last_row_hp": 0,
-                    "dp_last_row_hp_band": 0}
+                    "dp_last_row": 0, "dp_last_row_band": 0, "dp_strand": 0,
+                    "dp_last_row_hp": 0, "dp_last_row_hp_band": 0}
 
         def served(tags, run_args, want_bytes, scorer):
             before = server_hello(sock)
@@ -2893,6 +3199,7 @@ def phase_server(args: list[str], walls: dict, smi: str) -> dict:
             launches["column_counts"] += rise["cons.kernel_launches"]
             launches["dp_last_row"] += rise["dp.last_row_launches"]
             launches["dp_last_row_band"] += rise["dp.last_row_band_launches"]
+            launches["dp_strand"] += rise["dp.last_row_strand_launches"]
             launches["dp_last_row_hp"] += rise["dp.last_row_hp_launches"]
             launches["dp_last_row_hp_band"] += rise["dp.last_row_hp_band_launches"]
             return [w for w, _ in out], out[-1][1], rise
@@ -2984,6 +3291,16 @@ def main() -> int:
         say(nvidia_smi())
         say(f"total: {time.time() - t_start:.1f} s (myers a/b only)")
         return 0
+    if sys.argv[1:2] == ["--census"]:
+        phase_census(sys.argv[2:])
+        say(nvidia_smi())
+        say(f"total: {time.time() - t_start:.1f} s (census only)")
+        return 0
+    if sys.argv[1:2] == ["--band-ab"] and len(sys.argv) in (3, 4):
+        phase_band_ab(sys.argv[2], int(sys.argv[3]) if len(sys.argv) == 4 else 3)
+        say(nvidia_smi())
+        say(f"total: {time.time() - t_start:.1f} s (band a/b only)")
+        return 0
     if sys.argv[1:2] == ["--ccheck-ab"] and len(sys.argv) in (3, 4):
         phase_ccheck_ab(sys.argv[2], int(sys.argv[3]) if len(sys.argv) == 4 else 10)
         say(nvidia_smi())
@@ -3031,12 +3348,15 @@ def main() -> int:
     captured: dict = {}
     main_counts, main_walls = run_e2e("e2e", args, hp=False, new_process=True,
                                       captured=captured)
-    wide_full, wide_band = phase_wide(dev)
+    wide = phase_wide(dev)
     phase_prepare_threads()
     with LastRowTimer("dp_last_row_hp") as hp_timer:
         hp_counts, _ = run_e2e("e2e_hp", [*args, "-h"], hp=True, new_process=False,
                                captured=captured)
-    wide_hp, band_hp = wide_forms("-h wide reads", hp_timer, hp_counts, hp=True)
+    hp_wide = wide_forms("-h wide reads", hp_timer, hp_counts, hp=True)
+    # this workload's -h wide rows hold whole strands: the -h full form runs
+    if not hp_wide["full"]["launches"]:
+        raise AssertionError(f"-h wide reads: the full form did not run: {hp_counts}")
     shapes = phase_workload_shapes(captured)
     myers_kern = phase_myers_kernel(dev)
     phase_ccheck_golden()
@@ -3091,20 +3411,17 @@ def main() -> int:
         "route": "cuda",
         "source": "mia_tpu_torch/csrc/dp_last_row.cu",
         "replaces": "mia_tpu/ops/dp_pallas.py:133",
-        # the full form of pass 1's WIDE rows on the mia path (phase 7b:
-        # rows whose band takes over 384 columns), its numbers at the run's
-        # largest such call as workload_*; the assembly step's launches (one
-        # per dp shard) and the server's for its clients (16b) beside them;
+        # its path is the assembly step's (phase 14: one launch per dp
+        # shard); pass 1's WIDE rows no longer reach it (phase 7b: the full
+        # form's launches there, 0, and its rows past 18,432 band columns,
+        # none, as wide_*); the server's launches for its clients (16b);
         # ms, plain_ms and the bound at the JAX bench's full-width shape
         # (phase 12)
-        "launches": wide_full["launches"],
-        "step_launches": step_counts["dp.last_row_launches"],
+        "launches": step_counts["dp.last_row_launches"],
+        "wide_launches": wide["full"]["launches"],
         "server_launches": server_launches["dp_last_row"],
-        **{k: v for k, v in wide_full.items() if k.startswith("wide_") or k.startswith("form_")},
-        **{f"workload_{k}": wide_full[k] for k in ("ms", "plain_ms", "kernel_only_ms",
-                                                   "bound_ms", "max_abs_err")},
-        **{k: v for k, v in wide_full.items() if k.startswith("workload_")},
-        "workload_own_window_bound_ms": wide_full["own_window_bound_ms"],
+        **{k: v for k, v in wide["full"].items()
+           if k.startswith("wide_") or k.startswith("form_")},
         **last_row_kern,
     }, {
         "name": "dp_last_row_band",
@@ -3112,19 +3429,31 @@ def main() -> int:
         "source": "mia_tpu_torch/csrc/dp_band.cu",
         "replaces": "mia_tpu/ops/dp_pallas.py:46",
         # the band form of the same: pass 1's WIDE rows whose band takes at
-        # most 384 columns (phase 7b), its numbers at the run's largest call
+        # most 3,072 columns on 1, 2, 4 or 8 warps a row (phase 7b;
+        # multi_warp_rows the rows on more than one), its numbers at the
+        # run's largest call
         "server_launches": server_launches["dp_last_row_band"],
-        **wide_band,
+        **wide["band"],
+    }, {
+        "name": "dp_strand",
+        "route": "cuda",
+        "source": "mia_tpu_torch/csrc/dp_strand.cu",
+        "replaces": "mia_tpu/ops/dp_pallas.py:46",
+        # the strand form of the same: pass 1's WIDE rows whose band takes
+        # 3,073-18,432 columns, whole strands, a cluster of CTAs a row (phase
+        # 7b), its numbers at the run's largest call
+        "server_launches": server_launches["dp_strand"],
+        **wide["strand"],
     }, {
         "name": "dp_last_row_hp",
         "route": "cuda",
         "source": "mia_tpu_torch/csrc/dp_last_row.cu",
         "replaces": "mia_tpu/ops/dp_jax.py:220",
-        # pass 1's -h WIDE rows past the band form's 384 columns (phase 8);
+        # pass 1's -h WIDE rows past the band form's 3,072 columns (phase 8);
         # its numbers at the run's largest such call (phase 8c); the
         # server's launches for the -h client (16b)
         "server_launches": server_launches["dp_last_row_hp"],
-        **wide_hp,
+        **hp_wide["full"],
     }, {
         "name": "dp_last_row_hp_band",
         "route": "cuda",
@@ -3132,7 +3461,7 @@ def main() -> int:
         "replaces": "mia_tpu/ops/dp_jax.py:220",
         # the band form of the same: the rest of the -h WIDE rows
         "server_launches": server_launches["dp_last_row_hp_band"],
-        **band_hp,
+        **hp_wide["band"],
     }, {
         "name": "pileup_counts",
         "route": "cuda",

@@ -25,13 +25,17 @@ Under ``--profile`` the JSON profile on stderr carries the kernels' counters
 beside the pipeline's own: ``dp.kernel_launches`` / ``dp.plain_calls`` (the
 scorer), ``dp.hp_kernel_launches`` / ``dp.hp_plain_calls`` (the ``-h``
 scorer), ``dp.last_row_launches`` / ``dp.last_row_plain_calls`` and
-``dp.last_row_band_launches`` / ``dp.last_row_band_plain_calls`` (the
-general-width scorer's full and band forms, which take pass 1's WIDE reads;
-``dp.last_row_rows`` / ``dp.last_row_band_rows`` the rows of each) and
+``dp.last_row_band_launches`` / ``dp.last_row_band_plain_calls`` and
+``dp.last_row_strand_launches`` / ``dp.last_row_strand_plain_calls`` (the
+general-width scorer's full, band and strand forms, which take pass 1's
+WIDE reads; ``dp.last_row_rows`` / ``dp.last_row_band_rows`` /
+``dp.last_row_strand_rows`` the rows of each,
+``dp.last_row_band_multi_rows`` the band rows on more than one warp) and
 ``dp.last_row_hp_launches`` / ``dp.last_row_hp_plain_calls`` and
 ``dp.last_row_hp_band_launches`` / ``dp.last_row_hp_band_plain_calls`` (its
 ``-h`` full and band forms, which take them under ``-h``;
-``dp.last_row_hp_rows`` / ``dp.last_row_hp_band_rows`` the rows of each),
+``dp.last_row_hp_rows`` / ``dp.last_row_hp_band_rows`` the rows of each,
+``dp.last_row_hp_band_multi_rows`` as above),
 ``dp.shards`` (device shards a dispatch was dealt over) and
 ``cons.kernel_launches`` / ``cons.plain_calls`` (consensus column counts),
 each 0 where this process never loaded the kernel's module (a run through
@@ -57,9 +61,10 @@ KERNEL_COUNTERS = (
      ("kernel_launches", "plain_calls", "hp_kernel_launches", "hp_plain_calls",
       "last_row_launches", "last_row_plain_calls", "last_row_band_launches",
       "last_row_band_plain_calls", "last_row_rows", "last_row_band_rows",
-      "last_row_hp_launches", "last_row_hp_plain_calls", "last_row_hp_band_launches",
+      "last_row_band_multi_rows", "last_row_strand_launches", "last_row_strand_plain_calls",
+      "last_row_strand_rows", "last_row_hp_launches", "last_row_hp_plain_calls", "last_row_hp_band_launches",
       "last_row_hp_band_plain_calls", "last_row_hp_rows", "last_row_hp_band_rows",
-      "shards")),
+      "last_row_hp_band_multi_rows", "shards")),
     ("cons", "mia_tpu_torch.ops.consensus_torch", ("kernel_launches", "plain_calls")),
 )
 

@@ -143,12 +143,33 @@ NO_BAND_SCORE = HIM
 HP_WIDE_COLS = 512 * 34
 
 
-# the widest band the band forms score, with and without -h
-# (csrc/dp_band.cu: a warp a row, 12 columns a lane, as csrc/dp_entries.cu's
-# window; mia_dp_band_constants and mia_dp_band_hp_constants report it to
-# the loader): a wide row whose band takes more columns (band_columns) is
-# scored by the full form
+# the band columns one warp of the band forms scores, with and without -h
+# (csrc/dp_band.cu: 12 columns a lane, as csrc/dp_entries.cu's window;
+# mia_dp_band_constants and mia_dp_band_hp_constants report it to the
+# loader)
 BAND_COLS = 32 * 12
+# the warps a band row may take (a power of two): a row whose band
+# (band_columns) takes more than BAND_COLS columns takes the fewest warps G
+# with BAND_COLS * G at least its band, up to BAND_ROW_COLS; a wider band
+# goes to the strand form (without -h) or the full form
+BAND_WARPS = (1, 2, 4, 8)
+BAND_ROW_COLS = BAND_COLS * BAND_WARPS[-1]
+# the widest band the strand form scores (csrc/dp_strand.cu: a cluster of
+# 16 CTAs a row, 2,048 threads of 9 columns; mia_dp_strand_constants reports
+# it): at least a whole human-mt strand window and the full form's widest
+# row (HP_WIDE_COLS); a wider band keeps the full form
+STRAND_COLS = 2048 * 9
+
+
+def band_warps(cols) -> np.ndarray:
+    """[R] int64: the warps of the band form a row with ``cols`` band
+    columns (:func:`band_columns`) takes, 1, 2, 4 or 8; 0 past
+    :data:`BAND_ROW_COLS` (not a band row)."""
+    cols = np.asarray(cols, np.int64)
+    g = np.zeros(len(cols), np.int64)
+    for w in reversed(BAND_WARPS):
+        g = np.where(cols <= BAND_COLS * w, w, g)
+    return g
 
 
 def band_columns(ivl) -> tuple[np.ndarray, np.ndarray]:
@@ -211,10 +232,26 @@ def wide_scored(flags, lens, widths=None) -> np.ndarray:
     return taken
 
 
+def wide_order(cols, hp: bool = False) -> tuple[np.ndarray, tuple, int]:
+    """(order [R] int64, band_classes, n_strand) of wide rows with ``cols``
+    band columns (:func:`band_columns`): the band form's rows first, by the
+    warps each takes (:func:`band_warps`; ``band_classes`` rows of each of
+    :data:`BAND_WARPS`), then without ``hp`` the strand form's (``n_strand``,
+    at most :data:`STRAND_COLS`), then the full form's, each part in the
+    rows' order."""
+    cols = np.asarray(cols, np.int64)
+    g = band_warps(cols)
+    rank = np.searchsorted(np.array(BAND_WARPS), g)
+    rank = np.where(g > 0, rank, len(BAND_WARPS) + (hp | (cols > STRAND_COLS)))
+    counts = np.bincount(rank, minlength=len(BAND_WARPS) + 2)
+    return (np.argsort(rank, kind="stable"), tuple(int(c) for c in counts[:len(BAND_WARPS)]),
+            int(counts[len(BAND_WARPS)]))
+
+
 @dataclass
 class WideRows:
     """A batch's WIDE reads as rows of the general-width scorer
-    (``dp_cuda.dp_last_row``, under ``-h`` ``dp_cuda.dp_last_row_hp``): one
+    (``dp_cuda.dp_last_row_strand``, under ``-h`` ``dp_cuda.dp_last_row_hp``): one
     row per (read, strand with intervals), each over its own window of the
     strand, exactly the window the native solve fills (``fill_strand``,
     hostbatch.cc: it starts two columns before the first interval and ends
@@ -230,9 +267,14 @@ class WideRows:
     lengths: np.ndarray  # [R] int32 read lengths
     width: int          # W: the widest row's columns
     # the leading rows the band form takes (band_columns at most
-    # BAND_COLS), and the widest window of the rest, the full form's
+    # BAND_ROW_COLS), the rows of each of its classes (BAND_WARPS) in
+    # that order, then the strand form's rows (without -h: band columns
+    # at most STRAND_COLS), and the widest window of the rest, the full
+    # form's
     n_band: int = 0
     full_width: int = 0
+    band_classes: tuple = (0, 0, 0, 0)
+    n_strand: int = 0
 
     @property
     def n(self) -> int:
@@ -245,10 +287,14 @@ def wide_rows(flags, lens, s2c, fw_ivg, rc_ivg, hp: bool = False) -> WideRows | 
     read chars of ``pack_chars``, and GLOBAL band intervals: a strand's
     window is :func:`window_bounds`'; a strand without intervals gets no
     row (its score is :data:`NO_BAND_SCORE`).  The rows whose band takes at
-    most :data:`BAND_COLS` columns (:func:`band_columns`) come first, in
-    order, as the band form's ``n_band``; the rest keep the full form at
-    ``full_width``, the widest of their own windows.  Under ``-h`` a read
-    with a window wider than :data:`HP_WIDE_COLS` is not taken."""
+    most :data:`BAND_ROW_COLS` columns (:func:`band_columns`) come first,
+    as the band form's ``n_band``, ordered by the warps each takes
+    (:func:`band_warps`, ``band_classes`` rows of each); without ``-h`` the
+    rows whose band takes at most :data:`STRAND_COLS` follow, the strand
+    form's ``n_strand``; the rest keep the full form at ``full_width``, the
+    widest of their own windows.  Each part keeps the rows' (strand, read)
+    order.  Under ``-h`` a read with a window wider than
+    :data:`HP_WIDE_COLS` is not taken."""
     sel = np.flatnonzero(wide_scored(flags, lens,
                                      window_widths(fw_ivg, rc_ivg) if hp else None))
     if not len(sel):
@@ -260,17 +306,16 @@ def wide_rows(flags, lens, s2c, fw_ivg, rc_ivg, hp: bool = False) -> WideRows | 
     ivg, read, strand, win_lo, hi = ivg[has], read[has], strand[has], win_lo[has], hi[has]
     used = ivg[:, :, 1] > 0
     ivl = np.where(used[:, :, None], ivg - win_lo[:, None, None], 0)
-    band = band_columns(ivl)[1] <= BAND_COLS
-    order = np.argsort(~band, kind="stable")
+    order, band_classes, n_strand = wide_order(band_columns(ivl)[1], hp)
     read, strand, win_lo, hi, ivl = (a[order] for a in (read, strand, win_lo, hi, ivl))
-    n_band = int(band.sum())
-    full_width = int((hi - win_lo)[n_band:].max(initial=0))
+    n_band = sum(band_classes)
+    full_width = int((hi - win_lo)[n_band + n_strand:].max(initial=0))
     lengths = np.asarray(lens, np.int32)[read]
     L = int(lengths.max())
     return WideRows(sel, read, strand, win_lo.astype(np.int32), ivl.astype(np.int32),
                     np.ascontiguousarray(np.asarray(s2c)[read, :L],
                                          np.uint8 if hp else np.int32), lengths,
-                    int((hi - win_lo).max()), n_band, full_width)
+                    int((hi - win_lo).max()), n_band, full_width, band_classes, n_strand)
 
 
 def wide_inputs(rows: WideRows, refs: np.ndarray):

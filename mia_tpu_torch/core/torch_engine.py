@@ -41,10 +41,12 @@ What changed from the TPU engine, and why:
   window (``entries.wide_rows``), launched after the batch's entries on the
   same stream, and only each row's (best, aec) comes back.  Each reads its
   windows of the strands (and under ``-h`` their chars and run starts) from
-  the state itself, in two forms: ``entries.wide_rows`` puts the rows whose
-  band takes at most 384 columns first, for the band form, which scores
-  those columns only, and the rest take the full form at their widest
-  window.  Under ``--dp-devices`` all of a batch's wide rows go to the
+  the state itself, in three forms: ``entries.wide_rows`` puts the rows
+  whose band takes at most 3,072 columns first, for the band form, which
+  scores those columns only on 1, 2, 4 or 8 warps a row; without ``-h`` the
+  rows whose band takes at most 18,432 columns (whole strands) follow, for
+  the strand form, a cluster of 16 CTAs a row; the rest take the full form at
+  their widest window.  Under ``--dp-devices`` all of a batch's wide rows go to the
   first shard.  Under ``-h`` a read with a strand window past 17,408
   columns (``entries.HP_WIDE_COLS``) stays with the native solve.
 
@@ -151,23 +153,24 @@ def state_from_numpy(refs_np: np.ndarray, sms_np: np.ndarray, device,
                        on(hp[1], np.int32), on(hp[2], np.int32), on(BASE2INX, np.int8))
 
 
-def score_wide(state: ScorerState, width: int, n_band: int, strand, win_lo, ivl, s2c,
-               lengths) -> torch.Tensor:
+def score_wide(state: ScorerState, width: int, n_band: int, band_classes: tuple,
+               n_strand: int, strand, win_lo, ivl, s2c, lengths) -> torch.Tensor:
     """(best, window-local aec) of wide rows as [2, R] int32 in row order:
     the last DP row's first maximum (the native solve takes the earliest
     column too, hostbatch.cc ``fill_strand``).  ``dp_cuda.dp_last_row_strand``
     (under ``-h``, where ``s2c`` holds read chars, ``dp_cuda.dp_last_row_hp``)
     reads the windows of the state's strands itself and returns only the
-    pairs, the first ``n_band`` rows from its band form and the rest from
-    its full form at ``width`` (``entries.WideRows.n_band`` /
-    ``full_width``).  Every row scores with the forward PSSM, as
-    ``mia_p1_solve`` does for both strands (``ctx->submat[0]``)."""
+    pairs: the first ``n_band`` rows from its band form (``band_classes``
+    rows on 1, 2, 4 and 8 warps), the next ``n_strand`` from its strand
+    form, the rest from its full form at ``width`` (``entries.WideRows``).
+    Every row scores with the forward PSSM, as ``mia_p1_solve`` does for
+    both strands (``ctx->submat[0]``)."""
     if state.hp:
         return dp_cuda.dp_last_row_hp(state.refs, state.refchr, state.hpcs, state.sms[0],
                                       state.pengop, state.b2i, strand, win_lo, ivl, s2c,
-                                      lengths, width, n_band)
+                                      lengths, width, n_band, band_classes)
     return dp_cuda.dp_last_row_strand(state.refs, state.sms[0], strand, win_lo, ivl, s2c,
-                                      lengths, width, n_band)
+                                      lengths, width, n_band, band_classes, n_strand)
 
 
 def make_dp_devices(n_dp: int, devices=None) -> list[torch.device] | None:
@@ -322,7 +325,7 @@ class Pass1Scorer:
         return out, event
 
     def dispatch_wide(self, rows: WideRows | None) -> _Batch | None:
-        """Enqueue the general-width scorer's two forms (under ``-h`` its
+        """Enqueue the general-width scorer's forms (under ``-h`` its
         ``-h`` forms) on wide rows (``entries.wide_rows``; None: nothing) on
         the first shard, behind what that shard's stream holds already.
         Results via :meth:`collect_entries`: (best, aec), aec WINDOW-LOCAL
@@ -333,7 +336,8 @@ class Pass1Scorer:
         host = tuple(np.ascontiguousarray(a) for a in host)
         shard = self.shards[0]
         return _Batch([self._dispatch_shard(
-            shard, host, partial(score_wide, shard.state, rows.full_width, rows.n_band))],
+            shard, host, partial(score_wide, shard.state, rows.full_width, rows.n_band,
+                                 rows.band_classes, rows.n_strand))],
             rows.n)
 
     @staticmethod

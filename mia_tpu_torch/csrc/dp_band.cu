@@ -32,7 +32,22 @@
 //     whenever that is open);
 //   * one warp a row, lane l owning band columns [12 l, 12 l + 12), 384 in
 //     all (entries.BAND_COLS; 16 a lane would spill in the plain form's row
-//     loop at 128 registers).  The recurrence and layout of dp_entries.cu
+//     loop at 128 registers); a row of a wider band takes G = 2, 4 or 8
+//     warps (the fewest with 384 G at least its band, up to 3,072 columns,
+//     entries.BAND_ROW_COLS), warp g of the row owning band columns
+//     [384 g, 384 g + 384).  A block keeps 8 warps and holds 8 / G rows of
+//     one G; the host orders the rows by G (entries.wide_rows) and passes
+//     the rows of each class, whose blocks take consecutive blockIdx, so
+//     that every band row is one launch.  Each DP row, lane 31 of each warp
+//     leaves its warp's column-gap total, its prefix two columns before the
+//     warp's end, and its last column's row-gap max and value in a
+//     shared-memory slot chosen by row parity, as the register form's warps
+//     do (dp_last_row.cu); one named barrier over the row's warps only
+//     (bar.sync id, 32 G), and each warp takes the max of the totals before
+//     it and lane 0 its left neighbour's values.  The argmax joins the
+//     row's warps through shared memory, the first column on ties.  G = 1
+//     rows run the one-warp body unchanged, with no barrier.  The
+//     recurrence and layout of dp_entries.cu
 //     (two rows and the
 //     row-gap max in registers, DPX add-max; under -h the lane-major staged
 //     row and hp_col sources in shared memory, the straight-line cell
@@ -43,42 +58,44 @@
 //   * the prologue sorts the row's intervals by rank, joins them into runs,
 //     and gives each lane the window column of each of its band columns; it
 //     reads codes (-h: chars and run starts too) from the strand state at
-//     win_lo + that column (past the state: code 4, char 0, run start 0);
+//     win_lo + that column (past the state: code 4, char 0, run start 0).
+//     The band layout, the origin gate, the DP step and the argmax are
+//     band_dp.cuh's, shared with the strand form (dp_strand.cu);
 //   * the PSSM depth of each DP row comes from the read's length
 //     (find_sm_depth, src/pssm.c:36-46), as dp_torch.depths_for gives it;
 //   * -h: hp_col's source, the column before the cell's reference run, may
-//     lie in any lane or interval: the prologue finds its band column, and a
-//     source that is not open gives no candidate (on the whole window its
-//     value is HIM, below the restart);
-//   * a row whose band takes more columns than its form's is left to the
-//     full form by the host (entries.wide_rows); given one anyway, the
+//     lie in any lane, warp or interval: the prologue finds its band column,
+//     and a source that is not open gives no candidate (on the whole window
+//     its value is HIM, below the restart).  The staged row and the hp_col
+//     sources of a row of G warps are one shared array 384 G columns wide
+//     (its warps' arrays side by side, so a block's shared memory stays 8 x
+//     384 columns); on G > 1 rows a named barrier before each staging keeps
+//     it from overwriting a row that another warp still reads, and the
+//     row's exchange barrier orders the staging before the reads;
+//   * a row whose band takes more columns than its warps' is left to
+//     another form by the host (entries.wide_rows); given one anyway, the
 //     kernel writes (HIM, -1), which the host refuses.
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "band_dp.cuh"
+
 namespace {
 
-// Duplicates of the Python side's values (entries.BAND_COLS, MAX_INTERVALS,
-// L_MAX, HPW_ROUTE, mia_tpu_torch.constants, dp_torch._LOW);
-// mia_dp_band_constants and mia_dp_band_hp_constants export them so that
-// the loader (torchcfg.kernel_library) refuses a library that disagrees.
+using namespace band;
+
+// Duplicates of the Python side's values (entries.BAND_COLS, HPW_ROUTE;
+// band_dp.cuh holds the rest); mia_dp_band_constants and
+// mia_dp_band_hp_constants export them so that the loader
+// (torchcfg.kernel_library) refuses a library that disagrees.
 constexpr int kCPL = 12;              // band columns per lane
-constexpr int kBand = 32 * kCPL;      // band columns a row
-constexpr int kK = 16;                // intervals a row
-constexpr int kLMax = 256;            // read rows
-constexpr int kWarps = 8;             // rows per block
-constexpr int kPssmDepth = 15;
-constexpr int kDepth = 2 * kPssmDepth + 1;
-constexpr int kCodes = 6;             // reference codes 0..4, and 5: a closed column
+constexpr int kBand = 32 * kCPL;      // band columns a warp
+constexpr int kWarps = 8;             // warps per block; the most warps a row
+constexpr int kClasses = 4;           // rows of 1, 2, 4 and 8 warps
+constexpr int kRowBand = kBand * kWarps;  // band columns a row at most
 constexpr int kHpw = 32;              // -h row reach
 constexpr int kPengop = 11;           // -h gap-open discounts
-constexpr int GOP = 1000;
-constexpr int GEP = 200;
-constexpr int HIM = -1073741824;                 // INT_MIN / 2
-constexpr int LOW = -(1 << 30) - (1 << 29);      // below any live value
-constexpr int kGate = -(1 << 29);    // addend that sinks a value below every live one
-constexpr unsigned FULL = 0xffffffffu;
 
 struct Args {
   const int8_t* refs;      // [2, wtot] codes
@@ -94,7 +111,7 @@ struct Args {
   const int32_t* submat;   // [31, 5, 5]
   const int32_t* pengop;   // -h: [kPengop]
   const int8_t* b2i;       // -h: [256]
-  int B;
+  int n[kClasses];         // rows of 1, 2, 4 and 8 warps, in that order
   int32_t* out;            // out[b]: best, out[ldo + b]: its window column
   int ldo;
   const int32_t* s2c;      // plain: [B, L] read codes, pad 4
@@ -115,9 +132,11 @@ struct HpRows {
   uint8_t hprs[kWarps][kLMax];    // start row of the read run holding each row
   uint8_t pidx[kWarps][kLMax];    // min(run length - 1, 10): pengop slot
   // lane-major, as in dp_entries.cu: band column 12 l + j at j * 32 + l
-  uint16_t hsrc[kWarps][kBand];   // hp_col: byte offset of the source column in row[]
-  int32_t hneg[kWarps][kBand];    // hp_col: minus the distance cost to that column
-  int32_t row[kWarps][kBand];     // the row before the current read run, staged
+  // (warp w's columns from w * 384 on; a row of G warps takes its warps'
+  // arrays side by side)
+  uint16_t hsrc[kWarps * kBand];  // hp_col: byte offset of the source column in the row's row[]
+  int32_t hneg[kWarps * kBand];   // hp_col: minus the distance cost to that column
+  int32_t row[kWarps * kBand];    // the row before the current read run, staged
 };
 template <>
 struct HpRows<false> {};
@@ -130,10 +149,12 @@ struct Shared {
   HpTables<kHp> ht;
   uint8_t chr[kWarps][kLMax];     // read chars (-h) or codes 0..4
   HpRows<kHp> hp;
-  // the row's valid intervals sorted by start, and the band's runs: the
-  // first window column and first band column of each, and its columns
-  int32_t lo[kWarps][kK], hi[kWarps][kK];
-  int32_t seg_col[kWarps][kK], seg_at[kWarps][kK], seg_n[kWarps][kK];
+  Runs runs[kWarps];              // each row's band
+  // rows of G > 1 warps: per row parity and warp, (column-gap total, its
+  // prefix two columns before the warp's end, the last column's row-gap max
+  // and value); per warp its (best, column)
+  int4 xch[2][kWarps];
+  int2 amax[kWarps];
 };
 
 // Bit 7 of every byte of x says whether the byte is zero.
@@ -141,73 +162,30 @@ __device__ __forceinline__ unsigned zero_bytes(unsigned x) {
   return ~(((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x);
 }
 
-template <bool kHp>
-__global__ void __launch_bounds__(kWarps * 32, 2) dp_band_kernel(Args a) {
-  __shared__ Shared<kHp> sh;
-  for (int i = threadIdx.x; i < kDepth * 5 * kCodes; i += blockDim.x) {
-    const int w = i % kCodes, x = (i / kCodes) % 5, d = i / (kCodes * 5);
-    sh.tab[i] = w < 5 ? make_int2(a.submat[(d * 5 + w) * 5 + x], 0) : make_int2(HIM, HIM);
-  }
-  if constexpr (kHp) {
-    for (int i = threadIdx.x; i < 256; i += blockDim.x) sh.ht.b2i[i] = a.b2i[i];
-    if (threadIdx.x < kPengop) sh.ht.pengop[threadIdx.x] = a.pengop[threadIdx.x];
-  }
-  __syncthreads();
+// A named barrier over the G warps of one row (id 1 + the row's place in
+// its block; 0 is __syncthreads').
+__device__ __forceinline__ void row_bar(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int e = blockIdx.x * kWarps + warp;
-  if (e >= a.B) return;  // whole warp leaves together; no block barrier follows
+// One row of the band form on G warps; this warp is warp g of the row's.
+template <bool kHp, int G>
+__device__ __forceinline__ void band_row(const Args& a, const int warp, const int lane,
+                                         const int e, const int g_in) {
+  // the block's shared memory, dynamic so that an out-of-line body reaches
+  // it as shared memory too: sizeof(Shared<kHp>), under 48 KB
+  extern __shared__ __align__(16) unsigned char band_smem[];
+  Shared<kHp>& sh = *reinterpret_cast<Shared<kHp>*>(band_smem);
+  const int g = G == 1 ? 0 : g_in;
+  const int bar_id = 1 + warp / G;
   const int L = a.L;
 
   // ---- the band: intervals sorted by rank, then joined into runs ---------
-  int lo = 0, hi = 0;
-  if (lane < kK) {
-    lo = a.ivl[((int64_t)e * kK + lane) * 2];
-    hi = a.ivl[((int64_t)e * kK + lane) * 2 + 1];
-  }
-  const unsigned valid = __ballot_sync(FULL, lane < kK && lo < hi);
-  const int n = __popc(valid);
-  {
-    int rank = 0;
-    for (int i = 0; i < kK; ++i) {
-      const int olo = __shfl_sync(FULL, lo, i);
-      rank += ((valid >> i) & 1) && (olo < lo || (olo == lo && i < lane));
-    }
-    if ((valid >> lane) & 1) {
-      sh.lo[warp][rank] = lo;
-      sh.hi[warp][rank] = hi;
-    }
-  }
-  __syncwarp();
-  // lane i < n: sorted interval i adds the band columns [start, hi) past
-  // every earlier interval's end
+  Runs& rr = sh.runs[warp];
   int nband;
-  {
-    const int my_lo = lane < n ? sh.lo[warp][lane] : 0;
-    const int my_hi = lane < n ? sh.hi[warp][lane] : 0;
-    int upto = my_hi;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) upto = max(upto, __shfl_up_sync(FULL, upto, off));
-    int before = __shfl_up_sync(FULL, upto, 1);
-    if (lane == 0) before = 0;
-    const int start = max(max(my_lo - 2, 0), before);
-    const int cnt = lane < n ? max(my_hi - start, 0) : 0;
-    int at = cnt;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int t = __shfl_up_sync(FULL, at, off);
-      if (lane >= off) at += t;
-    }
-    nband = __shfl_sync(FULL, at, 31);
-    if (lane < n) {
-      sh.seg_col[warp][lane] = start;
-      sh.seg_at[warp][lane] = at - cnt;
-      sh.seg_n[warp][lane] = cnt;
-    }
-  }
-  if (nband > kBand) {
-    if (lane == 0) {
+  const int n = band_runs(a.ivl, e, rr, lane, nband);
+  if (nband > kBand * G) {  // every warp of the row leaves here
+    if (g == 0 && lane == 0) {
       a.out[e] = HIM;
       a.out[a.ldo + e] = -1;
     }
@@ -219,8 +197,7 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dp_band_kernel(Args a) {
     if constexpr (kHp) {
       sh.chr[warp][r] = a.s2chr[(int64_t)e * L + r];
     } else {
-      const int x = a.s2c[(int64_t)e * L + r];
-      sh.chr[warp][r] = (uint8_t)(x < 0 ? 0 : (x > 4 ? 4 : x));
+      sh.chr[warp][r] = read_code(a.s2c[(int64_t)e * L + r]);
     }
   }
   __syncwarp();
@@ -252,96 +229,88 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dp_band_kernel(Args a) {
   }
 
   // ---- this lane's band columns --------------------------------------------
-  auto is_open = [&](int c) {
-    bool o = false;
-    for (int i = 0; i < n; ++i) o |= sh.lo[warp][i] <= c && c < sh.hi[warp][i];
-    return o;
-  };
   const int len = a.lengths[e];
   int last = len - 1;  // a last row outside [0, L) keeps row 0
   if (last < 0 || last >= L) last = 0;
   const int wlo = a.win_lo[e];
   const int64_t sbase = (int64_t)a.strand[e] * a.wtot;
-  const int k0 = lane * kCPL;
+  const int k0 = g * kBand + lane * kCPL;
+  // this warp's and its row's first column in the -h arrays
+  const int wbase = warp * kBand;
+  const int rbase = (warp - g) * kBand;
 
-  int woff[kCPL];   // byte offset of the column's code in a table row
-  int gadd[kCPL];   // what the column adds as a column-gap origin: GEP * its
-                 // window column, or kGate where it may not count
-  int ncost[kCPL];  // minus the column gap's cost into it: GOP + GEP * (column - 1)
+  int woff[kCPL], gadd[kCPL], ncost[kCPL];  // band_dp.cuh's column_terms
   // -h: window chars (4 per word) and, as 0x80 flags in the same layout,
   // the columns that start a reference run and those with an hp_col source
   uint32_t wchr[kCPL / 4], hrb[kCPL / 4], hcb[kCPL / 4];
   unsigned mbits = 0;
 #pragma unroll
   for (int j = 0; j < kCPL; ++j) {
-    const int k = k0 + j;
-    // the window column: in the run holding band column k, or past the
-    // band, continuing after its last column
-    int c = 0;
-    for (int i = 0; i < n; ++i)
-      if (sh.seg_n[warp][i] > 0 && sh.seg_at[warp][i] <= k)
-        c = sh.seg_col[warp][i] + k - sh.seg_at[warp][i];
-    const bool inband = k < nband;
-    const bool open = inband && is_open(c);
+    int c;
+    bool in;
+    const bool open = band_column(rr, n, nband, k0 + j, wlo, a.wtot, c, in);
     mbits |= (unsigned)open << j;
-    const int g = wlo + c;
-    const bool in = inband && g < a.wtot;
-    const int code = in ? a.refs[sbase + g] : 4;
-    woff[j] = 8 * (open ? (code < 0 ? 0 : (code > 4 ? 4 : code)) : 5);
-    gadd[j] = GEP * c;
-    ncost[j] = -(GOP + GEP * (c - 1));
+    const int gc = wlo + c;
+    column_terms(c, open, in ? a.refs[sbase + gc] : 4, woff[j], gadd[j], ncost[j]);
     if constexpr (kHp) {
-      const uint32_t ch = in ? a.refchr[sbase + g] : 0;
+      const uint32_t ch = in ? a.refchr[sbase + gc] : 0;
       if ((j & 3) == 0) wchr[j >> 2] = hrb[j >> 2] = hcb[j >> 2] = 0;
       wchr[j >> 2] |= ch << (8 * (j & 3));
-      const int hc = in ? a.hpcs[sbase + g] : 0;
+      const int hc = in ? a.hpcs[sbase + gc] : 0;
       const uint32_t flag = 0x80u << (8 * (j & 3));
-      if (open && c >= 1 && hc == g) hrb[j >> 2] |= flag;
+      if (open && c >= 1 && hc == gc) hrb[j >> 2] |= flag;
       // hp_col: the source column's band column, where it is open
       int src = 0;
-      if (open && c >= 1 && hc != g && hc > 0 && hc - 1 >= wlo && is_open(hc - 1 - wlo)) {
+      if (open && c >= 1 && hc != gc && hc > 0 && hc - 1 >= wlo && is_open(rr, n, hc - 1 - wlo)) {
         const int s = hc - 1 - wlo;
         for (int i = 0; i < n; ++i) {
-          const int s0 = sh.seg_col[warp][i];
-          if (s0 <= s && s < s0 + sh.seg_n[warp][i]) src = sh.seg_at[warp][i] + s - s0;
+          const int s0 = rr.seg_col[i];
+          if (s0 <= s && s < s0 + rr.seg_n[i]) src = rr.seg_at[i] + s - s0;
         }
         hcb[j >> 2] |= flag;
       }
-      sh.hp.hsrc[warp][j * 32 + lane] = (uint16_t)(4 * ((src % kCPL) * 32 + src / kCPL));
-      sh.hp.hneg[warp][j * 32 + lane] = -GEP * (g - hc);
+      // its place in the row's arrays: the warp of src / 384, lane-major in it
+      const int sk = src % kBand;
+      sh.hp.hsrc[wbase + j * 32 + lane] =
+          (uint16_t)(4 * (src - sk + (sk % kCPL) * 32 + sk / kCPL));
+      sh.hp.hneg[wbase + j * 32 + lane] = -GEP * (gc - hc);
     }
   }
   // origin k counts where band column k + 2 is open; band column 0 always
   unsigned nbits = __shfl_down_sync(FULL, mbits, 1);
-  if (lane == 31) nbits = 0;
-  const unsigned cand_ok = ((mbits | (nbits << kCPL)) >> 2) | (lane == 0 ? 1u : 0u);
+  if (lane == 31) {
+    // the next warp's first two columns, or none past the row's last warp
+    nbits = 0;
+    if constexpr (G > 1) {
 #pragma unroll
-  for (int j = 0; j < kCPL; ++j)
-    if (!((cand_ok >> j) & 1u)) gadd[j] = kGate;
+      for (int j = 0; j < 2; ++j) {
+        const int k = k0 + kCPL + j;
+        nbits |= (unsigned)(k < nband && is_open(rr, n, col_of(rr, n, k))) << j;
+      }
+    }
+  }
+  gate_origins(gadd, mbits, nbits, lane == 0 && g == 0);
   __syncwarp();
 
   // ---- row 0 -------------------------------------------------------------
   auto trow_of = [&](int row) {
-    const int from_back = len - (row + 1);
-    int d = row < kPssmDepth ? row
-                             : (from_back < kPssmDepth ? 2 * kPssmDepth - from_back : kPssmDepth);
-    d = d < 0 ? 0 : (d > 2 * kPssmDepth ? 2 * kPssmDepth : d);
     int x = sh.chr[warp][row];
     if constexpr (kHp) {
       x = sh.ht.b2i[x];
       x = x < 0 ? 0 : (x > 4 ? 4 : x);
     }
-    return (const char*)(sh.tab + (d * 5 + x) * kCodes);
+    return table_row(sh.tab, row, len, x);
   };
   int prev[kCPL], prev2[kCPL], rbest[kCPL];
-  {
-    const char* trow = trow_of(0);
-#pragma unroll
-    for (int j = 0; j < kCPL; ++j) {
-      prev[j] = ((const int2*)(trow + woff[j]))->x;
-      prev2[j] = LOW;
-      rbest[j] = prev[j];
-    }
+  first_row(trow_of(0), woff, prev, prev2, rbest);
+  // -h, hp_row: the staged column left of this lane's first column, from
+  // this warp's first column (band column 0 takes none: lane 0 of the row's
+  // first warp reads some column of its own instead)
+  int left0;
+  if constexpr (G == 1) {
+    left0 = (kCPL - 1) * 32 + lane - (lane != 0);
+  } else {
+    left0 = lane != 0 ? (kCPL - 1) * 32 + lane - 1 : (g != 0 ? -1 : 0);
   }
 
   // ---- rows 1 .. last ----------------------------------------------------
@@ -352,7 +321,7 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dp_band_kernel(Args a) {
     // no row gap ends on row 1: its cost there sinks the candidate
     const int neg_grow = row >= 2 ? -(GOP + GEP * (row - 1)) : kGate;
 
-    // -h: which candidate this row may take (warp-uniform), and the
+    // -h: which candidate this row may take (row-uniform), and the
     // columns that take it as 0x80 flags
     bool hp_col_row = false, hp_row_row = false;
     int neg_pen = 0;
@@ -372,36 +341,30 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dp_band_kernel(Args a) {
       }
       // the row before this run: hp_col's source now, hp_row's on the
       // run's later rows
-      if (hp_col_row && (slot > 0 || __any_sync(FULL, any != 0))) {
-        __syncwarp();
+      if constexpr (G == 1) {
+        if (hp_col_row && (slot > 0 || __any_sync(FULL, any != 0))) {
+          __syncwarp();
 #pragma unroll
-        for (int j = 0; j < kCPL; ++j) sh.hp.row[warp][j * 32 + lane] = P[j];
-        __syncwarp();
+          for (int j = 0; j < kCPL; ++j) sh.hp.row[wbase + j * 32 + lane] = P[j];
+          __syncwarp();
+        }
+      } else {
+        (void)any;
+        if (hp_col_row) {
+          // no warp of the row still reads the row staged before; the
+          // exchange barrier below orders these writes before the reads
+          row_bar(bar_id, 32 * G);
+#pragma unroll
+          for (int j = 0; j < kCPL; ++j) sh.hp.row[wbase + j * 32 + lane] = P[j];
+        }
       }
     }
 
-    // column gaps: inclusive prefix max of prev[c] + GEP * column over the
-    // origins that count
+    // column gaps: the prefix over this lane's columns, then the warp's
     int rl[kCPL];
-    int run = LOW;
-#pragma unroll
-    for (int j = 0; j < kCPL; ++j) {
-      run = __viaddmax_s32(P[j], gadd[j], run);
-      rl[j] = run;
-    }
-    int tot = run;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1)
-      tot = max(tot, __shfl_up_sync(FULL, tot, off));  // a lane below off reads itself
-    int excl = __shfl_up_sync(FULL, tot, 1);
-    if (lane == 0) excl = LOW;
-    // the prefix two columns back of this lane's first column
-    int pre_m2 = __shfl_up_sync(FULL, max(rl[kCPL - 2], excl), 1);
-
-    // row gaps: running per-column max over rows <= row - 2
-    const int add = GEP * (row - 2);
-#pragma unroll
-    for (int j = 0; j < kCPL; ++j) rbest[j] = __viaddmax_s32(Q[j], add, rbest[j]);
+    int excl, pre_m2;
+    const int tot = warp_prefix(gap_prefix(P, gadd, rl), rl, lane, excl, pre_m2);
+    row_gaps(Q, row, rbest);
 
     // previous lane's last column for the shifted reads; band column 0 has
     // no neighbours: its base is the restart value itself
@@ -412,9 +375,33 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dp_band_kernel(Args a) {
       rb_m1 = HIM;
       pv_m1 = start_new;
     }
+    if constexpr (G > 1) {
+      // the row's earlier warps: the max of their totals, and lane 0's left
+      // neighbour, the last column of the warp before
+      int4* xs = sh.xch[row & 1] + (warp - g);  // this row's warps' slots
+      if (lane == 31)
+        xs[g] = make_int4(tot, max(rl[kCPL - 2], excl), rbest[kCPL - 1], P[kCPL - 1]);
+      row_bar(bar_id, 32 * G);
+      int before = LOW, before_prev = LOW;
+#pragma unroll
+      for (int v = 0; v < G - 1; ++v) {
+        if (v < g) {
+          before_prev = before;
+          before = max(before, xs[v].x);
+        }
+      }
+      excl = max(excl, before);
+      pre_m2 = max(pre_m2, before);
+      if (lane == 0 && g != 0) {
+        const int4 p = xs[g - 1];
+        pre_m2 = max(before_prev, p.y);
+        rb_m1 = p.z;
+        pv_m1 = p.w;
+      }
+    }
 
     // The cells, in one straight-line variant per kind of row (0: no -h
-    // candidate, 1: hp_col, 2: hp_row), picked by a warp-uniform branch.
+    // candidate, 1: hp_col, 2: hp_row), picked by a row-uniform branch.
     // The -h arrays come in as a parameter, so that the plain
     // instantiation, which has none, does not look their members up.
     auto cells = [&](auto kind, auto& hs) {
@@ -423,28 +410,22 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dp_band_kernel(Args a) {
       for (int j = 0; j < kCPL; ++j) {
         // gap_col = prefix[c - 2] - (GOP + GEP * (c - 1))
         const int pre = j >= 2 ? max(rl[j - 2], excl) : (j == 1 ? excl : pre_m2);
-        const int diag = j >= 1 ? P[j - 1] : pv_m1;
-        int base = __viaddmax_s32(pre, ncost[j], diag);
-        base = __viaddmax_s32(j >= 1 ? rbest[j - 1] : rb_m1, neg_grow, base);
+        int base = cell_base(pre, ncost[j], j >= 1 ? P[j - 1] : pv_m1,
+                             j >= 1 ? rbest[j - 1] : rb_m1, neg_grow);
         if constexpr (kHp && kKind != 0) {
           const bool takes = hit[j >> 2] & (0x80u << (8 * (j & 3)));
           int cand;
           if constexpr (kKind == 1) {
-            const int src = *(const int32_t*)((const char*)hs.row[warp] +
-                                              hs.hsrc[warp][j * 32 + lane]);
-            cand = src + hs.hneg[warp][j * 32 + lane] + neg_pen;
+            const int src = *(const int32_t*)((const char*)(hs.row + rbase) +
+                                              hs.hsrc[wbase + j * 32 + lane]);
+            cand = src + hs.hneg[wbase + j * 32 + lane] + neg_pen;
           } else {
-            // the column to the left; band column 0 takes none: lane 0
-            // reads some column of its own instead
-            cand = hs.row[warp][j >= 1 ? (j - 1) * 32 + lane
-                                       : (kCPL - 1) * 32 + lane - (lane != 0)] + neg_pen;
+            // the column to the left
+            cand = hs.row[wbase + (j >= 1 ? (j - 1) * 32 + lane : left0)] + neg_pen;
           }
           base = max(base, takes ? cand : HIM);
         }
-        const int2 cell = *(const int2*)(trow + woff[j]);
-        bool keeps;  // base >= start_new: no restart
-        const int m = __vibmax_s32(base, start_new, &keeps);
-        Q[j] = m + (keeps ? cell.x : cell.y);
+        Q[j] = cell_value(base, start_new, trow, woff[j]);
       }
     };
     if constexpr (kHp) {
@@ -474,26 +455,17 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dp_band_kernel(Args a) {
   }
 
   // ---- the best value and its first window column --------------------------
-  // A closed column ranks as (HIM, column 0): with no open column the answer
-  // is the whole window's, (HIM, 0); an open one is always above HIM.
-  int bv = INT32_MIN, bc = 0;
-#pragma unroll
-  for (int j = 0; j < kCPL; ++j) {
-    const bool open = (mbits >> j) & 1u;
-    const int v = open ? prev[j] : HIM;
-    const int c = open ? (-ncost[j] - GOP) / GEP + 1 : 0;
-    if (v > bv || (v == bv && c < bc)) {
-      bv = v;
-      bc = c;
-    }
-  }
-#pragma unroll
-  for (int off = 16; off >= 1; off >>= 1) {
-    const int ov = __shfl_xor_sync(FULL, bv, off);
-    const int oc = __shfl_xor_sync(FULL, bc, off);
-    if (ov > bv || (ov == bv && oc < bc)) {
-      bv = ov;
-      bc = oc;
+  int bv, bc;
+  lane_best(prev, mbits, ncost, bv, bc);
+  warp_best(bv, bc);
+  if constexpr (G > 1) {
+    // the row's warps in order: a later warp's columns are later
+    if (lane == 0) sh.amax[warp] = make_int2(bv, bc);
+    row_bar(bar_id, 32 * G);
+    if (g != 0) return;
+    for (int v = 1; v < G; ++v) {
+      const int2 o = sh.amax[warp + v];
+      take_better(o.x, o.y, bv, bc);
     }
   }
   if (lane == 0) {
@@ -502,11 +474,69 @@ __global__ void __launch_bounds__(kWarps * 32, 2) dp_band_kernel(Args a) {
   }
 }
 
+// Rows of G > 1 warps, out of line: their exchange keeps a few more values
+// live across the row loop, and inlined beside the one-warp body it raised
+// that body's register pressure and its instructions a DP row (ptxas
+// allocates each function apart; the kernel's limit of 128 holds for all).
+// The arguments come by value, so that the kernel's stay in the constant
+// bank for the one-warp body.
+template <bool kHp, int G>
+__device__ __noinline__ void band_row_warps(const Args a, const int warp, const int lane,
+                                            const int e, const int g) {
+  band_row<kHp, G>(a, warp, lane, e, g);
+}
+
+// Blocks of rows of class c (G = 2^c warps a row, 8 / G rows a block).
+__host__ __device__ inline int class_blocks(int rows, int c) {
+  const int per = kWarps >> c;
+  return (rows + per - 1) / per;
+}
+
+template <bool kHp>
+__global__ void __launch_bounds__(kWarps * 32, 2) dp_band_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char band_smem[];
+  Shared<kHp>& sh = *reinterpret_cast<Shared<kHp>*>(band_smem);
+  fill_table(sh.tab, a.submat, threadIdx.x, blockDim.x);
+  if constexpr (kHp) {
+    for (int i = threadIdx.x; i < 256; i += blockDim.x) sh.ht.b2i[i] = a.b2i[i];
+    if (threadIdx.x < kPengop) sh.ht.pengop[threadIdx.x] = a.pengop[threadIdx.x];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  // this block's class and its first row: the classes' blocks in order
+  int blk = blockIdx.x, first = 0, c = 0;
+  for (; c < kClasses; ++c) {
+    const int nb = class_blocks(a.n[c], c);
+    if (blk < nb) break;
+    blk -= nb;
+    first += a.n[c];
+  }
+  if (c == kClasses) return;
+  const int e = first + blk * (kWarps >> c) + (warp >> c);
+  // the row's warps leave together; no block barrier follows
+  if (e >= first + a.n[c]) return;
+  const int g = warp & ((1 << c) - 1);
+  switch (c) {
+    case 0: band_row<kHp, 1>(a, warp, lane, e, g); break;
+    case 1: band_row_warps<kHp, 2>(a, warp, lane, e, g); break;
+    case 2: band_row_warps<kHp, 4>(a, warp, lane, e, g); break;
+    default: band_row_warps<kHp, 8>(a, warp, lane, e, g); break;
+  }
+}
+
 template <bool kHp>
 int launch(const Args& a, void* stream) {
-  if (a.B <= 0) return 0;
-  if (a.L < 1 || a.L > kLMax || a.ldo < a.B) return (int)cudaErrorInvalidValue;
-  dp_band_kernel<kHp><<<(a.B + kWarps - 1) / kWarps, kWarps * 32, 0, (cudaStream_t)stream>>>(a);
+  int rows = 0, blocks = 0;
+  for (int c = 0; c < kClasses; ++c) {
+    if (a.n[c] < 0) return (int)cudaErrorInvalidValue;
+    rows += a.n[c];
+    blocks += class_blocks(a.n[c], c);
+  }
+  if (rows <= 0) return 0;
+  if (a.L < 1 || a.L > kLMax || a.ldo < rows) return (int)cudaErrorInvalidValue;
+  dp_band_kernel<kHp><<<blocks, kWarps * 32, sizeof(Shared<kHp>), (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -518,57 +548,62 @@ int fill(const int32_t* c, int count, int32_t* out, int n) {
 }  // namespace
 
 // (best, first window column of the best) of each row's last -h DP row, its
-// band columns scored only: out[b] and out[ldo + b] (ldo >= B), int32.
-// refs [2, wtot] int8 codes, refchr [2, wtot] uint8 chars, hpcs [2, wtot]
-// int32 run starts (the scorer's state); strand [B] int8, win_lo [B] int32,
-// ivl [B, 16, 2] int32 window-local intervals (0 <= lo, hi <= 17,408),
-// s2chr [B, L] uint8 read chars (pad 0), lengths [B] int32; submat
-// [31, 5, 5] int32, pengop [11] int32, b2i [256] int8.  L at most 256.
+// band columns scored only: out[b] and out[ldo + b] (ldo >= B, B = n1 + n2
+// + n4 + n8), int32.  The rows come ordered by the warps each takes: n1 on
+// one warp (band columns at most 384), then n2 on two (768), n4 on four
+// (1,536), n8 on eight (3,072).  refs [2, wtot] int8 codes, refchr [2, wtot]
+// uint8 chars, hpcs [2, wtot] int32 run starts (the scorer's state); strand
+// [B] int8, win_lo [B] int32, ivl [B, 16, 2] int32 window-local intervals
+// (0 <= lo, hi <= 17,408), s2chr [B, L] uint8 read chars (pad 0), lengths
+// [B] int32; submat [31, 5, 5] int32, pengop [11] int32, b2i [256] int8.  L
+// at most 256.
 extern "C" int mia_dp_band_hp(const void* refs, const void* refchr, const void* hpcs,
                               int wtot, const void* strand, const void* win_lo,
                               const void* ivl, const void* s2chr, const void* lengths,
                               const void* submat, const void* pengop, const void* b2i,
-                              int B, int L, void* out, int ldo, void* stream) {
+                              int n1, int n2, int n4, int n8, int L, void* out, int ldo,
+                              void* stream) {
   const Args a{(const int8_t*)refs,     (const uint8_t*)refchr, (const int32_t*)hpcs,
                wtot,                    (const int8_t*)strand,  (const int32_t*)win_lo,
                (const int32_t*)ivl,     (const uint8_t*)s2chr,  L,
                (const int32_t*)lengths, (const int32_t*)submat, (const int32_t*)pengop,
-               (const int8_t*)b2i,      B,                      (int32_t*)out,
+               (const int8_t*)b2i,      {n1, n2, n4, n8},       (int32_t*)out,
                ldo,                     nullptr};
   return launch<true>(a, stream);
 }
 
 // The same without -h: (best, first window column of the best) of each
 // row's last DP row (sg5 on, the one PSSM submat for every row), its band
-// columns scored only.  refs [2, wtot] int8 codes; strand [B] int8, win_lo
-// [B] int32, ivl [B, 16, 2] int32 window-local intervals, s2c [B, L] int32
-// read codes (pad 4), lengths [B] int32; submat [31, 5, 5] int32.  L at
-// most 256.
+// columns scored only, the rows ordered by warps as above.  refs [2, wtot]
+// int8 codes; strand [B] int8, win_lo [B] int32, ivl [B, 16, 2] int32
+// window-local intervals, s2c [B, L] int32 read codes (pad 4), lengths [B]
+// int32; submat [31, 5, 5] int32.  L at most 256.
 extern "C" int mia_dp_band(const void* refs, int wtot, const void* strand,
                            const void* win_lo, const void* ivl, const void* s2c,
-                           const void* lengths, const void* submat, int B, int L,
-                           void* out, int ldo, void* stream) {
+                           const void* lengths, const void* submat, int n1, int n2, int n4,
+                           int n8, int L, void* out, int ldo, void* stream) {
   const Args a{(const int8_t*)refs,     nullptr,                nullptr,
                wtot,                    (const int8_t*)strand,  (const int32_t*)win_lo,
                (const int32_t*)ivl,     nullptr,                L,
                (const int32_t*)lengths, (const int32_t*)submat, nullptr,
-               nullptr,                 B,                      (int32_t*)out,
+               nullptr,                 {n1, n2, n4, n8},       (int32_t*)out,
                ldo,                     (const int32_t*)s2c};
   return launch<false>(a, stream);
 }
 
 // The compile-time constants of the -h form, in this order: band columns a
-// row, intervals a row, read rows, PSSM depth slots, GOP, GEP, HIM, LOW, -h
-// row reach, -h discount slots.  Fills at most n values of out; returns how
-// many there are.
+// warp, intervals a row, read rows, PSSM depth slots, GOP, GEP, HIM, LOW, -h
+// row reach, -h discount slots, band columns a row at most.  Fills at most n
+// values of out; returns how many there are.
 extern "C" int mia_dp_band_hp_constants(int32_t* out, int n) {
-  const int32_t c[] = {kBand, kK, kLMax, kDepth, GOP, GEP, HIM, LOW, kHpw, kPengop};
+  const int32_t c[] = {kBand, kK, kLMax, kDepth, GOP, GEP, HIM, LOW, kHpw, kPengop, kRowBand};
   return fill(c, (int)(sizeof(c) / sizeof(c[0])), out, n);
 }
 
-// The same for the plain form: band columns a row, intervals a row, read
-// rows, PSSM depth slots, PSSM depth, GOP, GEP, HIM, LOW.
+// The same for the plain form: band columns a warp, intervals a row, read
+// rows, PSSM depth slots, PSSM depth, GOP, GEP, HIM, LOW, band columns a row
+// at most.
 extern "C" int mia_dp_band_constants(int32_t* out, int n) {
-  const int32_t c[] = {kBand, kK, kLMax, kDepth, kPssmDepth, GOP, GEP, HIM, LOW};
+  const int32_t c[] = {kBand, kK, kLMax, kDepth, kPssmDepth, GOP, GEP, HIM, LOW, kRowBand};
   return fill(c, (int)(sizeof(c) / sizeof(c[0])), out, n);
 }

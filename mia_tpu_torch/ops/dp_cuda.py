@@ -27,23 +27,28 @@ out, is ``dp_last_row`` (``csrc/dp_last_row.cu``, at the end of this module):
 one block per read, 34 columns a thread in registers, one barrier a row, for
 rows of up to 17,408 columns; wider rows take the same file's wide form.
 ``dp_last_row_strand`` and, under ``-h``, ``dp_last_row_hp`` score pass
-1's WIDE reads in two forms each, each row's window read from the scorer's
+1's WIDE reads in several forms, each row's window read from the scorer's
 strand state, (best, first column of the best) out: the band form
-(``csrc/dp_band.cu``, a warp a row) for rows whose band takes at most 384
-columns (``entries.BAND_COLS``), on those columns only, and the full form
-for the rest, at their widest window: ``dp_last_row`` and an argmax, under
-``-h`` the ``-h`` instantiation of ``dp_last_row``'s register form, up to
-17,408 columns (wider ones stay with the native solve,
-``entries.HP_WIDE_COLS``).
+(``csrc/dp_band.cu``, 1, 2, 4 or 8 warps a row) for rows whose band takes
+at most 3,072 columns (``entries.BAND_ROW_COLS``), on those columns only;
+without ``-h`` the strand form (``csrc/dp_strand.cu``, a cluster of CTAs a
+row) for bands of up to 18,432 columns (``entries.STRAND_COLS``: whole
+strands); and the full form for the rest, at their widest window:
+``dp_last_row`` and an argmax, under ``-h`` the ``-h`` instantiation of
+``dp_last_row``'s register form, up to 17,408 columns (wider ones stay with
+the native solve, ``entries.HP_WIDE_COLS``).
 ``kernel_launches`` / ``plain_calls``, ``hp_kernel_launches`` /
 ``hp_plain_calls``, ``last_row_launches`` / ``last_row_plain_calls``,
 ``last_row_band_launches`` / ``last_row_band_plain_calls``,
+``last_row_strand_launches`` / ``last_row_strand_plain_calls``,
 ``last_row_hp_launches`` / ``last_row_hp_plain_calls`` (the ``-h`` full
 form) and ``last_row_hp_band_launches`` / ``last_row_hp_band_plain_calls``
 count the two routes of each (``last_row_wide_launches``: the launches of
-the wide form among them; ``last_row_rows`` / ``last_row_band_rows`` and
-``last_row_hp_rows`` / ``last_row_hp_band_rows``: the wide rows each form
-took); ``shards`` is the largest
+the wide form among them; ``last_row_rows`` / ``last_row_band_rows`` /
+``last_row_strand_rows`` and ``last_row_hp_rows`` /
+``last_row_hp_band_rows``: the wide rows each form took;
+``last_row_band_multi_rows`` / ``last_row_hp_band_multi_rows``: the band
+rows on more than one warp); ``shards`` is the largest
 number of device shards one dispatch of the scorer was dealt over
 (``core.torch_engine.Pass1Scorer``, 1 on a single device).  Both kernels share one
 library (``torchcfg.kernel_library``) with the consensus column counts
@@ -56,7 +61,7 @@ import contextlib
 
 import torch
 
-from ..core.entries import HP_WIDE_COLS, L_MAX, MAX_INTERVALS
+from ..core.entries import BAND_WARPS, HP_WIDE_COLS, L_MAX, MAX_INTERVALS
 
 from .dp_torch import (
     batch_best_and_aec,
@@ -67,6 +72,7 @@ from .dp_torch import (
     last_row_band_plain,
     last_row_hp_band_plain,
     last_row_hp_plain,
+    last_row_strand_plain,
     wide_device_inputs,
 )
 
@@ -82,12 +88,17 @@ last_row_rows = 0
 last_row_band_launches = 0
 last_row_band_plain_calls = 0
 last_row_band_rows = 0
+last_row_band_multi_rows = 0
+last_row_strand_launches = 0
+last_row_strand_plain_calls = 0
+last_row_strand_rows = 0
 last_row_hp_launches = 0
 last_row_hp_plain_calls = 0
 last_row_hp_rows = 0
 last_row_hp_band_launches = 0
 last_row_hp_band_plain_calls = 0
 last_row_hp_band_rows = 0
+last_row_hp_band_multi_rows = 0
 
 
 def reset_counts() -> None:
@@ -96,6 +107,8 @@ def reset_counts() -> None:
     global last_row_rows, last_row_band_launches, last_row_band_plain_calls, last_row_band_rows
     global last_row_hp_launches, last_row_hp_plain_calls, last_row_hp_rows
     global last_row_hp_band_launches, last_row_hp_band_plain_calls, last_row_hp_band_rows
+    global last_row_band_multi_rows, last_row_hp_band_multi_rows
+    global last_row_strand_launches, last_row_strand_plain_calls, last_row_strand_rows
     kernel_launches = 0
     plain_calls = 0
     hp_kernel_launches = 0
@@ -114,6 +127,11 @@ def reset_counts() -> None:
     last_row_hp_band_launches = 0
     last_row_hp_band_plain_calls = 0
     last_row_hp_band_rows = 0
+    last_row_band_multi_rows = 0
+    last_row_hp_band_multi_rows = 0
+    last_row_strand_launches = 0
+    last_row_strand_plain_calls = 0
+    last_row_strand_rows = 0
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -160,20 +178,25 @@ def _check_entries(refs, sms, ref_sel, starts, ivl, s2x, s2x_dtype, lengths, smi
     return dev, E, L
 
 
-def _launch(name: str, dev: torch.device, E: int, call) -> torch.Tensor:
-    """Allocate the [2, E] result on ``dev`` and launch the kernel by
-    ``call(library, result pointer, stream)`` on the current stream; raise
-    on a refused launch."""
+def _launch_into(name: str, out: torch.Tensor, call) -> None:
+    """Launch a kernel that writes its pairs into ``out`` by ``call(library,
+    stream)`` on the current stream of ``out``'s device; raise on a refused
+    launch."""
     from ..utils.torchcfg import kernel_library
 
     lib = kernel_library()
-    out = torch.empty((2, E), dtype=torch.int32, device=dev)
-    if E == 0:
-        return out
-    with current_device(dev):
-        rc = call(lib, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    with current_device(out.device):
+        rc = call(lib, torch.cuda.current_stream(out.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _launch(name: str, dev: torch.device, E: int, call) -> torch.Tensor:
+    """Allocate the [2, E] result on ``dev`` and launch the kernel by
+    ``call(library, result pointer, stream)`` (:func:`_launch_into`)."""
+    out = torch.empty((2, E), dtype=torch.int32, device=dev)
+    if E:
+        _launch_into(name, out, lambda lib, stream: call(lib, out.data_ptr(), stream))
     return out
 
 
@@ -230,6 +253,14 @@ def dp_entries_hp(refs, refchr, hpcs, sms, pengop, b2i, ref_sel, starts, ivl, s2
 
 
 # ---- the general-width last-row scorer (csrc/dp_last_row.cu) ----
+
+# The strand form (csrc/dp_strand.cu) runs a row on a cluster of
+# STRAND_CTAS CTAs of STRAND_THREADS threads, STRAND_COLS_PER_THREAD band
+# columns each (entries.STRAND_COLS in all; compile-time constants, checked
+# by the loader)
+STRAND_CTAS = 16
+STRAND_THREADS = 2048 // STRAND_CTAS
+STRAND_COLS_PER_THREAD = 9
 
 # The register form holds LAST_ROW_COLS columns a thread and LAST_ROW_THREADS
 # threads a block; wider rows go to the wide form, which may ask for
@@ -321,8 +352,40 @@ def dp_last_row(s1c, mask, s2c, lengths, depths, submat, sg5: bool = True) -> to
     return _last_row(s1c, mask, s2c, lengths, depths, submat, sg5)
 
 
+def _band_classes(band_classes, n_band: int) -> tuple[int, int, int, int]:
+    """The band rows of each warp class (1, 2, 4, 8 warps a row), checked
+    against ``n_band``; empty: every band row on one warp."""
+    classes = tuple(int(c) for c in band_classes) or (n_band,)
+    classes = classes + (0,) * (len(BAND_WARPS) - len(classes))
+    if len(classes) != len(BAND_WARPS) or min(classes) < 0 or sum(classes) != n_band:
+        raise ValueError(f"band_classes {band_classes}, want {len(BAND_WARPS)} counts "
+                         f"summing to n_band {n_band}")
+    return classes
+
+
+def _check_rows(state: tuple, rows: tuple, reads: tuple[str, torch.dtype]) -> None:
+    """The scorer's state ((name, tensor, dtype, shape) each) and the rows'
+    five arrays of a scorer of wide rows, the reads named and typed by
+    ``reads``: shapes, types, one device, L in range."""
+    dev = state[0][1].device
+    strand, win_lo, ivl, s2x, lengths = rows
+    R, L = s2x.shape
+    for what, t, dtype, shape in (
+            *state,
+            ("strand", strand, torch.int8, (R,)), ("win_lo", win_lo, torch.int32, (R,)),
+            ("ivl", ivl, torch.int32, (R, MAX_INTERVALS, 2)),
+            (reads[0], s2x, reads[1], (R, L)),
+            ("lengths", lengths, torch.int32, (R,))):
+        check_tensor(what, t, dtype, shape, dev)
+    if not 1 <= L <= L_MAX:
+        raise ValueError(f"reads: {L} rows, want 1..{L_MAX}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {dev}")
+
+
 def dp_last_row_strand(refs, submat, strand, win_lo, ivl, s2c, lengths, width: int,
-                       n_band: int = 0) -> torch.Tensor:
+                       n_band: int = 0, band_classes: tuple = (),
+                       n_strand: int = 0) -> torch.Tensor:
     """Scoring of rows of a whole strand window: (best, first column of the
     best) of each row's last DP row as [2, R] int32 in row order, the column
     window-local; what ``dp_jax.batch_last_row`` (sg5 on) and
@@ -332,61 +395,89 @@ def dp_last_row_strand(refs, submat, strand, win_lo, ivl, s2c, lengths, width: i
     per row strand [R] int8, win_lo [R] int32 (0 <= win_lo <= WTOT), ivl
     [R, 16, 2] int32 window-local intervals, s2c [R, L] int32 read codes
     (pad 4, L <= 256), lengths [R] int32; all on one device, contiguous.
-    The first ``n_band`` rows take the band form, which scores a row's band
-    columns only (``entries.band_columns`` at most ``entries.BAND_COLS``; a
-    row past that gives (HIM, -1)); the rest take the full form over their
-    first ``width`` window columns (hi <= width): :func:`dp_last_row` on
-    their windows and :func:`.dp_torch.batch_best_and_aec`.  CPU tensors go
-    to the plain versions (:func:`.dp_torch.last_row_band_plain`,
-    :func:`.dp_torch.batch_last_row`), CUDA tensors to the kernels
-    (``csrc/dp_band.cu``, ``csrc/dp_last_row.cu``), or the call raises."""
+    Three forms, each on its rows, in order:
+
+    * the first ``n_band`` rows take the band form, which scores a row's
+      band columns only (``entries.band_columns`` at most
+      ``entries.BAND_ROW_COLS``; a row past that gives (HIM, -1)),
+      ``band_classes`` of them on 1, 2, 4 and 8 warps a row, in that order
+      (``entries.band_warps``; empty: all on one warp);
+    * the next ``n_strand`` take the strand form, a cluster of CTAs a row,
+      over band columns too (at most ``entries.STRAND_COLS``; past it
+      (HIM, -1));
+    * the rest take the full form over their first ``width`` window columns
+      (hi <= width): :func:`dp_last_row` on their windows and
+      :func:`.dp_torch.batch_best_and_aec`.
+
+    CPU tensors go to the plain versions
+    (:func:`.dp_torch.last_row_band_plain`,
+    :func:`.dp_torch.last_row_strand_plain`, :func:`.dp_torch.batch_last_row`),
+    CUDA tensors to the kernels (``csrc/dp_band.cu``, ``csrc/dp_strand.cu``,
+    ``csrc/dp_last_row.cu``), or the call raises.  Without full rows no
+    torch operation runs on the card: the two kernels write their pairs
+    into the one result."""
     global last_row_rows, last_row_band_launches, last_row_band_plain_calls
-    global last_row_band_rows
+    global last_row_band_rows, last_row_band_multi_rows
+    global last_row_strand_launches, last_row_strand_plain_calls, last_row_strand_rows
     dev = refs.device
     R, L = s2c.shape
-    for name, t, dtype, shape in (
-            ("refs", refs, torch.int8, (2, refs.shape[1])),
-            ("submat", submat, torch.int32, (31, 5, 5)),
-            ("strand", strand, torch.int8, (R,)), ("win_lo", win_lo, torch.int32, (R,)),
-            ("ivl", ivl, torch.int32, (R, MAX_INTERVALS, 2)),
-            ("s2c", s2c, torch.int32, (R, L)), ("lengths", lengths, torch.int32, (R,))):
-        check_tensor(name, t, dtype, shape, dev)
-    if not 1 <= L <= L_MAX:
-        raise ValueError(f"reads: {L} rows, want 1..{L_MAX}")
-    if not 0 <= n_band <= R:
-        raise ValueError(f"n_band {n_band}, want 0..{R}")
-    if n_band < R and width < 1:
+    rows = (strand, win_lo, ivl, s2c, lengths)
+    _check_rows((("refs", refs, torch.int8, (2, refs.shape[1])),
+                 ("submat", submat, torch.int32, (31, 5, 5))), rows, ("s2c", torch.int32))
+    if not (0 <= n_band and 0 <= n_strand and n_band + n_strand <= R):
+        raise ValueError(f"n_band {n_band}, n_strand {n_strand}, want both in 0..{R} "
+                         "together")
+    classes = _band_classes(band_classes, n_band)
+    n_full = R - n_band - n_strand
+    if n_full and width < 1:
         raise ValueError(f"width {width}, want at least 1")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"dp_last_row_strand: no kernel for device {dev}")
-    band = (strand[:n_band], win_lo[:n_band], ivl[:n_band], s2c[:n_band], lengths[:n_band])
+    band, strd, full = (tuple(a[lo:hi] for a in rows) for lo, hi in (
+        (0, n_band), (n_band, n_band + n_strand), (n_band + n_strand, R)))
     last_row_band_rows += n_band
-    last_row_rows += R - n_band
-    rest = torch.empty((2, 0), dtype=torch.int32, device=dev)
-    if n_band < R:
-        f_strand, f_win_lo, f_ivl, f_s2c, f_lengths = (
-            a[n_band:] for a in (strand, win_lo, ivl, s2c, lengths))
-        s1c, mask = wide_device_inputs(refs, width, f_strand, f_win_lo, f_ivl)
-        depths = depths_for(f_lengths, L).to(torch.int32)
+    last_row_band_multi_rows += n_band - classes[0]
+    last_row_strand_rows += n_strand
+    last_row_rows += n_full
+    rest = None
+    if n_full:
+        s1c, mask = wide_device_inputs(refs, width, *full[:3])
+        depths = depths_for(full[4], L).to(torch.int32)
         rest = torch.stack(batch_best_and_aec(
-            dp_last_row(s1c, mask, f_s2c, f_lengths, depths, submat)))
-    if not n_band:
-        return rest
+            dp_last_row(s1c, mask, full[3], full[4], depths, submat)))
     if dev.type == "cpu":
-        last_row_band_plain_calls += 1
-        return torch.cat([last_row_band_plain(refs, submat, *band), rest], 1)
-    # the band form writes its pairs into the first n_band columns of the
-    # [2, R] result, whose rows are R apart
-    out = _launch("dp_last_row_strand", dev, R, lambda lib, o, stream: lib.mia_dp_band(
-        refs.data_ptr(), refs.shape[1], *(t.data_ptr() for t in band), submat.data_ptr(),
-        n_band, L, o, R, stream))
-    last_row_band_launches += 1
-    out[:, n_band:] = rest
+        parts = [torch.empty((2, 0), dtype=torch.int32)]
+        if n_band:
+            last_row_band_plain_calls += 1
+            parts.append(last_row_band_plain(refs, submat, *band))
+        if n_strand:
+            last_row_strand_plain_calls += 1
+            parts.append(last_row_strand_plain(refs, submat, *strd))
+        if rest is not None:
+            parts.append(rest)
+        return torch.cat(parts, 1)
+    if not n_band and not n_strand:
+        return rest
+    # each form writes its pairs into its columns of the [2, R] result,
+    # whose rows are R apart
+    out = torch.empty((2, R), dtype=torch.int32, device=dev)
+    head = (refs.data_ptr(), refs.shape[1])
+    if n_band:
+        _launch_into("dp_band", out, lambda lib, stream: lib.mia_dp_band(
+            *head, *(t.data_ptr() for t in band), submat.data_ptr(), *classes, L,
+            out.data_ptr(), R, stream))
+        last_row_band_launches += 1
+    if n_strand:
+        _launch_into("dp_strand", out, lambda lib, stream: lib.mia_dp_strand(
+            *head, *(t.data_ptr() for t in strd), submat.data_ptr(), n_strand, L,
+            out.data_ptr() + 4 * n_band, R, stream))
+        last_row_strand_launches += 1
+    if rest is not None:
+        out[:, n_band + n_strand:] = rest
     return out
 
 
 def dp_last_row_hp(refs, refchr, hpcs, submat, pengop, b2i, strand, win_lo, ivl, s2chr,
-                   lengths, width: int, n_band: int = 0) -> torch.Tensor:
+                   lengths, width: int, n_band: int = 0,
+                   band_classes: tuple = ()) -> torch.Tensor:
     """``-h`` scoring of rows of a whole strand window: (best, first column
     of the best) of each row's last DP row as [2, R] int32 in row order, the
     column window-local; what ``dp_jax.batch_last_row_hp`` and an argmax
@@ -399,39 +490,37 @@ def dp_last_row_hp(refs, refchr, hpcs, submat, pengop, b2i, strand, win_lo, ivl,
     lo, hi <= 17,408), s2chr [R, L] uint8 read chars (pad 0, L <= 256),
     lengths [R] int32; all on one device, contiguous.  The first ``n_band``
     rows take the band form, which scores a row's band columns only
-    (``entries.band_columns`` at most ``entries.BAND_COLS``; a row past
-    that gives (HIM, -1)); the rest take the full form over their first
-    ``width`` window columns (1..17,408; hi <= width).  CPU tensors go to
-    the plain versions (:func:`.dp_torch.last_row_hp_band_plain`,
+    (``entries.band_columns`` at most ``entries.BAND_ROW_COLS``; a row past
+    that gives (HIM, -1)), ``band_classes`` of them on 1, 2, 4 and 8 warps
+    a row, in that order (empty: all on one warp); the rest take the full
+    form over their first ``width`` window columns (1..17,408; hi <=
+    width).  CPU tensors go to the plain versions
+    (:func:`.dp_torch.last_row_hp_band_plain`,
     :func:`.dp_torch.last_row_hp_plain`), CUDA tensors to the kernels
     (``csrc/dp_band.cu``'s ``-h`` instantiation, the kHp form of
     ``csrc/dp_last_row.cu``), or the call raises."""
     global last_row_hp_launches, last_row_hp_plain_calls, last_row_hp_rows
     global last_row_hp_band_launches, last_row_hp_band_plain_calls, last_row_hp_band_rows
+    global last_row_hp_band_multi_rows
     dev = refs.device
     R, L = s2chr.shape
     state = tuple(refs.shape)
-    for name, t, dtype, shape in (
-            ("refs", refs, torch.int8, (2, refs.shape[1])),
-            ("refchr", refchr, torch.uint8, state), ("hpcs", hpcs, torch.int32, state),
-            ("submat", submat, torch.int32, (31, 5, 5)),
-            ("pengop", pengop, torch.int32, (11,)), ("b2i", b2i, torch.int8, (256,)),
-            ("strand", strand, torch.int8, (R,)), ("win_lo", win_lo, torch.int32, (R,)),
-            ("ivl", ivl, torch.int32, (R, MAX_INTERVALS, 2)),
-            ("s2chr", s2chr, torch.uint8, (R, L)), ("lengths", lengths, torch.int32, (R,))):
-        check_tensor(name, t, dtype, shape, dev)
-    if not 1 <= L <= L_MAX:
-        raise ValueError(f"reads: {L} rows, want 1..{L_MAX}")
+    rows = (strand, win_lo, ivl, s2chr, lengths)
+    _check_rows((("refs", refs, torch.int8, (2, refs.shape[1])),
+                 ("refchr", refchr, torch.uint8, state), ("hpcs", hpcs, torch.int32, state),
+                 ("submat", submat, torch.int32, (31, 5, 5)),
+                 ("pengop", pengop, torch.int32, (11,)), ("b2i", b2i, torch.int8, (256,))),
+                rows, ("s2chr", torch.uint8))
     if not 0 <= n_band <= R:
         raise ValueError(f"n_band {n_band}, want 0..{R}")
+    classes = _band_classes(band_classes, n_band)
     if n_band < R and not 1 <= width <= HP_WIDE_COLS:
         raise ValueError(f"width {width}, want 1..{HP_WIDE_COLS}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"dp_last_row_hp: no kernel for device {dev}")
     state = (refs, refchr, hpcs, submat, pengop, b2i)
-    band = (strand[:n_band], win_lo[:n_band], ivl[:n_band], s2chr[:n_band], lengths[:n_band])
-    full = (strand[n_band:], win_lo[n_band:], ivl[n_band:], s2chr[n_band:], lengths[n_band:])
+    band = tuple(a[:n_band] for a in rows)
+    full = tuple(a[n_band:] for a in rows)
     last_row_hp_band_rows += n_band
+    last_row_hp_band_multi_rows += n_band - classes[0]
     last_row_hp_rows += R - n_band
     if dev.type == "cpu":
         parts = [torch.empty((2, 0), dtype=torch.int32)]
@@ -444,20 +533,24 @@ def dp_last_row_hp(refs, refchr, hpcs, submat, pengop, b2i, strand, win_lo, ivl,
         return torch.cat(parts, 1)
     head = [t.data_ptr() for t in (refs, refchr, hpcs)] + [refs.shape[1]]
     tail = [t.data_ptr() for t in (submat, pengop, b2i)]
-    rest = None
+    out = torch.empty((2, R), dtype=torch.int32, device=dev)
     if n_band < R:
-        rest = _launch("dp_last_row_hp", dev, R - n_band,
-                       lambda lib, o, stream: lib.mia_dp_last_row_hp(
-                           *head, *(t.data_ptr() for t in full), *tail, R - n_band, width,
-                           L, o, stream))
+        # the full form writes a [2, R - n_band] result of its own, rows
+        # R - n_band apart
+        rest = out if not n_band else torch.empty((2, R - n_band), dtype=torch.int32,
+                                                  device=dev)
+        _launch_into("dp_last_row_hp", rest, lambda lib, stream: lib.mia_dp_last_row_hp(
+            *head, *(t.data_ptr() for t in full), *tail, R - n_band, width, L,
+            rest.data_ptr(), stream))
         last_row_hp_launches += 1
         if not n_band:
-            return rest
+            return out
     # the band form writes its pairs into the first n_band columns of the
     # [2, R] result, whose rows are R apart
-    out = _launch("dp_last_row_hp", dev, R, lambda lib, o, stream: lib.mia_dp_band_hp(
-        *head, *(t.data_ptr() for t in band), *tail, n_band, L, o, R, stream))
-    last_row_hp_band_launches += int(n_band > 0)
-    if rest is not None:
+    _launch_into("dp_band_hp", out, lambda lib, stream: lib.mia_dp_band_hp(
+        *head, *(t.data_ptr() for t in band), *tail, *classes, L, out.data_ptr(), R,
+        stream))
+    last_row_hp_band_launches += 1
+    if n_band < R:
         out[:, n_band:] = rest
     return out

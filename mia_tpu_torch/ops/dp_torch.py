@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import GEP, GOP, HIM, PSSM_DEPTH
-from ..core.entries import BAND_COLS
+from ..core.entries import BAND_ROW_COLS
 from ..core.entries import HPW_ROUTE as HPW
 from ..core.entries import WIN_W
 
@@ -354,7 +354,7 @@ def band_layout(ivl: torch.Tensor):
     runs (at least 0), in order: every open column's two left neighbours
     are its left neighbours here too.  Columns past a row's n are closed
     and continue its last column by one each; a row with more than
-    ``entries.BAND_COLS`` band columns gets none (all its columns
+    ``entries.BAND_ROW_COLS`` band columns gets none (all its columns
     closed)."""
     iv = ivl.to(torch.int64)
     lo, hi = iv[:, :, 0], iv[:, :, 1]
@@ -367,7 +367,7 @@ def band_layout(ivl: torch.Tensor):
     start = torch.maximum((lo - 2).clamp(min=0), before)
     cnt = torch.where(valid, (hi - start).clamp(min=0), 0)
     n_all = cnt.sum(1)
-    cnt = torch.where((n_all <= BAND_COLS)[:, None], cnt, 0)
+    cnt = torch.where((n_all <= BAND_ROW_COLS)[:, None], cnt, 0)
     n = cnt.sum(1)
     ends = torch.cumsum(cnt, 1)
     R, C = iv.shape[0], max(int(n.max()) if iv.shape[0] else 0, 1)
@@ -398,11 +398,11 @@ def last_row_hp_band_plain(
     columns only (:func:`band_layout`): the same recurrence, its gap costs
     and run starts from the real window columns, the answer mapped back to
     its real column.  A row without an open column gives (HIM, 0), as the
-    full width does; a row whose band takes more than ``entries.BAND_COLS``
+    full width does; a row whose band takes more than ``entries.BAND_ROW_COLS``
     columns gives (HIM, -1).  The plain version of the ``-h`` band form
-    (``csrc/dp_band_hp.cu``, :func:`.dp_cuda.dp_last_row_hp`)."""
+    (``csrc/dp_band.cu``'s ``-h`` instantiation, :func:`.dp_cuda.dp_last_row_hp`)."""
     cols, mask, n = band_layout(ivl)
-    wide = n > BAND_COLS
+    wide = n > BAND_ROW_COLS
     WTOT = refs.shape[1]
     g = win_lo.to(torch.int64)[:, None] + cols
     inside = g < WTOT
@@ -438,11 +438,11 @@ def last_row_band_plain(
     row's DP run on its band columns only (:func:`band_layout`), its gap
     costs from the real window columns and the answer mapped back to its
     real column.  A row without an open column gives (HIM, 0), as the full
-    width does; a row whose band takes more than ``entries.BAND_COLS``
+    width does; a row whose band takes more than ``entries.BAND_ROW_COLS``
     columns gives (HIM, -1).  The plain version of the band form
     (``csrc/dp_band.cu``'s plain instantiation, :func:`.dp_cuda.dp_last_row_strand`)."""
     cols, mask, n = band_layout(ivl)
-    wide = n > BAND_COLS
+    wide = n > BAND_ROW_COLS
     WTOT = refs.shape[1]
     g = win_lo.to(torch.int64)[:, None] + cols
     s1c = torch.where(g < WTOT, refs.reshape(-1)[strand.to(torch.int64)[:, None] * WTOT
@@ -454,6 +454,27 @@ def last_row_band_plain(
     best = torch.where(wide, HIM, best)
     aec = torch.where(wide, -1, aec)
     return torch.stack([best, aec.to(torch.int32)])
+
+
+def last_row_strand_plain(
+    refs: torch.Tensor,     # [2, WTOT] int8 padded strand codes
+    submat: torch.Tensor,   # [31, 5, 5] int32 PSSM
+    strand: torch.Tensor,   # [R] int8 each row's strand
+    win_lo: torch.Tensor,   # [R] int32 global column of the row's column 0
+    ivl: torch.Tensor,      # [R, K, 2] int32 window-local [lo, hi) intervals
+    s2c: torch.Tensor,      # [R, L] int32 read codes (pad 4)
+    lengths: torch.Tensor,  # [R] int32 read lengths
+) -> torch.Tensor:
+    """(best, first window column of the best) of each row's last DP row
+    over its window of its strand, as [2, R] int32: :func:`batch_last_row`
+    (``dp_jax.batch_last_row``, sg5 on) on the rows' windows
+    (:func:`strand_windows`, :func:`interval_mask`) up to their widest
+    interval's end, then :func:`batch_best_and_aec`.  The plain version of
+    the strand form (``csrc/dp_strand.cu``, :func:`.dp_cuda.dp_last_row_strand`)."""
+    width = max(int(ivl[:, :, 1].max()) if ivl.shape[0] else 0, 1)
+    s1c, mask = wide_device_inputs(refs, width, strand, win_lo, ivl)
+    last = batch_last_row(s1c, mask, s2c, lengths, depths_for(lengths, s2c.shape[1]), submat)
+    return torch.stack(batch_best_and_aec(last))
 
 
 def batch_best_and_aec(last_rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -35,7 +35,8 @@ in process.
 ``dp.last_row_launches``, ``dp.last_row_plain_calls``,
 ``dp.last_row_band_launches``, ``dp.last_row_band_plain_calls``,
 ``dp.last_row_rows``, ``dp.last_row_band_rows``,
-``dp.last_row_hp_launches``, ``dp.last_row_hp_plain_calls``,
+``dp.last_row_strand_launches``, ``dp.last_row_strand_plain_calls``,
+``dp.last_row_strand_rows``, ``dp.last_row_hp_launches``, ``dp.last_row_hp_plain_calls``,
 ``dp.last_row_hp_band_launches``, ``dp.last_row_hp_band_plain_calls``,
 ``cons.kernel_launches``, ``cons.plain_calls``): a caller reads them before
 and after a run to see that the card did its work.  ``build`` is
@@ -111,7 +112,8 @@ COUNTERS = ("dp.kernel_launches", "dp.plain_calls", "dp.hp_kernel_launches",
             "dp.hp_plain_calls", "dp.last_row_launches", "dp.last_row_plain_calls",
             "dp.last_row_band_launches", "dp.last_row_band_plain_calls",
             "dp.last_row_rows", "dp.last_row_band_rows",
-            "dp.last_row_hp_launches", "dp.last_row_hp_plain_calls",
+            "dp.last_row_strand_launches", "dp.last_row_strand_plain_calls",
+            "dp.last_row_strand_rows", "dp.last_row_hp_launches", "dp.last_row_hp_plain_calls",
             "dp.last_row_hp_band_launches", "dp.last_row_hp_band_plain_calls",
             "cons.kernel_launches", "cons.plain_calls")
 

@@ -1007,7 +1007,8 @@ HP_BAND_EDGES = (
     "band 384", "band 385", "open 384", "open 385", "at column 0", "at column 1",
     "source in another interval", "source in a closed gap", "touching and overlapping",
     "16 one-column intervals", "gaps of 1 and 2", "empty intervals", "no open column",
-    "past the state", "read of 1", "read of 2",
+    "past the state", "read of 1", "read of 2", "band 768", "band 769", "band 1536",
+    "band 3072", "band 3073", "source in the warp before", "run at a warp's first column",
 )
 
 
@@ -1016,8 +1017,12 @@ def hp_band_inputs(L: int = 48, seed: int = 0, copies: int = 2) -> dict:
     ``width``, the widest row's window) whose rows are the band form's
     edges, :data:`HP_BAND_EDGES` in order, ``copies`` times over on fresh
     reads and strands: band columns (``entries.band_columns``) of exactly
-    384 and 385 (the form's limit) in two runs, open columns of exactly 384
-    and 385 from window column 0 (no closed column before them), a band
+    384 and 385 (one warp's limit), 768 and 769 (two warps'), 1,536, 3,072
+    (the form's limit) and 3,073 in two runs, open columns of exactly 384
+    and 385 from window column 0 (no closed column before them), a reference
+    run at band columns 380 on, so that cells of a row's second warp take
+    their hp_col source from its first, and one at band column 384, so that
+    hp_row's left neighbour lies in the warp before, a band
     from window column 0 and from column 1, a cell whose
     hp_col source (the column before its reference run) lies in another
     interval or in a closed gap between two, touching and overlapping
@@ -1062,12 +1067,23 @@ def hp_band_inputs(L: int = 48, seed: int = 0, copies: int = 2) -> dict:
         starts = [int(x) for x in runs if hpcs[strand[r], x + 5] == x]
         run0 = starts[int(rng.integers(0, len(starts)))]
         run1 = run0 + 1 + int(np.flatnonzero(hpcs[strand[r], run0 + 1:] != run0)[0])
-        lo = run0 - 60
+        run_at = 380 if edge == "source in the warp before" else (
+            384 if edge == "run at a warp's first column" else 60)
+        lo = run0 - run_at
         win_lo[r] = lo
         iv = []
         cut = None  # read: the window columns it is cut from
-        if edge in ("band 384", "band 385"):
-            iv = [(2, 100), (150, 432 if edge == "band 384" else 433)]
+        if edge.startswith("band "):
+            iv = [(2, 100), (150, 48 + int(edge.split()[1]))]
+        elif edge == "source in the warp before":
+            # the run at window (= band) columns [380, 380 + k): the cells of
+            # the row's second warp take hp_col from column 379, in its first
+            k = run1 - run0
+            iv = [(2, 700)]
+            cut = (run_at - L // 2, run_at + k + 60)
+        elif edge == "run at a warp's first column":
+            iv = [(2, 700)]
+            cut = (run_at - L // 2, run_at + 60)
         elif edge in ("open 384", "open 385"):
             win_lo[r] = 0
             iv = [(0, 200), (200, 384 if edge == "open 384" else 385)]
@@ -1106,11 +1122,11 @@ def hp_band_inputs(L: int = 48, seed: int = 0, copies: int = 2) -> dict:
         a0, b0 = cut or (min(a for a, _ in valid), max(b for _, b in valid))
         at = min(int(win_lo[r]) + a0 + int(rng.integers(0, 8)), len1 - 1)
         piece = s[at : at + max(L, b0 - a0) + 20]
-        if cut:
+        if cut and edge != "run at a warp's first column":
             # most of the run spanning the gap goes: a homopolymer deletion
             # that hp_col scores from the column before the run
             k = run1 - run0
-            rs = int(win_lo[r]) + 60 - at
+            rs = int(win_lo[r]) + run_at - at
             piece = piece[:rs] + piece[rs] * 2 + piece[rs + k :]
         else:
             piece = _mutate_runs(rng, piece)
@@ -1132,7 +1148,8 @@ BAND_EDGES = (
     "band 384", "band 385", "open 384", "open 385", "at column 0", "at column 1",
     "touching and overlapping", "16 one-column intervals", "gaps of 1 and 2",
     "empty intervals", "no open column", "past the state", "read of 1", "read of 2",
-    "wrapping both ends", "wrapping both ends, wide",
+    "wrapping both ends", "wrapping both ends, wide", "band 768", "band 769",
+    "band 1536", "band 3072", "band 3073",
 )
 
 
@@ -1141,7 +1158,9 @@ def band_inputs(L: int = 48, seed: int = 0, copies: int = 2) -> dict:
     ``width``, the widest row's window) whose rows are the plain band form's
     edges, :data:`BAND_EDGES` in order, ``copies`` times over on fresh reads
     and strands: band columns (``entries.band_columns``) of exactly 384 and
-    385 (the form's limit and one past it) in two runs, open columns of as
+    385 (one warp's limit and one past it), 768 and 769 (two warps'), 1,536
+    and 3,072 (four and eight warps', the form's limit) and 3,073 (one past
+    it) in two runs, open columns of 384 and 385
     many from window column 0 (no closed column before them), a band from
     window column 0 and from column 1, touching and overlapping intervals,
     16 one-column intervals, gaps of one and two closed columns, empty
@@ -1177,6 +1196,8 @@ def band_inputs(L: int = 48, seed: int = 0, copies: int = 2) -> dict:
         if edge.startswith("band "):
             k = int(edge.split()[1])
             iv = [(2, 100), (150, 48 + k)]  # band columns 0..99, then 148..47 + k
+            if k > 768:
+                win_lo[r] = int(rng.integers(0, max(len1 - 48 - k, 1)))
         elif edge.startswith("open "):
             win_lo[r] = 0
             k = int(edge.split()[1])
@@ -1225,3 +1246,118 @@ def band_inputs(L: int = 48, seed: int = 0, copies: int = 2) -> dict:
     width = int(max(int(ivl[:, :, 1].max()), 1))
     return dict(refs=refs, submat=sm, strand=strand, win_lo=win_lo, ivl=ivl, s2c=s2c,
                 lengths=lengths, width=width)
+
+
+# ---- the strand form of the general-width scorer ----
+
+# the edges of the strand form, by name: what each row of strand_inputs is
+STRAND_EDGES = (
+    "whole strand", "16 intervals", "wrapping both ends", "tie in the wrap",
+    "tie in a repeat", "no open column", "read of 1", "past the state",
+)
+
+
+def strand_inputs(L: int = 48, seed: int = 0, copies: int = 2, base: int = 2000) -> dict:
+    """Inputs of ``dp_cuda.dp_last_row_strand`` (:data:`BAND_KEYS`, and
+    ``width``, the widest row's window) whose rows are the strand form's
+    edges, :data:`STRAND_EDGES` in order, ``copies`` times over on fresh
+    reads and strands: windows over a whole circular strand of ``base``
+    columns and its wrap (400 columns, or ``base`` / 5 if less), in one
+    interval, in 16 with gaps of one to three closed columns, and as the
+    two ends of a read across the origin; a read from the strand's first
+    columns, which ties with its copy in the wrap, and one from a segment
+    the strand holds twice (both ties: the first column must win); no open
+    column; a read of 1 base; and a window past the strand state's end.
+    The reads are cut from the strand with about 6% of their bases redrawn
+    (the ties' exact)."""
+    rng = np.random.default_rng(seed)
+    wrap = min(400, base // 5)
+    fw = list(rng.choice(list("ACGT"), base))
+    seg = L + 40  # a repeat: the strand's columns [300, 300 + seg) again at base / 2
+    fw[base // 2 : base // 2 + seg] = fw[300 : 300 + seg]
+    fw = "".join("N" if rng.random() < 0.002 and not 250 < i < base // 2 + seg + 50 else c
+                 for i, c in enumerate(fw))
+    rc = revcom(fw)
+    fw, rc = fw + fw[:wrap], rc + rc[:wrap]
+    len1 = base + wrap
+    strands = (fw, rc)
+    sm = (init_flatsubmat() + rng.integers(-40, 40, (31, 5, 5))).astype(np.int32)
+    refs, _ = padded_state_numpy(encode_seq(fw), encode_seq(rc), len1, sm)
+    n = len(STRAND_EDGES)
+    R = n * copies
+    strand = rng.integers(0, 2, R).astype(np.int8)
+    win_lo = np.zeros(R, np.int32)
+    ivl = np.zeros((R, MAX_INTERVALS, 2), np.int32)
+    lengths = np.full(R, L, np.int32)
+    s2c = np.full((R, L), 4, np.int32)
+    for r in range(R):
+        edge = STRAND_EDGES[r % n]
+        s = strands[int(strand[r])]
+        iv = [(0, len1)]
+        at = int(rng.integers(0, len1 - L))
+        exact = False
+        if edge == "16 intervals":
+            cuts = np.sort(rng.choice(np.arange(50, len1 - 50), MAX_INTERVALS - 1, replace=False))
+            edges = [0, *cuts.tolist(), len1]
+            iv = [(edges[i] + (int(rng.integers(1, 4)) if i else 0), edges[i + 1])
+                  for i in range(MAX_INTERVALS)]
+        elif edge == "wrapping both ends":
+            tail = int(rng.integers(L // 3, 2 * L // 3 + 1))
+            at = base - tail
+            iv = [(base - tail - base // 3, len1), (0, L - tail + base // 3)]
+        elif edge == "tie in the wrap":
+            at, exact = int(rng.integers(0, wrap - L)), True
+        elif edge == "tie in a repeat":
+            # only the forward strand holds the repeat where it was made
+            strand[r], s, at, exact = 0, strands[0], 300 + int(rng.integers(0, 20)), True
+        elif edge == "no open column":
+            iv = [(40, 40), (70, 20)]
+        elif edge == "read of 1":
+            lengths[r] = 1
+        elif edge == "past the state":
+            win_lo[r] = refs.shape[1] - base // 2
+            at = len1 - L
+        for i, (a, b) in enumerate(iv):
+            ivl[r, i] = (a, b)
+        read = s[at : at + L]
+        if not exact:
+            read = "".join(c if rng.random() > 0.06 else str(rng.choice(list("ACGT")))
+                           for c in read)
+        s2c[r, : lengths[r]] = encode_seq(read)[: lengths[r]]
+    width = int(max(int(ivl[:, :, 1].max()), 1))
+    return dict(refs=refs, submat=sm, strand=strand, win_lo=win_lo, ivl=ivl, s2c=s2c,
+                lengths=lengths, width=width)
+
+
+def mixed_wide_inputs(L: int = 48, seed: int = 0, base: int = 19000) -> dict:
+    """Inputs of ``dp_cuda.dp_last_row_strand`` (:data:`BAND_KEYS`, and
+    ``width``) on one strand state whose rows take every form: the rows of
+    :func:`strand_inputs` over a circular strand of ``base`` columns (whole
+    strands, past 18,432 band columns for the default ``base``: the full
+    form's), and, on the same state, rows of one interval of 150, 500, 1,000,
+    2,000 and 3,000 columns (the band form's four classes) and of 4,000 and
+    17,000 (the strand form's), each twice, the reads cut from their band.
+    The rows come in no form's order."""
+    d = strand_inputs(L, seed, copies=1, base=base)
+    rng = np.random.default_rng([seed, 1])
+    len1 = d["refs"].shape[1]
+    widths = [w for w in (150, 500, 1000, 2000, 3000, 4000, 17000) for _ in range(2)]
+    n = len(widths)
+    strand = rng.integers(0, 2, n).astype(np.int8)
+    win_lo = np.array([int(rng.integers(0, max(len1 - w - 10, 1))) for w in widths], np.int32)
+    ivl = np.zeros((n, MAX_INTERVALS, 2), np.int32)
+    ivl[:, 0, 0] = 2
+    ivl[:, 0, 1] = 2 + np.array(widths)
+    lengths = np.full(n, L, np.int32)
+    s2c = np.full((n, L), 4, np.int32)
+    for r, w in enumerate(widths):
+        at = int(win_lo[r]) + 2 + int(rng.integers(0, w - L))
+        codes = d["refs"][strand[r], at : at + L].astype(np.int32)
+        noise = rng.random(len(codes)) < 0.06
+        codes[noise] = rng.integers(0, 4, int(noise.sum()))
+        s2c[r, : len(codes)] = codes
+    rows = {"strand": strand, "win_lo": win_lo, "ivl": ivl, "s2c": s2c, "lengths": lengths}
+    mix = rng.permutation(len(d["lengths"]) + n)
+    out = {k: np.concatenate([d[k], rows[k]])[mix] for k in rows}
+    return dict(refs=d["refs"], submat=d["submat"], **out,
+                width=int(max(int(out["ivl"][:, :, 1].max()), 1)))

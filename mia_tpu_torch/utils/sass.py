@@ -11,7 +11,12 @@ there.  For the entry scorer the largest loop is the row loop: its count
 over the cells of one trip (12 columns a lane, times the rows a trip covers)
 is the instructions a DP cell costs; a loop that holds exclusive branches
 (the ``-h`` candidates) is counted whole, so its figure is an upper bound.
-``-D`` defines a macro for the compile: ``-D MIA_BAND_HP_KIND=k`` builds
+A device function compiled out of line (``csrc/dp_band.cu``'s
+``band_row_warps<kHp, G>``, the rows of G = 2, 4 and 8 warps) follows its
+kernel's code under the kernel's name: each is reported apart, from the
+addresses the kernel's ``CALL`` instructions target, its loops with it, and
+the kernel's own row loop is then the one-warp rows'.  ``-D``
+defines a macro for the compile: ``-D MIA_BAND_HP_KIND=k`` builds
 ``csrc/dp_band.cu`` with every row of one ``-h`` kind (0 none, 1 hp_col,
 2 hp_row), so that its ``-h`` row loop is that kind's alone.
 Needs the CUDA toolkit; no card.
@@ -83,6 +88,18 @@ def loops(instrs: list[tuple[int, str]]) -> list[tuple[int, int, int]]:
     return sorted(found, key=lambda t: -t[2])
 
 
+def bodies(instrs: list[tuple[int, str]]) -> list[tuple[str, int, int]]:
+    """(label, first address, end address) of a kernel's own code and of each
+    device function it calls out of line (``CALL`` targets): cuobjdump lists
+    the callees after the kernel's code under its name."""
+    starts = sorted({int(m.group(1), 16) for _, t in instrs
+                     for m in [re.search(r"\bCALL\.\S*\s+0x([0-9a-f]+)", t)] if m})
+    end = instrs[-1][0] + 1 if instrs else 0
+    edges = [instrs[0][0] if instrs else 0, *starts, end]
+    labels = ["kernel", *(f"callee at {a:#06x}" for a in starts)]
+    return [(lab, lo, hi) for lab, lo, hi in zip(labels, edges, edges[1:])]
+
+
 def report(source: str, out_dir: str | None, defines: tuple[str, ...] = ()) -> None:
     if source.endswith(".sass"):  # a disassembly kept by an earlier run
         with open(source) as f:
@@ -96,11 +113,16 @@ def report(source: str, out_dir: str | None, defines: tuple[str, ...] = ()) -> N
     for name, instrs in kernels(sass).items():
         real = [(a, t) for a, t in instrs if opcode(t) != "NOP"]
         print(f"{os.path.basename(source)} {name}: {len(real)} instructions")
-        for k, (target, addr, n) in enumerate(loops(real)):
-            print(f"  loop {target:#06x}..{addr:#06x}: {n} instructions")
-            if k == 0:
-                hist = collections.Counter(opcode(t) for a, t in real if target <= a <= addr)
-                print("    " + ", ".join(f"{op} {c}" for op, c in hist.most_common(24)))
+        parts = bodies(real)
+        for label, lo, hi in parts:
+            body = [(a, t) for a, t in real if lo <= a < hi]
+            if len(parts) > 1:
+                print(f"  {label}: {len(body)} instructions")
+            for k, (target, addr, n) in enumerate(loops(body)):
+                print(f"  loop {target:#06x}..{addr:#06x}: {n} instructions")
+                if k == 0:
+                    hist = collections.Counter(opcode(t) for a, t in body if target <= a <= addr)
+                    print("    " + ", ".join(f"{op} {c}" for op, c in hist.most_common(24)))
 
 
 def main(argv: list[str]) -> int:

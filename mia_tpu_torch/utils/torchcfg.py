@@ -6,7 +6,8 @@ Myers wavefront, and the assembly step's pileup counts and consensus call).
 Port of :mod:`mia_tpu.utils.jaxcfg`.  JAX's "compile once" was its
 persistent compilation cache; here it is one shared library built by
 ``nvcc`` from ``mia_tpu_torch/csrc/*.cu`` at first use, keyed by a hash of
-the sources (an edited ``.cu`` rebuilds) and kept in ``mia_tpu_torch/_build/``
+the sources and the headers they share (an edited ``.cu`` or ``.cuh``
+rebuilds) and kept in ``mia_tpu_torch/_build/``
 inside the checkout.  Each source compiles in its own ``nvcc`` process, all
 started together, and the objects link into one library; ``ptxas``'s
 register and spill report lands in ``build.log`` beside it.  The library has
@@ -120,27 +121,51 @@ def expected_last_row_constants() -> list[int]:
 
 def expected_band_hp_constants() -> list[int]:
     """The values ``mia_dp_band_hp_constants`` must report: the ``-h`` band
-    form's band columns a row (``entries.BAND_COLS``), intervals a row,
+    form's band columns a warp (``entries.BAND_COLS``), intervals a row,
     read rows, PSSM depth slots, GOP, GEP, HIM, LOW, the read-run reach
-    (HPW) and the discount slots."""
+    (HPW), the discount slots and band columns a row at most
+    (``entries.BAND_ROW_COLS``)."""
     from ..constants import GEP, GOP, HIM, PSSM_DEPTH
-    from ..core.entries import BAND_COLS, HPW_ROUTE, L_MAX, MAX_INTERVALS, hp_pengop_table
+    from ..core.entries import (
+        BAND_COLS,
+        BAND_ROW_COLS,
+        HPW_ROUTE,
+        L_MAX,
+        MAX_INTERVALS,
+        hp_pengop_table,
+    )
     from ..ops.dp_torch import _LOW
 
     return [BAND_COLS, MAX_INTERVALS, L_MAX, 2 * PSSM_DEPTH + 1, GOP, GEP, HIM, _LOW,
-            HPW_ROUTE, len(hp_pengop_table())]
+            HPW_ROUTE, len(hp_pengop_table()), BAND_ROW_COLS]
 
 
 def expected_band_constants() -> list[int]:
     """The values ``mia_dp_band_constants`` must report: the plain band
-    form's band columns a row (``entries.BAND_COLS``), intervals a row, read
-    rows, PSSM depth slots, PSSM depth, GOP, GEP, HIM and LOW."""
+    form's band columns a warp (``entries.BAND_COLS``), intervals a row,
+    read rows, PSSM depth slots, PSSM depth, GOP, GEP, HIM, LOW and band
+    columns a row at most (``entries.BAND_ROW_COLS``)."""
     from ..constants import GEP, GOP, HIM, PSSM_DEPTH
-    from ..core.entries import BAND_COLS, L_MAX, MAX_INTERVALS
+    from ..core.entries import BAND_COLS, BAND_ROW_COLS, L_MAX, MAX_INTERVALS
     from ..ops.dp_torch import _LOW
 
     return [BAND_COLS, MAX_INTERVALS, L_MAX, 2 * PSSM_DEPTH + 1, PSSM_DEPTH, GOP, GEP, HIM,
-            _LOW]
+            _LOW, BAND_ROW_COLS]
+
+
+def expected_strand_constants() -> list[int]:
+    """The values ``mia_dp_strand_constants`` must report: the strand
+    form's band columns a row (``entries.STRAND_COLS``), band columns a
+    thread, CTAs a row and threads a CTA (``dp_cuda.STRAND_*``), intervals
+    a row, read rows, PSSM depth slots, PSSM depth, GOP, GEP, HIM and
+    LOW."""
+    from ..constants import GEP, GOP, HIM, PSSM_DEPTH
+    from ..core.entries import L_MAX, MAX_INTERVALS, STRAND_COLS
+    from ..ops.dp_cuda import STRAND_COLS_PER_THREAD, STRAND_CTAS, STRAND_THREADS
+    from ..ops.dp_torch import _LOW
+
+    return [STRAND_COLS, STRAND_COLS_PER_THREAD, STRAND_CTAS, STRAND_THREADS, MAX_INTERVALS,
+            L_MAX, 2 * PSSM_DEPTH + 1, PSSM_DEPTH, GOP, GEP, HIM, _LOW]
 
 
 def expected_pileup_constants() -> list[int]:
@@ -174,6 +199,7 @@ def check_constants(lib) -> None:
         ("mia_dp_last_row_constants", expected_last_row_constants),
         ("mia_dp_band_hp_constants", expected_band_hp_constants),
         ("mia_dp_band_constants", expected_band_constants),
+        ("mia_dp_strand_constants", expected_strand_constants),
         ("mia_pileup_counts_constants", expected_pileup_constants),
         ("mia_consensus_call_constants", expected_consensus_call_constants),
     ):
@@ -294,14 +320,20 @@ def kernel_library() -> ctypes.CDLL:
         ]
         lib.mia_dp_band_hp.restype = ci
         lib.mia_dp_band_hp.argtypes = [
-            vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp, ci, vp,
+            vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, ci, vp,
         ]
         lib.mia_dp_band_hp_constants.restype = ci
         lib.mia_dp_band_hp_constants.argtypes = [vp, ci]
         lib.mia_dp_band.restype = ci
-        lib.mia_dp_band.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, ci, ci, vp, ci, vp]
+        lib.mia_dp_band.argtypes = [
+            vp, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, ci, vp,
+        ]
         lib.mia_dp_band_constants.restype = ci
         lib.mia_dp_band_constants.argtypes = [vp, ci]
+        lib.mia_dp_strand.restype = ci
+        lib.mia_dp_strand.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, ci, ci, vp, ci, vp]
+        lib.mia_dp_strand_constants.restype = ci
+        lib.mia_dp_strand_constants.argtypes = [vp, ci]
         lib.mia_dp_last_row_constants.restype = ci
         lib.mia_dp_last_row_constants.argtypes = [vp, ci]
         lib.mia_pileup_counts.restype = ci

@@ -5,16 +5,19 @@ band columns only, against ``mia_tpu``'s ``dp_jax.batch_last_row`` and
 ``dp_jax.batch_best_and_aec`` over the row's whole window.
 
 (a) The band columns (``entries.band_columns``, ``dp_torch.band_layout``)
-against a count over the dense band.  (b) The
-plain band form on ``testing.band_inputs``' edge rows (band columns of 384
-and 385, open columns of as many, bands at window columns 0 and 1,
-touching, overlapping and empty intervals, 16 one-column intervals, gaps of
-one and two columns, no open column, a band past the strand state, reads of
-1 and 2 bases, a band over both ends of a circular strand, narrow and over
-384 columns).  (c) The wrapper's two forms in one call, in row order, with
-their counters, and its input checks and ``merge_wide``'s refusal.  (d) The
-split of the three pass-1 batches of ``test_torch_wide_pass1``
-(``entries.wide_rows``) and their band rows through the wrapper.
+against a count over the dense band, and the warps a row takes
+(``entries.band_warps``).  (b) The plain band form on
+``testing.band_inputs``' edge rows (band columns of 384, 385, 768, 769,
+1,536, 3,072 and 3,073, open columns of 384 and 385, bands at window
+columns 0 and 1, touching, overlapping and empty intervals, 16 one-column
+intervals, gaps of one and two columns, no open column, a band past the
+strand state, reads of 1 and 2 bases, a band over both ends of a circular
+strand, narrow and over 384 columns).  (c) The wrapper's band and full
+forms in one call, the band rows ordered by warps, in row order, with
+their counters, and its input checks and ``merge_wide``'s refusal.  (d)
+The split of the three pass-1 batches of ``test_torch_wide_pass1``
+(``entries.wide_rows``: band classes, strand and full rows) and their band
+rows through the wrapper.
 
 Tolerance: exact equality of every (best, column).
 """
@@ -25,10 +28,20 @@ import torch
 from mia_tpu.ops import dp_jax
 from mia_tpu_torch import testing as T
 from mia_tpu_torch.core import entries
-from mia_tpu_torch.core.entries import BAND_COLS, HIM
+from mia_tpu_torch.core.entries import BAND_COLS, BAND_ROW_COLS, HIM, STRAND_COLS
 from mia_tpu_torch.ops import dp_cuda, dp_torch
 
 from .test_torch_wide_pass1 import CASES, IDS, _setup
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread a worker, so that several workers on one machine do
+    not spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jax_pairs(d: dict) -> np.ndarray:
@@ -60,8 +73,9 @@ def _args(d: dict) -> list:
 @pytest.mark.parametrize("seed", [0, 1])
 def test_band_layout_at_the_plain_limit(seed):
     """(a) band_layout: the union of the intervals with the two columns
-    before each run, in order, for every row up to 384 band columns; none
-    for a row past it.  The edges are what they claim."""
+    before each run, in order, for every row up to 3,072 band columns; none
+    for a row past it.  The edges are what they claim, and each band row
+    takes the fewest warps of 384 columns that hold it."""
     d = T.band_inputs(40, seed)
     ivl = d["ivl"]
     W = int(ivl[:, :, 1].max()) + 2
@@ -77,7 +91,7 @@ def test_band_layout_at_the_plain_limit(seed):
     bc, bopen, bn = (x.numpy() for x in dp_torch.band_layout(torch.from_numpy(ivl)))
     np.testing.assert_array_equal(bn, c)
     for r in range(len(ivl)):
-        if c[r] > BAND_COLS:
+        if c[r] > BAND_ROW_COLS:
             assert not bopen[r].any()
             continue
         np.testing.assert_array_equal(bc[r, : c[r]], np.flatnonzero(near[r]))
@@ -86,6 +100,12 @@ def test_band_layout_at_the_plain_limit(seed):
     at = {e: i for i, e in enumerate(T.BAND_EDGES)}
     for k in (BAND_COLS, BAND_COLS + 1):
         assert c[at[f"band {k}"]] == k and o[at[f"open {k}"]] == c[at[f"open {k}"]] == k
+    warps = entries.band_warps(c)
+    for k, g in ((384, 1), (385, 2), (768, 2), (769, 4), (1536, 4), (3072, 8), (3073, 0)):
+        assert c[at[f"band {k}"]] == k and warps[at[f"band {k}"]] == g, k
+    assert ((warps == 0) == (c > BAND_ROW_COLS)).all()
+    assert ((BAND_COLS * warps >= c) | (warps == 0)).all()
+    assert ((BAND_COLS * warps // 2 < c) | (warps <= 1)).all()
     assert o[at["no open column"]] == 0 and o[at["16 one-column intervals"]] == 16
     assert d["win_lo"][at["past the state"]] + ivl[at["past the state"], 0, 1] > \
         d["refs"].shape[1]
@@ -103,7 +123,7 @@ def test_band_plain_equals_jax_on_edge_rows(seed):
     d = T.band_inputs(48, seed)
     got = dp_torch.last_row_band_plain(*_args(d)).numpy()
     want = _jax_pairs(d)
-    fits = entries.band_columns(d["ivl"])[1] <= BAND_COLS
+    fits = entries.band_columns(d["ivl"])[1] <= BAND_ROW_COLS
     assert 0 < (~fits).sum() < len(fits)
     np.testing.assert_array_equal(got[:, fits], want[:, fits])
     assert (got[0, ~fits] == HIM).all() and (got[1, ~fits] == -1).all()
@@ -116,29 +136,30 @@ def test_band_plain_equals_jax_on_edge_rows(seed):
 
 
 def test_wrapper_scores_both_forms_in_row_order():
-    """(c) dp_last_row_strand with the band rows first: the band form's
-    pairs and the full form's at the full rows' widest window, in row
+    """(c) dp_last_row_strand with the band rows first, by warps: the band
+    form's pairs and the full form's at the full rows' widest window, in row
     order, each equal to the JAX scan; each form counted once, with its
-    rows."""
+    rows and the band rows on more than one warp."""
     d = T.band_inputs(40, 3)
-    band = entries.band_columns(d["ivl"])[1] <= BAND_COLS
-    order = np.argsort(~band, kind="stable")
+    order, classes, n_strand = entries.wide_order(entries.band_columns(d["ivl"])[1], hp=True)
+    n_band = sum(classes)
+    assert all(classes) and n_band < len(order) and n_strand == 0
     d = {k: (v[order] if k in T.BAND_KEYS[2:] else v) for k, v in d.items()}
-    n_band = int(band.sum())
     want = _jax_pairs(d)
     width = int(d["ivl"][n_band:, :, 1].max())
     dp_cuda.reset_counts()
-    got = dp_cuda.dp_last_row_strand(*_args(d), width, n_band).numpy()
+    got = dp_cuda.dp_last_row_strand(*_args(d), width, n_band, classes).numpy()
     np.testing.assert_array_equal(got, want)
     assert (dp_cuda.last_row_band_plain_calls, dp_cuda.last_row_plain_calls) == (1, 1)
     assert dp_cuda.last_row_band_launches == dp_cuda.last_row_launches == 0
-    assert (dp_cuda.last_row_band_rows, dp_cuda.last_row_rows) == (n_band, len(band) - n_band)
+    assert (dp_cuda.last_row_band_rows, dp_cuda.last_row_rows) == (n_band, len(order) - n_band)
+    assert dp_cuda.last_row_band_multi_rows == n_band - classes[0]
     # all rows to one form: the other is not called
     args = _args(d)
-    for sl, w, nb, calls in ((slice(None, n_band), 0, n_band, (1, 0)),
-                             (slice(n_band, None), width, 0, (0, 1))):
+    for sl, w, nb, cl, calls in ((slice(None, n_band), 0, n_band, classes, (1, 0)),
+                                 (slice(n_band, None), width, 0, (), (0, 1))):
         dp_cuda.reset_counts()
-        got = dp_cuda.dp_last_row_strand(*args[:2], *(a[sl] for a in args[2:]), w, nb)
+        got = dp_cuda.dp_last_row_strand(*args[:2], *(a[sl] for a in args[2:]), w, nb, cl)
         np.testing.assert_array_equal(got.numpy(), want[:, sl])
         assert (dp_cuda.last_row_band_plain_calls, dp_cuda.last_row_plain_calls) == calls
 
@@ -154,6 +175,13 @@ def test_wrapper_checks_the_split():
     with pytest.raises(ValueError, match="width"):
         dp_cuda.dp_last_row_strand(*args, 0, R - 1)
     dp_cuda.dp_last_row_strand(*args, 0, R)
+    # the band classes count the band rows
+    for classes in ((R - 1, 0, 0, 0), (R, 1, 0, 0), (R - 1, 0, 0, 0, 1), (R + 1, -1)):
+        with pytest.raises(ValueError, match="band_classes"):
+            dp_cuda.dp_last_row_strand(*args, 0, R, classes)
+    dp_cuda.dp_last_row_strand(*args, 0, R, (R - 3, 1, 1, 1))
+    with pytest.raises(ValueError, match="n_strand"):
+        dp_cuda.dp_last_row_strand(*args, 0, R, (), 1)
     with pytest.raises(TypeError, match="s2c"):
         dp_cuda.dp_last_row_strand(*args[:5], args[5].to(torch.int8), args[6], 0, R)
     # a band form's mark of a row too wide for it is refused by the merge
@@ -168,29 +196,42 @@ def test_wrapper_checks_the_split():
 @pytest.mark.parametrize("seed,kmer,circular", CASES, ids=IDS)
 def test_pass1_batch_split(seed, kmer, circular):
     """(d) A pass-1 batch's wide rows without -h: the rows whose band
-    columns fit come first, in their (strand, read) order, as n_band; the
-    rest keep that order, and full_width is their widest window.  Without
-    -k every row spans a whole strand and takes the full form.  The band
-    rows through the wrapper equal the JAX scan on their windows."""
+    columns fit the band form come first, by the warps each takes
+    (band_classes), then the strand form's rows (band up to STRAND_COLS),
+    then the rest; each part keeps its (strand, read) order, and
+    full_width is the full rows' widest window.  Without -k every row spans
+    a whole strand and takes the strand form.  The band rows through the
+    wrapper equal the JAX scan on their windows."""
     _, scorer, sm, _, _, lens, prep = _setup(seed, kmer, circular)
     s2c, fw_ws, rc_ws, fw_ivg, rc_ivg, flags = prep
     rows = entries.wide_rows(flags, lens, s2c, fw_ivg, rc_ivg)
-    fits = entries.band_columns(rows.ivl)[1] <= BAND_COLS
-    assert rows.n_band == fits.sum() and fits[: rows.n_band].all()
-    for part in (slice(None, rows.n_band), slice(rows.n_band, None)):
+    cols = entries.band_columns(rows.ivl)[1]
+    g = entries.band_warps(cols)
+    nb, ns = rows.n_band, rows.n_strand
+    assert rows.band_classes == tuple(int((g == w).sum()) for w in entries.BAND_WARPS)
+    assert nb == sum(rows.band_classes) and (g[:nb] > 0).all()
+    assert (np.diff(g[:nb]) >= 0).all()
+    assert ((cols[nb:nb + ns] > BAND_ROW_COLS) & (cols[nb:nb + ns] <= STRAND_COLS)).all()
+    assert (cols[nb + ns:] > STRAND_COLS).all()
+    parts = [slice(nb + ns, None), slice(nb, nb + ns)]
+    at = 0
+    for c in rows.band_classes:
+        parts.append(slice(at, at + c))
+        at += c
+    for part in parts:
         key = rows.strand[part].astype(np.int64) * len(lens) + rows.read[part]
         assert (np.diff(key) > 0).all()
     win = rows.ivl[:, :, 1].max(1)
-    assert rows.full_width == win[rows.n_band:].max(initial=0) and rows.width == win.max()
+    assert rows.full_width == win[nb + ns:].max(initial=0) and rows.width == win.max()
     if kmer < 0:
-        assert rows.n_band == 0 and rows.n > 0
+        # whole strands of 2,256 columns: eight warps of the band form
+        assert rows.band_classes == (0, 0, 0, rows.n) and rows.n > 0
         return
-    assert 0 < rows.n_band < rows.n
-    nb = rows.n_band
+    assert 0 < nb
     d = dict(refs=scorer.state.refs.numpy(), submat=sm, strand=rows.strand[:nb],
              win_lo=rows.win_lo[:nb], ivl=rows.ivl[:nb], s2c=rows.s2c[:nb],
              lengths=rows.lengths[:nb], width=int(win[:nb].max()))
     dp_cuda.reset_counts()
-    got = dp_cuda.dp_last_row_strand(*_args(d), 0, nb).numpy()
+    got = dp_cuda.dp_last_row_strand(*_args(d), 0, nb, rows.band_classes).numpy()
     np.testing.assert_array_equal(got, _jax_pairs(d))
     assert (dp_cuda.last_row_band_plain_calls, dp_cuda.last_row_plain_calls) == (1, 0)

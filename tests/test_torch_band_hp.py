@@ -5,16 +5,19 @@ on the CPU), which scores a wide row on its band columns only, against
 
 (a) The band columns (``entries.band_columns``, ``dp_torch.band_layout``)
 against a count over the dense band.  (b) The plain band form on
-``testing.hp_band_inputs``' edge rows (band columns of 384 and 385, open
-columns of 384 and 385, bands at window columns 0 and 1, an hp_col source
-in another interval and in a closed gap, touching and overlapping
-intervals, 16 one-column intervals, gaps of one and two columns, empty
-intervals, no open column, a band past the strand state, reads of 1 and 2
-bases) and on ``testing.hp_wide_inputs``' rows whose band fits.  (c) The
-wrapper's two forms in one call, in row order, with their counters, and
-its input checks.  (d) The split of the three pass-1 ``-h`` batches of
-``test_torch_wide_pass1_hp`` (``entries.wide_rows``) and their band rows
-through the wrapper.
+``testing.hp_band_inputs``' edge rows (band columns of 384, 385, 768, 769,
+1,536, 3,072 and 3,073, open columns of 384 and 385, bands at window
+columns 0 and 1, an hp_col source in another interval, in a closed gap and
+in a row's first warp for a cell of its second, a reference run at a
+warp's first column, touching and overlapping intervals, 16 one-column
+intervals, gaps of one and two columns, empty intervals, no open column, a
+band past the strand state, reads of 1 and 2 bases) and on
+``testing.hp_wide_inputs``' rows whose band fits.  (c) The wrapper's two
+forms in one call, the band rows ordered by warps, in row order, with their
+counters, and its input checks.  (d) The split of the three pass-1 ``-h``
+batches of ``test_torch_wide_pass1_hp`` (``entries.wide_rows``: band
+classes, no strand form under ``-h``) and their band rows through the
+wrapper.
 
 Tolerance: exact equality of every (best, column).
 """
@@ -25,10 +28,20 @@ import torch
 from mia_tpu.ops import dp_jax
 from mia_tpu_torch import testing as T
 from mia_tpu_torch.core import entries
-from mia_tpu_torch.core.entries import HIM, BAND_COLS
+from mia_tpu_torch.core.entries import BAND_ROW_COLS, HIM
 from mia_tpu_torch.ops import dp_cuda, dp_torch
 
 from .test_torch_wide_pass1_hp import CASES, IDS, _dense, _setup
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread a worker, so that several workers on one machine do
+    not spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jax_pairs(d: dict) -> np.ndarray:
@@ -62,7 +75,7 @@ def test_band_columns_match_the_dense_band(seed):
     bc, bopen, bn = (x.numpy() for x in dp_torch.band_layout(torch.from_numpy(ivl)))
     np.testing.assert_array_equal(bn, c)
     for r in range(len(ivl)):
-        if c[r] > BAND_COLS:
+        if c[r] > BAND_ROW_COLS:
             assert not bopen[r].any()
             continue
         np.testing.assert_array_equal(bc[r, : c[r]], np.flatnonzero(near[r]))
@@ -70,7 +83,9 @@ def test_band_columns_match_the_dense_band(seed):
         assert not bopen[r, c[r]:].any() and (np.diff(bc[r]) > 0).all()
     # the edges are what they claim to be
     at = {e: i for i, e in enumerate(T.HP_BAND_EDGES)}
-    assert (c[at["band 384"]], c[at["band 385"]]) == (384, 385)
+    for k in (384, 385, 768, 769, 1536, 3072, 3073):
+        assert c[at[f"band {k}"]] == k
+    assert c[at["source in the warp before"]] == c[at["run at a warp's first column"]] == 700
     assert (o[at["open 384"]], o[at["open 385"]]) == (384, 385)
     assert o[at["open 384"]] == c[at["open 384"]]
     assert o[at["no open column"]] == 0 and o[at["16 one-column intervals"]] == 16
@@ -82,12 +97,12 @@ def test_band_columns_match_the_dense_band(seed):
 def test_band_plain_equals_jax_on_edge_rows(seed):
     """(b) Every row whose band fits equals the JAX scan over its whole
     window; a row past the limit gives (HIM, -1); no open column gives
-    (HIM, 0), as the whole window does; the hp_col sources of the two
-    source rows lie where their names say."""
+    (HIM, 0), as the whole window does; the hp_col sources of the three
+    source rows and the warp-border run lie where their names say."""
     d = T.hp_band_inputs(48, seed)
     got = dp_torch.last_row_hp_band_plain(*_args(d)).numpy()
     want = _jax_pairs(d)
-    fits = entries.band_columns(d["ivl"])[1] <= BAND_COLS
+    fits = entries.band_columns(d["ivl"])[1] <= BAND_ROW_COLS
     assert 0 < (~fits).sum() < len(fits)
     np.testing.assert_array_equal(got[:, fits], want[:, fits])
     assert (got[0, ~fits] == HIM).all() and (got[1, ~fits] == -1).all()
@@ -99,6 +114,14 @@ def test_band_plain_equals_jax_on_edge_rows(seed):
         s, lo = int(d["strand"][r]), int(d["win_lo"][r])
         src = int(d["hpcs"][s, lo + d["ivl"][r, 1, 0]]) - 1 - lo
         assert src == 59 and (d["ivl"][r, 0, 1] > src) == inside
+    # band column = window column there: a run from 380 (its cells in the
+    # second warp take the source 379 in the first) and a run from 384
+    for edge, start in (("source in the warp before", 380), ("run at a warp's first column",
+                                                             384)):
+        r = at[edge]
+        s, lo = int(d["strand"][r]), int(d["win_lo"][r])
+        assert int(d["hpcs"][s, lo + start]) == lo + start
+        assert int(d["hpcs"][s, lo + start + 5]) == lo + start
 
 
 @pytest.mark.parametrize("W,L,seed", [(2300, 48, 0), (400, 40, 3)])
@@ -107,35 +130,37 @@ def test_band_plain_equals_jax_on_wide_inputs(W, L, seed):
     inside a reference run, one-column bands, ties, rows past the state):
     those whose band fits, equal to the JAX scan."""
     d = T.hp_wide_inputs(W, L, seed)
-    fits = entries.band_columns(d["ivl"])[1] <= BAND_COLS
+    fits = entries.band_columns(d["ivl"])[1] <= BAND_ROW_COLS
     assert fits.sum() >= 3
     got = dp_torch.last_row_hp_band_plain(*_args(d)).numpy()
     np.testing.assert_array_equal(got[:, fits], _jax_pairs(d)[:, fits])
 
 
 def test_wrapper_scores_both_forms_in_row_order():
-    """(c) dp_last_row_hp with the band rows first: the band form's pairs
-    and the full form's at the full rows' widest window, in row order,
-    each equal to the JAX scan; each form counted once, with its rows."""
+    """(c) dp_last_row_hp with the band rows first, by warps: the band
+    form's pairs and the full form's at the full rows' widest window, in
+    row order, each equal to the JAX scan; each form counted once, with its
+    rows and the band rows on more than one warp."""
     d = T.hp_band_inputs(40, 3)
-    band = entries.band_columns(d["ivl"])[1] <= BAND_COLS
-    order = np.argsort(~band, kind="stable")
+    order, classes, n_strand = entries.wide_order(entries.band_columns(d["ivl"])[1], hp=True)
+    n_band = sum(classes)
+    assert all(classes) and n_band < len(order) and n_strand == 0
     d = {k: (v[order] if k in T.HP_WIDE_KEYS[6:] else v) for k, v in d.items()}
-    n_band = int(band.sum())
     want = _jax_pairs(d)
     width = int(d["ivl"][n_band:, :, 1].max())
     dp_cuda.reset_counts()
-    got = dp_cuda.dp_last_row_hp(*_args(d), width, n_band).numpy()
+    got = dp_cuda.dp_last_row_hp(*_args(d), width, n_band, classes).numpy()
     np.testing.assert_array_equal(got, want)
     assert (dp_cuda.last_row_hp_band_plain_calls, dp_cuda.last_row_hp_plain_calls) == (1, 1)
     assert dp_cuda.last_row_hp_band_launches == dp_cuda.last_row_hp_launches == 0
     assert (dp_cuda.last_row_hp_band_rows, dp_cuda.last_row_hp_rows) == (n_band,
-                                                                         len(band) - n_band)
+                                                                         len(order) - n_band)
+    assert dp_cuda.last_row_hp_band_multi_rows == n_band - classes[0]
     # all rows to one form: the other is not called
     args = _args(d)
     dp_cuda.reset_counts()
     got = dp_cuda.dp_last_row_hp(*args[:6], *(a[:n_band] for a in args[6:]), 0,
-                                 n_band).numpy()
+                                 n_band, classes).numpy()
     np.testing.assert_array_equal(got, want[:, :n_band])
     assert (dp_cuda.last_row_hp_band_plain_calls, dp_cuda.last_row_hp_plain_calls) == (1, 0)
 
@@ -151,6 +176,10 @@ def test_wrapper_checks_the_split():
     with pytest.raises(ValueError, match="width"):
         dp_cuda.dp_last_row_hp(*args, 0, R - 1)
     dp_cuda.dp_last_row_hp(*args, 0, R)
+    # the band classes count the band rows
+    for classes in ((R - 1, 0, 0, 0), (R, 1, 0, 0), (R + 1, -1)):
+        with pytest.raises(ValueError, match="band_classes"):
+            dp_cuda.dp_last_row_hp(*args, 0, R, classes)
     # a band form's mark of a row too wide for it is refused by the merge
     rows = entries.WideRows(np.array([0]), np.array([0]), np.array([0], np.int8),
                             np.array([5], np.int32), d["ivl"][:1], d["s2chr"][:1],
@@ -163,7 +192,8 @@ def test_wrapper_checks_the_split():
 @pytest.mark.parametrize("seed,kmer,circular", CASES, ids=IDS)
 def test_pass1_hp_batch_split(seed, kmer, circular):
     """(d) A pass-1 -h batch's wide rows: the rows whose band columns fit
-    come first, in their order, as n_band; the rest keep their order, and
+    come first, by the warps each takes, each class in its order, as
+    n_band; the rest (no strand form under -h) keep their order, and
     full_width is their widest window; the same (read, strand) rows as
     without the split; the band rows through the wrapper equal the JAX scan
     on their windows."""
@@ -175,9 +205,10 @@ def test_pass1_hp_batch_split(seed, kmer, circular):
     unsplit = np.lexsort((plain.read, plain.strand))
     for k in ("read", "strand", "win_lo", "ivl"):
         setattr(plain, k, getattr(plain, k)[unsplit])
-    fits = entries.band_columns(plain.ivl)[1] <= BAND_COLS
-    order = np.r_[np.flatnonzero(fits), np.flatnonzero(~fits)]
-    assert rows.n_band == fits.sum()
+    g = entries.band_warps(entries.band_columns(plain.ivl)[1])
+    order = np.r_[tuple(np.flatnonzero(g == w) for w in (*entries.BAND_WARPS, 0))]
+    assert rows.n_band == (g > 0).sum() and rows.n_strand == 0
+    assert rows.band_classes == tuple(int((g == w).sum()) for w in entries.BAND_WARPS)
     for k in ("read", "strand", "win_lo", "ivl"):
         np.testing.assert_array_equal(getattr(rows, k), getattr(plain, k)[order])
     win = rows.ivl[:, :, 1].max(1)
@@ -191,5 +222,5 @@ def test_pass1_hp_batch_split(seed, kmer, circular):
              strand=rows.strand[: rows.n_band], win_lo=rows.win_lo[: rows.n_band],
              ivl=rows.ivl[: rows.n_band], s2chr=rows.s2c[: rows.n_band],
              lengths=rows.lengths[: rows.n_band], width=int(win[: rows.n_band].max()))
-    got = dp_cuda.dp_last_row_hp(*_args(d), 0, rows.n_band).numpy()
+    got = dp_cuda.dp_last_row_hp(*_args(d), 0, rows.n_band, rows.band_classes).numpy()
     np.testing.assert_array_equal(got, _jax_pairs(d))

@@ -6,7 +6,8 @@ ccheck's Myers wavefront (mia_tpu_torch/csrc/myers_waves.cu, also against
 the host aligner, on the adversarial pairs too), the general-width
 last-row scorer (mia_tpu_torch/csrc/dp_last_row.cu: the register form, and
 the wide form with shared-memory and global-memory rows, and its -h form;
-and the band forms of both, mia_tpu_torch/csrc/dp_band.cu),
+the band forms of both, mia_tpu_torch/csrc/dp_band.cu, on 1, 2, 4 and 8
+warps a row; and the strand form, mia_tpu_torch/csrc/dp_strand.cu),
 the pileup counts and the consensus call of the assembly step (csrc/pileup_counts.cu,
 csrc/consensus_call.cu, the latter over 1 to 32 parts), and the sharded
 scorer, consensus counts and step with every shard on the one card.
@@ -387,7 +388,7 @@ def test_last_row_hp_kernel_through_the_scorer(cuda):
     got = {}
     for dev in (cuda, torch.device("cpu")):
         st = state_from_numpy(d["refs"], sms, dev, d["refchr"], d["hpcs"], d["pengop"])
-        got[dev.type] = score_wide(st, d["width"], 0, *(r.to(dev) for r in rows)).cpu()
+        got[dev.type] = score_wide(st, d["width"], 0, (), 0, *(r.to(dev) for r in rows)).cpu()
     assert torch.equal(got["cuda"], got["cpu"])
 
 
@@ -399,61 +400,68 @@ def test_last_row_hp_kernel_rejects_mixed_devices(cuda):
         dp_cuda.dp_last_row_hp(*args, 100)
 
 
-def _band_first(d: dict, rows=T.HP_WIDE_KEYS[6:]) -> tuple[dict, int, int]:
-    """``d``'s rows (its per-row arrays ``rows``) with those whose band fits
-    the band form first (as entries.wide_rows orders them), n_band, and the
-    rest's widest window."""
-    from mia_tpu_torch.core.entries import BAND_COLS, band_columns
+def _band_first(d: dict, rows=T.HP_WIDE_KEYS[6:], hp: bool = True):
+    """``d``'s rows (its per-row arrays ``rows``) in the order of
+    entries.wide_rows (the band form's by warps, then without ``hp`` the
+    strand form's, then the full form's), and (n_band, band_classes,
+    n_strand, the full rows' widest window)."""
+    from mia_tpu_torch.core.entries import band_columns, wide_order
 
-    band = band_columns(d["ivl"])[1] <= BAND_COLS
-    order = np.argsort(~band, kind="stable")
+    order, classes, n_strand = wide_order(band_columns(d["ivl"])[1], hp)
     d = {k: (v[order] if k in rows else v) for k, v in d.items()}
-    n_band = int(band.sum())
-    return d, n_band, int(d["ivl"][n_band:, :, 1].max(initial=1))
+    n_band = sum(classes)
+    return d, (n_band, classes, n_strand,
+               int(d["ivl"][n_band + n_strand:, :, 1].max(initial=1)))
 
 
 @pytest.mark.parametrize("L,seed", [(40, 0), (48, 1), (256, 2)])
 def test_band_hp_kernel_matches_plain_on_edge_rows(cuda, L, seed):
     """The -h band form (csrc/dp_band.cu) on testing.hp_band_inputs'
-    edge rows, the full form taking the rows past 384 band columns in the
-    same call: both equal their plain versions; one launch of each."""
-    d, n_band, width = _band_first(T.hp_band_inputs(L, seed))
+    edge rows, 1, 2, 4 and 8 warps a row, the full form taking the rows
+    past 3,072 band columns in the same call: both equal their plain
+    versions; one launch of each."""
+    d, (n_band, classes, _, width) = _band_first(T.hp_band_inputs(L, seed))
+    assert all(classes)
     args = [torch.from_numpy(d[k]).to(cuda) for k in T.HP_WIDE_KEYS]
     dp_cuda.reset_counts()
-    got = dp_cuda.dp_last_row_hp(*args, width, n_band)
+    got = dp_cuda.dp_last_row_hp(*args, width, n_band, classes)
     torch.cuda.synchronize()
     assert (dp_cuda.last_row_hp_band_launches, dp_cuda.last_row_hp_launches) == (1, 1)
     assert dp_cuda.last_row_hp_band_plain_calls == dp_cuda.last_row_hp_plain_calls == 0
-    want = dp_cuda.dp_last_row_hp(*(a.cpu() for a in args), width, n_band)
+    assert dp_cuda.last_row_hp_band_multi_rows == n_band - classes[0]
+    want = dp_cuda.dp_last_row_hp(*(a.cpu() for a in args), width, n_band, classes)
     assert torch.equal(got.cpu(), want)
-    # every row given to the band form: those past it marked (HIM, -1)
-    got = dp_cuda.dp_last_row_hp(*args, 0, len(d["lengths"]))
+    # every row given to the band form, the rest on eight warps: those past
+    # it marked (HIM, -1)
+    R = len(d["lengths"])
+    got = dp_cuda.dp_last_row_hp(*args, 0, R, (*classes[:3], classes[3] + R - n_band))
     assert torch.equal(got.cpu(), dp_torch.last_row_hp_band_plain(*(a.cpu() for a in args)))
-    assert (got[1] == -1).sum().item() == len(d["lengths"]) - n_band
+    assert (got[1] == -1).sum().item() == R - n_band
 
 
 @pytest.mark.parametrize("W,L,seed", [(2300, 48, 3), (17408, 40, 5)])
 def test_band_hp_kernel_on_wide_inputs(cuda, W, L, seed):
     """testing.hp_wide_inputs' rows split between the two forms, the full
     rows at their own widest window: equal to the plain versions."""
-    d, n_band, width = _band_first(T.hp_wide_inputs(W, L, seed))
+    d, (n_band, classes, _, width) = _band_first(T.hp_wide_inputs(W, L, seed))
     assert n_band >= 3
     args = [torch.from_numpy(d[k]).to(cuda) for k in T.HP_WIDE_KEYS]
-    got = dp_cuda.dp_last_row_hp(*args, width, n_band)
+    got = dp_cuda.dp_last_row_hp(*args, width, n_band, classes)
     assert torch.equal(got.cpu(), dp_cuda.dp_last_row_hp(*(a.cpu() for a in args), width,
-                                                         n_band))
+                                                         n_band, classes))
 
 
 def test_band_hp_kernel_through_the_scorer(cuda):
     """torch_engine.score_wide under -h with a mixed batch on the card
     equals it on the CPU."""
-    d, n_band, width = _band_first(T.hp_band_inputs(64, 5))
+    d, (n_band, classes, _, width) = _band_first(T.hp_band_inputs(64, 5))
     rows = [torch.from_numpy(d[k]) for k in ("strand", "win_lo", "ivl", "s2chr", "lengths")]
     sms = np.stack([d["submat"], d["submat"]])
     got = {}
     for dev in (cuda, torch.device("cpu")):
         st = state_from_numpy(d["refs"], sms, dev, d["refchr"], d["hpcs"], d["pengop"])
-        got[dev.type] = score_wide(st, width, n_band, *(r.to(dev) for r in rows)).cpu()
+        got[dev.type] = score_wide(st, width, n_band, classes, 0,
+                                   *(r.to(dev) for r in rows)).cpu()
     assert torch.equal(got["cuda"], got["cpu"])
 
 
@@ -469,36 +477,99 @@ def test_band_hp_kernel_rejects_mixed_devices(cuda):
                                            (96, 3, 70)])
 def test_band_kernel_matches_plain_on_edge_rows(cuda, L, seed, copies):
     """The plain band form (csrc/dp_band.cu) on testing.band_inputs' edge
-    rows (with copies=70: 1,400 rows, 175 blocks), the full form
-    (dp_last_row and an argmax) taking the rows past 384 band columns in
-    the same call: both equal their plain versions; one launch of each."""
-    d, n_band, width = _band_first(T.band_inputs(L, seed, copies), T.BAND_KEYS[2:])
+    rows, 1, 2, 4 and 8 warps a row (with copies=70: 1,470 rows), the strand
+    form (csrc/dp_strand.cu) taking the rows past 3,072 band columns in the
+    same call: both equal their plain versions; one launch of each and
+    none of the full form."""
+    d, (n_band, classes, n_strand, width) = _band_first(T.band_inputs(L, seed, copies),
+                                                        T.BAND_KEYS[2:], hp=False)
+    R = len(d["lengths"])
+    assert all(classes) and n_strand == R - n_band > 0
     args = [torch.from_numpy(d[k]).to(cuda) for k in T.BAND_KEYS]
     dp_cuda.reset_counts()
-    got = dp_cuda.dp_last_row_strand(*args, width, n_band)
+    got = dp_cuda.dp_last_row_strand(*args, width, n_band, classes, n_strand)
     torch.cuda.synchronize()
-    assert (dp_cuda.last_row_band_launches, dp_cuda.last_row_launches) == (1, 1)
-    assert dp_cuda.last_row_band_plain_calls == dp_cuda.last_row_plain_calls == 0
-    assert (dp_cuda.last_row_band_rows, dp_cuda.last_row_rows) == (n_band,
-                                                                   len(d["lengths"]) - n_band)
-    want = dp_cuda.dp_last_row_strand(*(a.cpu() for a in args), width, n_band)
+    assert (dp_cuda.last_row_band_launches, dp_cuda.last_row_strand_launches,
+            dp_cuda.last_row_launches) == (1, 1, 0)
+    assert dp_cuda.last_row_band_plain_calls == dp_cuda.last_row_strand_plain_calls == 0
+    assert (dp_cuda.last_row_band_rows, dp_cuda.last_row_strand_rows,
+            dp_cuda.last_row_rows) == (n_band, n_strand, 0)
+    want = dp_cuda.dp_last_row_strand(*(a.cpu() for a in args), width, n_band, classes,
+                                      n_strand)
     assert torch.equal(got.cpu(), want)
-    # every row given to the band form: those past it marked (HIM, -1)
-    got = dp_cuda.dp_last_row_strand(*args, 0, len(d["lengths"]))
+    # every row given to the band form, the rest on eight warps: those past
+    # it marked (HIM, -1)
+    got = dp_cuda.dp_last_row_strand(*args, 0, R, (*classes[:3], classes[3] + n_strand))
     assert torch.equal(got.cpu(), dp_torch.last_row_band_plain(*(a.cpu() for a in args)))
-    assert (got[1] == -1).sum().item() == len(d["lengths"]) - n_band
+    assert (got[1] == -1).sum().item() == n_strand
+
+
+@pytest.mark.parametrize("warps", [1, 2, 4, 8])
+def test_band_kernel_each_class_alone(cuda, warps):
+    """The band rows of one warp class, 40 copies of testing.band_inputs'
+    (several blocks), alone in a launch: equal to the plain version."""
+    from mia_tpu_torch.core.entries import BAND_WARPS, band_columns, band_warps
+
+    d = T.band_inputs(64, 7, copies=40)
+    keep = band_warps(band_columns(d["ivl"])[1]) == warps
+    d = {k: (v[keep] if k in T.BAND_KEYS[2:] else v) for k, v in d.items()}
+    R = int(keep.sum())
+    classes = tuple(R if w == warps else 0 for w in BAND_WARPS)
+    args = [torch.from_numpy(d[k]).to(cuda) for k in T.BAND_KEYS]
+    got = dp_cuda.dp_last_row_strand(*args, 0, R, classes)
+    assert torch.equal(got.cpu(), dp_torch.last_row_band_plain(*(a.cpu() for a in args)))
+
+
+@pytest.mark.parametrize("L,seed,base", [(48, 0, 2000), (1, 1, 2000), (256, 2, 2000),
+                                         (96, 3, 16569), (256, 4, 16569)])
+def test_strand_kernel_matches_plain(cuda, L, seed, base):
+    """The strand form (csrc/dp_strand.cu) on testing.strand_inputs' rows
+    (whole strands in one and in 16 intervals, across the origin, ties in
+    the wrap and in a repeat, no open column, a read of 1 base, past the
+    state), on a 2,000-column strand and on a human-mt-sized one: equal to
+    its plain version; one launch, no other form."""
+    d = T.strand_inputs(L, seed, base=base)
+    R = len(d["lengths"])
+    args = [torch.from_numpy(d[k]).to(cuda) for k in T.BAND_KEYS]
+    dp_cuda.reset_counts()
+    got = dp_cuda.dp_last_row_strand(*args, 0, 0, (), R)
+    torch.cuda.synchronize()
+    assert (dp_cuda.last_row_band_launches, dp_cuda.last_row_strand_launches,
+            dp_cuda.last_row_launches) == (0, 1, 0)
+    assert torch.equal(got.cpu(), dp_torch.last_row_strand_plain(*(a.cpu() for a in args)))
+
+
+def test_kernels_on_a_call_of_every_form(cuda):
+    """testing.mixed_wide_inputs: band rows of all four classes, strand
+    rows and full rows past 18,432 band columns in one call, as
+    entries.wide_rows orders them: equal to the call on the CPU; one launch
+    of each form."""
+    d, (n_band, classes, n_strand, width) = _band_first(T.mixed_wide_inputs(64, 1),
+                                                        T.BAND_KEYS[2:], hp=False)
+    assert all(classes) and n_strand and n_band + n_strand < len(d["lengths"])
+    args = [torch.from_numpy(d[k]).to(cuda) for k in T.BAND_KEYS]
+    dp_cuda.reset_counts()
+    got = dp_cuda.dp_last_row_strand(*args, width, n_band, classes, n_strand)
+    torch.cuda.synchronize()
+    assert (dp_cuda.last_row_band_launches, dp_cuda.last_row_strand_launches,
+            dp_cuda.last_row_launches) == (1, 1, 1)
+    want = dp_cuda.dp_last_row_strand(*(a.cpu() for a in args), width, n_band, classes,
+                                      n_strand)
+    assert torch.equal(got.cpu(), want)
 
 
 def test_band_kernel_through_the_scorer(cuda):
     """torch_engine.score_wide without -h, a mixed batch on the card equal
     to it on the CPU."""
-    d, n_band, width = _band_first(T.band_inputs(64, 5), T.BAND_KEYS[2:])
+    d, (n_band, classes, n_strand, width) = _band_first(T.band_inputs(64, 5),
+                                                        T.BAND_KEYS[2:], hp=False)
     rows = [torch.from_numpy(d[k]) for k in T.BAND_KEYS[2:]]
     sms = np.stack([d["submat"], d["submat"]])
     got = {}
     for dev in (cuda, torch.device("cpu")):
         st = state_from_numpy(d["refs"], sms, dev)
-        got[dev.type] = score_wide(st, width, n_band, *(r.to(dev) for r in rows)).cpu()
+        got[dev.type] = score_wide(st, width, n_band, classes, n_strand,
+                                   *(r.to(dev) for r in rows)).cpu()
     assert torch.equal(got["cuda"], got["cpu"])
 
 
@@ -508,6 +579,8 @@ def test_band_kernel_rejects_mixed_devices(cuda):
     args[4] = args[4].cpu()
     with pytest.raises(ValueError):
         dp_cuda.dp_last_row_strand(*args, 0, len(d["lengths"]))
+    with pytest.raises(ValueError):
+        dp_cuda.dp_last_row_strand(*args, 0, 0, (), len(d["lengths"]))
 
 
 @pytest.mark.parametrize("B,W,L,seed", [(16, 300, 32, 0), (2048, 17024, 256, 1)])

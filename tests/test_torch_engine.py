@@ -137,12 +137,27 @@ def test_kernel_library_path_keys_on_sources(tmp_path, monkeypatch):
     assert p1 != p2 and os.path.dirname(p2).startswith(torchcfg.BUILD_DIR)
 
 
+def test_kernel_library_path_keys_on_headers(tmp_path, monkeypatch):
+    """A header the sources include (csrc/*.cuh) keys the library too: an
+    edited header rebuilds, though only the .cu files are compiled."""
+    assert "band_dp.cuh" in [os.path.basename(s) for s in torchcfg._sources()]
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    head = tmp_path / "h.cuh"
+    head.write_text("// one\n")
+    monkeypatch.setattr(torchcfg, "CSRC_DIR", str(tmp_path))
+    assert [os.path.basename(s) for s in torchcfg._sources()] == ["h.cuh", "k.cu"]
+    p1 = torchcfg.library_path()
+    head.write_text("// two\n")
+    assert torchcfg.library_path() != p1
+
+
 class _FakeKernelLibrary:
     """Stands in for the ctypes library: reports the given constants."""
 
     def __init__(self, values, myers=None, last_row=None, cons=None, pileup=None, band=None,
-                 plain_band=None):
+                 plain_band=None, strand=None):
         self.values = values
+        self.strand = torchcfg.expected_strand_constants() if strand is None else strand
         self.band = torchcfg.expected_band_hp_constants() if band is None else band
         self.plain_band = (torchcfg.expected_band_constants() if plain_band is None
                            else plain_band)
@@ -172,6 +187,9 @@ class _FakeKernelLibrary:
 
     def mia_dp_band_constants(self, buf, n):
         return self._fill(self.plain_band, buf, n)
+
+    def mia_dp_strand_constants(self, buf, n):
+        return self._fill(self.strand, buf, n)
 
     def mia_consensus_call_constants(self, buf, n):
         return self._fill(self.cons, buf, n)
@@ -235,26 +253,40 @@ def test_kernel_library_myers_constants_checked(myers):
                   512, 256, 16, 32, 11, 16384]),                             # -h widest row
     ("pileup", [31, 1024, 128]),                                             # a block's list
     ("pileup", [31, 2048, 512]),                                             # tile width
-    ("band", [385, 16, 256, 31, 1000, 200, -(2**30), -(2**30) - 2**29, 32, 11]),  # band columns
-    ("band", [384, 16, 256, 31, 1000, 200, -(2**30), -(2**30) - 2**29, 32]),      # count
-    ("plain_band", [512, 16, 256, 31, 15, 1000, 200, -(2**30), -(2**30) - 2**29]),  # band columns
+    ("band", [385, 16, 256, 31, 1000, 200, -(2**30), -(2**30) - 2**29, 32, 11, 3072]),  # a warp
+    ("band", [384, 16, 256, 31, 1000, 200, -(2**30), -(2**30) - 2**29, 32, 11, 1536]),  # a row
+    ("band", [384, 16, 256, 31, 1000, 200, -(2**30), -(2**30) - 2**29, 32, 11]),    # count
+    ("plain_band", [512, 16, 256, 31, 15, 1000, 200, -(2**30), -(2**30) - 2**29, 3072]),  # a warp
+    ("plain_band", [384, 16, 256, 31, 15, 1000, 200, -(2**30), -(2**30) - 2**29, 4096]),  # a row
     ("plain_band", [384, 16, 256, 31, 15, 1000, 200, -(2**30)]),                  # count
+    ("strand", [17408, 9, 16, 128, 16, 256, 31, 15, 1000, 200, -(2**30),
+                -(2**30) - 2**29]),                                               # band columns
+    ("strand", [18432, 9, 8, 256, 16, 256, 31, 15, 1000, 200, -(2**30),
+                -(2**30) - 2**29]),                                               # CTAs a row
+    ("strand", [18432, 8, 16, 128, 16, 256, 31, 15, 1000, 200, -(2**30),
+                -(2**30) - 2**29]),                                               # columns a thread
+    ("strand", [18432, 9, 16, 128, 16, 256, 31, 15, 1000, 200, -(2**30)]),        # count
 ])
 def test_kernel_library_step_constants_checked(which, values):
-    """The last-row scorer's, its band forms', the consensus call's and the
-    pileup counts' constants are held against the Python side's too."""
+    """The last-row scorer's, its band and strand forms', the consensus
+    call's and the pileup counts' constants are held against the Python
+    side's too."""
     assert torchcfg.expected_last_row_constants() == [
         1000, 200, -(2**30), -(2**30) - 2**29, 31, 227 * 1024 - 1024, 34, 512, 256, 16, 32,
         11, 17408]
     assert torchcfg.expected_consensus_call_constants() == [50, -399, 32]
     assert torchcfg.expected_pileup_constants() == [31, 2048, 128]
     assert torchcfg.expected_band_hp_constants() == [
-        384, 16, 256, 31, 1000, 200, -(2**30), -(2**30) - 2**29, 32, 11]
+        384, 16, 256, 31, 1000, 200, -(2**30), -(2**30) - 2**29, 32, 11, 3072]
     assert torchcfg.expected_band_constants() == [
-        384, 16, 256, 31, 15, 1000, 200, -(2**30), -(2**30) - 2**29]
+        384, 16, 256, 31, 15, 1000, 200, -(2**30), -(2**30) - 2**29, 3072]
+    assert torchcfg.expected_strand_constants() == [
+        18432, 9, 16, 128, 16, 256, 31, 15, 1000, 200, -(2**30), -(2**30) - 2**29]
+    assert (entries.BAND_ROW_COLS, entries.STRAND_COLS) == (3072, 18432)
+    assert entries.STRAND_COLS >= entries.HP_WIDE_COLS
     lib = _FakeKernelLibrary(torchcfg.expected_constants(), **{which: values})
     entry = {"last_row": "dp_last_row", "cons": "consensus_call", "pileup": "pileup_counts",
-             "band": "dp_band_hp", "plain_band": "dp_band"}
+             "band": "dp_band_hp", "plain_band": "dp_band", "strand": "dp_strand"}
     with pytest.raises(RuntimeError, match=f"mia_{entry[which]}_constants"):
         torchcfg.check_constants(lib)
     src = open(os.path.join(torchcfg.CSRC_DIR, "dp_last_row.cu")).read()
@@ -262,9 +294,19 @@ def test_kernel_library_step_constants_checked(which, values):
                  "kSmemLimit = 227 * 1024 - 1024;", "kCols = 34;", "kRegThreads = 512;",
                  "kLMax = 256;", "kK = 16;", "kHpw = 32;", "kPengop = 11;"):
         assert f"constexpr int {decl}" in src, decl
-    src = open(os.path.join(torchcfg.CSRC_DIR, "dp_band.cu")).read()
+    # the two scorers of wide rows share band_dp.cuh's constants
+    shared = open(os.path.join(torchcfg.CSRC_DIR, "band_dp.cuh")).read()
+    src = open(os.path.join(torchcfg.CSRC_DIR, "dp_band.cu")).read() + shared
+    assert '#include "band_dp.cuh"' in src
     for decl in ("kCPL = 12;", "kBand = 32 * kCPL;", "kK = 16;", "kLMax = 256;",
-                 "kHpw = 32;", "kPengop = 11;", "GOP = 1000;", "GEP = 200;"):
+                 "kHpw = 32;", "kPengop = 11;", "GOP = 1000;", "GEP = 200;", "kWarps = 8;",
+                 "kRowBand = kBand * kWarps;"):
+        assert f"constexpr int {decl}" in src, decl
+    src = open(os.path.join(torchcfg.CSRC_DIR, "dp_strand.cu")).read() + shared
+    assert '#include "band_dp.cuh"' in src
+    for decl in ("kC = 16;", "kThreads = 2048 / kC;", "kCPL = 9;",
+                 "kSlice = kThreads * kCPL;", "kStrand = kC * kSlice;", "kK = 16;",
+                 "kLMax = 256;", "kPssmDepth = 15;", "GOP = 1000;", "GEP = 200;"):
         assert f"constexpr int {decl}" in src, decl
     src = open(os.path.join(torchcfg.CSRC_DIR, "pileup_counts.cu")).read()
     for decl in ("kThreads = 1024;", "kPer = 2;", "kMaxTile = 128;", "kDepth = 31;"):

@@ -92,18 +92,20 @@ def test_torch_maln_byte_identical(name, tmp_path):
     if "-k" in CONFIGS[name]:
         assert c["pass1.device_scored_reads"] > 0, c
     # pass 1's WIDE reads (every read without -k): scored full width by the
-    # general-width scorer's band and full forms, under -h by its -h forms
+    # general-width scorer's band, strand and full forms, under -h by its -h forms
     # (each its plain version here), none by the native solve
     assert c.get("pass1.native_solved_wide_reads", 0) == 0, c
     wide = c["pass1.device_scored_wide_reads"]
     assert wide > 0 or "-k" in CONFIGS[name], c
     hp_plain = c["dp.last_row_hp_plain_calls"] + c["dp.last_row_hp_band_plain_calls"]
-    no_hp_plain = c["dp.last_row_plain_calls"] + c["dp.last_row_band_plain_calls"]
+    no_hp_plain = (c["dp.last_row_plain_calls"] + c["dp.last_row_band_plain_calls"]
+                   + c["dp.last_row_strand_plain_calls"])
     plain, other = (hp_plain, no_hp_plain)[:: 1 if hp else -1]
     assert (plain > 0) == (wide > 0), c
     assert other == 0, c
     assert c["dp.last_row_launches"] == c["dp.last_row_hp_launches"] == 0, c
     assert c["dp.last_row_band_launches"] == c["dp.last_row_hp_band_launches"] == 0, c
+    assert c["dp.last_row_strand_launches"] == 0, c
     assert c["cons.plain_calls"] > 0 and c["cons.kernel_launches"] == 0, c
     assert c["consensus.device_calls"] == c["cons.plain_calls"], c
     assert "consensus.device_fallbacks" not in c, c

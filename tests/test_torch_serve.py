@@ -142,17 +142,20 @@ def test_client_writes_golden_through_server(name, server, tmp_path):
     assert d["dp.kernel_launches"] == d["dp.hp_kernel_launches"] == d["cons.kernel_launches"] == 0
     # pass 1's WIDE reads (every read without -k): the server scored them
     # full width, with the plain versions of the general-width scorer's
-    # forms (band and full), under -h its -h forms'; none by the native
+    # forms (band, strand and full), under -h its -h forms'; none by the native
     # solve
     assert c["dp.last_row_plain_calls"] == c["dp.last_row_hp_plain_calls"] == 0, c
     assert c["dp.last_row_band_plain_calls"] == c["dp.last_row_hp_band_plain_calls"] == 0, c
+    assert c["dp.last_row_strand_plain_calls"] == 0, c
     assert d["dp.last_row_launches"] == d["dp.last_row_hp_launches"] == 0, d
     assert d["dp.last_row_band_launches"] == d["dp.last_row_hp_band_launches"] == 0, d
+    assert d["dp.last_row_strand_launches"] == 0, d
     assert c.get("pass1.native_solved_wide_reads", 0) == 0, c
     wide = c["pass1.device_scored_wide_reads"]
     assert wide > 0 or "-k" in fixture_args(name), c
     hp_plain = d["dp.last_row_hp_plain_calls"] + d["dp.last_row_hp_band_plain_calls"]
-    no_hp_plain = d["dp.last_row_plain_calls"] + d["dp.last_row_band_plain_calls"]
+    no_hp_plain = (d["dp.last_row_plain_calls"] + d["dp.last_row_band_plain_calls"]
+                   + d["dp.last_row_strand_plain_calls"])
     plain, other = (hp_plain, no_hp_plain)[:: 1 if hp else -1]
     assert (plain > 0) == (wide > 0), (c, d)
     assert other == 0, d
@@ -247,10 +250,11 @@ def test_server_packed_batch_equals_in_process_scorer(server):
         remote.free()
     finally:
         conn.close()
-    # every wide row's band takes 401 columns: the full form's
-    assert after["dp.last_row_plain_calls"] == before["dp.last_row_plain_calls"] + 1
-    assert after["dp.last_row_band_plain_calls"] == before["dp.last_row_band_plain_calls"]
-    assert after["dp.last_row_rows"] > before["dp.last_row_rows"]
+    # every wide row's band takes 401 columns: two warps of the band form
+    assert after["dp.last_row_band_plain_calls"] == before["dp.last_row_band_plain_calls"] + 1
+    assert after["dp.last_row_plain_calls"] == before["dp.last_row_plain_calls"]
+    assert after["dp.last_row_strand_plain_calls"] == before["dp.last_row_strand_plain_calls"]
+    assert after["dp.last_row_band_rows"] > before["dp.last_row_band_rows"]
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
     assert (got[2][::8] == -(2**30)).all() and (got[0][1::4] != got[0][::4].min()).any()
@@ -294,10 +298,10 @@ def test_server_packed_hp_batch_equals_in_process_scorer(server):
         remote.free()
     finally:
         conn.close()
-    # every wide row's band is over 384 columns: the full form's
-    assert after["dp.last_row_hp_plain_calls"] == before["dp.last_row_hp_plain_calls"] + 1
+    # every wide row's band takes 401 columns: two warps of the band form
     assert (after["dp.last_row_hp_band_plain_calls"]
-            == before["dp.last_row_hp_band_plain_calls"])
+            == before["dp.last_row_hp_band_plain_calls"] + 1)
+    assert after["dp.last_row_hp_plain_calls"] == before["dp.last_row_hp_plain_calls"]
     assert after["dp.last_row_plain_calls"] == before["dp.last_row_plain_calls"]
     assert after["dp.last_row_band_plain_calls"] == before["dp.last_row_band_plain_calls"]
     for g, w in zip(got, want):

@@ -37,6 +37,16 @@ from mia_tpu_torch.utils.encoding import encode_seq, revcom
 WRAP = 256
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread a worker, so that several workers on one machine do
+    not spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _reference(rng, n):
     """A random reference with the same 70-base homopolymer at two distant
     places."""
@@ -114,12 +124,15 @@ def test_wide_scores_match_native_solve_and_jax(seed, kmer, circular):
     assert rows.n < 2 * int(sel.sum()) or kmer < 0
     dp_cuda.reset_counts()
     fb, fa, rb, ra = _scores(scorer, lens, prep)
-    # the rows whose band fits took the band form, the rest the full form
-    assert (dp_cuda.last_row_band_plain_calls, dp_cuda.last_row_plain_calls) == (
-        int(rows.n_band > 0), int(rows.n_band < rows.n))
+    # the rows whose band fits took the band form, the wider ones the
+    # strand form, the rest the full form
+    nb, ns = rows.n_band, rows.n_strand
+    assert (dp_cuda.last_row_band_plain_calls, dp_cuda.last_row_strand_plain_calls,
+            dp_cuda.last_row_plain_calls) == (int(nb > 0), int(ns > 0), int(nb + ns < rows.n))
     assert dp_cuda.last_row_band_launches == dp_cuda.last_row_launches == 0
-    assert (dp_cuda.last_row_band_rows, dp_cuda.last_row_rows) == (rows.n_band,
-                                                                   rows.n - rows.n_band)
+    assert dp_cuda.last_row_strand_launches == 0
+    assert (dp_cuda.last_row_band_rows, dp_cuda.last_row_strand_rows,
+            dp_cuda.last_row_rows) == (nb, ns, rows.n - nb - ns)
 
     # the same windows through mia_tpu's scan
     s1c, mask, rs2c, rlen, depths = entries.wide_inputs(rows, scorer.state.refs.numpy())

@@ -47,6 +47,16 @@ from .test_torch_golden import _norm, profile_counters, run_torch_mia
 WRAP = 256
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread a worker, so that several workers on one machine do
+    not spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _dense(d: dict) -> dict:
     """``dp_jax.batch_last_row_hp``'s dense arguments for the rows of ``d``
     (``testing.hp_wide_inputs``' keys), made in numpy as
