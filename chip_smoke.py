@@ -88,12 +88,16 @@ counts) and the committed goldens.
    both band forms on ``band_inputs`` and ``hp_band_inputs`` (each form's
    column limit and one past it, bands at columns 0 and 1, 16 one-column
    intervals, no open column, a band over both ends of a circular strand),
-   exact; the strand form on ``strand_inputs``; and one call of
-   ``dp_last_row_strand`` on ``mixed_wide_inputs`` in ``wide_rows``' order,
-   band rows of every class, whole strands and rows past 18,432 band columns
-   (the full form's route: its windows, the register or wide kernel, the
-   argmax), equal to the same call on the CPU with exactly one launch of
-   each form and no plain call.
+   exact; the strand forms on ``strand_inputs`` and ``hp_strand_inputs``
+   (under ``-h`` reference runs across a 1,152-column slice border and at a
+   slice's first column, a source not open, a run longer than a slice,
+   read runs of 31-33); one call of ``dp_last_row_strand`` on
+   ``mixed_wide_inputs`` in ``wide_rows``' order, band rows of every class,
+   whole strands and rows past 18,432 band columns (the full form's route:
+   its windows, the register or wide kernel, the argmax), and one of
+   ``dp_last_row_hp`` on ``mixed_hp_wide_inputs`` (band rows of every
+   class, strand rows, full rows), each equal to the same call on the CPU
+   with exactly one launch of each form and no plain call.
    And the Myers kernel on ``edge_myers_pairs`` (lengths 0 to 65 around its
    8- and 16-base snake steps and padding, N runs, bitmap-0 characters, snakes
    ending at either or both ends, maxd 1 and clipped, all three modes,
@@ -134,19 +138,23 @@ counts) and the committed goldens.
    both times and the CPUs the process sees.
 8. -h end to end: the same workload with ``-h``, in this process only,
    against ``--engine native -h``, the ``-h`` scorer's launches in place of
-   the scorer's, and pass 1's WIDE reads on the full-width ``-h`` scorer
-   (``dp.last_row_hp_band_launches`` > 0, both plain calls 0,
+   the scorer's, and pass 1's WIDE reads on the general-width ``-h`` scorer
+   (``dp.last_row_hp_band_launches`` and ``dp.last_row_hp_strand_launches``
+   > 0, ``dp.last_row_hp_launches`` 0, every plain call 0,
    ``pass1.native_solved_wide_reads`` 0).
 8c. -h wide reads: that run's ``dp_last_row_hp`` calls (K4g): rows and
    launches of each form (the band form for rows whose band takes at most
-   3,072 columns, on 1, 2, 4 or 8 warps a row, the full form for the rest)
-   and of each class, widths, cells counted as launched, over each row's
-   own window and over its band, and device time (CUDA events around each
-   call and each form's launches), Gcells/s; each form's largest call held
-   to its plain version (exact), timed, and its bound at the DP's 14
-   operations a cell (the band form's over its band cells, with the
-   own-window count beside it), as phase 7b does; the full form must have
-   run (this workload's ``-h`` wide rows hold whole strands).
+   3,072 columns, on 1, 2, 4 or 8 warps a row, the strand form for whole
+   strands, the full form for none) and of each class, widths, cells
+   counted as launched, over each row's own window and over its band, and
+   device time (CUDA events around each call and each form's launches),
+   Gcells/s; each form's largest call held to its plain version (exact),
+   timed, and its bound at the DP's 14 operations a cell (the band and
+   strand forms' over their band cells, with the own-window count beside
+   it), as phase 7b does; the strand form must have run and the full form
+   not (this workload's ``-h`` wide rows hold whole strands), and the full
+   form is held and timed on the largest strand call's rows, which it took
+   before.
 8a. workload shapes: the largest scorer batch of phase 7, the largest of
    phase 8 and the largest consensus record set of the two, kept as the runs
    went through the wrappers: each kernel against its plain version on them
@@ -227,7 +235,8 @@ counts) and the committed goldens.
    ``hello`` counts of scorer, band-form (``dp_last_row_strand``) and
    consensus launches with no plain call.
    Then once with ``-h`` (phase 8's malns, ``-h`` scorer and
-   ``dp_last_row_hp`` launches of both forms), two clients at once (both
+   ``dp_last_row_hp`` launches of the band and strand forms, none of the
+   full form), two clients at once (both
    phase 7's bytes), and ``--engine native`` as a new process with torch
    refused.  Prints every wall beside phase 7's new-process walls, stops
    the server with SIGTERM and checks that its socket is gone.
@@ -573,9 +582,9 @@ def phase_consensus_kernel(dev) -> dict:
 
 
 def phase_step_edges(dev) -> None:
-    """The general-width scorer, its two band forms, its strand form and the
-    pileup counts against their plain versions on their adversarial inputs,
-    exact."""
+    """The general-width scorer, its two band forms, its two strand forms and
+    the pileup counts against their plain versions on their adversarial
+    inputs, exact."""
     import numpy as np
     import torch
 
@@ -586,6 +595,7 @@ def phase_step_edges(dev) -> None:
         batch_last_row,
         last_row_band_plain,
         last_row_hp_band_plain,
+        last_row_hp_strand_plain,
         last_row_strand_plain,
     )
     from mia_tpu_torch.parallel import sharded
@@ -608,7 +618,7 @@ def phase_step_edges(dev) -> None:
     # in wide_rows' order, by the warps each takes, the rows past 3,072
     # columns on eight (they give (HIM, -1), as the plain versions do)
     def by_warps(d: dict, keys: tuple) -> tuple[list, tuple]:
-        order, classes, _ = wide_order(band_columns(d["ivl"])[1], hp=True)
+        order, classes, _ = wide_order(band_columns(d["ivl"])[1])
         rest = len(order) - sum(classes)
         return ([torch.from_numpy(np.ascontiguousarray(d[k][order] if k in keys[-5:]
                                                        else d[k])).to(dev) for k in keys],
@@ -632,6 +642,12 @@ def phase_step_edges(dev) -> None:
         check_equal(f"dp_last_row_strand's strand form != plain on edge rows (seed {seed})",
                     dp_cuda.dp_last_row_strand(*sargs, 0, 0, (), len(st["lengths"])),
                     last_row_strand_plain(*sargs))
+        # the -h strand form on its edges, whole strands of the same size
+        hs = T.hp_strand_inputs(L, seed, base=16569)
+        hsargs = [torch.from_numpy(hs[k]).to(dev) for k in T.HP_WIDE_KEYS]
+        check_equal(f"dp_last_row_hp's strand form != plain on edge rows (seed {seed})",
+                    dp_cuda.dp_last_row_hp(*hsargs, 0, 0, (), len(hs["lengths"])),
+                    last_row_hp_strand_plain(*hsargs))
     # one call of every form, as pass 1 orders a call's rows: the band form's
     # four classes, the strand form's whole strands and the full form's rows
     # past 18,432 band columns, at the full rows' widest window
@@ -666,6 +682,29 @@ def phase_step_edges(dev) -> None:
         f"{len(order) - m_band - m_strand} full rows at width {m_width}, L = 64); one launch "
         f"each of the band, strand and full forms ({rise['last_row_wide_launches']} of them "
         f"the wide kernel), no plain call")
+    # the same under -h: the band form's four classes, the strand form's
+    # rows and full rows, one call
+    hm = T.mixed_hp_wide_inputs(64, 1)
+    hmargs = [torch.from_numpy(hm[k]) for k in T.HP_WIDE_KEYS]
+    hsplit = (hm["width"], hm["n_band"], hm["band_classes"], hm["n_strand"])
+    hp_keys = ("last_row_hp_band_launches", "last_row_hp_strand_launches", "last_row_hp_launches",
+               "last_row_hp_plain_calls", "last_row_hp_band_plain_calls",
+               "last_row_hp_strand_plain_calls")
+    before = {k: getattr(dp_cuda, k) for k in hp_keys}
+    got = dp_cuda.dp_last_row_hp(*(a.to(dev) for a in hmargs), *hsplit)
+    rise = {k: getattr(dp_cuda, k) - v for k, v in before.items()}
+    if tuple(rise[k] for k in hp_keys) != (1, 1, 1, 0, 0, 0):
+        raise AssertionError(f"edges: the mixed -h call's launches {rise}")
+    plain_counts = {k: getattr(dp_cuda, k) for k in hp_keys if k.endswith("plain_calls")}
+    want = dp_cuda.dp_last_row_hp(*hmargs, *hsplit)
+    for k, v in plain_counts.items():
+        setattr(dp_cuda, k, v)
+    check_equal("dp_last_row_hp != its CPU call on a call of every form", got.cpu(), want)
+    say(f"edges: dp_last_row_hp on one call of every form == the same call on the CPU "
+        f"(exact; {len(hm['lengths'])} rows: band classes {list(hm['band_classes'])}, "
+        f"{hm['n_strand']} strand rows, {len(hm['lengths']) - hm['n_band'] - hm['n_strand']} "
+        f"full rows at width {hm['width']}, L = 64); one launch each of the band, strand and "
+        f"full forms, no plain call")
     say(f"edges: both band forms == their plain versions on 2 x {R} / "
         f"{len(h['lengths'])} edge rows (band "
         f"columns at 1, 2 and 8 warps' limit and one past it, open columns at one warp's, "
@@ -674,7 +713,11 @@ def phase_step_edges(dev) -> None:
         f"band over both ends of a circular strand; -h: hp_col sources across intervals, "
         f"gaps and warps; L = 48 and 256; exact), the strand form on 2 x "
         f"{len(st['lengths'])} whole-strand rows (16,569 columns and the wrap: one and 16 "
-        f"intervals, across the origin, ties, no open column, a read of 1, past the state)")
+        f"intervals, across the origin, ties, no open column, a read of 1, past the state), "
+        f"the -h strand form on 2 x {len(hs['lengths'])} rows (reference runs across a "
+        f"1,152-column slice border and at a slice's first column, a source not open, a run "
+        f"longer than a slice with read runs of 31-33, across the origin, a tie, past the "
+        f"state)")
     names = []
     for seed in (0, 1):
         for name, d, W, _ in T.edge_pileup_inputs(seed):
@@ -687,7 +730,8 @@ def phase_step_edges(dev) -> None:
     say(f"edges: pileup_counts == _pileup_counts on {len(names)} adversarial batches "
         f"({', '.join(names[: len(names) // 2])}; exact)")
     if (dp_cuda.last_row_plain_calls or dp_cuda.last_row_band_plain_calls
-            or dp_cuda.last_row_hp_band_plain_calls or sharded.pileup_plain_calls):
+            or dp_cuda.last_row_hp_band_plain_calls or dp_cuda.last_row_hp_strand_plain_calls
+            or dp_cuda.last_row_hp_plain_calls or sharded.pileup_plain_calls):
         raise AssertionError("edges: a plain version was called through a wrapper on the card")
 
 
@@ -1007,18 +1051,20 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool,
     if not (counts[scorer] > 0 and counts["cons.kernel_launches"] > 0
             and checks["pass1.native_solved_wide_reads"] == 0
             # the WIDE reads went through the general-width scorer's band
-            # form (K1g; under -h K4g) and, without -h, never its full form
-            # (whole strands take the strand form, phase 7b's check; under
-            # -h the full form keeps the rows past 3,072 band columns)
+            # form (K1g; under -h K4g) and never its full form (whole
+            # strands take the strand form: phase 7b's check, and under -h
+            # this workload's whole strands, phase 8c's)
             and counts["dp.last_row_hp_band_launches" if hp
                        else "dp.last_row_band_launches"] > 0
-            and (hp or counts["dp.last_row_launches"] == 0)
+            and (not hp or counts["dp.last_row_hp_strand_launches"] > 0)
+            and counts["dp.last_row_launches"] == counts["dp.last_row_hp_launches"] == 0
             and checks["pass1.device_scored_wide_reads"] > 0
             and counts["dp.plain_calls"] == counts["dp.hp_plain_calls"] == 0
             and counts["dp.last_row_plain_calls"] == counts["dp.last_row_hp_plain_calls"] == 0
             and counts["dp.last_row_band_plain_calls"] == 0
             and counts["dp.last_row_strand_plain_calls"] == 0
             and counts["dp.last_row_hp_band_plain_calls"] == 0
+            and counts["dp.last_row_hp_strand_plain_calls"] == 0
             and counts["cons.plain_calls"] == 0
             and checks["pass1.device_scored_reads"] > 0
             and checks["reiterate.device_entries"] > 0
@@ -1033,16 +1079,17 @@ def run_e2e(tag: str, args: list[str], hp: bool, new_process: bool,
     return counts, walls
 
 def wide_counts(dp_cuda) -> dict:
-    """The strand form's counters and the band rows on more than one warp
+    """The strand forms' counters and the band rows on more than one warp
     (``dp_cuda``'s), under their profile names."""
     return {f"dp.{k}": getattr(dp_cuda, k) for k in (
         "last_row_strand_launches", "last_row_strand_plain_calls", "last_row_strand_rows",
-        "last_row_band_multi_rows", "last_row_hp_band_multi_rows")}
+        "last_row_hp_strand_launches", "last_row_hp_strand_plain_calls",
+        "last_row_hp_strand_rows", "last_row_band_multi_rows", "last_row_hp_band_multi_rows")}
 
 
 # the forms of the scorers of wide rows, in the order of a call's rows:
-# the band form's classes (1, 2, 4 and 8 warps a row), the strand form
-# (without -h), the full form
+# the band form's classes (1, 2, 4 and 8 warps a row), the strand form, the
+# full form
 WIDE_CLASSES = ("band1", "band2", "band4", "band8", "strand", "full")
 
 
@@ -1070,7 +1117,7 @@ def last_row_call(args, name: str = "dp_last_row") -> dict:
         return {"rows": s2c.shape[0], "width": int(width), "L": s2c.shape[1], "cells": cells}
     from mia_tpu_torch.core.entries import BAND_COLS, BAND_ROW_COLS, BAND_WARPS, band_columns
 
-    # dp_last_row_hp: ... ivl, s2chr, lengths, width, n_band, band_classes;
+    # dp_last_row_hp: ... ivl, s2chr, lengths, width, n_band, band_classes, n_strand;
     # dp_last_row_strand: refs, submat, strand, win_lo, ivl, s2c, lengths, width, n_band,
     # band_classes, n_strand
     hp = name == "dp_last_row_hp"
@@ -1105,13 +1152,12 @@ def last_row_call(args, name: str = "dp_last_row") -> dict:
                                   & (band_cols == own_width)).sum())}
 
 
-def wide_totals(calls: list[dict], hp: bool) -> tuple[dict, dict]:
+def wide_totals(calls: list[dict]) -> tuple[dict, dict]:
     """A run's calls of a scorer of wide rows (:func:`last_row_call` each):
     its totals of cells (as launched, over each row's own window, over its
     band), of rows over 384, 512 and 3,072 band columns and of whole
-    strands; and per class (``WIDE_CLASSES``; under ``hp`` no strand form)
-    its rows, the calls that hold any, and its cells as launched and over
-    the rows' bands."""
+    strands; and per class (``WIDE_CLASSES``) its rows, the calls that hold
+    any, and its cells as launched and over the rows' bands."""
     tot = {k: sum(c[k] for c in calls)
            for k in ("launched", "cells", "band_cells", "over_384", "over_512", "over_3072",
                      "whole_strands")}
@@ -1119,7 +1165,7 @@ def wide_totals(calls: list[dict], hp: bool) -> tuple[dict, dict]:
                      "calls": sum(1 for k in calls if k["class_rows"][c]),
                      "launched_cells": sum(k["class_launched"][c] for k in calls),
                      "band_cells": sum(k["class_band_cells"][c] for k in calls)}
-                 for c in WIDE_CLASSES if c != "strand" or not hp}
+                 for c in WIDE_CLASSES}
     return tot, per_class
 
 
@@ -1136,7 +1182,8 @@ class LastRowTimer:
 
     FORMS = {"dp_last_row_strand": {"band": "mia_dp_band", "strand": "mia_dp_strand",
                                     "full": "mia_dp_last_row"},
-             "dp_last_row_hp": {"band": "mia_dp_band_hp", "full": "mia_dp_last_row_hp"}}
+             "dp_last_row_hp": {"band": "mia_dp_band_hp", "strand": "mia_dp_strand_hp",
+                                "full": "mia_dp_last_row_hp"}}
 
     def __init__(self, name: str = "dp_last_row"):
         self.name = name
@@ -1341,16 +1388,17 @@ def wide_forms(label: str, timer: "LastRowTimer", counts: dict, hp: bool) -> dic
         last_row_band_plain,
         last_row_hp_band_plain,
         last_row_hp_plain,
+        last_row_hp_strand_plain,
         last_row_strand_plain,
         wide_device_inputs,
     )
 
     pre = "dp.last_row_hp" if hp else "dp.last_row"
-    forms = ("band", "full") if hp else ("band", "strand", "full")
-    launch_key = {"band": f"{pre}_band_launches", "strand": "dp.last_row_strand_launches",
-                  "full": f"{pre}_launches"}
-    rows_key = {"band": f"{pre}_band_rows", "strand": "dp.last_row_strand_rows",
-                "full": f"{pre}_rows"}
+    forms = ("band", "strand", "full")
+    launch_key = {f: f"{pre}_{f}_launches" for f in ("band", "strand")}
+    launch_key["full"] = f"{pre}_launches"
+    rows_key = {f: f"{pre}_{f}_rows" for f in ("band", "strand")}
+    rows_key["full"] = f"{pre}_rows"
     wrapper = dp_cuda.dp_last_row_hp if hp else dp_cuda.dp_last_row_strand
     name = "dp_last_row_hp" if hp else "dp_last_row_strand"
     ms = timer.device_ms()
@@ -1362,7 +1410,7 @@ def wide_forms(label: str, timer: "LastRowTimer", counts: dict, hp: bool) -> dic
     form_rows = {f: [k[f"{f}_rows"] for k in calls] for f in forms}
     if any(sum(form_rows[f]) != counts[rows_key[f]] for f in forms):
         raise AssertionError(f"{label}: rows {form_rows}, counts {counts}")
-    tot, per_class = wide_totals(calls, hp)
+    tot, per_class = wide_totals(calls)
     run_ms = {form: sum(v) for form, v in form_ms.items()}
     say(f"{label}: {len(ms)} {name} calls; "
         + "; ".join(f"{f} form {len(form_ms[f])} launches, rows {form_rows[f]}" for f in forms)
@@ -1370,8 +1418,7 @@ def wide_forms(label: str, timer: "LastRowTimer", counts: dict, hp: bool) -> dic
         f"{[k['over_384'] for k in calls]}, over 512 {[k['over_512'] for k in calls]}, over "
         f"3,072 {[k['over_3072'] for k in calls]}, whole strands "
         f"{[k['whole_strands'] for k in calls]}; counts "
-        + json.dumps({k: v for k, v in counts.items() if k.startswith(pre)
-                      or k.startswith("dp.last_row_strand")}))
+        + json.dumps({k: v for k, v in counts.items() if k.startswith(pre)}))
     say(f"{label}: rows by class (band form's warps a row, strand, full): "
         + json.dumps(per_class))
     say(f"{label}: cells as launched {tot['launched']}, in each row's own window "
@@ -1385,7 +1432,7 @@ def wide_forms(label: str, timer: "LastRowTimer", counts: dict, hp: bool) -> dic
 
     n_state = 6 if hp else 2  # the scorer's state, then the rows' five arrays
 
-    def held(form: str, call: dict, args: tuple) -> dict:
+    def held(form: str, call: dict, args: tuple, what: str = "the run's largest call") -> dict:
         """One form's rows of a kept call: held to the plain version,
         timed through the wrapper and alone, bound."""
         state, rows = args[:n_state], args[n_state:n_state + 5]
@@ -1408,6 +1455,7 @@ def wide_forms(label: str, timer: "LastRowTimer", counts: dict, hp: bool) -> dic
         def plain():
             if hp:
                 return (last_row_hp_band_plain(*state, *part) if form == "band"
+                        else last_row_hp_strand_plain(*state, *part) if form == "strand"
                         else last_row_hp_plain(*state, *part, width))
             if form == "band":
                 return last_row_band_plain(*state, *part)
@@ -1418,14 +1466,14 @@ def wide_forms(label: str, timer: "LastRowTimer", counts: dict, hp: bool) -> dic
         info = last_row_call(call_args, name)
         before = {f: getattr(dp_cuda, launch_key[f][3:]) for f in forms}
         got = wrapper(*call_args)
-        err = check_equal(f"{name} ({form} form) != plain at the run's largest call",
-                          got, plain())
+        err = check_equal(f"{name} ({form} form) != plain at {what}", got, plain())
         t = time_plain_pair(lambda: wrapper(*call_args), plain,
-                            f"{label}: {form} form at the run's largest call, "
+                            f"{label}: {form} form at {what}, "
                             f"R={info['rows']} W={info['width']} L={info['L']}",
                             f"; {info['cells']} own-window cells, {info['band_cells']} band "
                             f"cells")
-        plain_calls = ((dp_cuda.last_row_hp_plain_calls, dp_cuda.last_row_hp_band_plain_calls)
+        plain_calls = ((dp_cuda.last_row_hp_plain_calls, dp_cuda.last_row_hp_band_plain_calls,
+                        dp_cuda.last_row_hp_strand_plain_calls)
                        if hp else
                        (dp_cuda.last_row_plain_calls, dp_cuda.last_row_band_plain_calls,
                         dp_cuda.last_row_strand_plain_calls))
@@ -1444,6 +1492,9 @@ def wide_forms(label: str, timer: "LastRowTimer", counts: dict, hp: bool) -> dic
                 if form == "band":
                     return lib.mia_dp_band_hp(*head, *ptrs, *tail, *classes, L,
                                               out.data_ptr(), R, stream)
+                if form == "strand":
+                    return lib.mia_dp_strand_hp(*head, *ptrs, *tail, R, L, out.data_ptr(), R,
+                                                stream)
                 return lib.mia_dp_last_row_hp(*head, *ptrs, *tail, R, width, L,
                                               out.data_ptr(), stream)
             if form == "band":
@@ -1504,6 +1555,17 @@ def wide_forms(label: str, timer: "LastRowTimer", counts: dict, hp: bool) -> dic
                      * (kept[i][0]["width"] if form == "full" else 1))
             entry.update(held(form, *kept[at]))
         out[form] = entry
+    if hp and out["strand"]["launches"] and not out["full"]["launches"]:
+        # the -h full form took these rows before the strand form: its
+        # numbers on the largest strand call's rows, in this run
+        call, args = max(kept, key=lambda k: k[0]["strand_rows"])
+        nb, ns = call["band_rows"], call["strand_rows"]
+        rows = tuple(a[nb:nb + ns] for a in args[n_state:n_state + 5])
+        width = int(rows[2][:, :, 1].max())
+        out["full"].update(held("full", dict(call, band_rows=0, strand_rows=0, rows=ns,
+                                             width=width), (*args[:n_state], *rows),
+                                "the largest strand call's rows"))
+        out["full"]["timed_on"] = "the largest -h strand call's rows, at their widest window"
     return out
 
 
@@ -1743,7 +1805,8 @@ def phase_census(names: list[str]) -> None:
     1's own batching and routing decide the rows, and :func:`wide_totals`
     counts them by form and class as phases 7b and 8c do: rows of each call
     and of each class, the calls holding each, cells as launched and over
-    the bands, rows over 384, 512 and 3,072 band columns, whole strands."""
+    the bands, rows over 384, 512 and 3,072 band columns, whole strands;
+    then the run's counters of the forms and of the WIDE reads' routes."""
     from mia_tpu_torch.ops import dp_cuda
 
     for name in names or ["mia-hsmt-100k", "mia-hsmt-100k-h"]:
@@ -1754,15 +1817,19 @@ def phase_census(names: list[str]) -> None:
         fn = "dp_last_row_hp" if hp else "dp_last_row_strand"
         reset_counts()
         with LastRowTimer(fn) as timer, contextlib.redirect_stderr(io.StringIO()):
-            run_port(inputs["args"], os.path.join(d, "torch", "out.maln"))
+            prof = run_port(inputs["args"], os.path.join(d, "torch", "out.maln"), profile=True)
         if dp_cuda.plain_calls or dp_cuda.hp_plain_calls or not timer.calls:
             raise AssertionError(f"census {name}: the card did not score its wide rows")
-        tot, per_class = wide_totals(timer.calls, hp)
+        tot, per_class = wide_totals(timer.calls)
         say(f"census {name}: " + json.dumps({
             "reads": inputs["reads"], "seed": 1, "scorer": fn, "calls": len(timer.calls),
             "rows": sum(c["rows"] for c in timer.calls),
             "rows_per_call": {c: [k["class_rows"][c] for k in timer.calls] for c in per_class},
             "classes": per_class, **tot}))
+        # the forms' launches and the wide reads' routes, as the run counted them
+        say(f"census {name}: counters " + json.dumps(
+            {k: v for k, v in sorted(prof["counters"].items())
+             if k.startswith("dp.last_row") or "wide_reads" in k}))
 
 
 def phase_band_ab(earlier_root: str, reps: int) -> None:
@@ -2523,6 +2590,9 @@ def phase_last_row_kernel(dev) -> dict:
     from mia_tpu_torch.ops import dp_cuda, dp_numpy
     from mia_tpu_torch.ops.dp_torch import batch_last_row
 
+    # this phase's launches only (--kernels runs it right after phase 6a's)
+    before = (dp_cuda.last_row_wide_launches, dp_cuda.last_row_plain_calls)
+
     res = {}
     for shared in (True, False):
         what = "shared reference" if shared else "per-read reference"
@@ -2569,7 +2639,7 @@ def phase_last_row_kernel(dev) -> dict:
             "on 32 reads")
     say(f"last-row kernel: per-read reference {res[False]['ms']:.4f} ms against shared "
         f"{res[True]['ms']:.4f} ms")
-    if dp_cuda.last_row_wide_launches or dp_cuda.last_row_plain_calls:
+    if (dp_cuda.last_row_wide_launches, dp_cuda.last_row_plain_calls) != before:
         raise AssertionError("last-row kernel: the full-width shape left the register form")
     return res[True]
 
@@ -3145,6 +3215,7 @@ def check_served(tag: str, counters: dict, before: dict, after: dict, scorer: st
             and rise["dp.last_row_band_plain_calls"] == 0
             and rise["dp.last_row_strand_plain_calls"] == 0
             and rise["dp.last_row_hp_band_plain_calls"] == 0
+            and rise["dp.last_row_hp_strand_plain_calls"] == 0
             and checks["pass1.native_solved_wide_reads"] == 0
             and rise["cons.plain_calls"] == 0):
         raise AssertionError(f"server {tag}: not served by the card: {checks}, server {rise}")
@@ -3184,7 +3255,7 @@ def phase_server(args: list[str], walls: dict, smi: str) -> dict:
         want_hp = maln_bytes(os.path.join(WORK, "e2e_hp", "torch_inproc", "out.maln"))
         launches = {"dp_entries": 0, "dp_entries_hp": 0, "column_counts": 0,
                     "dp_last_row": 0, "dp_last_row_band": 0, "dp_strand": 0,
-                    "dp_last_row_hp": 0, "dp_last_row_hp_band": 0}
+                    "dp_last_row_hp": 0, "dp_last_row_hp_band": 0, "dp_strand_hp": 0}
 
         def served(tags, run_args, want_bytes, scorer):
             before = server_hello(sock)
@@ -3202,6 +3273,7 @@ def phase_server(args: list[str], walls: dict, smi: str) -> dict:
             launches["dp_strand"] += rise["dp.last_row_strand_launches"]
             launches["dp_last_row_hp"] += rise["dp.last_row_hp_launches"]
             launches["dp_last_row_hp_band"] += rise["dp.last_row_hp_band_launches"]
+            launches["dp_strand_hp"] += rise["dp.last_row_hp_strand_launches"]
             return [w for w, _ in out], out[-1][1], rise
 
         client_walls = []
@@ -3218,9 +3290,10 @@ def phase_server(args: list[str], walls: dict, smi: str) -> dict:
         say("server: client phases s " + json.dumps(prof["phases_s"], sort_keys=True))
         (hp_wall,), prof, rise = served(["client_hp"], [*args, "-h"], want_hp,
                                         "dp.hp_kernel_launches")
-        if not (rise["dp.last_row_hp_launches"] and rise["dp.last_row_hp_band_launches"]):
+        if not (rise["dp.last_row_hp_strand_launches"] and rise["dp.last_row_hp_band_launches"]
+                and not rise["dp.last_row_hp_launches"]):
             raise AssertionError(f"server: the -h client's WIDE reads did not go through "
-                                 f"both forms of dp_last_row_hp: {rise}")
+                                 f"the band and strand forms of dp_last_row_hp alone: {rise}")
         say(f"server: -h client {hp_wall:.3f} s (run {prof['total_s']:.3f} s), malns "
             f"byte-identical to phase 8; server launches {json.dumps(rise)}")
         say("server: -h client phases s " + json.dumps(prof["phases_s"], sort_keys=True))
@@ -3354,9 +3427,11 @@ def main() -> int:
         hp_counts, _ = run_e2e("e2e_hp", [*args, "-h"], hp=True, new_process=False,
                                captured=captured)
     hp_wide = wide_forms("-h wide reads", hp_timer, hp_counts, hp=True)
-    # this workload's -h wide rows hold whole strands: the -h full form runs
-    if not hp_wide["full"]["launches"]:
-        raise AssertionError(f"-h wide reads: the full form did not run: {hp_counts}")
+    # this workload's -h wide rows hold whole strands: the -h strand form
+    # takes them, and the -h full form makes no launch
+    if not hp_wide["strand"]["launches"] or hp_wide["full"]["launches"]:
+        raise AssertionError(f"-h wide reads: the strand form did not take the whole strands "
+                             f"alone: {hp_counts}")
     shapes = phase_workload_shapes(captured)
     myers_kern = phase_myers_kernel(dev)
     phase_ccheck_golden()
@@ -3449,11 +3524,22 @@ def main() -> int:
         "route": "cuda",
         "source": "mia_tpu_torch/csrc/dp_last_row.cu",
         "replaces": "mia_tpu/ops/dp_jax.py:220",
-        # pass 1's -h WIDE rows past the band form's 3,072 columns (phase 8);
-        # its numbers at the run's largest such call (phase 8c); the
-        # server's launches for the -h client (16b)
+        # the -h full form: pass 1 gives it no row (phase 8: 0 launches; the
+        # strand form takes the whole strands); its numbers on the rows of
+        # phase 8c's largest strand call, which it took before (timed_on);
+        # the server's launches for the -h client (16b), 0
         "server_launches": server_launches["dp_last_row_hp"],
         **hp_wide["full"],
+    }, {
+        "name": "dp_strand_hp",
+        "route": "cuda",
+        "source": "mia_tpu_torch/csrc/dp_strand.cu",
+        "replaces": "mia_tpu/ops/dp_jax.py:220",
+        # the -h strand form: pass 1's -h WIDE rows whose band takes
+        # 3,073-18,432 columns, whole strands, a cluster of CTAs a row (phase
+        # 8), its numbers at the run's largest such call (phase 8c)
+        "server_launches": server_launches["dp_strand_hp"],
+        **hp_wide["strand"],
     }, {
         "name": "dp_last_row_hp_band",
         "route": "cuda",

@@ -31,10 +31,12 @@ general-width scorer's full, band and strand forms, which take pass 1's
 WIDE reads; ``dp.last_row_rows`` / ``dp.last_row_band_rows`` /
 ``dp.last_row_strand_rows`` the rows of each,
 ``dp.last_row_band_multi_rows`` the band rows on more than one warp) and
-``dp.last_row_hp_launches`` / ``dp.last_row_hp_plain_calls`` and
-``dp.last_row_hp_band_launches`` / ``dp.last_row_hp_band_plain_calls`` (its
-``-h`` full and band forms, which take them under ``-h``;
-``dp.last_row_hp_rows`` / ``dp.last_row_hp_band_rows`` the rows of each,
+``dp.last_row_hp_launches`` / ``dp.last_row_hp_plain_calls``,
+``dp.last_row_hp_band_launches`` / ``dp.last_row_hp_band_plain_calls`` and
+``dp.last_row_hp_strand_launches`` / ``dp.last_row_hp_strand_plain_calls``
+(its ``-h`` full, band and strand forms, which take them under ``-h``;
+``dp.last_row_hp_rows`` / ``dp.last_row_hp_band_rows`` /
+``dp.last_row_hp_strand_rows`` the rows of each,
 ``dp.last_row_hp_band_multi_rows`` as above),
 ``dp.shards`` (device shards a dispatch was dealt over) and
 ``cons.kernel_launches`` / ``cons.plain_calls`` (consensus column counts),
@@ -64,7 +66,8 @@ KERNEL_COUNTERS = (
       "last_row_band_multi_rows", "last_row_strand_launches", "last_row_strand_plain_calls",
       "last_row_strand_rows", "last_row_hp_launches", "last_row_hp_plain_calls", "last_row_hp_band_launches",
       "last_row_hp_band_plain_calls", "last_row_hp_rows", "last_row_hp_band_rows",
-      "last_row_hp_band_multi_rows", "shards")),
+      "last_row_hp_band_multi_rows", "last_row_hp_strand_launches",
+      "last_row_hp_strand_plain_calls", "last_row_hp_strand_rows", "shards")),
     ("cons", "mia_tpu_torch.ops.consensus_torch", ("kernel_launches", "plain_calls")),
 )
 

@@ -151,13 +151,15 @@ BAND_COLS = 32 * 12
 # the warps a band row may take (a power of two): a row whose band
 # (band_columns) takes more than BAND_COLS columns takes the fewest warps G
 # with BAND_COLS * G at least its band, up to BAND_ROW_COLS; a wider band
-# goes to the strand form (without -h) or the full form
+# goes to the strand form (or, past STRAND_COLS, the full form)
 BAND_WARPS = (1, 2, 4, 8)
 BAND_ROW_COLS = BAND_COLS * BAND_WARPS[-1]
-# the widest band the strand form scores (csrc/dp_strand.cu: a cluster of
-# 16 CTAs a row, 2,048 threads of 9 columns; mia_dp_strand_constants reports
-# it): at least a whole human-mt strand window and the full form's widest
-# row (HP_WIDE_COLS); a wider band keeps the full form
+# the widest band the strand forms score, with and without -h
+# (csrc/dp_strand.cu: a cluster of 16 CTAs a row, 2,048 threads of 9
+# columns; mia_dp_strand_constants and mia_dp_strand_hp_constants report
+# it): at least a whole human-mt strand window and the -h full form's widest
+# row (HP_WIDE_COLS), so every -h row past BAND_ROW_COLS fits it; a wider
+# band keeps the full form
 STRAND_COLS = 2048 * 9
 
 
@@ -232,17 +234,17 @@ def wide_scored(flags, lens, widths=None) -> np.ndarray:
     return taken
 
 
-def wide_order(cols, hp: bool = False) -> tuple[np.ndarray, tuple, int]:
+def wide_order(cols) -> tuple[np.ndarray, tuple, int]:
     """(order [R] int64, band_classes, n_strand) of wide rows with ``cols``
-    band columns (:func:`band_columns`): the band form's rows first, by the
-    warps each takes (:func:`band_warps`; ``band_classes`` rows of each of
-    :data:`BAND_WARPS`), then without ``hp`` the strand form's (``n_strand``,
-    at most :data:`STRAND_COLS`), then the full form's, each part in the
-    rows' order."""
+    band columns (:func:`band_columns`), with and without ``-h``: the band
+    form's rows first, by the warps each takes (:func:`band_warps`;
+    ``band_classes`` rows of each of :data:`BAND_WARPS`), then the strand
+    form's (``n_strand``, at most :data:`STRAND_COLS`), then the full
+    form's, each part in the rows' order."""
     cols = np.asarray(cols, np.int64)
     g = band_warps(cols)
     rank = np.searchsorted(np.array(BAND_WARPS), g)
-    rank = np.where(g > 0, rank, len(BAND_WARPS) + (hp | (cols > STRAND_COLS)))
+    rank = np.where(g > 0, rank, len(BAND_WARPS) + (cols > STRAND_COLS))
     counts = np.bincount(rank, minlength=len(BAND_WARPS) + 2)
     return (np.argsort(rank, kind="stable"), tuple(int(c) for c in counts[:len(BAND_WARPS)]),
             int(counts[len(BAND_WARPS)]))
@@ -268,9 +270,9 @@ class WideRows:
     width: int          # W: the widest row's columns
     # the leading rows the band form takes (band_columns at most
     # BAND_ROW_COLS), the rows of each of its classes (BAND_WARPS) in
-    # that order, then the strand form's rows (without -h: band columns
-    # at most STRAND_COLS), and the widest window of the rest, the full
-    # form's
+    # that order, then the strand form's rows (band columns at most
+    # STRAND_COLS), and the widest window of the rest, the full form's
+    # (under -h none: a taken read's window is at most HP_WIDE_COLS)
     n_band: int = 0
     full_width: int = 0
     band_classes: tuple = (0, 0, 0, 0)
@@ -289,12 +291,12 @@ def wide_rows(flags, lens, s2c, fw_ivg, rc_ivg, hp: bool = False) -> WideRows | 
     row (its score is :data:`NO_BAND_SCORE`).  The rows whose band takes at
     most :data:`BAND_ROW_COLS` columns (:func:`band_columns`) come first,
     as the band form's ``n_band``, ordered by the warps each takes
-    (:func:`band_warps`, ``band_classes`` rows of each); without ``-h`` the
-    rows whose band takes at most :data:`STRAND_COLS` follow, the strand
-    form's ``n_strand``; the rest keep the full form at ``full_width``, the
-    widest of their own windows.  Each part keeps the rows' (strand, read)
-    order.  Under ``-h`` a read with a window wider than
-    :data:`HP_WIDE_COLS` is not taken."""
+    (:func:`band_warps`, ``band_classes`` rows of each); the rows whose
+    band takes at most :data:`STRAND_COLS` follow, the strand form's
+    ``n_strand``; the rest keep the full form at ``full_width``, the widest
+    of their own windows.  Each part keeps the rows' (strand, read) order.
+    Under ``-h`` a read with a window wider than :data:`HP_WIDE_COLS` is not
+    taken, so every taken row fits the band or the strand form."""
     sel = np.flatnonzero(wide_scored(flags, lens,
                                      window_widths(fw_ivg, rc_ivg) if hp else None))
     if not len(sel):
@@ -306,7 +308,7 @@ def wide_rows(flags, lens, s2c, fw_ivg, rc_ivg, hp: bool = False) -> WideRows | 
     ivg, read, strand, win_lo, hi = ivg[has], read[has], strand[has], win_lo[has], hi[has]
     used = ivg[:, :, 1] > 0
     ivl = np.where(used[:, :, None], ivg - win_lo[:, None, None], 0)
-    order, band_classes, n_strand = wide_order(band_columns(ivl)[1], hp)
+    order, band_classes, n_strand = wide_order(band_columns(ivl)[1])
     read, strand, win_lo, hi, ivl = (a[order] for a in (read, strand, win_lo, hi, ivl))
     n_band = sum(band_classes)
     full_width = int((hi - win_lo)[n_band + n_strand:].max(initial=0))

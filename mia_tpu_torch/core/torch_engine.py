@@ -43,10 +43,10 @@ What changed from the TPU engine, and why:
   windows of the strands (and under ``-h`` their chars and run starts) from
   the state itself, in three forms: ``entries.wide_rows`` puts the rows
   whose band takes at most 3,072 columns first, for the band form, which
-  scores those columns only on 1, 2, 4 or 8 warps a row; without ``-h`` the
-  rows whose band takes at most 18,432 columns (whole strands) follow, for
-  the strand form, a cluster of 16 CTAs a row; the rest take the full form at
-  their widest window.  Under ``--dp-devices`` all of a batch's wide rows go to the
+  scores those columns only on 1, 2, 4 or 8 warps a row; the rows whose band
+  takes at most 18,432 columns (whole strands) follow, for the strand form,
+  a cluster of 16 CTAs a row; the rest (none under ``-h``) take the full form
+  at their widest window.  Under ``--dp-devices`` all of a batch's wide rows go to the
   first shard.  Under ``-h`` a read with a strand window past 17,408
   columns (``entries.HP_WIDE_COLS``) stays with the native solve.
 
@@ -168,7 +168,7 @@ def score_wide(state: ScorerState, width: int, n_band: int, band_classes: tuple,
     if state.hp:
         return dp_cuda.dp_last_row_hp(state.refs, state.refchr, state.hpcs, state.sms[0],
                                       state.pengop, state.b2i, strand, win_lo, ivl, s2c,
-                                      lengths, width, n_band, band_classes)
+                                      lengths, width, n_band, band_classes, n_strand)
     return dp_cuda.dp_last_row_strand(state.refs, state.sms[0], strand, win_lo, ivl, s2c,
                                       lengths, width, n_band, band_classes, n_strand)
 

@@ -17,11 +17,18 @@
 //     then warp_prefix over the warp's lanes), the row gaps (row_gaps), and
 //     each cell's base and value with DPX add-max, the restart only on a
 //     strict > (cell_base, cell_value);
-//   * the best value and its first window column (lane_best, warp_best).
-// The plain versions are dp_torch.last_row_band_plain and
-// last_row_strand_plain; both equal the whole window's recurrence bit for
-// bit (int32).  Everything here is __forceinline__: a form's row loop is
-// one straight-line body.
+//   * the best value and its first window column (lane_best, warp_best);
+//   * under -h (src/mia.c:883-905) the step's homopolymer candidates: the
+//     read runs of each DP row (hp_read_runs), each column's window char and
+//     flags (hp_column), each DP row's kind and the columns that take its
+//     candidate (hp_kind, hp_hits), the staged row before a read run
+//     (hp_stage) and the candidate's join (hp_take).  Where the staged row
+//     and the hp_col sources live, and how a candidate reads them, is each
+//     form's own.
+// The plain versions are dp_torch.last_row_band_plain,
+// last_row_strand_plain and their -h counterparts; each equals the whole
+// window's recurrence bit for bit (int32).  Everything here is
+// __forceinline__: a form's row loop is one straight-line body.
 #pragma once
 
 #include <cstdint>
@@ -44,6 +51,8 @@ constexpr int HIM = -1073741824;                 // INT_MIN / 2
 constexpr int LOW = -(1 << 30) - (1 << 29);      // below any live value
 constexpr int kGate = -(1 << 29);    // addend that sinks a value below every live one
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int kHpw = 32;             // -h row reach (entries.HPW_ROUTE)
+constexpr int kPengop = 11;          // -h gap-open discounts
 
 // A row's band: its valid intervals sorted by start, and its runs: the
 // first window column and first band column of each, and its columns.
@@ -276,6 +285,141 @@ __device__ __forceinline__ void warp_best(int& bv, int& bc) {
     const int oc = __shfl_xor_sync(FULL, bc, off);
     take_better(ov, oc, bv, bc);
   }
+}
+
+// ---- -h ------------------------------------------------------------------
+
+// The band column of window column s, which lies in the band.
+__device__ __forceinline__ int band_of(const Runs& r, int n, int s) {
+  int k = 0;
+  for (int i = 0; i < n; ++i) {
+    const int s0 = r.seg_col[i];
+    if (s0 <= s && s < s0 + r.seg_n[i]) k = r.seg_at[i] + s - s0;
+  }
+  return k;
+}
+
+// Bit 7 of every byte of x says whether the byte is zero.
+__device__ __forceinline__ unsigned zero_bytes(unsigned x) {
+  return ~(((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x);
+}
+
+// The code 0..4 of a read char.
+__device__ __forceinline__ int hp_code(const int8_t* b2i, int x) {
+  x = b2i[x];
+  return x < 0 ? 0 : (x > 4 ? 4 : x);
+}
+
+// One warp, every lane: for each row r < L of a read of chars chr (pad 0),
+// the start row of the read run holding it (hprs) and its discount slot,
+// min(run length - 1, 10) (pidx); dp_entries.cu's ballots: the nearest run
+// start at or before each row, the nearest run end at or after it.
+__device__ __forceinline__ void hp_read_runs(const uint8_t* chr, int L, uint8_t* hprs,
+                                             uint8_t* pidx, int lane) {
+  int carry = 0;
+  for (int base = 0; base < L; base += 32) {
+    const int r = base + lane;
+    const bool changed = r >= L || r == 0 || chr[r] != chr[r - 1];
+    const unsigned m = __ballot_sync(FULL, changed) & (FULL >> (31 - lane));
+    const int hs = m ? base + 31 - __clz(m) : carry;
+    if (r < L) hprs[r] = (uint8_t)hs;
+    carry = __shfl_sync(FULL, hs, 31);
+  }
+  carry = L - 1;
+  for (int base = ((L - 1) / 32) * 32; base >= 0; base -= 32) {
+    const int r = base + lane;
+    const bool ends = r >= L - 1 || chr[r + 1] != chr[r];
+    const unsigned m = __ballot_sync(FULL, ends) & (FULL << lane);
+    const int he = m ? base + __ffs(m) - 1 : carry;
+    if (r < L) {
+      const int run = he - hprs[r] + 1;
+      pidx[r] = (uint8_t)(run < 1 ? 0 : (run > kPengop ? kPengop - 1 : run - 1));
+    }
+    carry = __shfl_sync(FULL, he, 0);
+  }
+  __syncwarp();
+}
+
+// A thread's kCPL columns under -h: window chars (4 a word) and, as 0x80
+// flags in the same layout, the columns that start a reference run (hrb:
+// hp_row may take them) and those with an open hp_col source (hcb).
+template <int kCPL>
+struct HpCols {
+  static constexpr int kW = (kCPL + 3) / 4;
+  uint32_t wchr[kW], hrb[kW], hcb[kW];
+};
+
+// Column j of a thread's (window column c, global gc = wlo + c, open, in:
+// in the band and the state; ch its reference char and hc its run's global
+// start, 0 and 0 where not in): its char and flags into h, and its hp_col
+// source's band column, the column before its reference run, where that is
+// open (else -1; on the whole window a closed source's value is HIM, below
+// the restart, so it gives no candidate).
+template <int kCPL>
+__device__ __forceinline__ int hp_column(HpCols<kCPL>& h, int j, const Runs& r, int n,
+                                         bool open, int c, int wlo, uint32_t ch, int hc) {
+  const int gc = wlo + c;
+  if ((j & 3) == 0) h.wchr[j >> 2] = h.hrb[j >> 2] = h.hcb[j >> 2] = 0;
+  h.wchr[j >> 2] |= ch << (8 * (j & 3));
+  const uint32_t flag = 0x80u << (8 * (j & 3));
+  if (open && c >= 1 && hc == gc) h.hrb[j >> 2] |= flag;
+  if (open && c >= 1 && hc != gc && hc > 0 && hc - 1 >= wlo && is_open(r, n, hc - 1 - wlo)) {
+    h.hcb[j >> 2] |= flag;
+    return band_of(r, n, hc - 1 - wlo);
+  }
+  return -1;
+}
+
+// The byte offset of band column i of a slice in a lane-major array: warp
+// w's 32 kCPL columns from w 32 kCPL on, column kCPL l + j of it at j 32 + l
+// (no bank conflict when a warp's lanes read their j-th columns).
+template <int kCPL>
+__device__ __forceinline__ int lane_major(int i) {
+  const int ik = i % (32 * kCPL);
+  return 4 * (i - ik + (ik % kCPL) * 32 + ik / kCPL);
+}
+
+// A DP row's -h kind (row-uniform): hp_col where the row starts a read run
+// (its source the row before, staged now), hp_row on the run's later rows
+// within the reach, when the run does not start at row 0; minus the
+// discount of the run's length.
+struct HpKind {
+  bool col, row;
+  int neg_pen;
+};
+__device__ __forceinline__ HpKind hp_kind(int hs, int slot, int row, const int32_t* pengop) {
+  return {hs == row, hs != row && hs > 0 && row - hs < kHpw, -pengop[slot]};
+}
+
+// The columns that take the row's candidate, as 0x80 flags: their reference
+// char is the read's (ch) and their flag of the row's kind is set.  Returns
+// nonzero where any does.
+template <int kCPL>
+__device__ __forceinline__ uint32_t hp_hits(const HpCols<kCPL>& h, uint32_t ch, bool col,
+                                            uint32_t (&hit)[HpCols<kCPL>::kW]) {
+  const uint32_t ch4 = ch * 0x01010101u;
+  uint32_t any = 0;
+#pragma unroll
+  for (int k = 0; k < HpCols<kCPL>::kW; ++k) {
+    hit[k] = zero_bytes(h.wchr[k] ^ ch4) & (col ? h.hcb[k] : h.hrb[k]);
+    any |= hit[k];
+  }
+  return any;
+}
+
+// The row before a read run, staged lane-major from this thread's columns
+// (P: that row) into its warp's part of the array at row.
+template <int kCPL>
+__device__ __forceinline__ void hp_stage(int32_t* row, const int (&P)[kCPL], int lane) {
+#pragma unroll
+  for (int j = 0; j < kCPL; ++j) row[j * 32 + lane] = P[j];
+}
+
+// A cell's base with the candidate joined where column j takes it.
+template <int kW>
+__device__ __forceinline__ int hp_take(int base, const uint32_t (&hit)[kW], int j, int cand) {
+  const bool takes = hit[j >> 2] & (0x80u << (8 * (j & 3)));
+  return max(base, takes ? cand : HIM);
 }
 
 }  // namespace band

@@ -85,8 +85,8 @@ namespace {
 
 using namespace band;
 
-// Duplicates of the Python side's values (entries.BAND_COLS, HPW_ROUTE;
-// band_dp.cuh holds the rest); mia_dp_band_constants and
+// Duplicates of the Python side's values (entries.BAND_COLS; band_dp.cuh
+// holds the rest, HPW_ROUTE among them); mia_dp_band_constants and
 // mia_dp_band_hp_constants export them so that the loader
 // (torchcfg.kernel_library) refuses a library that disagrees.
 constexpr int kCPL = 12;              // band columns per lane
@@ -94,8 +94,6 @@ constexpr int kBand = 32 * kCPL;      // band columns a warp
 constexpr int kWarps = 8;             // warps per block; the most warps a row
 constexpr int kClasses = 4;           // rows of 1, 2, 4 and 8 warps
 constexpr int kRowBand = kBand * kWarps;  // band columns a row at most
-constexpr int kHpw = 32;              // -h row reach
-constexpr int kPengop = 11;           // -h gap-open discounts
 
 struct Args {
   const int8_t* refs;      // [2, wtot] codes
@@ -157,11 +155,6 @@ struct Shared {
   int2 amax[kWarps];
 };
 
-// Bit 7 of every byte of x says whether the byte is zero.
-__device__ __forceinline__ unsigned zero_bytes(unsigned x) {
-  return ~(((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x);
-}
-
 // A named barrier over the G warps of one row (id 1 + the row's place in
 // its block; 0 is __syncthreads').
 __device__ __forceinline__ void row_bar(int id, int threads) {
@@ -201,32 +194,7 @@ __device__ __forceinline__ void band_row(const Args& a, const int warp, const in
     }
   }
   __syncwarp();
-  if constexpr (kHp) {
-    // dp_entries.cu's ballots: the nearest run start at or before each row,
-    // the nearest run end at or after it
-    int carry = 0;
-    for (int base = 0; base < L; base += 32) {
-      const int r = base + lane;
-      const bool changed = r >= L || r == 0 || sh.chr[warp][r] != sh.chr[warp][r - 1];
-      const unsigned m = __ballot_sync(FULL, changed) & (FULL >> (31 - lane));
-      const int hs = m ? base + 31 - __clz(m) : carry;
-      if (r < L) sh.hp.hprs[warp][r] = (uint8_t)hs;
-      carry = __shfl_sync(FULL, hs, 31);
-    }
-    carry = L - 1;
-    for (int base = ((L - 1) / 32) * 32; base >= 0; base -= 32) {
-      const int r = base + lane;
-      const bool ends = r >= L - 1 || sh.chr[warp][r + 1] != sh.chr[warp][r];
-      const unsigned m = __ballot_sync(FULL, ends) & (FULL << lane);
-      const int he = m ? base + __ffs(m) - 1 : carry;
-      if (r < L) {
-        const int run = he - sh.hp.hprs[warp][r] + 1;
-        sh.hp.pidx[warp][r] = (uint8_t)(run < 1 ? 0 : (run > kPengop ? kPengop - 1 : run - 1));
-      }
-      carry = __shfl_sync(FULL, he, 0);
-    }
-    __syncwarp();
-  }
+  if constexpr (kHp) hp_read_runs(sh.chr[warp], L, sh.hp.hprs[warp], sh.hp.pidx[warp], lane);
 
   // ---- this lane's band columns --------------------------------------------
   const int len = a.lengths[e];
@@ -240,9 +208,7 @@ __device__ __forceinline__ void band_row(const Args& a, const int warp, const in
   const int rbase = (warp - g) * kBand;
 
   int woff[kCPL], gadd[kCPL], ncost[kCPL];  // band_dp.cuh's column_terms
-  // -h: window chars (4 per word) and, as 0x80 flags in the same layout,
-  // the columns that start a reference run and those with an hp_col source
-  uint32_t wchr[kCPL / 4], hrb[kCPL / 4], hcb[kCPL / 4];
+  HpCols<kCPL> hpc;                         // -h: band_dp.cuh's hp_column
   unsigned mbits = 0;
 #pragma unroll
   for (int j = 0; j < kCPL; ++j) {
@@ -253,27 +219,13 @@ __device__ __forceinline__ void band_row(const Args& a, const int warp, const in
     const int gc = wlo + c;
     column_terms(c, open, in ? a.refs[sbase + gc] : 4, woff[j], gadd[j], ncost[j]);
     if constexpr (kHp) {
-      const uint32_t ch = in ? a.refchr[sbase + gc] : 0;
-      if ((j & 3) == 0) wchr[j >> 2] = hrb[j >> 2] = hcb[j >> 2] = 0;
-      wchr[j >> 2] |= ch << (8 * (j & 3));
-      const int hc = in ? a.hpcs[sbase + gc] : 0;
-      const uint32_t flag = 0x80u << (8 * (j & 3));
-      if (open && c >= 1 && hc == gc) hrb[j >> 2] |= flag;
-      // hp_col: the source column's band column, where it is open
-      int src = 0;
-      if (open && c >= 1 && hc != gc && hc > 0 && hc - 1 >= wlo && is_open(rr, n, hc - 1 - wlo)) {
-        const int s = hc - 1 - wlo;
-        for (int i = 0; i < n; ++i) {
-          const int s0 = rr.seg_col[i];
-          if (s0 <= s && s < s0 + rr.seg_n[i]) src = rr.seg_at[i] + s - s0;
-        }
-        hcb[j >> 2] |= flag;
-      }
-      // its place in the row's arrays: the warp of src / 384, lane-major in it
-      const int sk = src % kBand;
-      sh.hp.hsrc[wbase + j * 32 + lane] =
-          (uint16_t)(4 * (src - sk + (sk % kCPL) * 32 + sk / kCPL));
-      sh.hp.hneg[wbase + j * 32 + lane] = -GEP * (gc - hc);
+      const int hrun = in ? a.hpcs[sbase + gc] : 0;
+      const int src =
+          hp_column(hpc, j, rr, n, open, c, wlo, in ? a.refchr[sbase + gc] : 0, hrun);
+      // the source's place in the row's arrays: the warp of src / 384,
+      // lane-major in it
+      sh.hp.hsrc[wbase + j * 32 + lane] = (uint16_t)lane_major<kCPL>(max(src, 0));
+      sh.hp.hneg[wbase + j * 32 + lane] = -GEP * (gc - hrun);
     }
   }
   // origin k counts where band column k + 2 is open; band column 0 always
@@ -295,10 +247,7 @@ __device__ __forceinline__ void band_row(const Args& a, const int warp, const in
   // ---- row 0 -------------------------------------------------------------
   auto trow_of = [&](int row) {
     int x = sh.chr[warp][row];
-    if constexpr (kHp) {
-      x = sh.ht.b2i[x];
-      x = x < 0 ? 0 : (x > 4 ? 4 : x);
-    }
+    if constexpr (kHp) x = hp_code(sh.ht.b2i, x);
     return table_row(sh.tab, row, len, x);
   };
   int prev[kCPL], prev2[kCPL], rbest[kCPL];
@@ -323,39 +272,27 @@ __device__ __forceinline__ void band_row(const Args& a, const int warp, const in
 
     // -h: which candidate this row may take (row-uniform), and the
     // columns that take it as 0x80 flags
-    bool hp_col_row = false, hp_row_row = false;
-    int neg_pen = 0;
-    uint32_t hit[kCPL / 4];
+    HpKind hk{false, false, 0};
+    uint32_t hit[HpCols<kCPL>::kW];
     if constexpr (kHp) {
-      const int hs = sh.hp.hprs[warp][row];
       const int slot = sh.hp.pidx[warp][row];
-      hp_col_row = hs == row;
-      hp_row_row = hs != row && hs > 0 && row - hs < kHpw;
-      neg_pen = -sh.ht.pengop[slot];
-      const uint32_t ch4 = sh.chr[warp][row] * 0x01010101u;
-      uint32_t any = 0;
-#pragma unroll
-      for (int k = 0; k < kCPL / 4; ++k) {
-        hit[k] = zero_bytes(wchr[k] ^ ch4) & (hp_col_row ? hcb[k] : hrb[k]);
-        any |= hit[k];
-      }
+      hk = hp_kind(sh.hp.hprs[warp][row], slot, row, sh.ht.pengop);
+      const uint32_t any = hp_hits(hpc, sh.chr[warp][row], hk.col, hit);
       // the row before this run: hp_col's source now, hp_row's on the
       // run's later rows
       if constexpr (G == 1) {
-        if (hp_col_row && (slot > 0 || __any_sync(FULL, any != 0))) {
+        if (hk.col && (slot > 0 || __any_sync(FULL, any != 0))) {
           __syncwarp();
-#pragma unroll
-          for (int j = 0; j < kCPL; ++j) sh.hp.row[wbase + j * 32 + lane] = P[j];
+          hp_stage(sh.hp.row + wbase, P, lane);
           __syncwarp();
         }
       } else {
         (void)any;
-        if (hp_col_row) {
+        if (hk.col) {
           // no warp of the row still reads the row staged before; the
           // exchange barrier below orders these writes before the reads
           row_bar(bar_id, 32 * G);
-#pragma unroll
-          for (int j = 0; j < kCPL; ++j) sh.hp.row[wbase + j * 32 + lane] = P[j];
+          hp_stage(sh.hp.row + wbase, P, lane);
         }
       }
     }
@@ -413,29 +350,28 @@ __device__ __forceinline__ void band_row(const Args& a, const int warp, const in
         int base = cell_base(pre, ncost[j], j >= 1 ? P[j - 1] : pv_m1,
                              j >= 1 ? rbest[j - 1] : rb_m1, neg_grow);
         if constexpr (kHp && kKind != 0) {
-          const bool takes = hit[j >> 2] & (0x80u << (8 * (j & 3)));
           int cand;
           if constexpr (kKind == 1) {
             const int src = *(const int32_t*)((const char*)(hs.row + rbase) +
                                               hs.hsrc[wbase + j * 32 + lane]);
-            cand = src + hs.hneg[wbase + j * 32 + lane] + neg_pen;
+            cand = src + hs.hneg[wbase + j * 32 + lane] + hk.neg_pen;
           } else {
             // the column to the left
-            cand = hs.row[wbase + (j >= 1 ? (j - 1) * 32 + lane : left0)] + neg_pen;
+            cand = hs.row[wbase + (j >= 1 ? (j - 1) * 32 + lane : left0)] + hk.neg_pen;
           }
-          base = max(base, takes ? cand : HIM);
+          base = hp_take(base, hit, j, cand);
         }
         Q[j] = cell_value(base, start_new, trow, woff[j]);
       }
     };
     if constexpr (kHp) {
-#ifdef MIA_BAND_HP_KIND
+#ifdef MIA_HP_KIND
       // every row of one kind, for counting that kind's instructions alone
-      // (python -m mia_tpu_torch.utils.sass -D MIA_BAND_HP_KIND=k); wrong scores
-      cells(std::integral_constant<int, MIA_BAND_HP_KIND>{}, sh.hp);
+      // (python -m mia_tpu_torch.utils.sass -D MIA_HP_KIND=k); wrong scores
+      cells(std::integral_constant<int, MIA_HP_KIND>{}, sh.hp);
 #else
-      if (hp_col_row) cells(std::integral_constant<int, 1>{}, sh.hp);
-      else if (hp_row_row) cells(std::integral_constant<int, 2>{}, sh.hp);
+      if (hk.col) cells(std::integral_constant<int, 1>{}, sh.hp);
+      else if (hk.row) cells(std::integral_constant<int, 2>{}, sh.hp);
       else cells(std::integral_constant<int, 0>{}, sh.hp);
 #endif
     } else {

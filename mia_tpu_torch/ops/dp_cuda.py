@@ -31,22 +31,25 @@ rows of up to 17,408 columns; wider rows take the same file's wide form.
 strand state, (best, first column of the best) out: the band form
 (``csrc/dp_band.cu``, 1, 2, 4 or 8 warps a row) for rows whose band takes
 at most 3,072 columns (``entries.BAND_ROW_COLS``), on those columns only;
-without ``-h`` the strand form (``csrc/dp_strand.cu``, a cluster of CTAs a
-row) for bands of up to 18,432 columns (``entries.STRAND_COLS``: whole
-strands); and the full form for the rest, at their widest window:
+the strand form (``csrc/dp_strand.cu``, a cluster of CTAs a row, with and
+without ``-h``) for bands of up to 18,432 columns (``entries.STRAND_COLS``:
+whole strands); and the full form for the rest, at their widest window:
 ``dp_last_row`` and an argmax, under ``-h`` the ``-h`` instantiation of
 ``dp_last_row``'s register form, up to 17,408 columns (wider ones stay with
-the native solve, ``entries.HP_WIDE_COLS``).
+the native solve, ``entries.HP_WIDE_COLS``), which pass 1 no longer gives a
+row: every ``-h`` row it takes fits the strand form.
 ``kernel_launches`` / ``plain_calls``, ``hp_kernel_launches`` /
 ``hp_plain_calls``, ``last_row_launches`` / ``last_row_plain_calls``,
 ``last_row_band_launches`` / ``last_row_band_plain_calls``,
 ``last_row_strand_launches`` / ``last_row_strand_plain_calls``,
 ``last_row_hp_launches`` / ``last_row_hp_plain_calls`` (the ``-h`` full
-form) and ``last_row_hp_band_launches`` / ``last_row_hp_band_plain_calls``
-count the two routes of each (``last_row_wide_launches``: the launches of
-the wide form among them; ``last_row_rows`` / ``last_row_band_rows`` /
+form), ``last_row_hp_band_launches`` / ``last_row_hp_band_plain_calls`` and
+``last_row_hp_strand_launches`` / ``last_row_hp_strand_plain_calls`` count
+the two routes of each (``last_row_wide_launches``: the launches of the
+wide form among them; ``last_row_rows`` / ``last_row_band_rows`` /
 ``last_row_strand_rows`` and ``last_row_hp_rows`` /
-``last_row_hp_band_rows``: the wide rows each form took;
+``last_row_hp_band_rows`` / ``last_row_hp_strand_rows``: the wide rows each
+form took;
 ``last_row_band_multi_rows`` / ``last_row_hp_band_multi_rows``: the band
 rows on more than one warp); ``shards`` is the largest
 number of device shards one dispatch of the scorer was dealt over
@@ -72,6 +75,7 @@ from .dp_torch import (
     last_row_band_plain,
     last_row_hp_band_plain,
     last_row_hp_plain,
+    last_row_hp_strand_plain,
     last_row_strand_plain,
     wide_device_inputs,
 )
@@ -99,6 +103,9 @@ last_row_hp_band_launches = 0
 last_row_hp_band_plain_calls = 0
 last_row_hp_band_rows = 0
 last_row_hp_band_multi_rows = 0
+last_row_hp_strand_launches = 0
+last_row_hp_strand_plain_calls = 0
+last_row_hp_strand_rows = 0
 
 
 def reset_counts() -> None:
@@ -109,6 +116,7 @@ def reset_counts() -> None:
     global last_row_hp_band_launches, last_row_hp_band_plain_calls, last_row_hp_band_rows
     global last_row_band_multi_rows, last_row_hp_band_multi_rows
     global last_row_strand_launches, last_row_strand_plain_calls, last_row_strand_rows
+    global last_row_hp_strand_launches, last_row_hp_strand_plain_calls, last_row_hp_strand_rows
     kernel_launches = 0
     plain_calls = 0
     hp_kernel_launches = 0
@@ -132,6 +140,9 @@ def reset_counts() -> None:
     last_row_strand_launches = 0
     last_row_strand_plain_calls = 0
     last_row_strand_rows = 0
+    last_row_hp_strand_launches = 0
+    last_row_hp_strand_plain_calls = 0
+    last_row_hp_strand_rows = 0
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -476,8 +487,8 @@ def dp_last_row_strand(refs, submat, strand, win_lo, ivl, s2c, lengths, width: i
 
 
 def dp_last_row_hp(refs, refchr, hpcs, submat, pengop, b2i, strand, win_lo, ivl, s2chr,
-                   lengths, width: int, n_band: int = 0,
-                   band_classes: tuple = ()) -> torch.Tensor:
+                   lengths, width: int, n_band: int = 0, band_classes: tuple = (),
+                   n_strand: int = 0) -> torch.Tensor:
     """``-h`` scoring of rows of a whole strand window: (best, first column
     of the best) of each row's last DP row as [2, R] int32 in row order, the
     column window-local; what ``dp_jax.batch_last_row_hp`` and an argmax
@@ -488,20 +499,31 @@ def dp_last_row_hp(refs, refchr, hpcs, submat, pengop, b2i, strand, win_lo, ivl,
     [11] int32, b2i [256] int8; per row strand [R] int8, win_lo [R] int32
     (0 <= win_lo <= WTOT), ivl [R, 16, 2] int32 window-local intervals (0 <=
     lo, hi <= 17,408), s2chr [R, L] uint8 read chars (pad 0, L <= 256),
-    lengths [R] int32; all on one device, contiguous.  The first ``n_band``
-    rows take the band form, which scores a row's band columns only
-    (``entries.band_columns`` at most ``entries.BAND_ROW_COLS``; a row past
-    that gives (HIM, -1)), ``band_classes`` of them on 1, 2, 4 and 8 warps
-    a row, in that order (empty: all on one warp); the rest take the full
-    form over their first ``width`` window columns (1..17,408; hi <=
-    width).  CPU tensors go to the plain versions
+    lengths [R] int32; all on one device, contiguous.  Three forms, each on
+    its rows, in order:
+
+    * the first ``n_band`` rows take the band form, which scores a row's
+      band columns only (``entries.band_columns`` at most
+      ``entries.BAND_ROW_COLS``; a row past that gives (HIM, -1)),
+      ``band_classes`` of them on 1, 2, 4 and 8 warps a row, in that order
+      (empty: all on one warp);
+    * the next ``n_strand`` take the strand form, a cluster of CTAs a row,
+      over band columns too (at most ``entries.STRAND_COLS``; past it
+      (HIM, -1));
+    * the rest take the full form over their first ``width`` window columns
+      (1..17,408; hi <= width).
+
+    CPU tensors go to the plain versions
     (:func:`.dp_torch.last_row_hp_band_plain`,
+    :func:`.dp_torch.last_row_hp_strand_plain`,
     :func:`.dp_torch.last_row_hp_plain`), CUDA tensors to the kernels
-    (``csrc/dp_band.cu``'s ``-h`` instantiation, the kHp form of
-    ``csrc/dp_last_row.cu``), or the call raises."""
+    (the ``-h`` instantiations of ``csrc/dp_band.cu`` and
+    ``csrc/dp_strand.cu``, the kHp form of ``csrc/dp_last_row.cu``), or the
+    call raises."""
     global last_row_hp_launches, last_row_hp_plain_calls, last_row_hp_rows
     global last_row_hp_band_launches, last_row_hp_band_plain_calls, last_row_hp_band_rows
     global last_row_hp_band_multi_rows
+    global last_row_hp_strand_launches, last_row_hp_strand_plain_calls, last_row_hp_strand_rows
     dev = refs.device
     R, L = s2chr.shape
     state = tuple(refs.shape)
@@ -511,46 +533,57 @@ def dp_last_row_hp(refs, refchr, hpcs, submat, pengop, b2i, strand, win_lo, ivl,
                  ("submat", submat, torch.int32, (31, 5, 5)),
                  ("pengop", pengop, torch.int32, (11,)), ("b2i", b2i, torch.int8, (256,))),
                 rows, ("s2chr", torch.uint8))
-    if not 0 <= n_band <= R:
-        raise ValueError(f"n_band {n_band}, want 0..{R}")
+    if not (0 <= n_band and 0 <= n_strand and n_band + n_strand <= R):
+        raise ValueError(f"n_band {n_band}, n_strand {n_strand}, want both in 0..{R} "
+                         "together")
     classes = _band_classes(band_classes, n_band)
-    if n_band < R and not 1 <= width <= HP_WIDE_COLS:
+    n_full = R - n_band - n_strand
+    if n_full and not 1 <= width <= HP_WIDE_COLS:
         raise ValueError(f"width {width}, want 1..{HP_WIDE_COLS}")
     state = (refs, refchr, hpcs, submat, pengop, b2i)
-    band = tuple(a[:n_band] for a in rows)
-    full = tuple(a[n_band:] for a in rows)
+    band, strd, full = (tuple(a[lo:hi] for a in rows) for lo, hi in (
+        (0, n_band), (n_band, n_band + n_strand), (n_band + n_strand, R)))
     last_row_hp_band_rows += n_band
     last_row_hp_band_multi_rows += n_band - classes[0]
-    last_row_hp_rows += R - n_band
+    last_row_hp_strand_rows += n_strand
+    last_row_hp_rows += n_full
     if dev.type == "cpu":
         parts = [torch.empty((2, 0), dtype=torch.int32)]
         if n_band:
             last_row_hp_band_plain_calls += 1
             parts.append(last_row_hp_band_plain(*state, *band))
-        if n_band < R:
+        if n_strand:
+            last_row_hp_strand_plain_calls += 1
+            parts.append(last_row_hp_strand_plain(*state, *strd))
+        if n_full:
             last_row_hp_plain_calls += 1
             parts.append(last_row_hp_plain(*state, *full, width))
         return torch.cat(parts, 1)
     head = [t.data_ptr() for t in (refs, refchr, hpcs)] + [refs.shape[1]]
     tail = [t.data_ptr() for t in (submat, pengop, b2i)]
+    # each form writes its pairs into its columns of the [2, R] result,
+    # whose rows are R apart
     out = torch.empty((2, R), dtype=torch.int32, device=dev)
-    if n_band < R:
-        # the full form writes a [2, R - n_band] result of its own, rows
-        # R - n_band apart
-        rest = out if not n_band else torch.empty((2, R - n_band), dtype=torch.int32,
-                                                  device=dev)
+    if n_full:
+        # the full form writes a [2, n_full] result of its own, rows n_full
+        # apart
+        rest = out if n_full == R else torch.empty((2, n_full), dtype=torch.int32, device=dev)
         _launch_into("dp_last_row_hp", rest, lambda lib, stream: lib.mia_dp_last_row_hp(
-            *head, *(t.data_ptr() for t in full), *tail, R - n_band, width, L,
+            *head, *(t.data_ptr() for t in full), *tail, n_full, width, L,
             rest.data_ptr(), stream))
         last_row_hp_launches += 1
-        if not n_band:
+        if n_full == R:
             return out
-    # the band form writes its pairs into the first n_band columns of the
-    # [2, R] result, whose rows are R apart
-    _launch_into("dp_band_hp", out, lambda lib, stream: lib.mia_dp_band_hp(
-        *head, *(t.data_ptr() for t in band), *tail, *classes, L, out.data_ptr(), R,
-        stream))
-    last_row_hp_band_launches += 1
-    if n_band < R:
-        out[:, n_band:] = rest
+    if n_band:
+        _launch_into("dp_band_hp", out, lambda lib, stream: lib.mia_dp_band_hp(
+            *head, *(t.data_ptr() for t in band), *tail, *classes, L, out.data_ptr(), R,
+            stream))
+        last_row_hp_band_launches += 1
+    if n_strand:
+        _launch_into("dp_strand_hp", out, lambda lib, stream: lib.mia_dp_strand_hp(
+            *head, *(t.data_ptr() for t in strd), *tail, n_strand, L,
+            out.data_ptr() + 4 * n_band, R, stream))
+        last_row_hp_strand_launches += 1
+    if n_full:
+        out[:, n_band + n_strand:] = rest
     return out

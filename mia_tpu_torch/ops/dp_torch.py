@@ -477,6 +477,30 @@ def last_row_strand_plain(
     return torch.stack(batch_best_and_aec(last))
 
 
+def last_row_hp_strand_plain(
+    refs: torch.Tensor,     # [2, WTOT] int8 padded strand codes
+    refchr: torch.Tensor,   # [2, WTOT] uint8 strand chars (pad 0)
+    hpcs: torch.Tensor,     # [2, WTOT] int32 homopolymer run start per column
+    submat: torch.Tensor,   # [31, 5, 5] int32 PSSM
+    pengop: torch.Tensor,   # [11] int32 homopolymer gap-open discounts
+    b2i: torch.Tensor,      # [256] int8 char -> code 0..4
+    strand: torch.Tensor,   # [R] int8 each row's strand
+    win_lo: torch.Tensor,   # [R] int32 global column of the row's column 0
+    ivl: torch.Tensor,      # [R, K, 2] int32 window-local [lo, hi) intervals
+    s2chr: torch.Tensor,    # [R, L] uint8 read chars (pad 0)
+    lengths: torch.Tensor,  # [R] int32 read lengths
+) -> torch.Tensor:
+    """(best, first window column of the best) of each row's last ``-h`` DP
+    row over its window of its strand, as [2, R] int32:
+    :func:`last_row_hp_plain` (``dp_jax.batch_last_row_hp`` and
+    :func:`batch_best_and_aec`) on the rows' windows up to their widest
+    interval's end.  The plain version of the ``-h`` strand form
+    (``csrc/dp_strand.cu``'s ``-h`` instantiation, :func:`.dp_cuda.dp_last_row_hp`)."""
+    width = max(int(ivl[:, :, 1].max()) if ivl.shape[0] else 0, 1)
+    return last_row_hp_plain(refs, refchr, hpcs, submat, pengop, b2i, strand, win_lo, ivl,
+                             s2chr, lengths, width)
+
+
 def batch_best_and_aec(last_rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-read (best score, earliest argmax column) of the last DP row."""
     aec = torch.argmax(last_rows, dim=1).to(torch.int32)

@@ -38,7 +38,9 @@ in process.
 ``dp.last_row_strand_launches``, ``dp.last_row_strand_plain_calls``,
 ``dp.last_row_strand_rows``, ``dp.last_row_hp_launches``, ``dp.last_row_hp_plain_calls``,
 ``dp.last_row_hp_band_launches``, ``dp.last_row_hp_band_plain_calls``,
-``cons.kernel_launches``, ``cons.plain_calls``): a caller reads them before
+``dp.last_row_hp_strand_launches``, ``dp.last_row_hp_strand_plain_calls``,
+``dp.last_row_hp_strand_rows``, ``cons.kernel_launches``,
+``cons.plain_calls``): a caller reads them before
 and after a run to see that the card did its work.  ``build`` is
 :func:`build_id` of the server's sources when it started, and ``library``
 the hash of the kernel library it loaded (None on the CPU); a client
@@ -115,7 +117,8 @@ COUNTERS = ("dp.kernel_launches", "dp.plain_calls", "dp.hp_kernel_launches",
             "dp.last_row_strand_launches", "dp.last_row_strand_plain_calls",
             "dp.last_row_strand_rows", "dp.last_row_hp_launches", "dp.last_row_hp_plain_calls",
             "dp.last_row_hp_band_launches", "dp.last_row_hp_band_plain_calls",
-            "cons.kernel_launches", "cons.plain_calls")
+            "dp.last_row_hp_strand_launches", "dp.last_row_hp_strand_plain_calls",
+            "dp.last_row_hp_strand_rows", "cons.kernel_launches", "cons.plain_calls")
 
 
 class ServerUnavailable(RuntimeError):

@@ -19,6 +19,7 @@ from .ops.pssm import init_flatsubmat
 from .utils.encoding import BASE2INX, encode_seq, revcom
 
 from .core.torch_engine import hp_state_numpy, padded_state_numpy
+from .ops.dp_cuda import STRAND_COLS_PER_THREAD, STRAND_THREADS
 
 _TIE_LO, _TIE_HI = 600, 1400   # homopolymer stretch (code 0) of the reference
 
@@ -1361,3 +1362,179 @@ def mixed_wide_inputs(L: int = 48, seed: int = 0, base: int = 19000) -> dict:
     out = {k: np.concatenate([d[k], rows[k]])[mix] for k in rows}
     return dict(refs=d["refs"], submat=d["submat"], **out,
                 width=int(max(int(out["ivl"][:, :, 1].max()), 1)))
+
+
+# ---- the -h strand form of the general-width scorer ----
+
+# the band columns a CTA of the strand forms owns (csrc/dp_strand.cu)
+STRAND_SLICE = STRAND_THREADS * STRAND_COLS_PER_THREAD
+
+# the edges of the -h strand form, by name: what each row of hp_strand_inputs is
+HP_STRAND_EDGES = (
+    "whole strand", "16 intervals", "run across a slice border",
+    "run at a slice's first column", "source not open", "run longer than a slice",
+    "read run of 31", "read run of 32", "read run of 33", "wrapping both ends",
+    "tie in the wrap", "past the state", "read of 1", "no open column",
+)
+
+
+def hp_strand_inputs(L: int = 48, seed: int = 0, copies: int = 2, base: int = 4000) -> dict:
+    """Inputs of ``dp_cuda.dp_last_row_hp`` (:data:`HP_WIDE_KEYS`, and
+    ``width``, the widest row's window) whose rows are the ``-h`` strand
+    form's edges, :data:`HP_STRAND_EDGES` in order, ``copies`` times over on
+    fresh reads and strands, every band past 3,072 columns.  The reference:
+    a homopolymer-rich circular strand of ``base`` columns (runs of 6-12
+    bases every 40 columns, and one of 1,400 A from ``base`` / 3 on the
+    forward strand) and its wrap (400 columns).  Rows: windows over the
+    whole strand in one interval and in 16 (gaps of one to three closed
+    columns); windows placed so that a reference run of 6+ bases crosses
+    the border of two 1,152-column slices (:data:`STRAND_SLICE`: the hp_col
+    sources of the later slice's cells lie in the earlier one), starts at a
+    slice's first column (hp_row's left neighbour in the slice before),
+    and starts two columns before a border with the column before it
+    closed (a source that is not open); a window whose band puts the long
+    run over band columns 1,000-2,399, so that the third slice's cells take
+    their source from the first (the run is longer than a slice), with
+    reads of a run of 4, 31, 32 and 33 A's there (the read-run reach and
+    its neighbours); the two ends of a read across the origin; a read from
+    the strand's first columns, tied with its copy in the wrap; a window
+    past the strand state's end; a read of 1 base; and no open column.
+    The reads are cut from the row's window with runs grown and shrunk, the
+    border rows' run shrunk to two bases (a homopolymer deletion that
+    hp_col scores from the column before the run) or grown by three
+    (hp_row); the tie's exact."""
+    rng = np.random.default_rng(seed)
+    wrap = min(400, base // 5)
+    fw = list(_runs_string(rng, base))
+    for at in range(20, base - 20, 40):  # a run of 6-12 bases every 40 columns
+        b = "ACGT"[int(rng.integers(0, 4))]
+        k = int(rng.integers(6, 13))
+        fw[at : at + k] = b * k
+        if fw[at - 1] == b:
+            fw[at - 1] = "ACGT"[("ACGT".index(b) + 1) % 4]
+        if fw[at + k] == b:
+            fw[at + k] = "ACGT"[("ACGT".index(b) + 2) % 4]
+    long_at, long_n = base // 3, 1400
+    fw[long_at - 1], fw[long_at : long_at + long_n], fw[long_at + long_n] = "C", "A" * long_n, "G"
+    fw = "".join(fw)[:base]
+    rc = revcom(fw)
+    fw, rc = fw + fw[:wrap], rc + rc[:wrap]
+    len1 = base + wrap
+    strands = (fw, rc)
+    sm = (init_flatsubmat() + rng.integers(-40, 40, (31, 5, 5))).astype(np.int32)
+    refs, _ = padded_state_numpy(encode_seq(fw), encode_seq(rc), len1, sm)
+    refchr, hpcs, pengop = hp_state_numpy((fw, rc), len1, refs.shape[1])
+    n = len(HP_STRAND_EDGES)
+    R = n * copies
+    strand = rng.integers(0, 2, R).astype(np.int8)
+    win_lo = np.zeros(R, np.int32)
+    ivl = np.zeros((R, MAX_INTERVALS, 2), np.int32)
+    lengths = np.full(R, L, np.int32)
+    s2chr = np.zeros((R, L), np.uint8)
+    cols = np.arange(len1)
+    for r in range(R):
+        edge = HP_STRAND_EDGES[r % n]
+        st = int(strand[r])
+        s, h = strands[st], hpcs[st]
+        iv = [(0, len1)]
+        at = int(rng.integers(0, len1 - 2 * L))
+        read = None
+        if edge == "16 intervals":
+            cuts = np.sort(rng.choice(np.arange(50, len1 - 50), MAX_INTERVALS - 1, replace=False))
+            edges = [0, *cuts.tolist(), len1]
+            iv = [(edges[i] + (int(rng.integers(1, 4)) if i else 0), edges[i + 1])
+                  for i in range(MAX_INTERVALS)]
+        elif edge in ("run across a slice border", "run at a slice's first column",
+                      "source not open"):
+            # a run of 6+ bases at window column wcol of a window that keeps
+            # over 3,072 band columns; band column = window column here
+            border = STRAND_SLICE * int(rng.integers(1, 3))
+            wcol = {"run across a slice border": border - 3,
+                    "run at a slice's first column": border,
+                    "source not open": border - 2}[edge]
+            starts = np.flatnonzero((h[1:len1 - 20] != h[: len1 - 21]) & (cols[1:len1 - 20] >= wcol)
+                                    & (cols[1:len1 - 20] < len1 - 3100 + wcol)) + 1
+            starts = [int(x) for x in starts if h[x + 5] == x and h[x + 12] != x]
+            x = starts[int(rng.integers(0, len(starts)))]
+            k = int(np.flatnonzero(h[x + 1:] != x)[0]) + 1
+            win_lo[r] = x - wcol
+            iv = [(0, len1 - int(win_lo[r]))]
+            if edge == "source not open":
+                iv = [(0, wcol - 1), (wcol, len1 - int(win_lo[r]))]
+            grow = 3 if edge == "run at a slice's first column" else 2 - k
+            lo = x - L // 2
+            read = s[lo:x] + s[x] * (k + grow) + s[x + k : x + k + L]
+        elif edge == "run longer than a slice" or edge.startswith("read run of "):
+            # only the forward strand holds the long run where it was made
+            strand[r], s = 0, strands[0]
+            win_lo[r] = long_at - 1000
+            iv = [(0, len1 - int(win_lo[r]))]
+            run = 4 if edge == "run longer than a slice" else int(edge.split()[-1])
+            read = (s[long_at - 10 : long_at] + "A" * run
+                    + s[long_at + long_n : long_at + long_n + L])
+        elif edge == "wrapping both ends":
+            tail = int(rng.integers(L // 3, 2 * L // 3 + 1))
+            at = base - tail
+            iv = [(base - tail - base // 3, len1), (0, L - tail + base // 3)]
+        elif edge == "tie in the wrap":
+            read = s[(at := int(rng.integers(0, wrap - L))) : at + L]
+        elif edge == "past the state":
+            win_lo[r] = refs.shape[1] - len1 + 200
+            at = len1 - L - 200
+        elif edge == "read of 1":
+            lengths[r] = 1
+        elif edge == "no open column":
+            iv = [(40, 40), (70, 20)]
+        for i, (a, b) in enumerate(iv):
+            ivl[r, i] = (a, b)
+        if read is None:
+            read = _mutate_runs(rng, s[at : at + 2 * L])
+        read = (read + _runs_string(rng, L))[:L]
+        s2chr[r] = np.frombuffer(read.encode("latin-1"), np.uint8)
+        s2chr[r, lengths[r]:] = 0
+    width = int(max(int(ivl[:, :, 1].max()), 1))
+    return dict(refs=refs, refchr=refchr, hpcs=hpcs, submat=sm, pengop=pengop,
+                b2i=BASE2INX.copy(), strand=strand, win_lo=win_lo, ivl=ivl, s2chr=s2chr,
+                lengths=lengths, width=width)
+
+
+def mixed_hp_wide_inputs(L: int = 48, seed: int = 0) -> dict:
+    """Inputs of one ``dp_cuda.dp_last_row_hp`` call of every form
+    (:data:`HP_WIDE_KEYS`, ``width``, and the split: ``n_band``,
+    ``band_classes``, ``n_strand``) on one strand state, in the call's row
+    order: band rows of one interval of 150, 500, 1,000, 2,000 and 3,000
+    columns (the band form's four classes, as ``entries.wide_order``
+    orders them), the rows of :func:`hp_strand_inputs` whose band passes
+    3,072 columns (strand rows), and three more of its whole strands given
+    to the full form, which any of the forms could take (``width``: their
+    widest window)."""
+    from .core.entries import BAND_ROW_COLS, band_columns
+
+    d = hp_strand_inputs(L, seed, copies=2)
+    rng = np.random.default_rng([seed, 2])
+    n = len(HP_STRAND_EDGES)
+    len1 = int((d["refchr"][0] != 0).sum())
+    widths = (150, 500, 1000, 2000, 3000)
+    nb = len(widths)
+    strand = rng.integers(0, 2, nb).astype(np.int8)
+    win_lo = np.array([int(rng.integers(0, max(len1 - w - 10, 1))) for w in widths], np.int32)
+    ivl = np.zeros((nb, MAX_INTERVALS, 2), np.int32)
+    ivl[:, 0, 0] = 2
+    ivl[:, 0, 1] = 2 + np.array(widths)
+    s2chr = np.zeros((nb, L), np.uint8)
+    chars = d["refchr"]
+    for r, w in enumerate(widths):
+        at = int(win_lo[r]) + 2 + int(rng.integers(0, w - L))
+        piece = bytes(chars[strand[r], at : at + 2 * L]).decode("latin-1")
+        read = (_mutate_runs(rng, piece) + _runs_string(rng, L))[:L]
+        s2chr[r] = np.frombuffer(read.encode("latin-1"), np.uint8)
+    band = {"strand": strand, "win_lo": win_lo, "ivl": ivl, "s2chr": s2chr,
+            "lengths": np.full(nb, L, np.int32)}
+    # the strand rows: the first copy's; the full rows: three whole strands
+    # of the second
+    strd = np.flatnonzero(band_columns(d["ivl"][:n])[1] > BAND_ROW_COLS)
+    take = np.r_[strd, n + np.array([0, 1, 2])]
+    out = {k: np.concatenate([band[k], d[k][take]]) for k in band}
+    return dict({k: d[k] for k in HP_WIDE_KEYS[:6]}, **out, n_band=nb,
+                band_classes=(1, 1, 1, 2), n_strand=len(strd),
+                width=int(out["ivl"][nb + len(strd):, :, 1].max()))

@@ -15,10 +15,13 @@ A device function compiled out of line (``csrc/dp_band.cu``'s
 ``band_row_warps<kHp, G>``, the rows of G = 2, 4 and 8 warps) follows its
 kernel's code under the kernel's name: each is reported apart, from the
 addresses the kernel's ``CALL`` instructions target, its loops with it, and
-the kernel's own row loop is then the one-warp rows'.  ``-D``
-defines a macro for the compile: ``-D MIA_BAND_HP_KIND=k`` builds
-``csrc/dp_band.cu`` with every row of one ``-h`` kind (0 none, 1 hp_col,
-2 hp_row), so that its ``-h`` row loop is that kind's alone.
+the kernel's own row loop is then the one-warp rows'.  The strand forms
+(``csrc/dp_strand.cu``, ``dp_strand_kernel<false>`` and ``<true>``) have
+one row loop each, two DP rows a trip over 9 columns a thread.  ``-D``
+defines a macro for the compile: ``-D MIA_HP_KIND=k`` builds
+``csrc/dp_band.cu`` and ``csrc/dp_strand.cu`` with every row of one ``-h``
+kind (0 none, 1 hp_col, 2 hp_row), so that each ``-h`` row loop is that
+kind's alone.
 Needs the CUDA toolkit; no card.
 """
 from __future__ import annotations

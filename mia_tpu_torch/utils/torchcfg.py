@@ -1,6 +1,6 @@
 """Process-wide PyTorch set-up for the port: device selection and the
 build of the hand-written CUDA kernels (the entry scorers, the general-width
-last-row scorer and its band forms, the consensus column counts, ccheck's
+last-row scorer and its band and strand forms, the consensus column counts, ccheck's
 Myers wavefront, and the assembly step's pileup counts and consensus call).
 
 Port of :mod:`mia_tpu.utils.jaxcfg`.  JAX's "compile once" was its
@@ -168,6 +168,15 @@ def expected_strand_constants() -> list[int]:
             L_MAX, 2 * PSSM_DEPTH + 1, PSSM_DEPTH, GOP, GEP, HIM, _LOW]
 
 
+def expected_strand_hp_constants() -> list[int]:
+    """The values ``mia_dp_strand_hp_constants`` must report: the strand
+    form's (:func:`expected_strand_constants`), then the ``-h`` read-run
+    reach (HPW) and discount slots."""
+    from ..core.entries import HPW_ROUTE, hp_pengop_table
+
+    return [*expected_strand_constants(), HPW_ROUTE, len(hp_pengop_table())]
+
+
 def expected_pileup_constants() -> list[int]:
     """The values ``mia_pileup_counts_constants`` must report: PSSM depth
     slots, the reads a block lists per round and its widest tile
@@ -200,6 +209,7 @@ def check_constants(lib) -> None:
         ("mia_dp_band_hp_constants", expected_band_hp_constants),
         ("mia_dp_band_constants", expected_band_constants),
         ("mia_dp_strand_constants", expected_strand_constants),
+        ("mia_dp_strand_hp_constants", expected_strand_hp_constants),
         ("mia_pileup_counts_constants", expected_pileup_constants),
         ("mia_consensus_call_constants", expected_consensus_call_constants),
     ):
@@ -334,6 +344,12 @@ def kernel_library() -> ctypes.CDLL:
         lib.mia_dp_strand.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, ci, ci, vp, ci, vp]
         lib.mia_dp_strand_constants.restype = ci
         lib.mia_dp_strand_constants.argtypes = [vp, ci]
+        lib.mia_dp_strand_hp.restype = ci
+        lib.mia_dp_strand_hp.argtypes = [
+            vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp, ci, vp,
+        ]
+        lib.mia_dp_strand_hp_constants.restype = ci
+        lib.mia_dp_strand_hp_constants.argtypes = [vp, ci]
         lib.mia_dp_last_row_constants.restype = ci
         lib.mia_dp_last_row_constants.argtypes = [vp, ci]
         lib.mia_pileup_counts.restype = ci

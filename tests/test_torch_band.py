@@ -137,13 +137,14 @@ def test_band_plain_equals_jax_on_edge_rows(seed):
 
 def test_wrapper_scores_both_forms_in_row_order():
     """(c) dp_last_row_strand with the band rows first, by warps: the band
-    form's pairs and the full form's at the full rows' widest window, in row
-    order, each equal to the JAX scan; each form counted once, with its
+    form's pairs and the full form's at the full rows' widest window (the
+    rows wide_order gives the strand form, given to the full form here), in
+    row order, each equal to the JAX scan; each form counted once, with its
     rows and the band rows on more than one warp."""
     d = T.band_inputs(40, 3)
-    order, classes, n_strand = entries.wide_order(entries.band_columns(d["ivl"])[1], hp=True)
+    order, classes, n_strand = entries.wide_order(entries.band_columns(d["ivl"])[1])
     n_band = sum(classes)
-    assert all(classes) and n_band < len(order) and n_strand == 0
+    assert all(classes) and n_band < len(order) and n_strand == len(order) - n_band
     d = {k: (v[order] if k in T.BAND_KEYS[2:] else v) for k, v in d.items()}
     want = _jax_pairs(d)
     width = int(d["ivl"][n_band:, :, 1].max())

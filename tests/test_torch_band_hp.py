@@ -16,8 +16,8 @@ band past the strand state, reads of 1 and 2 bases) and on
 forms in one call, the band rows ordered by warps, in row order, with their
 counters, and its input checks.  (d) The split of the three pass-1 ``-h``
 batches of ``test_torch_wide_pass1_hp`` (``entries.wide_rows``: band
-classes, no strand form under ``-h``) and their band rows through the
-wrapper.
+classes, then the strand form's rows, none left to the full form) and
+their band rows through the wrapper.
 
 Tolerance: exact equality of every (best, column).
 """
@@ -138,13 +138,14 @@ def test_band_plain_equals_jax_on_wide_inputs(W, L, seed):
 
 def test_wrapper_scores_both_forms_in_row_order():
     """(c) dp_last_row_hp with the band rows first, by warps: the band
-    form's pairs and the full form's at the full rows' widest window, in
+    form's pairs and the full form's at the full rows' widest window (the
+    rows wide_order gives the strand form, given to the full form here), in
     row order, each equal to the JAX scan; each form counted once, with its
     rows and the band rows on more than one warp."""
     d = T.hp_band_inputs(40, 3)
-    order, classes, n_strand = entries.wide_order(entries.band_columns(d["ivl"])[1], hp=True)
+    order, classes, n_strand = entries.wide_order(entries.band_columns(d["ivl"])[1])
     n_band = sum(classes)
-    assert all(classes) and n_band < len(order) and n_strand == 0
+    assert all(classes) and n_band < len(order) and n_strand == len(order) - n_band
     d = {k: (v[order] if k in T.HP_WIDE_KEYS[6:] else v) for k, v in d.items()}
     want = _jax_pairs(d)
     width = int(d["ivl"][n_band:, :, 1].max())
@@ -193,10 +194,10 @@ def test_wrapper_checks_the_split():
 def test_pass1_hp_batch_split(seed, kmer, circular):
     """(d) A pass-1 -h batch's wide rows: the rows whose band columns fit
     come first, by the warps each takes, each class in its order, as
-    n_band; the rest (no strand form under -h) keep their order, and
-    full_width is their widest window; the same (read, strand) rows as
-    without the split; the band rows through the wrapper equal the JAX scan
-    on their windows."""
+    n_band; the rest keep their order as the strand form's n_strand, and
+    no row is left to the full form (full_width 0); the same (read,
+    strand) rows as without -h; the band rows through the wrapper equal the
+    JAX scan on their windows."""
     _, scorer, sm, _, _, lens, prep = _setup(seed, kmer, circular)
     s2chr, fw_ws, rc_ws, fw_ivg, rc_ivg, flags = prep
     rows = entries.wide_rows(flags, lens, s2chr, fw_ivg, rc_ivg, hp=True)
@@ -207,12 +208,12 @@ def test_pass1_hp_batch_split(seed, kmer, circular):
         setattr(plain, k, getattr(plain, k)[unsplit])
     g = entries.band_warps(entries.band_columns(plain.ivl)[1])
     order = np.r_[tuple(np.flatnonzero(g == w) for w in (*entries.BAND_WARPS, 0))]
-    assert rows.n_band == (g > 0).sum() and rows.n_strand == 0
+    assert rows.n_band == (g > 0).sum() and rows.n_strand == (g == 0).sum()
     assert rows.band_classes == tuple(int((g == w).sum()) for w in entries.BAND_WARPS)
     for k in ("read", "strand", "win_lo", "ivl"):
         np.testing.assert_array_equal(getattr(rows, k), getattr(plain, k)[order])
     win = rows.ivl[:, :, 1].max(1)
-    assert rows.full_width == win[rows.n_band:].max(initial=0) and rows.width == win.max()
+    assert rows.full_width == 0 and rows.width == win.max()
     assert rows.n_band > 0 or kmer < 0
     if not rows.n_band:
         return

@@ -7,7 +7,7 @@ the host aligner, on the adversarial pairs too), the general-width
 last-row scorer (mia_tpu_torch/csrc/dp_last_row.cu: the register form, and
 the wide form with shared-memory and global-memory rows, and its -h form;
 the band forms of both, mia_tpu_torch/csrc/dp_band.cu, on 1, 2, 4 and 8
-warps a row; and the strand form, mia_tpu_torch/csrc/dp_strand.cu),
+warps a row; and the strand forms of both, mia_tpu_torch/csrc/dp_strand.cu),
 the pileup counts and the consensus call of the assembly step (csrc/pileup_counts.cu,
 csrc/consensus_call.cu, the latter over 1 to 32 parts), and the sharded
 scorer, consensus counts and step with every shard on the one card.
@@ -400,14 +400,14 @@ def test_last_row_hp_kernel_rejects_mixed_devices(cuda):
         dp_cuda.dp_last_row_hp(*args, 100)
 
 
-def _band_first(d: dict, rows=T.HP_WIDE_KEYS[6:], hp: bool = True):
+def _band_first(d: dict, rows=T.HP_WIDE_KEYS[6:]):
     """``d``'s rows (its per-row arrays ``rows``) in the order of
-    entries.wide_rows (the band form's by warps, then without ``hp`` the
-    strand form's, then the full form's), and (n_band, band_classes,
-    n_strand, the full rows' widest window)."""
+    entries.wide_rows (the band form's by warps, then the strand form's,
+    then the full form's), and (n_band, band_classes, n_strand, the full
+    rows' widest window)."""
     from mia_tpu_torch.core.entries import band_columns, wide_order
 
-    order, classes, n_strand = wide_order(band_columns(d["ivl"])[1], hp)
+    order, classes, n_strand = wide_order(band_columns(d["ivl"])[1])
     d = {k: (v[order] if k in rows else v) for k, v in d.items()}
     n_band = sum(classes)
     return d, (n_band, classes, n_strand,
@@ -417,19 +417,22 @@ def _band_first(d: dict, rows=T.HP_WIDE_KEYS[6:], hp: bool = True):
 @pytest.mark.parametrize("L,seed", [(40, 0), (48, 1), (256, 2)])
 def test_band_hp_kernel_matches_plain_on_edge_rows(cuda, L, seed):
     """The -h band form (csrc/dp_band.cu) on testing.hp_band_inputs'
-    edge rows, 1, 2, 4 and 8 warps a row, the full form taking the rows
-    past 3,072 band columns in the same call: both equal their plain
-    versions; one launch of each."""
-    d, (n_band, classes, _, width) = _band_first(T.hp_band_inputs(L, seed))
-    assert all(classes)
+    edge rows, 1, 2, 4 and 8 warps a row, the -h strand form
+    (csrc/dp_strand.cu) taking the rows past 3,072 band columns in the same
+    call: both equal their plain versions; one launch of each and none of
+    the full form."""
+    d, (n_band, classes, n_strand, width) = _band_first(T.hp_band_inputs(L, seed))
+    assert all(classes) and n_strand == len(d["lengths"]) - n_band > 0
     args = [torch.from_numpy(d[k]).to(cuda) for k in T.HP_WIDE_KEYS]
     dp_cuda.reset_counts()
-    got = dp_cuda.dp_last_row_hp(*args, width, n_band, classes)
+    got = dp_cuda.dp_last_row_hp(*args, width, n_band, classes, n_strand)
     torch.cuda.synchronize()
-    assert (dp_cuda.last_row_hp_band_launches, dp_cuda.last_row_hp_launches) == (1, 1)
-    assert dp_cuda.last_row_hp_band_plain_calls == dp_cuda.last_row_hp_plain_calls == 0
+    assert (dp_cuda.last_row_hp_band_launches, dp_cuda.last_row_hp_strand_launches,
+            dp_cuda.last_row_hp_launches) == (1, 1, 0)
+    assert (dp_cuda.last_row_hp_band_plain_calls, dp_cuda.last_row_hp_strand_plain_calls,
+            dp_cuda.last_row_hp_plain_calls) == (0, 0, 0)
     assert dp_cuda.last_row_hp_band_multi_rows == n_band - classes[0]
-    want = dp_cuda.dp_last_row_hp(*(a.cpu() for a in args), width, n_band, classes)
+    want = dp_cuda.dp_last_row_hp(*(a.cpu() for a in args), width, n_band, classes, n_strand)
     assert torch.equal(got.cpu(), want)
     # every row given to the band form, the rest on eight warps: those past
     # it marked (HIM, -1)
@@ -441,26 +444,29 @@ def test_band_hp_kernel_matches_plain_on_edge_rows(cuda, L, seed):
 
 @pytest.mark.parametrize("W,L,seed", [(2300, 48, 3), (17408, 40, 5)])
 def test_band_hp_kernel_on_wide_inputs(cuda, W, L, seed):
-    """testing.hp_wide_inputs' rows split between the two forms, the full
-    rows at their own widest window: equal to the plain versions."""
-    d, (n_band, classes, _, width) = _band_first(T.hp_wide_inputs(W, L, seed))
+    """testing.hp_wide_inputs' rows split between the band and strand forms,
+    and the strand rows once more on the full form at their own widest
+    window: equal to the plain versions."""
+    d, (n_band, classes, n_strand, _) = _band_first(T.hp_wide_inputs(W, L, seed))
     assert n_band >= 3
     args = [torch.from_numpy(d[k]).to(cuda) for k in T.HP_WIDE_KEYS]
-    got = dp_cuda.dp_last_row_hp(*args, width, n_band, classes)
-    assert torch.equal(got.cpu(), dp_cuda.dp_last_row_hp(*(a.cpu() for a in args), width,
-                                                         n_band, classes))
+    width = int(d["ivl"][n_band:, :, 1].max(initial=1))
+    for split in ((n_band, classes, n_strand), (n_band, classes, 0)):
+        got = dp_cuda.dp_last_row_hp(*args, width, *split)
+        assert torch.equal(got.cpu(), dp_cuda.dp_last_row_hp(*(a.cpu() for a in args), width,
+                                                             *split))
 
 
 def test_band_hp_kernel_through_the_scorer(cuda):
     """torch_engine.score_wide under -h with a mixed batch on the card
     equals it on the CPU."""
-    d, (n_band, classes, _, width) = _band_first(T.hp_band_inputs(64, 5))
+    d, (n_band, classes, n_strand, width) = _band_first(T.hp_band_inputs(64, 5))
     rows = [torch.from_numpy(d[k]) for k in ("strand", "win_lo", "ivl", "s2chr", "lengths")]
     sms = np.stack([d["submat"], d["submat"]])
     got = {}
     for dev in (cuda, torch.device("cpu")):
         st = state_from_numpy(d["refs"], sms, dev, d["refchr"], d["hpcs"], d["pengop"])
-        got[dev.type] = score_wide(st, width, n_band, classes, 0,
+        got[dev.type] = score_wide(st, width, n_band, classes, n_strand,
                                    *(r.to(dev) for r in rows)).cpu()
     assert torch.equal(got["cuda"], got["cpu"])
 
@@ -482,7 +488,7 @@ def test_band_kernel_matches_plain_on_edge_rows(cuda, L, seed, copies):
     same call: both equal their plain versions; one launch of each and
     none of the full form."""
     d, (n_band, classes, n_strand, width) = _band_first(T.band_inputs(L, seed, copies),
-                                                        T.BAND_KEYS[2:], hp=False)
+                                                        T.BAND_KEYS[2:])
     R = len(d["lengths"])
     assert all(classes) and n_strand == R - n_band > 0
     args = [torch.from_numpy(d[k]).to(cuda) for k in T.BAND_KEYS]
@@ -539,13 +545,53 @@ def test_strand_kernel_matches_plain(cuda, L, seed, base):
     assert torch.equal(got.cpu(), dp_torch.last_row_strand_plain(*(a.cpu() for a in args)))
 
 
+@pytest.mark.parametrize("L,seed,base", [(48, 0, 4000), (1, 1, 4000), (256, 2, 4000),
+                                         (96, 3, 16569), (256, 4, 16569)])
+def test_strand_hp_kernel_matches_plain(cuda, L, seed, base):
+    """The -h strand form (csrc/dp_strand.cu's -h instantiation) on
+    testing.hp_strand_inputs' rows (whole strands in one and in 16
+    intervals, reference runs across a slice border and at a slice's first
+    column, a source that is not open, a run longer than a slice with read
+    runs of 31, 32 and 33, across the origin, a tie in the wrap, past the
+    state, a read of 1 base, no open column), on a 4,000-column strand and
+    on a human-mt-sized one: equal to its plain version; one launch, no
+    other form."""
+    d = T.hp_strand_inputs(L, seed, base=base)
+    R = len(d["lengths"])
+    args = [torch.from_numpy(d[k]).to(cuda) for k in T.HP_WIDE_KEYS]
+    dp_cuda.reset_counts()
+    got = dp_cuda.dp_last_row_hp(*args, 0, 0, (), R)
+    torch.cuda.synchronize()
+    assert (dp_cuda.last_row_hp_band_launches, dp_cuda.last_row_hp_strand_launches,
+            dp_cuda.last_row_hp_launches) == (0, 1, 0)
+    assert torch.equal(got.cpu(),
+                       dp_torch.last_row_hp_strand_plain(*(a.cpu() for a in args)))
+
+
+def test_hp_kernels_on_a_call_of_every_form(cuda):
+    """testing.mixed_hp_wide_inputs: -h band rows of all four classes,
+    strand rows and full rows in one dp_last_row_hp call: equal to the call
+    on the CPU; one launch of each form, no plain call."""
+    d = T.mixed_hp_wide_inputs(64, 1)
+    args = [torch.from_numpy(d[k]).to(cuda) for k in T.HP_WIDE_KEYS]
+    split = (d["width"], d["n_band"], d["band_classes"], d["n_strand"])
+    dp_cuda.reset_counts()
+    got = dp_cuda.dp_last_row_hp(*args, *split)
+    torch.cuda.synchronize()
+    assert (dp_cuda.last_row_hp_band_launches, dp_cuda.last_row_hp_strand_launches,
+            dp_cuda.last_row_hp_launches) == (1, 1, 1)
+    assert (dp_cuda.last_row_hp_band_plain_calls, dp_cuda.last_row_hp_strand_plain_calls,
+            dp_cuda.last_row_hp_plain_calls) == (0, 0, 0)
+    assert torch.equal(got.cpu(), dp_cuda.dp_last_row_hp(*(a.cpu() for a in args), *split))
+
+
 def test_kernels_on_a_call_of_every_form(cuda):
     """testing.mixed_wide_inputs: band rows of all four classes, strand
     rows and full rows past 18,432 band columns in one call, as
     entries.wide_rows orders them: equal to the call on the CPU; one launch
     of each form."""
     d, (n_band, classes, n_strand, width) = _band_first(T.mixed_wide_inputs(64, 1),
-                                                        T.BAND_KEYS[2:], hp=False)
+                                                        T.BAND_KEYS[2:])
     assert all(classes) and n_strand and n_band + n_strand < len(d["lengths"])
     args = [torch.from_numpy(d[k]).to(cuda) for k in T.BAND_KEYS]
     dp_cuda.reset_counts()
@@ -562,7 +608,7 @@ def test_band_kernel_through_the_scorer(cuda):
     """torch_engine.score_wide without -h, a mixed batch on the card equal
     to it on the CPU."""
     d, (n_band, classes, n_strand, width) = _band_first(T.band_inputs(64, 5),
-                                                        T.BAND_KEYS[2:], hp=False)
+                                                        T.BAND_KEYS[2:])
     rows = [torch.from_numpy(d[k]) for k in T.BAND_KEYS[2:]]
     sms = np.stack([d["submat"], d["submat"]])
     got = {}

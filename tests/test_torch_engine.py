@@ -155,9 +155,11 @@ class _FakeKernelLibrary:
     """Stands in for the ctypes library: reports the given constants."""
 
     def __init__(self, values, myers=None, last_row=None, cons=None, pileup=None, band=None,
-                 plain_band=None, strand=None):
+                 plain_band=None, strand=None, strand_hp=None):
         self.values = values
         self.strand = torchcfg.expected_strand_constants() if strand is None else strand
+        self.strand_hp = (torchcfg.expected_strand_hp_constants() if strand_hp is None
+                          else strand_hp)
         self.band = torchcfg.expected_band_hp_constants() if band is None else band
         self.plain_band = (torchcfg.expected_band_constants() if plain_band is None
                            else plain_band)
@@ -190,6 +192,9 @@ class _FakeKernelLibrary:
 
     def mia_dp_strand_constants(self, buf, n):
         return self._fill(self.strand, buf, n)
+
+    def mia_dp_strand_hp_constants(self, buf, n):
+        return self._fill(self.strand_hp, buf, n)
 
     def mia_consensus_call_constants(self, buf, n):
         return self._fill(self.cons, buf, n)
@@ -266,6 +271,10 @@ def test_kernel_library_myers_constants_checked(myers):
     ("strand", [18432, 8, 16, 128, 16, 256, 31, 15, 1000, 200, -(2**30),
                 -(2**30) - 2**29]),                                               # columns a thread
     ("strand", [18432, 9, 16, 128, 16, 256, 31, 15, 1000, 200, -(2**30)]),        # count
+    ("strand_hp", [18432, 9, 16, 128, 16, 256, 31, 15, 1000, 200, -(2**30),
+                   -(2**30) - 2**29, 31, 11]),                                    # -h row reach
+    ("strand_hp", [18432, 9, 16, 128, 16, 256, 31, 15, 1000, 200, -(2**30),
+                   -(2**30) - 2**29, 32]),                                        # count
 ])
 def test_kernel_library_step_constants_checked(which, values):
     """The last-row scorer's, its band and strand forms', the consensus
@@ -282,11 +291,14 @@ def test_kernel_library_step_constants_checked(which, values):
         384, 16, 256, 31, 15, 1000, 200, -(2**30), -(2**30) - 2**29, 3072]
     assert torchcfg.expected_strand_constants() == [
         18432, 9, 16, 128, 16, 256, 31, 15, 1000, 200, -(2**30), -(2**30) - 2**29]
+    assert torchcfg.expected_strand_hp_constants() == [
+        *torchcfg.expected_strand_constants(), 32, 11]
     assert (entries.BAND_ROW_COLS, entries.STRAND_COLS) == (3072, 18432)
     assert entries.STRAND_COLS >= entries.HP_WIDE_COLS
     lib = _FakeKernelLibrary(torchcfg.expected_constants(), **{which: values})
     entry = {"last_row": "dp_last_row", "cons": "consensus_call", "pileup": "pileup_counts",
-             "band": "dp_band_hp", "plain_band": "dp_band", "strand": "dp_strand"}
+             "band": "dp_band_hp", "plain_band": "dp_band", "strand": "dp_strand",
+             "strand_hp": "dp_strand_hp"}
     with pytest.raises(RuntimeError, match=f"mia_{entry[which]}_constants"):
         torchcfg.check_constants(lib)
     src = open(os.path.join(torchcfg.CSRC_DIR, "dp_last_row.cu")).read()

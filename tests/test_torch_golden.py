@@ -97,7 +97,8 @@ def test_torch_maln_byte_identical(name, tmp_path):
     assert c.get("pass1.native_solved_wide_reads", 0) == 0, c
     wide = c["pass1.device_scored_wide_reads"]
     assert wide > 0 or "-k" in CONFIGS[name], c
-    hp_plain = c["dp.last_row_hp_plain_calls"] + c["dp.last_row_hp_band_plain_calls"]
+    hp_plain = (c["dp.last_row_hp_plain_calls"] + c["dp.last_row_hp_band_plain_calls"]
+                + c["dp.last_row_hp_strand_plain_calls"])
     no_hp_plain = (c["dp.last_row_plain_calls"] + c["dp.last_row_band_plain_calls"]
                    + c["dp.last_row_strand_plain_calls"])
     plain, other = (hp_plain, no_hp_plain)[:: 1 if hp else -1]
@@ -105,7 +106,7 @@ def test_torch_maln_byte_identical(name, tmp_path):
     assert other == 0, c
     assert c["dp.last_row_launches"] == c["dp.last_row_hp_launches"] == 0, c
     assert c["dp.last_row_band_launches"] == c["dp.last_row_hp_band_launches"] == 0, c
-    assert c["dp.last_row_strand_launches"] == 0, c
+    assert c["dp.last_row_strand_launches"] == c["dp.last_row_hp_strand_launches"] == 0, c
     assert c["cons.plain_calls"] > 0 and c["cons.kernel_launches"] == 0, c
     assert c["consensus.device_calls"] == c["cons.plain_calls"], c
     assert "consensus.device_fallbacks" not in c, c

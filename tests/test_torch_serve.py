@@ -146,14 +146,15 @@ def test_client_writes_golden_through_server(name, server, tmp_path):
     # solve
     assert c["dp.last_row_plain_calls"] == c["dp.last_row_hp_plain_calls"] == 0, c
     assert c["dp.last_row_band_plain_calls"] == c["dp.last_row_hp_band_plain_calls"] == 0, c
-    assert c["dp.last_row_strand_plain_calls"] == 0, c
+    assert c["dp.last_row_strand_plain_calls"] == c["dp.last_row_hp_strand_plain_calls"] == 0, c
     assert d["dp.last_row_launches"] == d["dp.last_row_hp_launches"] == 0, d
     assert d["dp.last_row_band_launches"] == d["dp.last_row_hp_band_launches"] == 0, d
-    assert d["dp.last_row_strand_launches"] == 0, d
+    assert d["dp.last_row_strand_launches"] == d["dp.last_row_hp_strand_launches"] == 0, d
     assert c.get("pass1.native_solved_wide_reads", 0) == 0, c
     wide = c["pass1.device_scored_wide_reads"]
     assert wide > 0 or "-k" in fixture_args(name), c
-    hp_plain = d["dp.last_row_hp_plain_calls"] + d["dp.last_row_hp_band_plain_calls"]
+    hp_plain = (d["dp.last_row_hp_plain_calls"] + d["dp.last_row_hp_band_plain_calls"]
+                + d["dp.last_row_hp_strand_plain_calls"])
     no_hp_plain = (d["dp.last_row_plain_calls"] + d["dp.last_row_band_plain_calls"]
                    + d["dp.last_row_strand_plain_calls"])
     plain, other = (hp_plain, no_hp_plain)[:: 1 if hp else -1]

@@ -205,10 +205,13 @@ def test_wide_hp_scores_match_native_solve_and_jax(seed, kmer, circular):
     handle = scorer.dispatch_packed(*prep[:1], lens, *prep[1:])
     assert scorer.ready(handle)
     fb, fa, rb, ra = scorer.collect_arrays(handle)
-    # the rows whose band fits by the band form, the rest by the full form
-    assert (dp_cuda.last_row_hp_band_plain_calls, dp_cuda.last_row_hp_plain_calls) == (
-        int(rows.n_band > 0), int(rows.n_band < rows.n))
-    assert dp_cuda.last_row_hp_band_launches == dp_cuda.last_row_hp_launches == 0
+    # the rows whose band fits by the band form, the rest (whole strands
+    # here) by the strand form, none by the full form
+    assert rows.n_band + rows.n_strand == rows.n
+    assert (dp_cuda.last_row_hp_band_plain_calls, dp_cuda.last_row_hp_strand_plain_calls,
+            dp_cuda.last_row_hp_plain_calls) == (int(rows.n_band > 0), int(rows.n_strand > 0), 0)
+    assert (dp_cuda.last_row_hp_band_launches, dp_cuda.last_row_hp_strand_launches,
+            dp_cuda.last_row_hp_launches) == (0, 0, 0)
     assert dp_cuda.last_row_plain_calls == dp_cuda.last_row_launches == 0
 
     # the same windows through mia_tpu's scan
@@ -345,4 +348,5 @@ def test_width_rule_routes_a_long_reference_to_the_native_solve(tmp_path):
     assert c["pass1.device_scored_wide_reads"] == 0, c
     assert c["dp.last_row_hp_plain_calls"] == c["dp.last_row_hp_launches"] == 0, c
     assert c["dp.last_row_hp_band_plain_calls"] == c["dp.last_row_hp_band_launches"] == 0, c
+    assert c["dp.last_row_hp_strand_plain_calls"] == c["dp.last_row_hp_strand_launches"] == 0, c
     assert c["dp.hp_plain_calls"] > 0, c
